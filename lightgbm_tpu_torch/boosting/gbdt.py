@@ -3,15 +3,17 @@ ref: src/boosting/gbdt.cpp, gbdt.h:37).
 
 Binned data, scores and gradients live on the booster's device (the card
 unless `device_type=cpu`).  Each iteration computes the objective's
-gradients, grows one tree per class on the wave engine, updates the
-scores, and pulls the tree to the host as a `Tree` in one flat transfer
-(like CUDATree::ToHost, ref: src/io/cuda/cuda_tree.cpp) for model text
-and prediction.  Prediction in this slice runs the host trees.
+gradients (quantized when `use_quantized_grad`), grows one tree per class
+on the wave or the leaf-wise engine, updates the scores, and pulls the
+tree to the host as a `Tree` in one flat transfer (like CUDATree::ToHost,
+ref: src/io/cuda/cuda_tree.cpp) for model text and prediction.
+Prediction in this port runs the host trees.
 
-This slice covers binary logloss on dense data with the wave engine.
-Every parameter whose behaviour it does not carry raises
-NotImplementedError naming the ROADMAP item that brings it, so the port
-never quietly trains a different model.
+The port covers binary logloss on dense numerical data with the wave
+and leaf-wise engines and quantized gradients.  Every parameter whose
+behaviour it does not carry raises NotImplementedError naming the
+ROADMAP item that brings it, so the port never quietly trains a
+different model.
 """
 
 from __future__ import annotations
@@ -24,11 +26,14 @@ import torch
 from ..config import Config
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import Dataset
-from ..learner import FeatureMeta, GrowParams, grow_tree_wave_impl
+from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
+                       grow_tree_wave_impl)
 from ..models.tree import Tree
 from ..objective import ObjectiveFunction
-from ..ops.split import SplitParams
+from ..ops.histogram import wave_slot_pad, wave_tile
+from ..ops.split import SplitParams, leaf_output
 from ..utils import log
+from ..utils import random as jrandom
 from ..utils.timer import global_timer
 
 K_EPSILON = 1e-15
@@ -58,7 +63,8 @@ def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
     def refuse(what: str, item: str) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP Queue 1 item {item}); "
-            "the PyTorch port trains binary logloss on the wave engine")
+            "the PyTorch port trains binary logloss on the wave and "
+            "leaf-wise engines")
 
     if c.objective != "binary":
         refuse(f"objective={c.objective!r}", "14")
@@ -88,12 +94,12 @@ def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
         refuse("cost-effective gradient boosting", "13")
     if c.path_smooth > K_EPSILON:
         refuse("path_smooth", "3")
-    if c.use_quantized_grad:
-        refuse("quantized gradients", "12")
     if c.linear_tree:
         refuse("linear trees", "14")
-    if c.tpu_growth_strategy not in ("auto", "wave"):
-        refuse(f"tpu_growth_strategy={c.tpu_growth_strategy!r}", "13")
+    if c.tpu_growth_strategy not in ("auto", "wave", "leafwise"):
+        raise ValueError(f"Unknown tpu_growth_strategy "
+                         f"{c.tpu_growth_strategy!r}; expected auto, wave, "
+                         "or leafwise")
     if c.tree_learner not in ("serial",):
         refuse(f"tree_learner={c.tree_learner!r}", "15")
     if train_data is not None:
@@ -102,12 +108,79 @@ def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
             refuse("categorical features", "3")
 
 
+def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
+                         num_bins: int, const_hess: bool,
+                         key: Optional[torch.Tensor] = None):
+    """Quantize one class's gradients (ref: gradient_discretizer.cpp:120-160
+    DiscretizeGradients; port of the JAX booster's `_disc`, gbdt.py:841).
+
+    grad and hess are snapped to the grids gscale = max|grad| / (bins/2)
+    and hscale = max|hess| / bins (max|hess| under a constant hessian,
+    where every hessian becomes one step).  With a `key` (stochastic
+    rounding) the noise is `uniform(split(key))`, the JAX stream bit for
+    bit; without one it is 0.5.  Integers come from truncation toward
+    zero, with the noise signed by the gradient's sign (round away from
+    zero), as static_cast<int8_t> does in the reference.
+
+    Returns (grad on the grid, hess on the grid, scales [2] float32).
+    """
+    qhalf = max(num_bins // 2, 1)
+    gscale = torch.clamp(grad.abs().max(), min=1e-35) / qhalf
+    hmax = torch.clamp(hess.abs().max(), min=1e-35)
+    hscale = hmax if const_hess else hmax / num_bins
+    if key is not None:
+        kg, kh = jrandom.split(key)
+        rg = jrandom.uniform(kg, grad.shape, device=grad.device)
+        rh = jrandom.uniform(kh, hess.shape, device=hess.device)
+    else:
+        rg = rh = 0.5
+    gi = torch.trunc(grad / gscale + torch.sign(grad) * rg)
+    hi = (torch.ones_like(hess) if const_hess
+          else torch.trunc(hess / hscale + rh))
+    return gi * gscale, hi * hscale, torch.stack([gscale, hscale])
+
+
+def renew_leaf_values(leaf_value: torch.Tensor, leaf_id: torch.Tensor,
+                      grad: torch.Tensor, hess: torch.Tensor,
+                      mask: torch.Tensor, params: SplitParams):
+    """Leaf outputs recomputed from the float gradients after quantized
+    growth (ref: gradient_discretizer.cpp RenewIntGradTreeOutput; port of
+    the JAX booster's `_renew`, gbdt.py:870).  Leaf sums are taken in
+    float64, so CPU and CUDA agree.  Leaves with no hessian keep their
+    value."""
+    L = leaf_value.shape[0]
+    ids = leaf_id.to(torch.int64).clamp(0, L - 1)
+    f64 = torch.float64
+
+    def leaf_sum(v):
+        return torch.zeros(L, dtype=f64, device=v.device).index_add_(
+            0, ids, (v * mask).to(f64)).to(torch.float32)
+
+    sg, sh = leaf_sum(grad), leaf_sum(hess)
+    out = leaf_output(sg, sh, torch.zeros_like(sg), 0.0, params)
+    return torch.where(sh > 0, out, leaf_value)
+
+
+def wave_fits(num_features: int, max_bin: int, num_leaves: int) -> bool:
+    """The wave kernels' shared-memory tile holds at least one slot's
+    histograms of one feature (the analogue of the JAX package's VMEM
+    gate `wave_pallas_vmem_ok`)."""
+    try:
+        wave_tile(num_features, max_bin, wave_slot_pad(num_leaves), 2)
+    except ValueError:
+        return False
+    return True
+
+
 class GBDT:
     """ref: src/boosting/gbdt.cpp GBDT."""
 
     def __init__(self):
         self.models_: List[Tree] = []
         self.iter_ = 0
+        # iterations of a loaded init model (continued training is not
+        # ported, so 0); keys the quantization stream like the JAX booster
+        self.num_init_iteration_ = 0
         self.config: Optional[Config] = None
         self.train_data: Optional[Dataset] = None
         self.objective: Optional[ObjectiveFunction] = None
@@ -175,6 +248,19 @@ class GBDT:
             default_bin=torch.from_numpy(self.f_default_bin).to(dev),
             penalty=torch.from_numpy(penalty).to(dev))
         max_b = int(self.f_num_bin.max()) if len(nb) else 1
+        # histogram stack memory guard (HistogramPool analogue): the
+        # leaf-wise engine's int64 stack against histogram_pool_size MB
+        stack_bytes = config.num_leaves * len(nb) * max_b * 2 * 8
+        budget = (config.histogram_pool_size * 1024 * 1024
+                  if config.histogram_pool_size > 0 else 512 * 1024 * 1024)
+        # quantized histograms (K2) hold exact int32 sums: the grid must
+        # fit int8 and n * bins must fit int32; outside the gate the wave
+        # engine takes K1 on the dequantized values, as in the JAX package
+        quant_bins = (config.num_grad_quant_bins
+                      if (config.use_quantized_grad
+                          and config.num_grad_quant_bins <= 126
+                          and self.n_pad * config.num_grad_quant_bins
+                          < 2 ** 31) else 0)
         self.grow_params = GrowParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
             max_bin=max_b,
@@ -188,9 +274,29 @@ class GBDT:
             wave_prune=config.wave_prune,
             wave_prune_overshoot=config.wave_prune_overshoot,
             wave_spike_reserve=config.wave_spike_reserve,
-            wave_spike_k=config.wave_spike_k)
-        self.growth_strategy = "wave"
+            wave_spike_k=config.wave_spike_k,
+            use_hist_stack=stack_bytes <= budget,
+            quant_bins=quant_bins)
+        # growth engine (gbdt.py:582-636 of the JAX package): wave when at
+        # least 8 leaves and the wave kernels' tile fits, else leaf-wise
+        strategy = config.tpu_growth_strategy
+        if strategy == "auto":
+            strategy = ("wave" if config.num_leaves >= 8
+                        and wave_fits(len(nb), max_b, config.num_leaves)
+                        else "leafwise")
+        self.growth_strategy = strategy
         self.col_mask = torch.ones(len(nb), dtype=torch.bool, device=dev)
+
+        self.use_quant = config.use_quantized_grad
+        if self.use_quant:
+            self._quant_const_hess = bool(
+                objective is not None
+                and getattr(objective, "is_constant_hessian", False)
+                and train_data.metadata.weight is None)
+            self._quant_key = jrandom.PRNGKey(config.seed + 5, device=dev)
+            self._renew_params = SplitParams(
+                lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
+                max_delta_step=config.max_delta_step)
 
         K = self.num_tree_per_iteration
         self.scores = torch.zeros((K, self.n_pad), dtype=torch.float32,
@@ -253,12 +359,40 @@ class GBDT:
         for k in range(K):
             tree = None
             if self.class_need_train[k] and self.train_data.num_features > 0:
+                g_k, h_k, qscales = grad[k], hess[k], None
+                if self.use_quant:
+                    # per-tree discretization keyed by absolute iteration
+                    # (the JAX booster's key, gbdt.py:1216-1230)
+                    with global_timer.scope("GBDT::discretize"):
+                        key = None
+                        if self.config.stochastic_rounding:
+                            key = jrandom.fold_in(
+                                self._quant_key,
+                                (self.num_init_iteration_ + self.iter_) * K
+                                + k)
+                        g_k, h_k, qscales = discretize_gradients(
+                            g_k, h_k, self.config.num_grad_quant_bins,
+                            self._quant_const_hess, key)
                 with global_timer.scope("GBDT::grow_tree"):
-                    arrays, leaf_id = grow_tree_wave_impl(
-                        self.binned_dev, grad[k], hess[k], self.pad_mask,
-                        self.col_mask, self.meta, self.grow_params,
-                        binned_rm=self.binned_rm_dev)
+                    if self.growth_strategy == "wave":
+                        arrays, leaf_id = grow_tree_wave_impl(
+                            self.binned_dev, g_k, h_k, self.pad_mask,
+                            self.col_mask, self.meta, self.grow_params,
+                            binned_rm=self.binned_rm_dev,
+                            quant_scales=(qscales
+                                          if self.grow_params.quant_bins > 0
+                                          else None))
+                    else:
+                        arrays, leaf_id = grow_tree_impl(
+                            self.binned_dev, g_k, h_k, self.pad_mask,
+                            self.col_mask, self.meta, self.grow_params,
+                            binned_rm=self.binned_rm_dev)
                     global_timer.block(leaf_id)
+                if self.use_quant and self.config.quant_train_renew_leaf:
+                    # leaf outputs from the float gradients (gbdt.py:1494)
+                    arrays = arrays._replace(leaf_value=renew_leaf_values(
+                        arrays.leaf_value, leaf_id, grad[k], hess[k],
+                        self.pad_mask, self._renew_params))
                 with global_timer.scope("GBDT::finalize_tree"):
                     tree = self._finalize_tree(arrays, leaf_id, k,
                                                init_scores[k])

@@ -7,9 +7,13 @@ log2(num_leaves) waves of vectorized work:
 
   1. one multi-leaf histogram pass over all rows for the smaller child of
      every split of the previous wave (ops/histogram.py: the K1 kernel, or
-     the few-slot K3 kernel when `wave_hl_profitable` marks the wave); the
-     larger sibling is parent - smaller (ref: serial_tree_learner.cpp:334,
-     feature_histogram.hpp Subtract);
+     the few-slot K3 kernel when `wave_hl_profitable` marks the wave, or
+     the quantized K2 kernel under `use_quantized_grad`); the larger
+     sibling is parent - smaller (ref: serial_tree_learner.cpp:334,
+     feature_histogram.hpp Subtract).  The cache holds the kernels'
+     integer sums (64-bit fixed point on one grid per tree, or K2's
+     quantized integers), so the subtraction is exact and a bin empty in
+     the larger child is exactly 0; the scan converts to float32;
   2. one gain scan over every leaf (ops/split.py, ref:
      feature_histogram.hpp:192 FindBestThreshold, batched over leaves), or
      only over the leaves the previous wave created when that bound is
@@ -40,8 +44,12 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..ops.histogram import (build_histogram_wave, build_histogram_wave_hl,
-                             wave_hl_fits, wave_hl_profitable, wave_slot_pad)
+from ..ops.histogram import (build_histogram_wave_fixed,
+                             build_histogram_wave_hl_fixed,
+                             build_histogram_wave_int, dequantize,
+                             fixed_unit, from_fixed, scale_exps,
+                             wave_hl_fits,
+                             wave_hl_profitable, wave_slot_pad)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
                          find_best_split)
 from ..utils.timer import global_timer
@@ -233,13 +241,17 @@ class _Best:
 def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                         hess: torch.Tensor, row_mask: torch.Tensor,
                         col_mask: torch.Tensor, meta: FeatureMeta,
-                        params: GrowParams, binned_rm: torch.Tensor = None):
+                        params: GrowParams, binned_rm: torch.Tensor = None,
+                        quant_scales: torch.Tensor = None):
     """Grow one tree by waves.
 
     Args:
       binned: [F, n] uint8 feature-major bin codes (n a multiple of 512).
       grad, hess, row_mask: [n] float32.  col_mask: [F] bool.
       binned_rm: optional [n, F] row-major copy (made here when None).
+      quant_scales: [2] float32 (gradient, hessian) scales of quantized
+        gradients; with params.quant_bins > 0 every wave's histograms go
+        to K2 (ref: dense_bin.hpp:174 ConstructHistogramIntInner).
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
@@ -256,8 +268,28 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     hess = hess.to(f32) * row_mask
     # 2 histogram channels; the trailing column is the count mask
     gh = torch.stack([grad, hess, row_mask], dim=1).contiguous()
-    if binned_rm is None:
+    use_int = params.quant_bins > 0 and quant_scales is not None
+    if binned_rm is None and not use_int:
         binned_rm = binned.t().contiguous()
+    # the tree's fixed-point grid (every histogram of the tree lies on it)
+    # and the conversion the scan applies to the cached integer sums
+    if use_int:
+        quant_scales = quant_scales.to(dev, torch.float32)
+
+        def deq_h(acc):
+            return dequantize(acc.reshape(-1, F, B, 2), quant_scales)
+
+        def deq_c(cnt):
+            return cnt.to(f32)
+    else:
+        exps = scale_exps(gh)
+        unit = fixed_unit(exps)
+
+        def deq_h(acc):
+            return from_fixed(acc.reshape(-1, F, B, 2), unit[:2])
+
+        def deq_c(cnt):
+            return from_fixed(cnt[:, None], unit[2:])[:, 0]
 
     # leaf totals summed in float64 so CPU and CUDA agree
     sum_g0 = grad.sum(dtype=torch.float64).to(f32)
@@ -298,10 +330,10 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     leaf_sum_h = zeros(Lp + 1, f32)
     leaf_sum_h[0] = sum_h0
     leaf_out = zeros(Lp + 1, f32)
-    # per-leaf histogram cache, completed by sibling subtraction (the
-    # HistogramPool analogue, feature_histogram.hpp:1367)
-    cache_h = zeros((Lp + 1, Dh), f32)
-    cache_c = zeros(Lp + 1, f32)
+    # per-leaf histogram cache of integer sums, completed by exact sibling
+    # subtraction (the HistogramPool analogue, feature_histogram.hpp:1367)
+    cache_h = zeros((Lp + 1, Dh), i64)
+    cache_c = zeros(Lp + 1, i64)
     # pending-split tables of the previous wave (by the slot that split):
     # new right slot, pair rank (= computed slot of the smaller child),
     # smaller-is-left flag
@@ -319,14 +351,19 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         split (compact slot = pair rank); the larger is parent - smaller.
         Rows outside a computed leaf carry the sentinel slot Lp."""
         with global_timer.device_scope("Tree::histogram", dev):
-            if (Ks is not None and wave_hl_profitable(B, Ks)
+            if use_int:
+                H, cnt = build_histogram_wave_int(
+                    binned, state["kslot"], gh, quant_scales, max_bin=B,
+                    num_slots=Kb)
+            elif (Ks is not None and wave_hl_profitable(B, Ks)
                     and wave_hl_fits(B, Ks)):
-                H, cnt = build_histogram_wave_hl(
-                    binned, binned_rm, state["kslot"], gh, max_bin=B,
+                H, cnt = build_histogram_wave_hl_fixed(
+                    binned, binned_rm, state["kslot"], gh, exps, max_bin=B,
                     num_slots=Ks, out_slots=Kb)
             else:
-                H, cnt = build_histogram_wave(binned, state["kslot"], gh,
-                                              max_bin=B, num_slots=Kb)
+                H, cnt = build_histogram_wave_fixed(
+                    binned, state["kslot"], gh, exps, max_bin=B,
+                    num_slots=Kb)
         Hf = H.reshape(Kb, Dh)
         if first:
             cache_h[0] = Hf[0]
@@ -354,13 +391,14 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         cache_c.index_copy_(0, qv, torch.where(sl_of, other_c, cnt))
 
     def scan(idx: torch.Tensor) -> SplitResult:
-        hists = cache_h[idx].reshape(-1, F, B, 2)
-        hists = bundle_hist_to_features(hists, None, None, meta, B, B, False)
         with global_timer.device_scope("Tree::split_find", dev):
+            hists = deq_h(cache_h[idx])
+            hists = bundle_hist_to_features(hists, None, None, meta, B, B,
+                                            False)
             return find_best_split(
                 hists, meta.num_bin, meta.missing_type, meta.default_bin,
                 meta.penalty, col_mask, leaf_sum_g[idx], leaf_sum_h[idx],
-                torch.round(cache_c[idx]).to(i32), leaf_out[idx], sp)
+                torch.round(deq_c(cache_c[idx])).to(i32), leaf_out[idx], sp)
 
     def wave_body(NLp: int, Kb: int, first: bool = False, Ks=None,
                   lg_cap=None, budget_cap=None):
@@ -369,7 +407,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         true, unpadded bound, which routes few-slot waves to K3)."""
         NL = state["NL"]
         wave_hists(Kb, first, Ks)
-        counts = torch.round(cache_c[:NLp]).to(i32)
+        counts = torch.round(deq_c(cache_c[:NLp])).to(i32)
         ar = torch.arange(NLp, dtype=i64, device=dev)
         active = ar < NL
         # a leaf's best split changes only when the leaf is created, so

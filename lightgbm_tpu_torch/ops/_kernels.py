@@ -24,7 +24,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("wave_hist.cu",)
+SOURCES = ("wave_hist.cu", "rows_hist.cu")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -33,10 +33,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: (argtypes, restype) per exported function
 _SIGNATURES = {
-    "wave_hist_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P], _I),
-    "wave_hist_hl_f32": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P, _P], _I),
+    "wave_hist_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P], _I),
+    "wave_hist_i32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P], _I),
+    "wave_hist_hl_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P], _I),
+    "rows_hist_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                       _P, _P, _P], _I),
 }
 
 

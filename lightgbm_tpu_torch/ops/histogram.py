@@ -1,27 +1,40 @@
 """Histogram construction (PyTorch port of `lightgbm_tpu/ops/histogram.py`).
 
-The wave engine's histograms (learner/wave.py) come from two entry points
-with the JAX package's signatures and output contracts:
+The engines' histograms come from entry points with the JAX package's
+signatures and output contracts:
 
-* `build_histogram_wave` — all leaf slots of a wave in one pass (K1; the
-  TPU kernel it replaces is `_wave_kernel` in fp32 mode);
+* `build_histogram_wave` — all leaf slots of a wave in one pass: K1 (the
+  TPU kernel it replaces is `_wave_kernel` in fp32 mode), or K2 when
+  `quant_scales` is given (`_wave_kernel` in int8 mode);
 * `build_histogram_wave_hl` — the first `num_slots` computed slots only,
-  zero-padded to `out_slots` (K3; replaces `_wave_kernel_hl`).
+  zero-padded to `out_slots` (K3; replaces `_wave_kernel_hl`);
+* `build_histogram_rows_pallas` — one leaf's histogram over row-major
+  rows with a membership mask (K4; replaces `_hist_pallas_kernel`).
 
 On a CUDA tensor each entry point launches its hand-written kernel
-(`ops/csrc/wave_hist.cu`, built and bound by `ops/_kernels.py`) or raises;
-on a CPU tensor it runs its plain PyTorch version.  Each keeps a launch
-count (`<entry point>.launches`) that only kernel launches advance.
+(`ops/csrc/wave_hist.cu`, `ops/csrc/rows_hist.cu`, built and bound by
+`ops/_kernels.py`) or raises; on a CPU tensor it runs its plain PyTorch
+version.  Each keeps a launch count (`<entry point>.launches`; K2's is
+`build_histogram_wave_int.launches`) that only kernel launches advance.
 
-Arithmetic (both the kernels and the plain versions): every histogram
-value is summed as 64-bit fixed point, channel c scaled by 2^(62 - E_c)
-with 2^E_c >= max|gh[:, c]| * n, then converted to float32.  Integer sums
-do not depend on the order of addition, so the kernels are deterministic
-from run to run and agree bit for bit with the plain versions.  The sums
-are exact to 2^-62 of the bound, tighter than a float32 accumulator.
+Arithmetic (the kernels and the plain versions alike).  K1, K3 and K4
+sum every histogram value as 64-bit fixed point, channel c scaled by
+2^(62 - E_c) with 2^E_c >= max|gh[:, c]| * n, then convert to float32.
+Integer sums do not depend on the order of addition, so the kernels are
+deterministic from run to run and agree bit for bit with the plain
+versions.  K2 recovers the quantized integers k = round(gh / scale) and
+sums them exactly; its output is float32(sum k) * scale.
+
+The engines use the `*_fixed` and `wave_hist_int` variants, which return
+the integer sums: with one exponent set per tree (`scale_exps` of the
+tree's whole gh) every histogram of a tree lies on one grid, so the
+larger sibling's histogram, parent - smaller child, is exact, and a bin
+that holds no row of a leaf is exactly 0 (`find_best_split`'s
+`snap_over_empty` relies on that).  `from_fixed` (with the grid's
+`fixed_unit`) and `dequantize` convert where the scan reads them.
 
 `build_histogram` (the segment method, `index_add_` in float32) is the
-plain single-leaf oracle the tests hold the wave histograms against.
+plain single-leaf oracle the tests hold the other histograms against.
 """
 
 from __future__ import annotations
@@ -71,11 +84,14 @@ def wave_slot_pad(num_slots: int) -> int:
     return (num_slots + 127) // 128 * 128
 
 
-def wave_tile(num_features: int, max_bin: int, num_slots: int, C: int):
+def wave_tile(num_features: int, max_bin: int, num_slots: int, C: int,
+              cell_bytes: int = 8):
     """(slot group, feature group) of one K1 block's shared-memory tile:
-    SG * FG * B * C int64 histograms plus SG int64 counts."""
-    SG = min(num_slots, SMEM_LIMIT // (max_bin * C * 8 + 8))
-    FG = min(num_features, (SMEM_LIMIT - 8 * SG) // (SG * max_bin * C * 8))
+    SG * FG * B * C histogram cells plus SG counts (8-byte fixed-point
+    cells; K2 passes cell_bytes=4 for its int32 cells)."""
+    cb = cell_bytes
+    SG = min(num_slots, SMEM_LIMIT // (max_bin * C * cb + cb))
+    FG = min(num_features, (SMEM_LIMIT - cb * SG) // (SG * max_bin * C * cb))
     if SG < 1 or FG < 1:
         raise ValueError(f"max_bin={max_bin} with {C} channels does not fit "
                          "the kernel's shared-memory tile")
@@ -89,14 +105,25 @@ def hl_feature_group(num_features: int, max_bin: int, num_slots: int,
                (SMEM_LIMIT - 8 * num_slots) // (num_slots * max_bin * C * 8))
 
 
+def rows_feature_group(num_features: int, max_bin: int, C: int) -> int:
+    """Features per K4 block: FG * B * C int64 cells in shared memory."""
+    FG = min(num_features, SMEM_LIMIT // (max_bin * C * 8))
+    if FG < 1:
+        raise ValueError(f"max_bin={max_bin} with {C} channels does not fit "
+                         "the single-leaf kernel's shared-memory tile")
+    return FG
+
+
 # --------------------------------------------------------------- fixed point
-def _scale_exps(gh: torch.Tensor) -> torch.Tensor:
-    """[C+1] int exponents E with max|gh[:, c]| * n <= 2^E (the kernels'
-    scale_exp: frexp of the float32 product, clamped to [-38, 62])."""
+def scale_exps(gh: torch.Tensor) -> torch.Tensor:
+    """[k] int32 exponents E with max|gh[:, c]| * n <= 2^E for gh [n, k]
+    (frexp of the float32 product, clamped to [-38, 62]): the grid of
+    every fixed-point histogram of these rows or of any subset of them."""
     n = gh.shape[0]
-    amax = gh.abs().amax(dim=0) if n else gh.new_zeros(gh.shape[1])
+    amax = (torch.linalg.vector_norm(gh, float("inf"), dim=0) if n
+            else gh.new_zeros(gh.shape[1]))
     _, e = torch.frexp(amax * float(n))
-    return e.clamp(-38, 62)
+    return e.clamp(-38, 62).to(torch.int32)
 
 
 def _pow2_f32(k: torch.Tensor) -> torch.Tensor:
@@ -104,9 +131,10 @@ def _pow2_f32(k: torch.Tensor) -> torch.Tensor:
     return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
-def _pow2_f64(k: torch.Tensor) -> torch.Tensor:
-    """Exact float64 2^k for integer k in [-1022, 1023], from the bits."""
-    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+def fixed_unit(e: torch.Tensor) -> torch.Tensor:
+    """The float64 value 2^(e - 62) of one fixed-point step on the grid
+    `e` (exact, from the bits)."""
+    return ((e.to(torch.int64) + (1023 - 62)) << 52).view(torch.float64)
 
 
 def _to_fixed(v: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
@@ -114,10 +142,24 @@ def _to_fixed(v: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return torch.round(v * _pow2_f32(62 - e)[None, :]).to(torch.int64)
 
 
-def _from_fixed(acc: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+def from_fixed(acc: torch.Tensor, unit: torch.Tensor) -> torch.Tensor:
     """int64 sums -> float32 via float64 (the kernels' finish pass); the
-    last axis of `acc` is the channel axis of `e`."""
-    return (acc.to(torch.float64) * _pow2_f64(e - 62)).to(torch.float32)
+    last axis of `acc` is the channel axis of `unit` (`fixed_unit`)."""
+    return (acc * unit).to(torch.float32)     # int64 * float64 -> float64
+
+
+def dequantize(acc: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Quantized integer sums -> float32(sum) * scale (K2's finish pass);
+    the last axis of `acc` is the channel axis of `scales`."""
+    return acc.to(torch.float32) * scales
+
+
+def _quant_ints(gh: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """[n, C+1] int64: round(gh[:, :C] / scales) (half to even, as
+    `jnp.round`) and the count column gh[:, C] > 0."""
+    C = gh.shape[1] - 1
+    k = torch.round(gh[:, :C] / scales[None, :]).to(torch.int64)
+    return torch.cat([k, (gh[:, C:] > 0).to(torch.int64)], dim=1)
 
 
 def _check_wave_inputs(binned: torch.Tensor, slot: torch.Tensor,
@@ -150,44 +192,103 @@ def _check_wave_inputs(binned: torch.Tensor, slot: torch.Tensor,
         raise ValueError(f"max_bin must be positive, got {max_bin}")
 
 
-# ------------------------------------------------------------ plain versions
-def build_histogram_wave_plain(binned_fm: torch.Tensor, slot: torch.Tensor,
-                               gh: torch.Tensor, *, max_bin: int,
-                               num_slots: int):
-    """Plain PyTorch K1: int64 `index_add_` of the fixed-point gh over
-    flat (slot, bin) ids, one feature at a time.  Returns
-    (hist [NL, F, B, C] float32, counts [NL] float32)."""
-    F, n = binned_fm.shape
+def _check_exps(exps: torch.Tensor, k: int, device) -> None:
+    if exps.dtype != torch.int32 or exps.shape != (k,):
+        raise ValueError(f"exps must be int32 [{k}], got {exps.dtype} "
+                         f"{tuple(exps.shape)}")
+    if exps.device != device:
+        raise ValueError("exps must lie on the data's device")
+
+
+def _check_scales(scales: torch.Tensor, gh: torch.Tensor) -> torch.Tensor:
     C = gh.shape[1] - 1
+    if (scales.dtype != torch.float32 or scales.shape != (C,)
+            or scales.device != gh.device):
+        raise ValueError(f"quant_scales must be float32 [{C}] on the data's "
+                         "device")
+    return scales.contiguous()
+
+
+def _check_cuda(dev) -> None:
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# ------------------------------------------------------------ plain versions
+def _wave_sums_plain(binned_fm: torch.Tensor, slot: torch.Tensor,
+                     q: torch.Tensor, max_bin: int, num_slots: int):
+    """int64 sums of q [n, C+1] (the last column the count) over flat
+    (slot, bin) ids, one feature at a time: (acc [NL, F, B, C],
+    cnt [NL])."""
+    F, n = binned_fm.shape
+    C = q.shape[1] - 1
     B, NL = max_bin, num_slots
-    e = _scale_exps(gh)
-    q = _to_fixed(gh, e)                                  # [n, C+1] int64
     s = slot.to(torch.int64)
     in_slot = (s >= 0) & (s < NL)
     dump = NL * B                                         # sentinel segment
     hist = torch.zeros((F, NL * B + 1, C), dtype=torch.int64,
-                       device=gh.device)
+                       device=q.device)
     for f in range(F):
         b = binned_fm[f].to(torch.int64)
         ids = torch.where(in_slot & (b < B), s * B + b, dump)
         hist[f].index_add_(0, ids, q[:, :C])
     acc = hist[:, :NL * B].reshape(F, NL, B, C).permute(1, 0, 2, 3)
-    cnt = torch.zeros(NL + 1, dtype=torch.int64, device=gh.device)
+    cnt = torch.zeros(NL + 1, dtype=torch.int64, device=q.device)
     cnt.index_add_(0, torch.where(in_slot, s, NL), q[:, C])
-    return (_from_fixed(acc.contiguous(), e[:C]),
-            _from_fixed(cnt[:NL, None], e[C:])[:, 0])
+    return acc.contiguous(), cnt[:NL]
+
+
+def build_histogram_wave_plain(binned_fm: torch.Tensor, slot: torch.Tensor,
+                               gh: torch.Tensor, *, max_bin: int,
+                               num_slots: int, exps: torch.Tensor = None,
+                               fixed: bool = False):
+    """Plain PyTorch K1: int64 `index_add_` of the fixed-point gh over
+    flat (slot, bin) ids.  Returns (hist [NL, F, B, C] float32,
+    counts [NL] float32), or the int64 sums when `fixed`.  `exps`
+    defaults to `scale_exps(gh)`."""
+    e = scale_exps(gh) if exps is None else exps
+    acc, cnt = _wave_sums_plain(binned_fm, slot, _to_fixed(gh, e), max_bin,
+                                num_slots)
+    if fixed:
+        return acc, cnt
+    C = gh.shape[1] - 1
+    u = fixed_unit(e)
+    return from_fixed(acc, u[:C]), from_fixed(cnt[:, None], u[C:])[:, 0]
+
+
+def build_histogram_wave_int_plain(binned_fm: torch.Tensor,
+                                   slot: torch.Tensor, gh: torch.Tensor,
+                                   quant_scales: torch.Tensor, *,
+                                   max_bin: int, num_slots: int,
+                                   fixed: bool = False):
+    """Plain PyTorch K2: the quantized integers round(gh[:, :C] / scales)
+    and the count column gh[:, C] > 0, summed with int64 `index_add_`.
+    Returns (float32(sums) * scales, float32 counts), or the int64 sums
+    when `fixed`."""
+    acc, cnt = _wave_sums_plain(binned_fm, slot,
+                                _quant_ints(gh, quant_scales), max_bin,
+                                num_slots)
+    if fixed:
+        return acc, cnt
+    return dequantize(acc, quant_scales), cnt.to(torch.float32)
 
 
 def build_histogram_wave_hl_plain(binned_fm: torch.Tensor,
                                   binned_rm: torch.Tensor,
                                   slot: torch.Tensor, gh: torch.Tensor, *,
                                   max_bin: int, num_slots: int,
-                                  out_slots: int):
+                                  out_slots: int, exps: torch.Tensor = None,
+                                  fixed: bool = False):
     """Plain PyTorch K3: K1's plain result for the first `num_slots`
     slots (from the row-major bins, as the kernel reads them),
     zero-padded to `out_slots`."""
     hist, cnt = build_histogram_wave_plain(
-        binned_rm.t(), slot, gh, max_bin=max_bin, num_slots=num_slots)
+        binned_rm.t(), slot, gh, max_bin=max_bin, num_slots=num_slots,
+        exps=exps, fixed=fixed)
     pad = out_slots - num_slots
     if pad > 0:
         hist = torch.cat([hist, hist.new_zeros((pad,) + hist.shape[1:])])
@@ -195,11 +296,140 @@ def build_histogram_wave_hl_plain(binned_fm: torch.Tensor,
     return hist, cnt
 
 
+def build_histogram_rows_plain(rows: torch.Tensor, gh: torch.Tensor,
+                               mask: torch.Tensor, *, max_bin: int,
+                               exps: torch.Tensor = None,
+                               fixed: bool = False) -> torch.Tensor:
+    """Plain PyTorch K4: the fixed-point gh * mask summed with int64
+    `index_add_` over flat (feature, bin) ids of rows [S, F].  Returns
+    hist [F, B, C] float32, or the int64 sums when `fixed`.  `exps`
+    defaults to `scale_exps(gh * mask)`."""
+    S, F = rows.shape
+    C = gh.shape[1]
+    B = max_bin
+    v = gh * mask.to(gh.dtype)[:, None]
+    e = scale_exps(v) if exps is None else exps
+    q = _to_fixed(v, e)
+    acc = torch.zeros((F * B + 1, C), dtype=torch.int64, device=gh.device)
+    dump = F * B
+    for f in range(F):
+        b = rows[:, f].to(torch.int64)
+        acc.index_add_(0, torch.where(b < B, f * B + b, dump), q)
+    acc = acc[:F * B].reshape(F, B, C)
+    return acc if fixed else from_fixed(acc, fixed_unit(e))
+
+
+# ------------------------------------------------------------ kernel launches
+def _launch_wave(binned_fm, slot, gh, exps, max_bin, num_slots, finish):
+    """K1 on the card: float32 (hist, counts) when `finish`, else the
+    int64 sums."""
+    F, n = binned_fm.shape
+    C = gh.shape[1] - 1
+    SG, FG = wave_tile(F, max_bin, num_slots, C)
+    dev = gh.device
+    acc = torch.empty((num_slots, F, max_bin, C), dtype=torch.int64,
+                      device=dev)
+    cnt_acc = torch.empty(num_slots, dtype=torch.int64, device=dev)
+    hist = counts = None
+    if finish:
+        hist = torch.empty((num_slots, F, max_bin, C), dtype=torch.float32,
+                           device=dev)
+        counts = torch.empty(num_slots, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.lib().wave_hist_f32(
+            binned_fm.data_ptr(), slot.data_ptr(), gh.data_ptr(),
+            exps.data_ptr(), n, F, max_bin, C, num_slots, SG, FG,
+            acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist), _ptr(counts),
+            stream)
+    _kernels.check(err, "wave_hist_f32")
+    build_histogram_wave.launches += 1
+    return (hist, counts) if finish else (acc, cnt_acc)
+
+
+def _launch_wave_int(binned_fm, slot, gh, scales, max_bin, num_slots,
+                     finish):
+    """K2 on the card: float32 (hist, counts) when `finish`, else the
+    int32 sums widened to int64."""
+    F, n = binned_fm.shape
+    C = gh.shape[1] - 1
+    SG, FG = wave_tile(F, max_bin, num_slots, C, cell_bytes=4)
+    dev = gh.device
+    acc = torch.empty((num_slots, F, max_bin, C), dtype=torch.int32,
+                      device=dev)
+    cnt_acc = torch.empty(num_slots, dtype=torch.int32, device=dev)
+    hist = counts = None
+    if finish:
+        hist = torch.empty((num_slots, F, max_bin, C), dtype=torch.float32,
+                           device=dev)
+        counts = torch.empty(num_slots, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.lib().wave_hist_i32(
+            binned_fm.data_ptr(), slot.data_ptr(), gh.data_ptr(),
+            scales.data_ptr(), n, F, max_bin, C, num_slots, SG, FG,
+            acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist), _ptr(counts),
+            stream)
+    _kernels.check(err, "wave_hist_i32")
+    build_histogram_wave_int.launches += 1
+    if finish:
+        return hist, counts
+    return acc.to(torch.int64), cnt_acc.to(torch.int64)
+
+
+def _launch_wave_hl(binned_rm, slot, gh, exps, max_bin, num_slots,
+                    out_slots, finish):
+    """K3 on the card: float32 when `finish`, else the int64 sums."""
+    n, F = binned_rm.shape
+    C = gh.shape[1] - 1
+    FG = hl_feature_group(F, max_bin, num_slots, C)
+    dev = gh.device
+    acc = torch.empty((out_slots, F, max_bin, C), dtype=torch.int64,
+                      device=dev)
+    cnt_acc = torch.empty(out_slots, dtype=torch.int64, device=dev)
+    hist = counts = None
+    if finish:
+        hist = torch.empty((out_slots, F, max_bin, C), dtype=torch.float32,
+                           device=dev)
+        counts = torch.empty(out_slots, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.lib().wave_hist_hl_f32(
+            binned_rm.data_ptr(), slot.data_ptr(), gh.data_ptr(),
+            exps.data_ptr(), n, F, max_bin, C, num_slots, out_slots, FG,
+            acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist), _ptr(counts),
+            stream)
+    _kernels.check(err, "wave_hist_hl_f32")
+    build_histogram_wave_hl.launches += 1
+    return (hist, counts) if finish else (acc, cnt_acc)
+
+
+def _launch_rows(rows, gh, mask, exps, max_bin, finish):
+    """K4 on the card: float32 [F, B, C] when `finish`, else int64."""
+    S, F = rows.shape
+    C = gh.shape[1]
+    FG = rows_feature_group(F, max_bin, C)
+    dev = gh.device
+    acc = torch.empty((F, max_bin, C), dtype=torch.int64, device=dev)
+    hist = (torch.empty((F, max_bin, C), dtype=torch.float32, device=dev)
+            if finish else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels.lib("rows_hist.cu").rows_hist_f32(
+            rows.data_ptr(), gh.data_ptr(), mask.data_ptr(), exps.data_ptr(),
+            S, F, max_bin, C, FG, acc.data_ptr(), _ptr(hist), stream)
+    _kernels.check(err, "rows_hist_f32")
+    build_histogram_rows_pallas.launches += 1
+    return hist if finish else acc
+
+
 # --------------------------------------------------------------- entry points
 def build_histogram_wave(binned_fm: torch.Tensor, slot: torch.Tensor,
                          gh: torch.Tensor, *, max_bin: int, num_slots: int,
-                         row_tile: int = ROW_TILE):
-    """Histograms for all leaf slots in one pass over the rows (K1).
+                         row_tile: int = ROW_TILE, quant_bins: int = 0,
+                         quant_scales: torch.Tensor = None):
+    """Histograms for all leaf slots in one pass over the rows (K1; K2
+    when `quant_scales` is given).
 
     Args:
       binned_fm: [F, n] uint8 feature-major bin codes.
@@ -208,42 +438,92 @@ def build_histogram_wave(binned_fm: torch.Tensor, slot: torch.Tensor,
       gh: [n, C+1] float32 accumulands (gradient, hessian, ...); the LAST
         column is the count mask.
       max_bin: B.  num_slots: NL.  row_tile: n must be a multiple of it.
+      quant_bins, quant_scales: quantized mode (ref:
+        gradient_discretizer.cpp DiscretizeGradients): gh's channels
+        carry k * scale for integers k, which are summed exactly and
+        dequantized on the way out; counts count the rows with mask > 0.
 
     Returns: (hist [NL, F, B, C] float32, counts [NL] float32).
     """
     if row_tile != ROW_TILE:
         raise ValueError(f"row_tile must be {ROW_TILE}")
     _check_wave_inputs(binned_fm, slot, gh, max_bin, row_major=False)
+    if quant_scales is not None:
+        if quant_bins > 126:
+            raise ValueError(f"quant_bins {quant_bins} > 126: the int8 "
+                             "grid bound of the JAX kernel")
+        quant_scales = _check_scales(quant_scales, gh)
+        if gh.device.type == "cpu":
+            return build_histogram_wave_int_plain(
+                binned_fm, slot, gh, quant_scales, max_bin=max_bin,
+                num_slots=num_slots)
+        _check_cuda(gh.device)
+        return _launch_wave_int(binned_fm, slot, gh, quant_scales, max_bin,
+                                num_slots, finish=True)
     if gh.device.type == "cpu":
         return build_histogram_wave_plain(binned_fm, slot, gh,
                                           max_bin=max_bin,
                                           num_slots=num_slots)
-    if gh.device.type != "cuda":
-        raise ValueError(f"no kernel for device {gh.device}")
-    F, n = binned_fm.shape
-    C = gh.shape[1] - 1
-    SG, FG = wave_tile(F, max_bin, num_slots, C)
-    dev = gh.device
-    acc = torch.empty(num_slots * F * max_bin * C, dtype=torch.int64,
-                      device=dev)
-    cnt_acc = torch.empty(num_slots, dtype=torch.int64, device=dev)
-    amax = torch.empty(C + 1, dtype=torch.int32, device=dev)
-    hist = torch.empty((num_slots, F, max_bin, C), dtype=torch.float32,
-                       device=dev)
-    counts = torch.empty(num_slots, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.lib().wave_hist_f32(
-            binned_fm.data_ptr(), slot.data_ptr(), gh.data_ptr(), n, F,
-            max_bin, C, num_slots, SG, FG, acc.data_ptr(),
-            cnt_acc.data_ptr(), amax.data_ptr(), hist.data_ptr(),
-            counts.data_ptr(), stream)
-    _kernels.check(err, "wave_hist_f32")
-    build_histogram_wave.launches += 1
-    return hist, counts
+    _check_cuda(gh.device)
+    return _launch_wave(binned_fm, slot, gh, scale_exps(gh), max_bin,
+                        num_slots, finish=True)
 
 
 build_histogram_wave.launches = 0
+
+
+def build_histogram_wave_fixed(binned_fm: torch.Tensor, slot: torch.Tensor,
+                               gh: torch.Tensor, exps: torch.Tensor, *,
+                               max_bin: int, num_slots: int):
+    """K1's int64 sums on the caller's grid `exps` ([C+1] int32, e.g. the
+    tree's `scale_exps`): (acc [NL, F, B, C], cnt [NL]).  The engines'
+    variant of `build_histogram_wave`."""
+    _check_wave_inputs(binned_fm, slot, gh, max_bin, row_major=False)
+    _check_exps(exps, gh.shape[1], gh.device)
+    if gh.device.type == "cpu":
+        return build_histogram_wave_plain(
+            binned_fm, slot, gh, max_bin=max_bin, num_slots=num_slots,
+            exps=exps, fixed=True)
+    _check_cuda(gh.device)
+    return _launch_wave(binned_fm, slot, gh, exps, max_bin, num_slots,
+                        finish=False)
+
+
+def build_histogram_wave_int(binned_fm: torch.Tensor, slot: torch.Tensor,
+                             gh: torch.Tensor, quant_scales: torch.Tensor,
+                             *, max_bin: int, num_slots: int):
+    """K2's exact int64 sums (acc [NL, F, B, C], cnt [NL]) of the
+    quantized integers: the wave engine's form of `build_histogram_wave`
+    with `quant_scales`.  The caller keeps the JAX gate: quant_bins <=
+    126 and n * quant_bins < 2^31, so the kernel's int32 sums cannot
+    overflow."""
+    _check_wave_inputs(binned_fm, slot, gh, max_bin, row_major=False)
+    quant_scales = _check_scales(quant_scales, gh)
+    if gh.device.type == "cpu":
+        return build_histogram_wave_int_plain(
+            binned_fm, slot, gh, quant_scales, max_bin=max_bin,
+            num_slots=num_slots, fixed=True)
+    _check_cuda(gh.device)
+    return _launch_wave_int(binned_fm, slot, gh, quant_scales, max_bin,
+                            num_slots, finish=False)
+
+
+build_histogram_wave_int.launches = 0
+
+
+def _check_hl(binned_fm, binned_rm, slot, gh, max_bin, num_slots,
+              out_slots, row_tile):
+    if row_tile != ROW_TILE:
+        raise ValueError(f"row_tile must be {ROW_TILE}")
+    _check_wave_inputs(binned_rm, slot, gh, max_bin, row_major=True)
+    if binned_fm.shape != binned_rm.shape[::-1]:
+        raise ValueError("binned_fm must be the transpose of binned_rm")
+    if not 1 <= num_slots <= out_slots:
+        raise ValueError(f"need 1 <= num_slots ({num_slots}) <= out_slots "
+                         f"({out_slots})")
+    if not wave_hl_fits(max_bin, num_slots, gh.shape[1] - 1):
+        raise ValueError(f"{num_slots} slots at max_bin={max_bin} exceed "
+                         "the few-slot kernel's shared memory")
 
 
 def build_histogram_wave_hl(binned_fm: torch.Tensor, binned_rm: torch.Tensor,
@@ -254,47 +534,100 @@ def build_histogram_wave_hl(binned_fm: torch.Tensor, binned_rm: torch.Tensor,
     the true computed-slot bound; the output is zero-padded to
     `out_slots` rows.  The kernel reads the row-major copy `binned_rm
     [n, F]`.  Returns (hist [out_slots, F, B, C], counts [out_slots])."""
-    if row_tile != ROW_TILE:
-        raise ValueError(f"row_tile must be {ROW_TILE}")
-    _check_wave_inputs(binned_rm, slot, gh, max_bin, row_major=True)
-    if binned_fm.shape != binned_rm.shape[::-1]:
-        raise ValueError("binned_fm must be the transpose of binned_rm")
-    if not 1 <= num_slots <= out_slots:
-        raise ValueError(f"need 1 <= num_slots ({num_slots}) <= out_slots "
-                         f"({out_slots})")
-    C = gh.shape[1] - 1
-    if not wave_hl_fits(max_bin, num_slots, C):
-        raise ValueError(f"{num_slots} slots at max_bin={max_bin} exceed "
-                         "the few-slot kernel's shared memory")
+    _check_hl(binned_fm, binned_rm, slot, gh, max_bin, num_slots, out_slots,
+              row_tile)
     if gh.device.type == "cpu":
         return build_histogram_wave_hl_plain(
             binned_fm, binned_rm, slot, gh, max_bin=max_bin,
             num_slots=num_slots, out_slots=out_slots)
-    if gh.device.type != "cuda":
-        raise ValueError(f"no kernel for device {gh.device}")
-    n, F = binned_rm.shape
-    FG = hl_feature_group(F, max_bin, num_slots, C)
-    dev = gh.device
-    acc = torch.empty(num_slots * F * max_bin * C, dtype=torch.int64,
-                      device=dev)
-    cnt_acc = torch.empty(num_slots, dtype=torch.int64, device=dev)
-    amax = torch.empty(C + 1, dtype=torch.int32, device=dev)
-    hist = torch.empty((out_slots, F, max_bin, C), dtype=torch.float32,
-                       device=dev)
-    counts = torch.empty(out_slots, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.lib().wave_hist_hl_f32(
-            binned_rm.data_ptr(), slot.data_ptr(), gh.data_ptr(), n, F,
-            max_bin, C, num_slots, out_slots, FG, acc.data_ptr(),
-            cnt_acc.data_ptr(), amax.data_ptr(), hist.data_ptr(),
-            counts.data_ptr(), stream)
-    _kernels.check(err, "wave_hist_hl_f32")
-    build_histogram_wave_hl.launches += 1
-    return hist, counts
+    _check_cuda(gh.device)
+    return _launch_wave_hl(binned_rm, slot, gh, scale_exps(gh), max_bin,
+                           num_slots, out_slots, finish=True)
 
 
 build_histogram_wave_hl.launches = 0
+
+
+def build_histogram_wave_hl_fixed(binned_fm: torch.Tensor,
+                                  binned_rm: torch.Tensor,
+                                  slot: torch.Tensor, gh: torch.Tensor,
+                                  exps: torch.Tensor, *, max_bin: int,
+                                  num_slots: int, out_slots: int):
+    """K3's int64 sums on the caller's grid `exps` (the engines'
+    variant of `build_histogram_wave_hl`)."""
+    _check_hl(binned_fm, binned_rm, slot, gh, max_bin, num_slots, out_slots,
+              ROW_TILE)
+    _check_exps(exps, gh.shape[1], gh.device)
+    if gh.device.type == "cpu":
+        return build_histogram_wave_hl_plain(
+            binned_fm, binned_rm, slot, gh, max_bin=max_bin,
+            num_slots=num_slots, out_slots=out_slots, exps=exps, fixed=True)
+    _check_cuda(gh.device)
+    return _launch_wave_hl(binned_rm, slot, gh, exps, max_bin, num_slots,
+                           out_slots, finish=False)
+
+
+def _check_rows_inputs(rows, gh, mask, max_bin, row_tile):
+    if row_tile != ROW_TILE:
+        raise ValueError(f"row_tile must be {ROW_TILE}")
+    if rows.dtype != torch.uint8:
+        raise TypeError(f"rows must be uint8, got {rows.dtype}")
+    if gh.dtype != torch.float32 or mask.dtype != torch.float32:
+        raise TypeError("gh and mask must be float32")
+    if rows.dim() != 2 or gh.dim() != 2 or not 1 <= gh.shape[1] <= 4:
+        raise ValueError(f"need rows [S, F] and gh [S, C<=4], got "
+                         f"{tuple(rows.shape)}, {tuple(gh.shape)}")
+    S = rows.shape[0]
+    if gh.shape[0] != S or mask.shape != (S,):
+        raise ValueError(f"inconsistent shapes: rows {tuple(rows.shape)}, "
+                         f"gh {tuple(gh.shape)}, mask {tuple(mask.shape)}")
+    if S % row_tile != 0:
+        raise ValueError(f"rows {S} not a multiple of row_tile {row_tile}")
+    if not (rows.device == gh.device == mask.device):
+        raise ValueError("rows, gh and mask must share a device")
+    for name, t in (("rows", rows), ("gh", gh), ("mask", mask)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if max_bin < 1:
+        raise ValueError(f"max_bin must be positive, got {max_bin}")
+
+
+def build_histogram_rows_pallas(rows: torch.Tensor, gh: torch.Tensor,
+                                mask: torch.Tensor, *, max_bin: int,
+                                row_tile: int = ROW_TILE) -> torch.Tensor:
+    """Single-leaf histogram over row-major rows (K4).
+
+    Args:
+      rows: [S, F] uint8 bin codes, S a multiple of row_tile.
+      gh: [S, C] float32 values.  mask: [S] float32 membership, folded
+        into gh.  max_bin: B.
+
+    Returns: hist [F, B, C] float32.
+    """
+    _check_rows_inputs(rows, gh, mask, max_bin, row_tile)
+    if gh.device.type == "cpu":
+        return build_histogram_rows_plain(rows, gh, mask, max_bin=max_bin)
+    _check_cuda(gh.device)
+    return _launch_rows(rows, gh, mask, scale_exps(gh * mask[:, None]),
+                        max_bin, finish=True)
+
+
+build_histogram_rows_pallas.launches = 0
+
+
+def build_histogram_rows_fixed(rows: torch.Tensor, gh: torch.Tensor,
+                               mask: torch.Tensor, exps: torch.Tensor, *,
+                               max_bin: int) -> torch.Tensor:
+    """K4's int64 sums [F, B, C] on the caller's grid `exps` ([C] int32,
+    the tree's `scale_exps`): the leaf-wise engine's variant of
+    `build_histogram_rows_pallas`."""
+    _check_rows_inputs(rows, gh, mask, max_bin, ROW_TILE)
+    _check_exps(exps, gh.shape[1], gh.device)
+    if gh.device.type == "cpu":
+        return build_histogram_rows_plain(rows, gh, mask, max_bin=max_bin,
+                                          exps=exps, fixed=True)
+    _check_cuda(gh.device)
+    return _launch_rows(rows, gh, mask, exps, max_bin, finish=False)
 
 
 def build_histogram(binned: torch.Tensor, gh: torch.Tensor,

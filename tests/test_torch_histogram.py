@@ -186,3 +186,110 @@ def test_dispatch_rules_match_jax(B):
         assert [S for S in (1, 2, 4, 8, 16, 32, 64, 128)
                 if th.wave_hl_profitable(B, S)] == [1, 2, 4, 8]
         assert all(th.wave_hl_fits(B, S) for S in (1, 2, 4, 8))
+
+
+# ---------------------------------------------------------------- K4 / K2
+def _rows_case(S, F, B, seed, snap):
+    binned, _, gh = _mk(S, F, B, 8, seed=seed, snap=snap)
+    mask = (np.random.RandomState(seed + 1).rand(S) < 0.6).astype(np.float32)
+    return np.ascontiguousarray(binned.T), gh[:, :2].copy(), mask
+
+
+def _jax_segment(rows, gh, mask, B):
+    """tools/kernel_checks.py check 4: K4's JAX plain reference."""
+    return np.asarray(jh.build_histogram(
+        jnp.asarray(rows.T.astype(np.int32)), jnp.asarray(gh),
+        jnp.asarray(mask), max_bin=B, method="segment"))
+
+
+@pytest.mark.parametrize("S,F,B", [(512, 3, 16), (2048, 6, 63),
+                                   (1536, 5, 255)])
+def test_rows_plain_exact_on_grid(S, F, B):
+    """K4's plain version against build_histogram(method="segment") on
+    rows.T: exact on the bf16 grid (every partial sum exact in
+    float32)."""
+    rows, gh, mask = _rows_case(S, F, B, seed=S + B, snap=True)
+    got = th.build_histogram_rows_pallas(
+        torch.from_numpy(rows), torch.from_numpy(gh),
+        torch.from_numpy(mask), max_bin=B).numpy()
+    assert got.shape == (F, B, 2)
+    np.testing.assert_array_equal(got, _jax_segment(rows, gh, mask, B))
+
+
+def test_rows_plain_close_off_grid():
+    rows, gh, mask = _rows_case(4096, 6, 63, seed=9, snap=False)
+    got = th.build_histogram_rows_pallas(
+        torch.from_numpy(rows), torch.from_numpy(gh),
+        torch.from_numpy(mask), max_bin=63).numpy()
+    np.testing.assert_allclose(got, _jax_segment(rows, gh, mask, 63),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_rows_fixed_on_tree_grid_subtracts_exactly():
+    """On one grid (the tree's exponents) the int64 sums of two disjoint
+    masks add up to the sums of their union, so parent - child is
+    exact; converted, each matches the float32 entry point's result to
+    the grid's resolution."""
+    rows, gh, mask = _rows_case(2048, 6, 63, seed=4, snap=False)
+    r, g = torch.from_numpy(rows), torch.from_numpy(gh)
+    m = torch.from_numpy(mask)
+    e = th.scale_exps(g)
+    whole = th.build_histogram_rows_fixed(r, g, torch.ones_like(m), e,
+                                          max_bin=63)
+    part = th.build_histogram_rows_fixed(r, g, m, e, max_bin=63)
+    rest = th.build_histogram_rows_fixed(r, g, 1 - m, e, max_bin=63)
+    assert whole.dtype == torch.int64
+    assert torch.equal(whole - part, rest)
+    np.testing.assert_allclose(
+        th.from_fixed(part, th.fixed_unit(e)).numpy(),
+        th.build_histogram_rows_pallas(r, g, m, max_bin=63).numpy(),
+        rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bad", ["rows", "dtype", "mask", "exps"])
+def test_rows_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    rows, gh, mask = _rows_case(1024, 4, 32, seed=1, snap=True)
+    r, g, m = (torch.from_numpy(rows), torch.from_numpy(gh),
+               torch.from_numpy(mask))
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "rows":
+            th.build_histogram_rows_pallas(r[:1000], g[:1000], m[:1000],
+                                           max_bin=32)
+        elif bad == "dtype":
+            th.build_histogram_rows_pallas(r.to(torch.int32), g, m,
+                                           max_bin=32)
+        elif bad == "mask":
+            th.build_histogram_rows_pallas(r, g, m[:512], max_bin=32)
+        else:
+            th.build_histogram_rows_fixed(r, g, m, th.scale_exps(g)[:1],
+                                          max_bin=32)
+
+
+def test_fixed_wave_variants_convert_to_the_entry_points():
+    """The engines' int64 variants of K1/K3, converted with `from_fixed`,
+    give the float32 entry points' results bit for bit; on the CPU no
+    kernel launch is counted."""
+    binned, slot, gh = _mk(2048, 6, 63, 8, computed=4, seed=13, snap=False)
+    b, s, g = (torch.from_numpy(binned), torch.from_numpy(slot),
+               torch.from_numpy(gh))
+    e = th.scale_exps(g)
+    launches = (th.build_histogram_wave.launches,
+                th.build_histogram_wave_hl.launches,
+                th.build_histogram_wave_int.launches,
+                th.build_histogram_rows_pallas.launches)
+    acc, cnt = th.build_histogram_wave_fixed(b, s, g, e, max_bin=63,
+                                             num_slots=8)
+    h, c = th.build_histogram_wave(b, s, g, max_bin=63, num_slots=8)
+    u = th.fixed_unit(e)
+    assert torch.equal(th.from_fixed(acc, u[:2]), h)
+    assert torch.equal(th.from_fixed(cnt[:, None], u[2:])[:, 0], c)
+    acc, cnt = th.build_histogram_wave_hl_fixed(
+        b, b.t().contiguous(), s, g, e, max_bin=63, num_slots=4,
+        out_slots=8)
+    h, c = th.build_histogram_wave_hl(b, b.t().contiguous(), s, g,
+                                      max_bin=63, num_slots=4, out_slots=8)
+    assert torch.equal(th.from_fixed(acc, u[:2]), h)
+    assert launches == (th.build_histogram_wave.launches,
+                        th.build_histogram_wave_hl.launches,
+                        th.build_histogram_wave_int.launches,
+                        th.build_histogram_rows_pallas.launches)

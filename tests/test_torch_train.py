@@ -115,8 +115,8 @@ def test_port_model_text_loads_in_jax(boosters):
     ({"feature_fraction": 0.5}, "item 6"),
     ({"extra_trees": True}, "item 11"),
     ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]}, "item 3"),
-    ({"use_quantized_grad": True}, "item 12"),
-    ({"tpu_growth_strategy": "leafwise"}, "item 13"),
+    ({"cegb_penalty_feature_lazy": [1.0] * 8}, "item 13"),
+    ({"tree_learner": "voting"}, "item 15"),
     ({"boosting": "dart"}, "item 14"),
     ({"linear_tree": True}, "item 14"),
     ({"categorical_feature": "0"}, "item 3")])
