@@ -30,7 +30,7 @@ from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
                        grow_tree_wave_impl)
 from ..models.tree import Tree
 from ..objective import ObjectiveFunction
-from ..ops.histogram import wave_slot_pad, wave_tile
+from ..ops.histogram import wave_part_plan, wave_slot_pad, wave_tile
 from ..ops.split import SplitParams, leaf_output
 from ..utils import log
 from ..utils import random as jrandom
@@ -162,11 +162,13 @@ def renew_leaf_values(leaf_value: torch.Tensor, leaf_id: torch.Tensor,
 
 
 def wave_fits(num_features: int, max_bin: int, num_leaves: int) -> bool:
-    """The wave kernels' shared-memory tile holds at least one slot's
-    histograms of one feature (the analogue of the JAX package's VMEM
-    gate `wave_pallas_vmem_ok`)."""
+    """The wave kernels' shared-memory tiles hold one slot's histograms of
+    one feature and K1's partition holds the slot counters (the analogue
+    of the JAX package's VMEM gate `wave_pallas_vmem_ok`)."""
+    NL = wave_slot_pad(num_leaves)
     try:
-        wave_tile(num_features, max_bin, wave_slot_pad(num_leaves), 2)
+        wave_tile(num_features, max_bin, NL, 2)
+        wave_part_plan(1, num_features, max_bin, 2, NL)
     except ValueError:
         return False
     return True

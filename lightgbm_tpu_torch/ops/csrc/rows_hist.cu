@@ -13,55 +13,67 @@
 // Design.  The Pallas kernel builds a [Fg, Bp, Rt] bin one-hot in VMEM and
 // contracts it with gh on the MXU, because a TPU has no per-lane scatter.
 // Hopper has shared-memory atomics: each block holds a (feature group x B
-// x C) tile of 64-bit fixed-point cells in shared memory (28 features x
-// 255 bins x 2 channels = 114 KB at the main path's shape, so one group),
-// streams a contiguous range of rows into it, and flushes the non-zero
-// cells to the int64 result with global atomics.  A float32 finish pass
+// x C) tile of 64-bit fixed-point cells in shared memory, adds a range of
+// rows into it, and flushes the non-zero cells to the int64 result.  The
+// grid follows the segment: the wrapper's planner (rows_plan in
+// ops/histogram.py) picks small feature groups (about 28 KB tiles, several
+// blocks per SM) and row chunks of a few hundred to a few thousand rows,
+// so a 4,096-row segment spreads over tens of blocks and a 2^20-row one
+// over hundreds.  With one row chunk a block owns its cells and stores
+// them all (no memset, no atomics); with more it adds its non-zero cells
+// with 64-bit global atomics into a zeroed result.  A float32 finish pass
 // converts; the engines skip it and keep the int64 sums.
+//
+// Hot cells.  The rows of a small leaf share the bins of the features
+// split above it, so many lanes add to one cell.  Each 64-bit add is two
+// native 32-bit shared atomics (below), not the compare-and-swap loop a
+// 64-bit shared atomicAdd compiles to, so a hot cell serializes single
+// atomic instructions rather than retried loops.
 //
 // Determinism and exactness.  As in wave_hist.cu, channel c is scaled by
 // 2^(62 - E_c) with integer atomics, so the sums are order-free and
 // bit-identical to the plain version (int64 index_add_ in
-// ops/histogram.py).  The caller passes E: the engines pass one set per
-// tree, taken from the whole tree's gh, so every histogram of a tree is on
-// one grid and the parent minus the smaller child is exact.
+// ops/histogram.py).  The caller passes E: the
+// engines pass one set per tree, taken from the whole tree's gh, so every
+// histogram of a tree is on one grid and the parent minus the smaller
+// child is exact.
 //
 // Bound on this card.  A call must read rows (S*F bytes), gh (4*C*S) and
 // mask (4*S) once and write the histograms (4*F*B*C): at S = 2^20, F = 28
 // that is 38 MB, about 11 us at 3.35 TB/s.  The kernel is bound instead by
-// shared-memory atomics (one 64-bit atomic per row, feature and channel)
-// and by the global flush of each block's tile; it is the simple first
-// version.
+// shared-memory atomics (one 64-bit add per masked row, feature and
+// channel); at small S by the launch and the per-block tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "fixed_point.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 256;
 constexpr int kMaxC = 4;
-constexpr int kRowsPerBlock = 8192;  // rows one block streams (at least)
+constexpr int kTileFeatures = 8;  // most features of one block
 
-__device__ __forceinline__ long long to_fixed(float v, int e) {
-  return __float2ll_rn(v * ldexpf(1.0f, 62 - e));
-}
-
-// grid (row chunks, feature groups)
-__global__ void rows_hist_kernel(const uint8_t* __restrict__ rows,
-                                 const float* __restrict__ gh,
-                                 const float* __restrict__ mask,
-                                 const int* __restrict__ exps, int S, int F,
-                                 int B, int C, int FG, int rows_per_block,
-                                 long long* __restrict__ acc) {
-  extern __shared__ long long sm[];
+// grid (row chunks, feature groups).
+__global__ void __launch_bounds__(kThreads)
+rows_hist_kernel(const uint8_t* __restrict__ rows,
+                 const float* __restrict__ gh,
+                 const float* __restrict__ mask,
+                 const int* __restrict__ exps, int S, int F, int B, int C,
+                 int FG, int rows_per_block, long long* __restrict__ acc) {
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  unsigned long long* tile = reinterpret_cast<unsigned long long*>(smem_raw);
+  unsigned* tile32 = reinterpret_cast<unsigned*>(smem_raw);
   const int f0 = blockIdx.y * FG;
   const int fg = min(FG, F - f0);
   int e[kMaxC];
-  for (int c = 0; c < C; ++c) e[c] = exps[c];
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c) e[c] = c < C ? exps[c] : 0;
   const int len = fg * B * C;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) sm[i] = 0;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) tile[i] = 0;
   __syncthreads();
   const long long r0 = (long long)blockIdx.x * rows_per_block;
   const long long r1 = min((long long)S, r0 + rows_per_block);
@@ -69,31 +81,32 @@ __global__ void rows_hist_kernel(const uint8_t* __restrict__ rows,
     const float m = mask[r];
     if (m == 0.0f) continue;
     long long q[kMaxC];
-    bool any = false;
-    for (int c = 0; c < C; ++c) {
+#pragma unroll
+    for (int c = 0; c < kMaxC; ++c)
       // the mask folds into gh in float32, as in the plain version
-      q[c] = to_fixed(__fmul_rn(gh[r * C + c], m), e[c]);
-      any |= q[c] != 0;
-    }
-    if (!any) continue;
+      q[c] = c < C ? to_fixed(__fmul_rn(gh[r * C + c], m), e[c]) : 0;
     const uint8_t* row = rows + r * F + f0;
-    for (int fl = 0; fl < fg; ++fl) {
-      int b = row[fl];
-      if (b >= B) continue;
-      long long* cell = sm + ((long long)fl * B + b) * C;
-      for (int c = 0; c < C; ++c)
-        if (q[c] != 0)
-          atomicAdd(reinterpret_cast<unsigned long long*>(cell + c),
-                    static_cast<unsigned long long>(q[c]));
+#pragma unroll
+    for (int fl = 0; fl < kTileFeatures; ++fl) {
+      if (fl >= fg) break;
+      const int bin = row[fl];
+      if (bin >= B) continue;
+      unsigned* cell = tile32 + 2 * ((fl * B + bin) * C);
+#pragma unroll
+      for (int c = 0; c < kMaxC; ++c)
+        if (c < C && q[c] != 0) add_pair(cell + 2 * c, q[c]);
     }
   }
   __syncthreads();
   long long* out = acc + (long long)f0 * B * C;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    long long v = sm[i];
-    if (v != 0)
-      atomicAdd(reinterpret_cast<unsigned long long*>(out + i),
-                static_cast<unsigned long long>(v));
+  if (gridDim.x == 1) {
+    for (int i = threadIdx.x; i < len; i += blockDim.x)
+      out[i] = (long long)tile[i];
+  } else {
+    for (int i = threadIdx.x; i < len; i += blockDim.x) {
+      const unsigned long long v = tile[i];
+      if (v != 0) atomicAdd(reinterpret_cast<unsigned long long*>(out + i), v);
+    }
   }
 }
 
@@ -112,30 +125,36 @@ __global__ void finish_kernel(const long long* __restrict__ acc,
 extern "C" {
 
 // K4.  rows: uint8 [S, F]; gh: float32 [S, C]; mask: float32 [S]; exps:
-// int32 [C] (device); acc: int64 [F*B*C].  FG features per block (the
-// wrapper sizes it to shared memory).  With hist == NULL the int64 sums
-// are the result.
+// int32 [C] (device); acc: int64 [F*B*C].  FG (<= kTileFeatures) features
+// and rows_per_block rows per block (the wrapper's planner).  With hist ==
+// NULL the int64 sums are the result.
 int rows_hist_f32(const void* rows, const void* gh, const void* mask,
                   const void* exps, int S, int F, int B, int C, int FG,
-                  void* acc, void* hist, void* stream_ptr) {
+                  int rows_per_block, void* acc, void* hist,
+                  void* stream_ptr) {
+  static int smem_set = 48 * 1024;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (C < 1 || C > kMaxC || FG < 1) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > kMaxC || FG < 1 || FG > kTileFeatures ||
+      rows_per_block < 1 || S < 1)
+    return (int)cudaErrorInvalidValue;
   const long long total = (long long)F * B * C;
-  cudaMemsetAsync(acc, 0, sizeof(long long) * total, stream);
-  size_t smem = sizeof(long long) * (size_t)FG * B * C;
-  cudaError_t err = cudaFuncSetAttribute(
-      rows_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int groups = (F + FG - 1) / FG;
-  int chunks = std::max(1, std::min(132 * 2 / groups,
-                                    (S + kRowsPerBlock - 1) / kRowsPerBlock));
-  int rows_per_block = (S + chunks - 1) / chunks;
+  const int chunks = (S + rows_per_block - 1) / rows_per_block;
+  if (chunks > 1)
+    cudaMemsetAsync(acc, 0, sizeof(long long) * total, stream);
+  const size_t smem = sizeof(long long) * (size_t)FG * B * C;
+  if ((int)smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        rows_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = (int)smem;
+  }
   dim3 grid(chunks, groups);
   rows_hist_kernel<<<grid, kThreads, smem, stream>>>(
       (const uint8_t*)rows, (const float*)gh, (const float*)mask,
       (const int*)exps, S, F, B, C, FG, rows_per_block, (long long*)acc);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || hist == nullptr) return (int)err;
   long long g = std::min((total + kThreads - 1) / kThreads, 132LL * 16);
   finish_kernel<<<(int)std::max(g, 1LL), kThreads, 0, stream>>>(

@@ -35,9 +35,19 @@ that holds no row of a leaf is exactly 0 (`find_best_split`'s
 
 `build_histogram` (the segment method, `index_add_` in float32) is the
 plain single-leaf oracle the tests hold the other histograms against.
+
+Launch plans.  K1 and K4 take their shapes from the planners here
+(`wave_part_plan`, `rows_plan`), which the CPU tests check.  K1
+partitions the computed rows by slot on the card and walks work items
+of (slot, feature group, at most R rows).  It reads the feature-major
+bins only: its partition pass transposes each computed row into a
+packed row-major copy, so the row-major `binned_rm` that K3 and K4 read
+is not needed.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -86,9 +96,9 @@ def wave_slot_pad(num_slots: int) -> int:
 
 def wave_tile(num_features: int, max_bin: int, num_slots: int, C: int,
               cell_bytes: int = 8):
-    """(slot group, feature group) of one K1 block's shared-memory tile:
-    SG * FG * B * C histogram cells plus SG counts (8-byte fixed-point
-    cells; K2 passes cell_bytes=4 for its int32 cells)."""
+    """(slot group, feature group) of one K2 block's shared-memory tile:
+    SG * FG * B * C histogram cells plus SG counts (K2's int32 cells pass
+    cell_bytes=4)."""
     cb = cell_bytes
     SG = min(num_slots, SMEM_LIMIT // (max_bin * C * cb + cb))
     FG = min(num_features, (SMEM_LIMIT - cb * SG) // (SG * max_bin * C * cb))
@@ -105,13 +115,79 @@ def hl_feature_group(num_features: int, max_bin: int, num_slots: int,
                (SMEM_LIMIT - 8 * num_slots) // (num_slots * max_bin * C * 8))
 
 
-def rows_feature_group(num_features: int, max_bin: int, C: int) -> int:
-    """Features per K4 block: FG * B * C int64 cells in shared memory."""
-    FG = min(num_features, SMEM_LIMIT // (max_bin * C * 8))
-    if FG < 1:
+# K1 and K4 tiles: (features x B x C) int64 cells plus one count cell in
+# at most this many bytes, so several blocks share an SM.
+TILE_BYTES = 32 * 1024
+TILE_FEATURES = 8    # most features of one tile (kTileFeatures)
+UNIT_ROWS = 512      # rows of one warp's chunk in K1's partition passes
+PART_WARPS = 8       # warps of one partition block, where they fit
+K4_MIN_ROWS = 512    # K4: rows of one block at least
+K4_BLOCKS = 2048     # K4: blocks aimed at for large segments
+
+
+def tile_feature_group(num_features: int, max_bin: int, C: int) -> int:
+    """Features per K1 work item and per K4 block: the fewest equal
+    groups of at most TILE_FEATURES whose (FG x B x C) int64 tile and
+    count cell fit TILE_BYTES (one feature per group, up to SMEM_LIMIT,
+    where not even one fits)."""
+    per = max_bin * C * 8
+    fg_max = min(TILE_FEATURES, (TILE_BYTES - 8) // per)
+    if fg_max < 1:
+        fg_max = 1 if per + 8 <= SMEM_LIMIT else 0
+    if fg_max < 1:
         raise ValueError(f"max_bin={max_bin} with {C} channels does not fit "
-                         "the single-leaf kernel's shared-memory tile")
-    return FG
+                         "the kernel's shared-memory tile")
+    groups = -(-num_features // fg_max)
+    return -(-num_features // groups)
+
+
+class WavePlan(NamedTuple):
+    """K1's launch plan: PW warps per partition block (each keeps NL
+    int32 counters in shared memory); FG features and at most R rows per
+    work item; U warp units of UR rows in the partition; rows
+    packed at Fp bytes and fixed-point gh at QS int64s per row; bytes of
+    scratch, of a histogram tile and of a partition block's counters."""
+    PW: int
+    FG: int
+    R: int
+    UR: int
+    U: int
+    Fp: int
+    QS: int
+    scratch_bytes: int
+    tile_bytes: int
+    part_smem: int
+
+
+def wave_part_plan(n: int, num_features: int, max_bin: int, C: int,
+                   num_slots: int) -> WavePlan:
+    """K1's plan (`wave_hist.cu` wave_hist_f32 and wave_part_scratch use
+    the same layout)."""
+    FG = tile_feature_group(num_features, max_bin, C)
+    R = min(4096, max(256, n // 1024))
+    U = -(-n // UNIT_ROWS)
+    Fp = -(-num_features // 16) * 16
+    QS = (C + 2) // 2 * 2
+    ints = num_slots * U + num_slots + 2 * (num_slots + 1)
+    scratch = (-(-ints * 4 // 256) * 256 + -(-n * Fp // 256) * 256
+               + n * QS * 8)
+    PW = min(PART_WARPS, SMEM_LIMIT // (4 * num_slots))
+    if PW < 1:
+        raise ValueError(f"{num_slots} slots exceed the partition's shared "
+                         "memory")
+    return WavePlan(PW, FG, R, UNIT_ROWS, U, Fp, QS, scratch,
+                    8 * (FG * max_bin * C + 1), 4 * PW * num_slots)
+
+
+def rows_plan(S: int, num_features: int, max_bin: int, C: int):
+    """K4's launch plan (FG, rows_per_block): feature groups from the
+    tile budget, and row chunks of at least K4_MIN_ROWS rows (a multiple
+    of 512) sized so that about K4_BLOCKS blocks cover a large segment."""
+    FG = tile_feature_group(num_features, max_bin, C)
+    groups = -(-num_features // FG)
+    per = -(-S // max(1, K4_BLOCKS // groups))
+    R = max(K4_MIN_ROWS, -(-per // 512) * 512)
+    return FG, R
 
 
 # --------------------------------------------------------------- fixed point
@@ -320,28 +396,38 @@ def build_histogram_rows_plain(rows: torch.Tensor, gh: torch.Tensor,
 
 
 # ------------------------------------------------------------ kernel launches
+def _launch(dev, fn, *args):
+    """Call the C entry point `fn(*args, stream)` on `dev`'s current
+    stream; the kernels launch on the thread's current device, switched
+    to `dev` only where it differs."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
 def _launch_wave(binned_fm, slot, gh, exps, max_bin, num_slots, finish):
     """K1 on the card: float32 (hist, counts) when `finish`, else the
     int64 sums."""
     F, n = binned_fm.shape
     C = gh.shape[1] - 1
-    SG, FG = wave_tile(F, max_bin, num_slots, C)
+    plan = wave_part_plan(n, F, max_bin, C, num_slots)
     dev = gh.device
     acc = torch.empty((num_slots, F, max_bin, C), dtype=torch.int64,
                       device=dev)
     cnt_acc = torch.empty(num_slots, dtype=torch.int64, device=dev)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
     hist = counts = None
     if finish:
         hist = torch.empty((num_slots, F, max_bin, C), dtype=torch.float32,
                            device=dev)
         counts = torch.empty(num_slots, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.lib().wave_hist_f32(
-            binned_fm.data_ptr(), slot.data_ptr(), gh.data_ptr(),
-            exps.data_ptr(), n, F, max_bin, C, num_slots, SG, FG,
-            acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist), _ptr(counts),
-            stream)
+    err = _launch(
+        dev, _kernels.lib().wave_hist_f32, binned_fm.data_ptr(),
+        slot.data_ptr(), gh.data_ptr(), exps.data_ptr(), n, F, max_bin, C,
+        num_slots, plan.UR, plan.PW, plan.FG, plan.R, scratch.data_ptr(),
+        plan.scratch_bytes, acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist),
+        _ptr(counts))
     _kernels.check(err, "wave_hist_f32")
     build_histogram_wave.launches += 1
     return (hist, counts) if finish else (acc, cnt_acc)
@@ -363,13 +449,11 @@ def _launch_wave_int(binned_fm, slot, gh, scales, max_bin, num_slots,
         hist = torch.empty((num_slots, F, max_bin, C), dtype=torch.float32,
                            device=dev)
         counts = torch.empty(num_slots, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.lib().wave_hist_i32(
-            binned_fm.data_ptr(), slot.data_ptr(), gh.data_ptr(),
-            scales.data_ptr(), n, F, max_bin, C, num_slots, SG, FG,
-            acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist), _ptr(counts),
-            stream)
+    err = _launch(
+        dev, _kernels.lib().wave_hist_i32, binned_fm.data_ptr(),
+        slot.data_ptr(), gh.data_ptr(), scales.data_ptr(), n, F, max_bin, C,
+        num_slots, SG, FG, acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist),
+        _ptr(counts))
     _kernels.check(err, "wave_hist_i32")
     build_histogram_wave_int.launches += 1
     if finish:
@@ -392,13 +476,11 @@ def _launch_wave_hl(binned_rm, slot, gh, exps, max_bin, num_slots,
         hist = torch.empty((out_slots, F, max_bin, C), dtype=torch.float32,
                            device=dev)
         counts = torch.empty(out_slots, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.lib().wave_hist_hl_f32(
-            binned_rm.data_ptr(), slot.data_ptr(), gh.data_ptr(),
-            exps.data_ptr(), n, F, max_bin, C, num_slots, out_slots, FG,
-            acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist), _ptr(counts),
-            stream)
+    err = _launch(
+        dev, _kernels.lib().wave_hist_hl_f32, binned_rm.data_ptr(),
+        slot.data_ptr(), gh.data_ptr(), exps.data_ptr(), n, F, max_bin, C,
+        num_slots, out_slots, FG, acc.data_ptr(), cnt_acc.data_ptr(),
+        _ptr(hist), _ptr(counts))
     _kernels.check(err, "wave_hist_hl_f32")
     build_histogram_wave_hl.launches += 1
     return (hist, counts) if finish else (acc, cnt_acc)
@@ -408,16 +490,15 @@ def _launch_rows(rows, gh, mask, exps, max_bin, finish):
     """K4 on the card: float32 [F, B, C] when `finish`, else int64."""
     S, F = rows.shape
     C = gh.shape[1]
-    FG = rows_feature_group(F, max_bin, C)
+    FG, R = rows_plan(S, F, max_bin, C)
     dev = gh.device
     acc = torch.empty((F, max_bin, C), dtype=torch.int64, device=dev)
     hist = (torch.empty((F, max_bin, C), dtype=torch.float32, device=dev)
             if finish else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels.lib("rows_hist.cu").rows_hist_f32(
-            rows.data_ptr(), gh.data_ptr(), mask.data_ptr(), exps.data_ptr(),
-            S, F, max_bin, C, FG, acc.data_ptr(), _ptr(hist), stream)
+    err = _launch(
+        dev, _kernels.lib("rows_hist.cu").rows_hist_f32, rows.data_ptr(),
+        gh.data_ptr(), mask.data_ptr(), exps.data_ptr(), S, F, max_bin, C,
+        FG, R, acc.data_ptr(), _ptr(hist))
     _kernels.check(err, "rows_hist_f32")
     build_histogram_rows_pallas.launches += 1
     return hist if finish else acc

@@ -11,6 +11,8 @@ the two must agree exactly; on unsnapped data they agree within rtol
 1e-5 (float32 summation order).
 """
 
+import bisect
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -293,3 +295,147 @@ def test_fixed_wave_variants_convert_to_the_entry_points():
                         th.build_histogram_wave_hl.launches,
                         th.build_histogram_wave_int.launches,
                         th.build_histogram_rows_pallas.launches)
+
+
+# ------------------------------------------- K1's partition and K4's plan
+def _slot_partition_plain(slot: torch.Tensor, num_slots: int):
+    """The partition K1 makes on the card, in plain torch (bincount +
+    stable sort): (perm, counts, starts) with perm [m] the computed rows
+    (slot in [0, num_slots)) grouped by slot, counts [NL] int64 and
+    starts [NL + 1] int64 the segment bounds.  Within a slot the rows
+    stand in row order; the kernel's scatter keeps another fixed order
+    inside each 128-row warp step, which the integer sums do not see."""
+    s = slot.to(torch.int64)
+    valid = (s >= 0) & (s < num_slots)
+    counts = torch.bincount(s[valid], minlength=num_slots)
+    key = torch.where(valid, s, num_slots)
+    perm = torch.sort(key, stable=True).indices[:int(valid.sum())]
+    starts = torch.zeros(num_slots + 1, dtype=torch.int64,
+                         device=slot.device)
+    starts[1:] = torch.cumsum(counts, 0)
+    return perm, counts, starts
+
+
+def _wave_part_items(counts, num_features: int, FG: int, R: int):
+    """K1's work items in the kernel's order, decoded as
+    `wave_part_hist_kernel` (wave_hist.cu) decodes them, from the plan's
+    FG and R: item k * G + g is feature group g of chunk k, and chunk
+    k is the (k - chunk[s])-th R-row piece of slot s's segment.  Returns
+    (slot, f0, fg, a, b, owner) per item, rows [a, b) of the slot-grouped
+    order; `owner` marks a slot of one chunk (its block stores)."""
+    counts = [int(c) for c in counts]
+    NL = len(counts)
+    seg = [0] * (NL + 1)
+    chunk = [0] * (NL + 1)
+    for s, c in enumerate(counts):
+        seg[s + 1] = seg[s] + c
+        chunk[s + 1] = chunk[s] + -(-c // R)
+    G = -(-num_features // FG)
+    items = []
+    for it in range(chunk[NL] * G):
+        k, g = divmod(it, G)
+        s = bisect.bisect_right(chunk, k) - 1
+        a = seg[s] + (k - chunk[s]) * R
+        b = min(seg[s + 1], a + R)
+        f0 = g * FG
+        items.append((s, f0, min(FG, num_features - f0), a, b,
+                      chunk[s + 1] - chunk[s] == 1))
+    return items
+
+
+def _slot_case(case, n=4096, NL=16, seed=0):
+    """Slot vectors the partition must survive: computed rows spread
+    evenly, one slot holding 90% of the rows, most slots empty, every
+    row on the sentinel (or below 0, which also matches nothing)."""
+    rng = np.random.RandomState(seed)
+    slot = rng.randint(0, 2 * NL, size=n)
+    if case == "one_slot_90":
+        slot = np.where(rng.rand(n) < 0.9, 3, slot)
+    elif case == "empty_slots":
+        slot = np.where(slot % 5 == 0, slot % 2 * 5, SENTINEL)
+    elif case == "all_sentinel":
+        slot = np.where(slot % 2 == 0, SENTINEL, -1)
+    slot = np.where(slot < NL, slot, SENTINEL)
+    return slot.astype(np.int32)
+
+
+CASES = ["even", "one_slot_90", "empty_slots", "all_sentinel"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_slot_partition_counts_match_jax(case):
+    """The plain partition (bincount + stable sort) groups the computed
+    rows by slot in row order; its per-slot counts are the JAX package's
+    counts (`_hist_wave_xla` with an all-ones count column)."""
+    n, NL, F, B = 4096, 16, 3, 16
+    slot = _slot_case(case, n, NL, seed=5)
+    binned, _, gh = _mk(n, F, B, NL, seed=6)
+    gh[:, 2] = 1.0
+    perm, counts, starts = _slot_partition_plain(torch.from_numpy(slot),
+                                                   NL)
+    _, cj = _jax_wave(binned, slot, gh, B, NL)
+    np.testing.assert_array_equal(counts.numpy(), cj.astype(np.int64))
+    assert int(starts[-1]) == perm.numel() == int(counts.sum())
+    for s in range(NL):
+        seg = perm[starts[s]:starts[s + 1]].numpy()
+        assert np.all(slot[seg] == s) and np.all(np.diff(seg) > 0)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("F,B", [(28, 255), (5, 63), (40, 16)])
+def test_wave_part_items_cover_each_cell_once(case, F, B):
+    """K1's work items, cut from the plan's FG and R, cover every (slot,
+    feature, computed row) exactly once, each within one slot and at
+    most R rows, and the plan's tiles fit.  The kernel's own decoding is
+    held bit for bit against the plain version on the card
+    (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
+    n, NL = 8192, 16
+    slot = _slot_case(case, n, NL, seed=F + B)
+    plan = th.wave_part_plan(n, F, B, 2, NL)
+    assert plan.tile_bytes <= th.SMEM_LIMIT
+    assert plan.part_smem <= th.SMEM_LIMIT
+    perm, counts, starts = _slot_partition_plain(torch.from_numpy(slot),
+                                                   NL)
+    items = _wave_part_items(counts.tolist(), F, plan.FG, plan.R)
+    cover = np.zeros((perm.numel(), F), np.int64)
+    for s, f0, fg, a, b, owner in items:
+        assert 0 < b - a <= plan.R and 1 <= fg <= plan.FG
+        assert starts[s] <= a and b <= starts[s + 1]
+        assert owner == (int(counts[s]) <= plan.R)
+        cover[a:b, f0:f0 + fg] += 1
+    assert np.all(cover == 1)
+    if case == "all_sentinel":
+        assert items == [] and perm.numel() == 0
+
+
+@pytest.mark.parametrize("NL", [1, 8, 384, 7264, 58112])
+def test_wave_part_plan_sizes(NL):
+    """K1's plan at the main path's widths: 7-feature items (4 groups,
+    28.5 KB tiles, several blocks per SM), the partition's per-warp slot
+    counters in shared memory (fewer warps where many slots), and the
+    scratch the C entry asks for."""
+    n = 1 << 20
+    plan = th.wave_part_plan(n, 28, 255, 2, NL)
+    assert (plan.FG, plan.R, plan.U) == (7, 1024, n // th.UNIT_ROWS)
+    assert plan.tile_bytes == 8 * (7 * 255 * 2 + 1) <= th.TILE_BYTES
+    assert 1 <= plan.PW <= th.PART_WARPS
+    assert plan.part_smem <= th.SMEM_LIMIT
+    assert plan.scratch_bytes >= n * (32 + 32) + 4 * NL * plan.U
+    with pytest.raises(ValueError):
+        th.wave_part_plan(n, 28, 255, 2, th.SMEM_LIMIT // 4 + 1)
+
+
+@pytest.mark.parametrize("S", [512, 4096, 65536, 1 << 20])
+@pytest.mark.parametrize("F,B", [(28, 255), (3, 16), (50, 255)])
+def test_rows_plan_covers_segment(S, F, B):
+    """K4's grid covers every (feature, row) of the segment once, its
+    tiles fit, and small segments spread over several blocks."""
+    FG, R = th.rows_plan(S, F, B, 2)
+    groups, chunks = -(-F // FG), -(-S // R)
+    assert 8 * FG * B * 2 <= th.TILE_BYTES
+    assert R % 512 == 0 and chunks * R >= S > (chunks - 1) * R
+    assert groups * FG >= F > (groups - 1) * FG
+    if (S, F, B) == (4096, 28, 255):
+        assert groups * chunks >= 16
+    if (F, B) == (28, 255):
+        assert groups * chunks <= th.K4_BLOCKS

@@ -133,3 +133,78 @@ def test_k4_matches_plain_and_repeats(S):
     pi = th.build_histogram_rows_plain(rows, g, m, max_bin=255, exps=e,
                                        fixed=True)
     assert torch.equal(k, k2) and torch.equal(k, p) and torch.equal(ki, pi)
+
+
+def _slots(case, n, NL, seed):
+    """Slot vectors K1's partition must survive: leaf sizes like the main
+    path's (slot s takes a share ~ 1 / (s + 1)), one slot holding 90% of
+    the rows, every row on the sentinel."""
+    rng = np.random.RandomState(seed)
+    if case == "uneven":
+        w = 1.0 / np.arange(1, NL + 1)
+        slot = rng.choice(NL, size=n, p=w / w.sum())
+    elif case == "one_slot_90":
+        slot = np.where(rng.rand(n) < 0.9, 3, rng.randint(0, NL, size=n))
+    else:
+        slot = np.full(n, SENTINEL)
+    slot = np.where(rng.rand(n) < 0.5, SENTINEL, slot)
+    return slot.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,NL", [("uneven", 16384, 384),
+                                       ("one_slot_90", 8704, 16),
+                                       ("all_sentinel", 8192, 8),
+                                       ("uneven", 8704, 128)])
+def test_k1_partition_shapes(case, n, NL):
+    """K1 on uneven slots, on n that is no multiple of its partition
+    chunks (8,704 rows) and on an all-sentinel wave: the int64 sums equal
+    the plain version's, repeat, and each call launches the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    binned, _, gh = _inputs(n, 28, 255, NL, seed=n + NL)
+    b, g = torch.from_numpy(binned).to(dev), torch.from_numpy(gh).to(dev)
+    s = torch.from_numpy(_slots(case, n, NL, seed=NL)).to(dev)
+    e = th.scale_exps(g)
+    launches = th.build_histogram_wave.launches
+    k = th.build_histogram_wave_fixed(b, s, g, e, max_bin=255, num_slots=NL)
+    k2 = th.build_histogram_wave_fixed(b, s, g, e, max_bin=255,
+                                       num_slots=NL)
+    assert th.build_histogram_wave.launches == launches + 2
+    p = th.build_histogram_wave_plain(b, s, g, max_bin=255, num_slots=NL,
+                                      exps=e, fixed=True)
+    for x, y in ((k, k2), (k, p)):
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,hot,full", [(512, False, False),
+                                        (4096, True, False),
+                                        (65536, True, False),
+                                        (4096, True, True),
+                                        (65536, True, True)])
+def test_k4_segment_shapes(S, hot, full):
+    """K4 on the one-tile segment and on segments whose rows all fall in
+    one bin of every feature (the hot cell), with half the rows masked
+    off or with every row in the mask (each add lands on the same F
+    cells): bit-identical to the plain version and on repeats."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device("cuda")
+    binned, _, gh = _inputs(S, 28, 255, 8, seed=S)
+    rows = np.ascontiguousarray(binned.T)
+    if hot:
+        rows[:] = 17
+    r = torch.from_numpy(rows).to(dev)
+    g = torch.from_numpy(gh[:, :2].copy()).to(dev)
+    m = np.random.RandomState(S).rand(S) < 0.5
+    m = torch.from_numpy((m | full).astype(np.float32)).to(dev)
+    e = th.scale_exps(g)
+    launches = th.build_histogram_rows_pallas.launches
+    k = th.build_histogram_rows_fixed(r, g, m, e, max_bin=255)
+    k2 = th.build_histogram_rows_fixed(r, g, m, e, max_bin=255)
+    assert th.build_histogram_rows_pallas.launches == launches + 2
+    p = th.build_histogram_rows_plain(r, g, m, max_bin=255, exps=e,
+                                      fixed=True)
+    assert torch.equal(k, k2) and torch.equal(k, p)
