@@ -7,7 +7,8 @@ Phases, each printing one JSON line:
   2. build: compile every kernel source of lightgbm_tpu_torch/ops/csrc,
      then one `resources` line per source: each kernel's registers,
      static shared memory, stack frame and spills (`ptxas -v`) and the
-     atomic opcodes of its SASS (`cuobjdump -sass`);
+     atomic opcodes of its SASS (`cuobjdump -sass`); a kernel whose SASS
+     holds `ATOMS.CAST` (a compare-and-swap loop) fails the run;
   3. main path: `Booster` updates with the bench workload (binary logloss,
      make_higgs_like(1_000_000, 28), 255 leaves, 255 bins, 13 iterations)
      on the card; held-out AUC >= 0.72 and K1 and K3 launched;
@@ -26,10 +27,15 @@ Phases, each printing one JSON line:
      slots on n = 2^20 rows (half on the sentinel), at 384 slots of
      uneven sizes (slot s takes a share ~ 1 / (s + 1)) and at 128 slots
      on n = 999,936 rows (no multiple of K1's chunks); K3 at 1/2/4/8
-     computed slots; K2 at 16/128/256 slots on quantized gh; K4 at S =
-     512, 4,096, 65,536 and 2^20 rows (half in the mask) and on 4,096-
-     and 65,536-row segments whose rows all fall in one bin of every
-     feature (the hot cell), with half the rows in the mask or all.
+     computed slots (K1 at the same slots is its yardstick) and at 1/8
+     slots with every row in one bin of every feature (the hot cell);
+     K2 at 1/2/4/8/16/128/256 slots on quantized gh and hot at 8/256;
+     K4 at S = 512, 4,096, 65,536 and 2^20 rows (half in the mask) and
+     on 4,096- and 65,536-row hot-cell segments, with half the rows in
+     the mask or all.  Then `sweep` lines (skipped where the checkout's
+     kernels predate them): the streaming kernel (K3, K2 at few slots)
+     at three tile budgets, and K2 on both routes at 4/8/16 slots, the
+     choice of K2_FEW_SLOTS.
      Every kernel's output must equal its plain PyTorch version's bit
      for bit (all four sum exact integers) and repeat bit for bit on a
      second launch, and each call must advance the kernel's launch count
@@ -182,13 +188,17 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_inputs(num_slots, dev, seed, n=N_KERNEL, uneven=False):
+def kernel_inputs(num_slots, dev, seed, n=N_KERNEL, uneven=False,
+                  hot=False):
     """Main-path-shaped inputs: half the rows in computed slots (the
     smaller children), the rest on the sentinel slot.  `uneven` gives
     the slots the main path's leaf sizes: slot s takes a share
-    proportional to 1 / (s + 1), so one slot is large and most small."""
+    proportional to 1 / (s + 1), so one slot is large and most small.
+    `hot` puts every row in bin 17 of every feature (the hot cell)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     binned = torch.randint(0, B, (F, n), generator=g, dtype=torch.uint8)
+    if hot:
+        binned.fill_(17)
     if uneven:
         w = 1.0 / torch.arange(1, num_slots + 1, dtype=torch.float64)
         slot = torch.multinomial(w, n, replacement=True,
@@ -280,6 +290,15 @@ K1_SHAPES = [(1, False, N_KERNEL), (2, False, N_KERNEL),
              (128, False, N_ODD)]
 
 
+# K3 shapes: (computed slots, hot cell)
+K3_SHAPES = [(1, False), (2, False), (4, False), (8, False), (1, True),
+             (8, True)]
+# K2 shapes: (slots, hot cell); up to K2_FEW_SLOTS slots the streaming
+# kernel, above it the partition
+K2_SHAPES = [(1, False), (2, False), (4, False), (8, False), (16, False),
+             (128, False), (256, False), (8, True), (256, True)]
+
+
 def phase_kernels(H, dev):
     results = {}
     for NL, uneven, n in K1_SHAPES:
@@ -295,8 +314,9 @@ def phase_kernels(H, dev):
             "K1", H.build_histogram_wave, k, p, lib, num_slots=NL,
             uneven=uneven, rows=n, bound_ms=bound, bound_by=by)
         del lib
-    for Ks in (1, 2, 4, 8):
-        binned, binned_rm, slot, gh = kernel_inputs(Ks, dev, seed=100 + Ks)
+    for Ks, hot in K3_SHAPES:
+        binned, binned_rm, slot, gh = kernel_inputs(Ks, dev, seed=100 + Ks,
+                                                    hot=hot)
         Kb = H.wave_slot_pad(Ks)
         k = functools.partial(H.build_histogram_wave_hl, binned, binned_rm,
                               slot, gh, max_bin=B, num_slots=Ks,
@@ -306,9 +326,9 @@ def phase_kernels(H, dev):
                               out_slots=Kb)
         lib, rows_in = wave_yardstick(binned, slot, gh, Ks, dev)
         bound, by = bound_of(F * N_KERNEL, N_KERNEL, Kb, rows_in)
-        results[("K3", Ks)] = kernel_row(
+        results[("K3", Ks, hot)] = kernel_row(
             "K3", H.build_histogram_wave_hl, k, p, lib, num_slots=Ks,
-            out_slots=Kb, bound_ms=bound, bound_by=by)
+            out_slots=Kb, hot_cell=hot, bound_ms=bound, bound_by=by)
         del lib
     return results
 
@@ -343,8 +363,8 @@ K4_SHAPES = [(512, False, False), (4096, False, False),
 
 def phase_kernels_k2_k4(H, dev):
     results = {}
-    for NL in (16, 128, 256):
-        binned, _, slot, _ = kernel_inputs(NL, dev, seed=200 + NL)
+    for NL, hot in K2_SHAPES:
+        binned, _, slot, _ = kernel_inputs(NL, dev, seed=200 + NL, hot=hot)
         gh, scales = quantized_gh(N_KERNEL,
                                   torch.Generator().manual_seed(NL))
         gh, scales = gh.to(dev), scales.to(dev)
@@ -357,9 +377,9 @@ def phase_kernels_k2_k4(H, dev):
             binned, slot, gh, NL, dev,
             vals_of=lambda v: torch.round(v[:, :C] / scales).to(torch.int64))
         bound, by = bound_of(F * N_KERNEL, N_KERNEL, NL, rows_in)
-        results[("K2", NL)] = kernel_row(
+        results[("K2", NL, hot)] = kernel_row(
             "K2", H.build_histogram_wave_int, k, p, lib, num_slots=NL,
-            bound_ms=bound, bound_by=by)
+            hot_cell=hot, bound_ms=bound, bound_by=by)
         del lib
     for S, hot, full in K4_SHAPES:
         g = torch.Generator().manual_seed(S + hot)
@@ -404,6 +424,69 @@ def phase_kernels_k2_k4(H, dev):
               "kernel_ms_by_name": per})
         del ids, vals, lib_out
     return results
+
+
+SWEEP_BUDGETS = (64 * 1024, None, 200 * 1024)   # None: the default
+
+
+def phase_sweep(H, dev):
+    """The streaming kernel's tile budget (K3 at 1 and 8 slots, K2's few
+    route at 8) and K2's route boundary (streaming kernel against the
+    partition at 4/8/16 slots), on the kernel phase's inputs: each
+    variant checked bit for bit against the plain version, then its
+    device time per call (torch.profiler) and event time.  Checkouts
+    whose kernels predate the streaming kernel skip it."""
+    if not hasattr(H, "wave_few_plan"):
+        return
+    for name, Ks, cb in (("K3", 1, 8), ("K3", 8, 8), ("K2", 8, 4)):
+        binned, _, slot, gh = kernel_inputs(Ks, dev, seed=300 + Ks)
+        Kb = H.wave_slot_pad(Ks)
+        if name == "K2":
+            gh, scales = quantized_gh(N_KERNEL,
+                                      torch.Generator().manual_seed(Ks))
+            gh, scales = gh.to(dev), scales.to(dev)
+            ref = H.build_histogram_wave_int_plain(
+                binned, slot, gh, scales, max_bin=B, num_slots=Ks,
+                fixed=True)
+        else:
+            e = H.scale_exps(gh)
+            ref = H.build_histogram_wave_hl_plain(
+                binned, binned.t(), slot, gh, max_bin=B, num_slots=Ks,
+                out_slots=Kb, exps=e, fixed=True)
+        for budget in SWEEP_BUDGETS:
+            budget = budget or H.FEW_TILE_BYTES
+            plan = H.wave_few_plan(F, B, C, Ks, cb, budget)
+            if name == "K2":
+                fn = functools.partial(H._launch_wave_int, binned, slot, gh,
+                                       scales, B, Ks, False, few=True,
+                                       tile_budget=budget)
+            else:
+                fn = functools.partial(H._launch_wave_hl, binned, slot, gh,
+                                       e, B, Ks, Kb, False,
+                                       tile_budget=budget)
+            same(f"{name} {Ks} slots, budget {budget}", fn(), ref)
+            total, _ = device_ms(fn)
+            emit({"phase": "sweep", "kernel": name, "num_slots": Ks,
+                  "tile_budget": budget, "FG": plan.FG,
+                  "tile_bytes": plan.tile_bytes,
+                  "blocks_per_sm_by_smem": plan.blocks_per_sm,
+                  "kernel_ms": total, "ms": cuda_ms(fn)})
+    for NL in (4, 8, 16):
+        binned, _, slot, _ = kernel_inputs(NL, dev, seed=400 + NL)
+        gh, scales = quantized_gh(N_KERNEL, torch.Generator().manual_seed(NL))
+        gh, scales = gh.to(dev), scales.to(dev)
+        ref = H.build_histogram_wave_int_plain(binned, slot, gh, scales,
+                                               max_bin=B, num_slots=NL,
+                                               fixed=True)
+        for few in (True, False):
+            fn = functools.partial(H._launch_wave_int, binned, slot, gh,
+                                   scales, B, NL, False, few=few)
+            same(f"K2 {NL} slots, few={few}", fn(), ref)
+            total, per = device_ms(fn)
+            emit({"phase": "sweep", "kernel": "K2", "num_slots": NL,
+                  "route": "streaming" if few else "partition",
+                  "kernel_ms": total, "kernel_ms_by_name": per,
+                  "ms": cuda_ms(fn), "K2_FEW_SLOTS": H.K2_FEW_SLOTS})
 
 
 def launch_counts(H):
@@ -571,6 +654,7 @@ def main(argv) -> int:
     if kernels_only:
         phase_kernels(H, dev)
         phase_kernels_k2_k4(H, dev)
+        phase_sweep(H, dev)
         print(card, flush=True)
         return 0
     # per kernel: registers, shared memory, stack and spills (ptxas -v)
@@ -582,6 +666,11 @@ def main(argv) -> int:
             re.sub(r"^_ZN\w*?_cu_[0-9a-f]+\d+", "", fn): {
                 **usage.get(fn, {}), "sass_atomics": atomics.get(fn, [])}
             for fn in sorted(set(usage) | set(atomics))}})
+        cas = sorted(fn for fn, ops in atomics.items()
+                     if any(op.startswith("ATOMS.CAST") for op in ops))
+        if cas:
+            raise AssertionError(f"{src}: compare-and-swap shared atomics "
+                                 f"(ATOMS.CAST) in {cas}")
 
     launches = phase_paths(lgb, H, global_timer)
     for name, extra in (("main_path", {}),
@@ -591,21 +680,23 @@ def main(argv) -> int:
         phase_card_vs_cpu(lgb, name, extra)
     per_shape = phase_kernels(H, dev)
     per_shape.update(phase_kernels_k2_k4(H, dev))
+    phase_sweep(H, dev)
 
     csrc = "lightgbm_tpu_torch/ops/csrc/"
     hist_py = "lightgbm_tpu/ops/histogram.py"
     entries = []
     for name, key, path, src, replaces in (
-            ("K1 slot-partitioned wave_part_hist_kernel "
+            ("K1 slot-partitioned wave_part_hist_kernel<FixedCells> "
              "(build_histogram_wave)", ("K1", 256, False, N_KERNEL),
              "main_path", "wave_hist.cu",
              f"{hist_py}:147 _wave_kernel (fp32), called at :499"),
-            ("K2 wave_hist_kernel<int32> (build_histogram_wave, "
-             "quant_scales)", ("K2", 256), "path_a_quantized",
-             "wave_hist.cu",
+            ("K2 wave_few_kernel<IntCells> up to K2_FEW_SLOTS slots, "
+             "slot-partitioned wave_part_hist_kernel<IntCells> above "
+             "(build_histogram_wave, quant_scales)", ("K2", 256, False),
+             "path_a_quantized", "wave_hist.cu",
              f"{hist_py}:147 _wave_kernel (int8 mode, :462-469, :517-520)"),
-            ("K3 wave_hist_hl_kernel (build_histogram_wave_hl)", ("K3", 8),
-             "main_path", "wave_hist.cu",
+            ("K3 wave_few_kernel<FixedCells> (build_histogram_wave_hl)",
+             ("K3", 8, False), "main_path", "wave_hist.cu",
              f"{hist_py}:237 _wave_kernel_hl, called at :369"),
             ("K4 rows_hist_kernel (build_histogram_rows_pallas)",
              ("K4", 1 << 20, False, False), "path_b_leafwise",
@@ -626,6 +717,11 @@ def main(argv) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "status": "ported",
             "shape": shape})
+        if key[0] == "K2":    # the streaming route at 8 slots
+            few = per_shape[("K2", 8, False)]
+            entries[-1]["few_slot_route"] = {
+                k: few[k] for k in ("num_slots", "ms", "kernel_ms",
+                                    "plain_ms", "library_ms", "bound_ms")}
     emit({"kernels": entries, "launches_by_path": launches})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,7 @@ from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
                        grow_tree_wave_impl)
 from ..models.tree import Tree
 from ..objective import ObjectiveFunction
-from ..ops.histogram import wave_part_plan, wave_slot_pad, wave_tile
+from ..ops.histogram import wave_part_plan, wave_slot_pad
 from ..ops.split import SplitParams, leaf_output
 from ..utils import log
 from ..utils import random as jrandom
@@ -163,12 +163,13 @@ def renew_leaf_values(leaf_value: torch.Tensor, leaf_id: torch.Tensor,
 
 def wave_fits(num_features: int, max_bin: int, num_leaves: int) -> bool:
     """The wave kernels' shared-memory tiles hold one slot's histograms of
-    one feature and K1's partition holds the slot counters (the analogue
-    of the JAX package's VMEM gate `wave_pallas_vmem_ok`)."""
-    NL = wave_slot_pad(num_leaves)
+    one feature and the partition holds the slot counters (the analogue
+    of the JAX package's VMEM gate `wave_pallas_vmem_ok`).  K1's 8-byte
+    cells are the widest, so its plan decides for K2 too."""
+    if num_features < 1:
+        return False
     try:
-        wave_tile(num_features, max_bin, NL, 2)
-        wave_part_plan(1, num_features, max_bin, 2, NL)
+        wave_part_plan(1, num_features, max_bin, 2, wave_slot_pad(num_leaves))
     except ValueError:
         return False
     return True
@@ -223,7 +224,6 @@ class GBDT:
         host = np.zeros((binned.shape[0], self.n_pad), np.uint8)
         host[:, :n] = binned
         self.binned_dev = torch.from_numpy(host).to(dev)
-        self.binned_rm_dev = self.binned_dev.t().contiguous()
         # the dataset's device-bins slot now holds the padded device copy
         train_data.binned = self.binned_dev
         pad = np.zeros(self.n_pad, np.float32)
@@ -287,6 +287,9 @@ class GBDT:
                         and wave_fits(len(nb), max_b, config.num_leaves)
                         else "leafwise")
         self.growth_strategy = strategy
+        # only the leaf-wise engine's K4 reads a row-major copy
+        self.binned_rm_dev = (self.binned_dev.t().contiguous()
+                              if strategy == "leafwise" else None)
         self.col_mask = torch.ones(len(nb), dtype=torch.bool, device=dev)
 
         self.use_quant = config.use_quantized_grad
@@ -380,7 +383,6 @@ class GBDT:
                         arrays, leaf_id = grow_tree_wave_impl(
                             self.binned_dev, g_k, h_k, self.pad_mask,
                             self.col_mask, self.meta, self.grow_params,
-                            binned_rm=self.binned_rm_dev,
                             quant_scales=(qscales
                                           if self.grow_params.quant_bins > 0
                                           else None))

@@ -241,14 +241,13 @@ class _Best:
 def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                         hess: torch.Tensor, row_mask: torch.Tensor,
                         col_mask: torch.Tensor, meta: FeatureMeta,
-                        params: GrowParams, binned_rm: torch.Tensor = None,
+                        params: GrowParams,
                         quant_scales: torch.Tensor = None):
     """Grow one tree by waves.
 
     Args:
       binned: [F, n] uint8 feature-major bin codes (n a multiple of 512).
       grad, hess, row_mask: [n] float32.  col_mask: [F] bool.
-      binned_rm: optional [n, F] row-major copy (made here when None).
       quant_scales: [2] float32 (gradient, hessian) scales of quantized
         gradients; with params.quant_bins > 0 every wave's histograms go
         to K2 (ref: dense_bin.hpp:174 ConstructHistogramIntInner).
@@ -269,8 +268,6 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     # 2 histogram channels; the trailing column is the count mask
     gh = torch.stack([grad, hess, row_mask], dim=1).contiguous()
     use_int = params.quant_bins > 0 and quant_scales is not None
-    if binned_rm is None and not use_int:
-        binned_rm = binned.t().contiguous()
     # the tree's fixed-point grid (every histogram of the tree lies on it)
     # and the conversion the scan applies to the cached integer sums
     if use_int:
@@ -357,8 +354,10 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                     num_slots=Kb)
             elif (Ks is not None and wave_hl_profitable(B, Ks)
                     and wave_hl_fits(B, Ks)):
+                # K3 reads the feature-major bins; the JAX signature's
+                # row-major argument is checked for its shape only
                 H, cnt = build_histogram_wave_hl_fixed(
-                    binned, binned_rm, state["kslot"], gh, exps, max_bin=B,
+                    binned, binned.t(), state["kslot"], gh, exps, max_bin=B,
                     num_slots=Ks, out_slots=Kb)
             else:
                 H, cnt = build_histogram_wave_fixed(

@@ -40,8 +40,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "wave_hist_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                        _I, _P, _L, _P, _P, _P, _P, _P], _I),
-    "wave_hist_i32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P, _P], _I),
+    "wave_hist_i32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _P, _L, _P, _P, _P, _P, _P], _I),
     "wave_hist_hl_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _P, _P, _P, _P, _P], _I),
     "rows_hist_f32": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

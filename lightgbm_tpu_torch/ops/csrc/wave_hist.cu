@@ -9,46 +9,46 @@
 //   hist[s, f, b, c] = sum gh[r, c]   (c < C)      counts[s] = sum gh[r, C]
 // where slots outside [0, num_slots) match nothing (the sentinel).
 //
-// Design.  The Pallas kernels build bin one-hots and contract them on the
-// MXU because a TPU has no per-lane scatter.  Hopper has shared-memory
-// atomics, so each block privatizes a tile of histograms in shared memory
-// (the shape of the reference's cuda_histogram_constructor.cu:18-230),
-// adds its rows into it, and adds the tile to the device result.
+// Design.  The Pallas kernels contract bin one-hots on the MXU because a
+// TPU has no per-lane scatter.  Hopper has shared-memory atomics: each
+// block adds its rows into a tile of histograms in shared memory (the
+// shape of the reference's cuda_histogram_constructor.cu:18-230) and adds
+// the tile's non-zero cells to the int64 device result.  Two pipelines,
+// each templated on the tile's cell type:
+// * Slot-partitioned (K1; K2 at many slots).  A counting sort groups the
+//   computed rows by slot (count per warp chunk, scan, scatter) into a
+//   packed row-major copy of their bins and their per-channel values; a
+//   persistent grid then walks work items (slot, feature group, at most R
+//   rows), so each computed row is read once per feature group whatever
+//   the number of slots, and uneven leaves split into even items.
+// * Streaming (K3; K2 at few slots).  Grid (row chunk x feature group),
+//   every computed slot of the group's features in one tile.  A warp loads
+//   128 consecutive rows a step: slots as one int4 a lane, 4 rows of one
+//   feature's bins as one coalesced word a lane, gh as float4s; sentinel
+//   rows cost their loads and no adds.  Tile budget (wave_few_plan in
+//   ops/histogram.py): each extra feature group re-reads slot and gh (16
+//   B a row, mostly from L2) and redoes the row's setup, each KB of tile
+//   costs resident warps; two 512-thread blocks of half an SM each.
 //
-// K1 is slot-partitioned.  A counting sort groups the computed rows by
-// slot (count per warp chunk, scan, scatter); the scatter transposes each
-// computed row's bins into a packed row-major copy and its gh into 64-bit
-// fixed point, so every later read is contiguous.  A persistent grid then
-// walks work items (slot, feature group, at most R rows of the slot), so
-// each computed row is read once per feature group, whatever the number
-// of slots, and uneven leaves split into even items.  K2 and K3 stream
-// every row through (slot group x feature group) tiles: K2 reads each row
-// once per tile, K3 (few slots, all in one tile) once per feature group.
+// Cells.  FixedCells (K1, K3): 64-bit fixed point, channel c scaled by
+// 2^(62 - E_c) with 2^E_c >= max|gh[:, c]| * n from the caller (one set
+// per tree in the engines, so sibling subtraction is exact; no partial sum
+// overflows).  A 64-bit shared atomicAdd compiles to a compare-and-swap
+// loop here, so each add is two native 32-bit atomics (add_pair).
+// IntCells (K2): k = rint(gh / scale) (float32 division, as the plain
+// version and the JAX package) in int32 cells, one native atomic an add;
+// a cell holds at most n * quant_bins < 2^31 (the caller's gate), and a
+// tile twice the features.  Device results are int64 (native 64-bit
+// global atomics), the form the engines' cache takes; the finish pass
+// converts to float32 (sum * 2^(E - 62) via float64, or float32(sum) *
+// scale).  Integer sums do not depend on the order of addition and the
+// scatter ranks rows by __match_any_sync, so results repeat run to run and
+// equal the plain versions' (int64 index_add_) bit for bit.
 //
-// Determinism.  K1 and K3 accumulate every value as 64-bit fixed point
-// with integer atomics, so the result does not depend on the order in
-// which threads and blocks add.  Channel c uses the scale 2^(62 - E_c),
-// where 2^E_c bounds max|gh[:, c]| * n; the caller passes E (one set per
-// tree in the engines, so sibling subtraction of the int64 sums is exact),
-// so no partial sum can overflow.  The optional finishing pass converts to
-// float32; without it the caller gets the int64 sums.  K2 recovers the
-// quantized integers k = rint(gh / scale) (float32 division, as the plain
-// version and the JAX package do) and sums them exactly in int32: the
-// caller's gate n * quant_bins < 2^31 rules out overflow.  Its cells are 4
-// bytes, so a block holds twice K1's (slot, feature) histograms.  Its
-// finish pass is float32(int_sum) * scale.  The plain PyTorch versions in
-// ops/histogram.py repeat this arithmetic with int64 index_add_, so kernel
-// and plain version agree bit for bit.  K1's scatter ranks the rows of a
-// warp by __match_any_sync, so the partition itself is deterministic too.
-//
-// Bound on this card.  Each call must read binned (F*n bytes; K3 reads the
-// row-major copy), slot (4n) and gh (4(C+1)n) once and write the float32
-// histograms: 44 MB at the main path's n = 2^20, F = 28, about 13 us at
-// 3.35 TB/s.  In practice the kernels are bound by shared-memory atomic
-// throughput (one 64-bit add per computed row, feature and channel).  A
-// 64-bit shared atomicAdd compiles to a compare-and-swap loop on this
-// card, so K1 adds each 64-bit value as two native 32-bit atomics, the
-// high word taking the carry of the low one (exact modulo 2^64).
+// Bound on this card.  A call must read binned (F*n bytes), slot (4n) and
+// gh (4(C+1)n) once and write the float32 histograms: 44 MB at n = 2^20,
+// F = 28, about 13 us at 3.35 TB/s.  The kernels are bound instead by
+// shared-memory atomics and latency and, at many slots, by the scatter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,187 +59,73 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kMaxC = 4;  // gh channels accumulated per bin (the wave engine uses 2)
+constexpr int kThreads = 512;      // finish passes
+constexpr int kHistThreads = 256;  // histogram, scan and plan blocks
+constexpr int kFewThreads = 512;   // streaming blocks, two to an SM
+constexpr int kMaxC = 4;  // gh channels per bin (the wave engine uses 2)
 
-// The quantized integer of a grid-snapped value: rint(v / scale).
-__device__ __forceinline__ int to_quant(float v, float scale) {
-  return (int)rintf(__fdiv_rn(v, scale));
-}
-
-// Cell adds: 64-bit fixed point (K1, K3) or int32 quantized sums (K2).
-__device__ __forceinline__ void cell_add(long long* p, long long v) {
-  atomicAdd(reinterpret_cast<unsigned long long*>(p),
-            static_cast<unsigned long long>(v));
-}
-__device__ __forceinline__ void cell_add(int* p, int v) { atomicAdd(p, v); }
-
-// Shared-memory tile: [SG slots][FG features][B bins][C] cells, then SG
-// slot counts.
-struct Tile {
-  int s0, SG, f0, FG;
-};
-
-template <typename T>
-__device__ __forceinline__ void zero_smem(T* sm, int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) sm[i] = 0;
-}
-
-template <typename T>
-__device__ __forceinline__ void flush_tile(const T* sm, const Tile& t, int F,
-                                           int B, int C, bool counts,
-                                           T* __restrict__ acc,
-                                           T* __restrict__ cnt_acc) {
-  const int per_slot = t.FG * B * C;
-  const int len = t.SG * per_slot;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    T v = sm[i];
-    if (v == 0) continue;
-    int s = i / per_slot;
-    int rem = i - s * per_slot;           // (f_local * B + b) * C + c
-    int fl = rem / (B * C);
-    int bc = rem - fl * (B * C);
-    long long g = (((long long)(t.s0 + s) * F + (t.f0 + fl)) * B) * C + bc;
-    cell_add(acc + g, v);
-  }
-  if (counts) {
-    for (int s = threadIdx.x; s < t.SG; s += blockDim.x) {
-      T v = sm[len + s];
-      if (v != 0) cell_add(cnt_acc + t.s0 + s, v);
-    }
-  }
-}
-
-// Per-row accumulands: 64-bit fixed point with exponents e (K1, K3), or
-// the quantized integers of K2 (scales sc), whose count cell is 1 per row
-// with a positive mask.
-template <typename T>
-struct Quantizer;
-template <>
-struct Quantizer<long long> {
+// Tile cells.  Q: a row's per-channel value as the partition stores it; a
+// cell is kWords 32-bit words; kMaxFG features fit a work item; kHoist:
+// the streaming kernel loads 8 features' bins before their adds (int32
+// cells leave it the registers at two blocks an SM).
+#define DEV __device__ __forceinline__
+struct FixedCells {  // 64-bit fixed point, value v * 2^(62 - e[c])
+  using Q = long long;
+  static constexpr int kWords = 2, kMaxFG = 8;
+  static constexpr bool kHoist = false;
   int e[kMaxC + 1];
-  __device__ Quantizer(const int* exps, const float*, int C) {
-    for (int c = 0; c <= C; ++c) e[c] = exps[c];
+  __device__ FixedCells(const void* param, int C) {
+    for (int c = 0; c <= C; ++c) e[c] = static_cast<const int*>(param)[c];
   }
-  __device__ __forceinline__ long long value(float v, int c) const {
-    return to_fixed(v, e[c]);
-  }
-  __device__ __forceinline__ long long count(float m, int C) const {
-    return to_fixed(m, e[C]);
+  DEV Q value(float v, int c) const { return to_fixed(v, e[c]); }
+  DEV Q count(float m, int C) const { return to_fixed(m, e[C]); }
+  static DEV void add(unsigned* t, int i, Q v) { add_pair(t + 2 * i, v); }
+  static DEV long long take(unsigned* t, int i) {  // read and clear
+    const long long v = ((long long*)t)[i];
+    if (v != 0) ((long long*)t)[i] = 0;
+    return v;
   }
 };
-template <>
-struct Quantizer<int> {
+
+struct IntCells {  // quantized integers rint(v / scale[c]), count mask > 0
+  using Q = int;
+  static constexpr int kWords = 1, kMaxFG = 16;
+  static constexpr bool kHoist = true;
   float sc[kMaxC];
-  __device__ Quantizer(const int*, const float* scales, int C) {
-    for (int c = 0; c < C; ++c) sc[c] = scales[c];
+  __device__ IntCells(const void* param, int C) {
+    for (int c = 0; c < C; ++c) sc[c] = static_cast<const float*>(param)[c];
   }
-  __device__ __forceinline__ int value(float v, int c) const {
-    return to_quant(v, sc[c]);
-  }
-  __device__ __forceinline__ int count(float m, int) const {
-    return m > 0.0f ? 1 : 0;
+  DEV Q value(float v, int c) const { return (int)rintf(__fdiv_rn(v, sc[c])); }
+  DEV Q count(float m, int) const { return m > 0.0f ? 1 : 0; }
+  static DEV void add(unsigned* t, int i, Q v) { atomicAdd((int*)t + i, v); }
+  static DEV long long take(unsigned* t, int i) {
+    const int v = (int)t[i];
+    if (v != 0) t[i] = 0u;
+    return v;
   }
 };
 
-// K2 (T = int32): grid (row chunks, slot groups * feature groups).
-// Feature-major bins.
-template <typename T>
-__global__ void wave_hist_kernel(const uint8_t* __restrict__ binned_fm,
-                                 const int* __restrict__ slot,
-                                 const float* __restrict__ gh,
-                                 const int* __restrict__ exps,
-                                 const float* __restrict__ scales, int n,
-                                 int F, int B, int C, int NL, int SG, int FG,
-                                 int rows_per_block, T* __restrict__ acc,
-                                 T* __restrict__ cnt_acc) {
-  extern __shared__ __align__(8) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int n_fg = (F + FG - 1) / FG;
-  Tile t;
-  t.s0 = (blockIdx.y / n_fg) * SG;
-  t.f0 = (blockIdx.y % n_fg) * FG;
-  t.SG = min(SG, NL - t.s0);
-  t.FG = min(FG, F - t.f0);
-  const bool counts = (t.f0 == 0);
-  const int C1 = C + 1;
-  const Quantizer<T> quant(exps, scales, C);
-  const int len = t.SG * t.FG * B * C;
-  zero_smem(sm, len + t.SG);
-  __syncthreads();
-  const long long row0 = (long long)blockIdx.x * rows_per_block;
-  const long long row1 = min((long long)n, row0 + rows_per_block);
-  for (long long r = row0 + threadIdx.x; r < row1; r += blockDim.x) {
-    int s = slot[r] - t.s0;
-    if (s < 0 || s >= t.SG) continue;
-    T q[kMaxC];
-    for (int c = 0; c < C; ++c) q[c] = quant.value(gh[r * C1 + c], c);
-    T* base = sm + (long long)s * t.FG * B * C;
-    for (int fl = 0; fl < t.FG; ++fl) {
-      int b = binned_fm[(long long)(t.f0 + fl) * n + r];
-      if (b >= B) continue;
-      T* cell = base + ((long long)fl * B + b) * C;
-      for (int c = 0; c < C; ++c)
-        if (q[c] != 0) cell_add(cell + c, q[c]);
-    }
-    if (counts) {
-      T qm = quant.count(gh[r * C1 + C], C);
-      if (qm != 0) cell_add(sm + len + s, qm);
-    }
-  }
-  __syncthreads();
-  flush_tile(sm, t, F, B, C, counts, acc, cnt_acc);
+// gh of rows r..r+3 (4 (kC + 1) floats) as kC + 1 aligned float4 loads.
+template <int kC>
+DEV void load_gh4(const float* gh, long long r, float* gv) {
+  const float4* g4 = reinterpret_cast<const float4*>(gh + r * (kC + 1));
+#pragma unroll
+  for (int c = 0; c <= kC; ++c)
+    reinterpret_cast<float4*>(gv)[c] = g4[c];
 }
 
-// K3: grid (row chunks, feature groups); every computed slot [0, S) of the
-// feature group lives in the block's tile.  Row-major bins.
-__global__ void wave_hist_hl_kernel(const uint8_t* __restrict__ binned_rm,
-                                    const int* __restrict__ slot,
-                                    const float* __restrict__ gh,
-                                    const int* __restrict__ exps, int n,
-                                    int F, int B, int C, int S, int FG,
-                                    int rows_per_block,
-                                    long long* __restrict__ acc,
-                                    long long* __restrict__ cnt_acc) {
-  extern __shared__ long long sm[];
-  Tile t;
-  t.s0 = 0;
-  t.SG = S;
-  t.f0 = blockIdx.y * FG;
-  t.FG = min(FG, F - t.f0);
-  const bool counts = (t.f0 == 0);
-  const int C1 = C + 1;
-  const Quantizer<long long> quant(exps, nullptr, C);
-  const int len = S * t.FG * B * C;
-  zero_smem(sm, len + S);
-  __syncthreads();
-  const long long row0 = (long long)blockIdx.x * rows_per_block;
-  const long long row1 = min((long long)n, row0 + rows_per_block);
-  for (long long r = row0 + threadIdx.x; r < row1; r += blockDim.x) {
-    int s = slot[r];
-    if (s < 0 || s >= S) continue;
-    long long q[kMaxC];
-    for (int c = 0; c < C; ++c) q[c] = quant.value(gh[r * C1 + c], c);
-    long long* base = sm + (long long)s * t.FG * B * C;
-    const uint8_t* row = binned_rm + r * F + t.f0;
-    for (int fl = 0; fl < t.FG; ++fl) {
-      int b = row[fl];
-      if (b >= B) continue;
-      long long* cell = base + ((long long)fl * B + b) * C;
-      for (int c = 0; c < C; ++c)
-        if (q[c] != 0) cell_add(cell + c, q[c]);
-    }
-    if (counts) {
-      long long qm = quant.count(gh[r * C1 + C], C);
-      if (qm != 0) cell_add(sm + len + s, qm);
-    }
-  }
-  __syncthreads();
-  flush_tile(sm, t, F, B, C, counts, acc, cnt_acc);
+// Values per row in the partition's q array: C + 1 rounded up to 16 bytes.
+template <typename Cells>
+__host__ __device__ constexpr int q_stride(int C) {
+  return ((C + 1) * (int)sizeof(typename Cells::Q) + 15) / 16 * 16 /
+         (int)sizeof(typename Cells::Q);
 }
 
-// Fixed point -> float32: hist [out_slots, F, B, C] and counts [out_slots]
-// (acc and cnt_acc hold out_slots zero-initialized slots).
+DEV void add_global(long long* p, long long v) {
+  atomicAdd((unsigned long long*)p, (unsigned long long)v);
+}
+
+// Fixed point -> float32: hist [out_slots, F, B, C] and counts [out_slots].
 __global__ void finish_fixed_kernel(const long long* __restrict__ acc,
                                     const long long* __restrict__ cnt_acc,
                                     const int* __restrict__ exps, int F,
@@ -253,15 +139,15 @@ __global__ void finish_fixed_kernel(const long long* __restrict__ acc,
       double inv = ldexp(1.0, exps[(int)(i % C)] - 62);
       hist[i] = (float)((double)acc[i] * inv);
     } else {
-      long long s = i - total;
-      counts[s] = (float)((double)cnt_acc[s] * ldexp(1.0, exps[C] - 62));
+      counts[i - total] =
+          (float)((double)cnt_acc[i - total] * ldexp(1.0, exps[C] - 62));
     }
   }
 }
 
 // K2's dequantization: float32(int_sum) * scale, counts as float32.
-__global__ void finish_quant_kernel(const int* __restrict__ acc,
-                                    const int* __restrict__ cnt_acc,
+__global__ void finish_quant_kernel(const long long* __restrict__ acc,
+                                    const long long* __restrict__ cnt_acc,
                                     const float* __restrict__ scales, int F,
                                     int B, int C, int NL,
                                     float* __restrict__ hist,
@@ -276,11 +162,9 @@ __global__ void finish_quant_kernel(const int* __restrict__ acc,
   }
 }
 
-// ------------------------------------------------------------------ K1
+// ------------------------------------------------------ slot-partitioned
 // Pass 1-3 partition the computed rows by slot; pass 4 histograms them.
-constexpr int kHistThreads = 256;
-constexpr int kTileFeatures = 8;  // most features of one work item
-
+//
 // Partition walk.  A warp owns the rows [u * UR, (u + 1) * UR) of its unit
 // u and walks them in steps of 128: each lane loads 4 consecutive rows
 // with 16-byte (slot, gh) and 4-byte (bins of one feature) loads, and the
@@ -317,6 +201,17 @@ __global__ void slot_count_kernel(const int* __restrict__ slot, int n,
   for (int i = lane; i < NL; i += 32) cnt[(long long)i * U + u] = my[i];
 }
 
+// part[0..blockDim.x) -> its exclusive scan (one thread); returns the sum.
+__device__ int serial_scan(int* part) {
+  int run = 0;
+  for (int t = 0; t < (int)blockDim.x; ++t) {
+    const int v = part[t];
+    part[t] = run;
+    run += v;
+  }
+  return run;
+}
+
 // Pass 2: one block per slot; cnt[s, :] becomes its exclusive scan over
 // the units and tot[s] the slot's row count.
 __global__ void slot_scan_kernel(int* __restrict__ cnt, int U,
@@ -329,15 +224,7 @@ __global__ void slot_scan_kernel(int* __restrict__ cnt, int U,
   for (int i = a; i < b; ++i) sum += col[i];
   part[threadIdx.x] = sum;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int run = 0;
-    for (int t = 0; t < (int)blockDim.x; ++t) {
-      int v = part[t];
-      part[t] = run;
-      run += v;
-    }
-    tot[blockIdx.x] = run;
-  }
+  if (threadIdx.x == 0) tot[blockIdx.x] = serial_scan(part);
   __syncthreads();
   int run = part[threadIdx.x];
   for (int i = a; i < b; ++i) {
@@ -364,16 +251,8 @@ __global__ void slot_plan_kernel(const int* __restrict__ tot, int NL, int R,
   pc[threadIdx.x] = s2;
   __syncthreads();
   if (threadIdx.x == 0) {
-    int r1 = 0, r2 = 0;
-    for (int t = 0; t < (int)blockDim.x; ++t) {
-      int v1 = ps[t], v2 = pc[t];
-      ps[t] = r1;
-      pc[t] = r2;
-      r1 += v1;
-      r2 += v2;
-    }
-    plan[NL] = r1;
-    plan[2 * NL + 1] = r2;
+    plan[NL] = serial_scan(ps);
+    plan[2 * NL + 1] = serial_scan(pc);
   }
   __syncthreads();
   int r1 = ps[threadIdx.x], r2 = pc[threadIdx.x];
@@ -389,18 +268,21 @@ __global__ void slot_plan_kernel(const int* __restrict__ tot, int NL, int R,
 // start[s] + (rows of s in earlier units) + (its rank among the rows of s
 // in this unit), as its packed bins rows_p[pos, :Fp] (row-major, Fp = F
 // rounded up to 16, transposed from the feature-major input in registers
-// with byte permutes) and its fixed-point gh q_p[pos, :QS] (QS = kC + 1
-// rounded up to 2), each written as whole 16-byte stores.
-template <int kC>
+// with byte permutes) and its values q_p[pos, :QS] (Cells::value of each
+// channel, then Cells::count of the mask, zero-padded to QS = q_stride),
+// each written as whole 16-byte stores.
+template <int kC, typename Cells>
 __global__ void slot_scatter_kernel(const uint8_t* __restrict__ binned_fm,
                                     const int* __restrict__ slot,
                                     const float* __restrict__ gh,
-                                    const int* __restrict__ exps, int n,
-                                    int F, int Fp, int QS, int NL, int U,
-                                    int UR, const int* __restrict__ cnt,
+                                    const void* __restrict__ param, int n,
+                                    int F, int Fp, int NL, int U, int UR,
+                                    const int* __restrict__ cnt,
                                     const int* __restrict__ plan,
                                     uint8_t* __restrict__ rows_p,
-                                    long long* __restrict__ q_p) {
+                                    typename Cells::Q* __restrict__ q_p) {
+  using Q = typename Cells::Q;
+  constexpr int kQS = q_stride<Cells>(kC);
   extern __shared__ int sc[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   int* run = sc + w * NL;
@@ -409,9 +291,7 @@ __global__ void slot_scatter_kernel(const uint8_t* __restrict__ binned_fm,
   for (int i = lane; i < NL; i += 32)
     run[i] = plan[i] + cnt[(long long)i * U + u];
   __syncwarp();
-  int e[kC + 1];
-#pragma unroll
-  for (int c = 0; c <= kC; ++c) e[c] = exps[c];
+  const Cells cells(param, kC);
   const unsigned lt = (1u << lane) - 1u;
   const long long r0 = (long long)u * UR;
   const long long r1 = min((long long)n, r0 + UR);
@@ -458,28 +338,26 @@ __global__ void slot_scatter_kernel(const uint8_t* __restrict__ binned_fm,
             make_uint4(wd[0], wd[1], wd[2], wd[3]);
       }
     }
-    // gh of rows r..r+3: 4 (kC + 1) floats, kC + 1 aligned float4 loads
-    float gv[4 * (kC + 1)];
-    const float4* g4 = reinterpret_cast<const float4*>(gh + r * (kC + 1));
-#pragma unroll
-    for (int c = 0; c <= kC; ++c) {
-      const float4 t = g4[c];
-      gv[4 * c] = t.x;
-      gv[4 * c + 1] = t.y;
-      gv[4 * c + 2] = t.z;
-      gv[4 * c + 3] = t.w;
-    }
+    alignas(16) float gv[4 * (kC + 1)];
+    load_gh4<kC>(gh, r, gv);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       if (!ok[j]) continue;
-      long long q[kC + 2];
+      constexpr int kW = sizeof(Q) / 4;  // 32-bit words per value
+      unsigned wd[kQS * kW];
 #pragma unroll
-      for (int c = 0; c < kC + 2; ++c)
-        q[c] = c <= kC ? to_fixed(gv[j * (kC + 1) + c], e[c]) : 0;
-      longlong2* qd = reinterpret_cast<longlong2*>(q_p + pos[j] * QS);
+      for (int c = 0; c < kQS; ++c) {
+        const Q v = c < kC ? cells.value(gv[j * (kC + 1) + c], c)
+                  : c == kC ? cells.count(gv[j * (kC + 1) + kC], kC) : 0;
+        wd[c * kW] = (unsigned)v;
+        if constexpr (kW == 2)
+          wd[c * kW + 1] = (unsigned)((unsigned long long)v >> 32);
+      }
+      uint4* qd = reinterpret_cast<uint4*>(q_p + pos[j] * kQS);
 #pragma unroll
-      for (int c = 0; c + 1 < kC + 2; c += 2)
-        qd[c / 2] = make_longlong2(q[c], q[c + 1]);
+      for (int k = 0; k < kQS * kW / 4; ++k)
+        qd[k] = make_uint4(wd[4 * k], wd[4 * k + 1], wd[4 * k + 2],
+                           wd[4 * k + 3]);
     }
   }
 }
@@ -490,22 +368,23 @@ __global__ void slot_scatter_kernel(const uint8_t* __restrict__ binned_fm,
 // non-zero cells: plain stores when the slot has one chunk (the block owns
 // those cells alone), else 64-bit global atomics.  acc and cnt_acc start
 // zeroed.
+template <typename Cells>
 __global__ void __launch_bounds__(kHistThreads)
 wave_part_hist_kernel(const uint8_t* __restrict__ rows_p,
-                      const long long* __restrict__ q_p,
+                      const typename Cells::Q* __restrict__ q_p,
                       const int* __restrict__ plan, int NL, int F, int Fp,
                       int B, int C, int QS, int FG, int R,
                       long long* __restrict__ acc,
                       long long* __restrict__ cnt_acc) {
-  extern __shared__ __align__(8) unsigned char smem_raw[];
-  unsigned long long* tile = reinterpret_cast<unsigned long long*>(smem_raw);
-  unsigned* tile32 = reinterpret_cast<unsigned*>(smem_raw);
+  using Q = typename Cells::Q;
+  extern __shared__ __align__(16) unsigned tile[];
   const int G = (F + FG - 1) / FG;
   const int* seg = plan;
   const int* chunk = plan + NL + 1;
   const long long items = (long long)chunk[NL] * G;
-  const int full = FG * B * C;
-  for (int i = threadIdx.x; i <= full; i += blockDim.x) tile[i] = 0;
+  const int full = FG * B * C;  // the count cell follows the histogram
+  for (int i = threadIdx.x; i < (full + 1) * Cells::kWords; i += blockDim.x)
+    tile[i] = 0u;
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
     const int k = (int)(it / G), g = (int)(it % G);
     int lo = 0, hi = NL;  // the slot s with chunk[s] <= k < chunk[s + 1]
@@ -519,47 +398,134 @@ wave_part_hist_kernel(const uint8_t* __restrict__ rows_p,
     const bool owner = chunk[s + 1] - chunk[s] == 1;
     const int f0 = g * FG, fg = min(FG, F - f0);
     const int len = fg * B * C;
-    unsigned* cnt_cell = tile32 + 2 * full;
     __syncthreads();
     for (long long i = a + threadIdx.x; i < b; i += blockDim.x) {
-      long long q[kMaxC];
-      const long long* qi = q_p + i * QS;
+      Q q[kMaxC];
+      const Q* qi = q_p + i * QS;
 #pragma unroll
       for (int c = 0; c < kMaxC; ++c) q[c] = c < C ? qi[c] : 0;
-      const long long qc = g == 0 ? qi[C] : 0;  // the count column
+      const Q qc = g == 0 ? qi[C] : 0;  // the count column
       const uint8_t* row = rows_p + i * Fp + f0;
 #pragma unroll
-      for (int fl = 0; fl < kTileFeatures; ++fl) {
+      for (int fl = 0; fl < Cells::kMaxFG; ++fl) {
         if (fl >= fg) break;
         const int bin = row[fl];
         if (bin >= B) continue;
-        unsigned* cell = tile32 + 2 * ((fl * B + bin) * C);
+        const int cell = (fl * B + bin) * C;
 #pragma unroll
         for (int c = 0; c < kMaxC; ++c)
-          if (c < C && q[c] != 0) add_pair(cell + 2 * c, q[c]);
+          if (c < C && q[c] != 0) Cells::add(tile, cell + c, q[c]);
       }
-      if (qc != 0) add_pair(cnt_cell, qc);
+      if (qc != 0) Cells::add(tile, full, qc);
     }
     __syncthreads();
     long long* out = acc + ((long long)s * F + f0) * B * C;
     for (int i = threadIdx.x; i < len; i += blockDim.x) {
-      const unsigned long long v = tile[i];
+      const long long v = Cells::take(tile, i);
       if (v == 0) continue;
-      tile[i] = 0;
-      if (owner) out[i] = (long long)v;
-      else atomicAdd(reinterpret_cast<unsigned long long*>(out + i), v);
+      if (owner) out[i] = v;
+      else add_global(out + i, v);
     }
     if (g == 0 && threadIdx.x == 0) {
-      const unsigned long long v = tile[full];
-      tile[full] = 0;
-      if (v != 0) {
-        if (owner) cnt_acc[s] = (long long)v;
-        else atomicAdd(reinterpret_cast<unsigned long long*>(cnt_acc + s), v);
-      }
+      const long long v = Cells::take(tile, full);
+      if (v != 0 && owner) cnt_acc[s] = v;
+      else if (v != 0) add_global(cnt_acc + s, v);
     }
   }
 }
 
+// ------------------------------------------------------------- streaming
+// Grid (row chunks, feature groups).  The tile holds [S slots][fg features]
+// [B bins][kC] cells, then S count cells (in the first feature group
+// only).  Warp w walks the steps base = row0 + 128 (w + k * warps); lane
+// l takes rows base + 4l .. base + 4l + 3.  rows_per_block is a multiple
+// of 128 and n of 4, so a lane's 4 rows lie inside the chunk or outside.
+template <int kC, typename Cells>
+__global__ void __launch_bounds__(kFewThreads, 2)
+wave_few_kernel(const uint8_t* __restrict__ binned_fm,
+                const int* __restrict__ slot, const float* __restrict__ gh,
+                const void* __restrict__ param, int n, int F, int B, int S,
+                int FG, int rows_per_block, long long* __restrict__ acc,
+                long long* __restrict__ cnt_acc) {
+  using Q = typename Cells::Q;
+  extern __shared__ __align__(16) unsigned tile[];
+  const int f0 = blockIdx.y * FG, fg = min(FG, F - f0);
+  const bool counts = blockIdx.y == 0;
+  const int per_slot = fg * B * kC, len = S * per_slot;
+  for (int i = threadIdx.x; i < (len + S) * Cells::kWords; i += blockDim.x)
+    tile[i] = 0u;
+  __syncthreads();
+  const Cells cells(param, kC);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row0 = (long long)blockIdx.x * rows_per_block;
+  const long long row1 = min((long long)n, row0 + rows_per_block);
+  const long long fstride = n >> 2;
+  const unsigned* col =
+      reinterpret_cast<const unsigned*>(binned_fm) + f0 * fstride;
+  for (long long base = row0 + 128 * w; base < row1;
+       base += 128 * (blockDim.x >> 5)) {
+    const long long r = base + 4 * lane, q4 = r >> 2;
+    if (r >= row1) continue;
+    const int4 s4 = *reinterpret_cast<const int4*>(slot + r);
+    const int sj[4] = {s4.x, s4.y, s4.z, s4.w};
+    bool ok[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ok[j] = (unsigned)sj[j] < (unsigned)S;
+    if (!(ok[0] || ok[1] || ok[2] || ok[3])) continue;
+    alignas(16) float gv[4 * (kC + 1)];
+    load_gh4<kC>(gh, r, gv);
+    Q q[4][kC];
+    int base_cell[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        q[j][c] = ok[j] ? cells.value(gv[j * (kC + 1) + c], c) : 0;
+      base_cell[j] = ok[j] ? sj[j] * per_slot : 0;
+    }
+    for (int f8 = 0; f8 < fg; f8 += 8) {
+      unsigned wv[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (Cells::kHoist && f8 + k < fg) wv[k] = col[(f8 + k) * fstride + q4];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int fl = f8 + k;
+        if (fl >= fg) break;
+        const unsigned word =
+            Cells::kHoist ? wv[k] : col[fl * fstride + q4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int bin = (word >> (8 * j)) & 255;
+          if (!ok[j] || bin >= B) continue;
+          const int cell = base_cell[j] + (fl * B + bin) * kC;
+#pragma unroll
+          for (int c = 0; c < kC; ++c)
+            if (q[j][c] != 0) Cells::add(tile, cell + c, q[j][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const Q m = counts && ok[j] ? cells.count(gv[j * (kC + 1) + kC], kC) : 0;
+      if (m != 0) Cells::add(tile, len + sj[j], m);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const long long v = Cells::take(tile, i);
+    if (v == 0) continue;
+    const int s = i / per_slot, rem = i - s * per_slot;  // (fl*B + b)*kC + c
+    const int fl = rem / (B * kC), bc = rem - fl * (B * kC);
+    add_global(acc + (((long long)s * F + f0 + fl) * B) * kC + bc, v);
+  }
+  for (int s = threadIdx.x; counts && s < S; s += blockDim.x) {
+    const long long v = Cells::take(tile, len + s);
+    if (v != 0) add_global(cnt_acc + s, v);
+  }
+}
+
+// ------------------------------------------------------------------ host
 // Dynamic shared memory above the default 48 KB, set once per function
 // (the largest size asked for so far).
 template <typename Fn>
@@ -571,42 +537,23 @@ cudaError_t ensure_smem(Fn* fn, size_t bytes, int* done) {
   return err;
 }
 
+// Blocks of fn resident on one SM at this shared memory, cached per size.
+template <typename Fn>
+cudaError_t resident_blocks(Fn* fn, size_t smem, size_t* cached_smem,
+                            int* blocks) {
+  if (*cached_smem == smem) return cudaSuccess;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, fn, kHistThreads, smem);
+  if (err == cudaSuccess) *cached_smem = smem;
+  return err;
+}
+
 int sm_count() {
   static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
+  int dev = 0;
+  if (sms <= 0 && cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
-  return sms;
-}
-
-template <int kC>
-cudaError_t launch_scatter(const void* binned_fm, const void* slot,
-                           const void* gh, const void* exps, int n, int F,
-                           int Fp, int QS, int NL, int U, int UR, int PW,
-                           size_t smem, const int* cnt, const int* plan,
-                           uint8_t* rows_p, long long* q_p, int* smem_set,
-                           cudaStream_t stream) {
-  cudaError_t err = ensure_smem(slot_scatter_kernel<kC>, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  slot_scatter_kernel<kC><<<(U + PW - 1) / PW, 32 * PW, smem, stream>>>(
-      (const uint8_t*)binned_fm, (const int*)slot, (const float*)gh,
-      (const int*)exps, n, F, Fp, QS, NL, U, UR, cnt, plan, rows_p, q_p);
-  return cudaGetLastError();
-}
-
-// Bytes of K1's scratch: the unit counts, slot totals and plan, then the
-// packed rows and their fixed-point gh on 256-byte boundaries (the
-// layout wave_hist_f32 carves; wave_part_plan in ops/histogram.py).
-long long wave_part_scratch(int n, int F, int C, int NL, int UR) {
-  const long long U = (n + UR - 1) / UR;
-  const long long Fp = (F + 15) / 16 * 16, QS = (C + 2) / 2 * 2;
-  const long long ints = (long long)NL * U + NL + 2 * (NL + 1);
-  const long long head = (ints * 4 + 255) / 256 * 256;
-  const long long rows = ((long long)n * Fp + 255) / 256 * 256;
-  return head + rows + (long long)n * QS * 8;
+  return sms > 0 ? sms : 132;
 }
 
 int grid_for(long long work) {
@@ -614,34 +561,130 @@ int grid_for(long long work) {
   return (int)std::min(std::max(g, 1LL), 132LL * 16);
 }
 
-int row_blocks(int n, int tiles) {
-  // enough blocks to fill the card's 132 SMs about twice over
-  int chunks = (2 * 132 + tiles - 1) / tiles;
-  chunks = std::max(1, std::min(chunks, (n + kThreads - 1) / kThreads));
-  return chunks;
+template <int kC, typename Cells>
+cudaError_t launch_scatter(const void* binned_fm, const void* slot,
+                           const void* gh, const void* param, int n, int F,
+                           int Fp, int NL, int U, int UR, int PW, size_t smem,
+                           const int* cnt, const int* plan, uint8_t* rows_p,
+                           void* q_p, cudaStream_t stream) {
+  static int smem_set = 0;
+  cudaError_t err = ensure_smem(slot_scatter_kernel<kC, Cells>, smem,
+                                &smem_set);
+  if (err != cudaSuccess) return err;
+  slot_scatter_kernel<kC, Cells><<<(U + PW - 1) / PW, 32 * PW, smem,
+                                   stream>>>(
+      (const uint8_t*)binned_fm, (const int*)slot, (const float*)gh, param,
+      n, F, Fp, NL, U, UR, cnt, plan, rows_p, (typename Cells::Q*)q_p);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_wave(const void* binned_fm, const void* slot,
-                        const void* gh, const int* exps, const float* scales,
-                        int n, int F, int B, int C, int NL, int SG, int FG,
-                        T* acc, T* cnt_acc, cudaStream_t stream) {
-  long long acc_len = (long long)NL * F * B * C;
-  cudaMemsetAsync(acc, 0, sizeof(T) * acc_len, stream);
-  cudaMemsetAsync(cnt_acc, 0, sizeof(T) * NL, stream);
-  size_t smem = sizeof(T) * ((size_t)SG * FG * B * C + SG);
-  cudaError_t err = cudaFuncSetAttribute(
-      wave_hist_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// Bytes of the partition's scratch: the unit counts, slot totals and
+// plan, then the packed rows and their values on 256-byte boundaries (the
+// layout run_partition carves; wave_part_plan in ops/histogram.py).
+template <typename Cells>
+long long part_scratch(int n, int F, int C, int NL, int UR) {
+  const long long U = (n + UR - 1) / UR, Fp = (F + 15) / 16 * 16;
+  const long long ints = (long long)NL * U + NL + 2 * (NL + 1);
+  return (ints * 4 + 255) / 256 * 256 + ((long long)n * Fp + 255) / 256 * 256 +
+         (long long)n * q_stride<Cells>(C) * sizeof(typename Cells::Q);
+}
+
+// The slot-partitioned pipeline into zeroed acc [NL*F*B*C] and cnt_acc
+// [NL]: UR rows per partition warp, PW warps per partition block, FG
+// features and at most R rows per work item (the wrapper's planner).
+template <typename Cells>
+cudaError_t run_partition(const void* binned_fm, const void* slot,
+                          const void* gh, const void* param, int n, int F,
+                          int B, int C, int NL, int UR, int PW, int FG,
+                          int R, void* scratch, long long scratch_bytes,
+                          long long* acc, long long* cnt_acc,
+                          cudaStream_t stream) {
+  static int smem_count = 0, smem_hist = 0, occ_blocks = 0;
+  static size_t occ_smem = 0;
+  if (UR < 128 || UR % 128 || PW < 1 || PW > 32 || FG < 1 ||
+      FG > Cells::kMaxFG || R < 1 ||
+      scratch_bytes < part_scratch<Cells>(n, F, C, NL, UR))
+    return cudaErrorInvalidValue;
+  const int U = (n + UR - 1) / UR;
+  const int Fp = (F + 15) / 16 * 16, QS = q_stride<Cells>(C);
+  int* cnt = (int*)scratch;
+  int* tot = cnt + (long long)NL * U;
+  int* plan = tot + NL;
+  const long long ints = (long long)NL * U + NL + 2 * (NL + 1);
+  // rows_p and q_p start on 256-byte boundaries, so each packed row (and
+  // each row's values, Fp and QS * sizeof(Q) bytes) fills whole sectors
+  uint8_t* rows_p = (uint8_t*)scratch + (ints * 4 + 255) / 256 * 256;
+  void* q_p = rows_p + ((long long)n * Fp + 255) / 256 * 256;
+
+  const size_t part_smem = sizeof(int) * (size_t)PW * NL;
+  cudaError_t err = ensure_smem(slot_count_kernel, part_smem, &smem_count);
   if (err != cudaSuccess) return err;
-  int tiles = ((NL + SG - 1) / SG) * ((F + FG - 1) / FG);
-  int chunks = row_blocks(n, tiles);
-  int rows_per_block = (n + chunks - 1) / chunks;
-  dim3 grid(chunks, tiles);
-  wave_hist_kernel<T><<<grid, kThreads, smem, stream>>>(
-      (const uint8_t*)binned_fm, (const int*)slot, (const float*)gh, exps,
-      scales, n, F, B, C, NL, SG, FG, rows_per_block, acc, cnt_acc);
+  slot_count_kernel<<<(U + PW - 1) / PW, 32 * PW, part_smem, stream>>>(
+      (const int*)slot, n, NL, U, UR, cnt);
+  slot_scan_kernel<<<NL, kHistThreads, 0, stream>>>(cnt, U, tot);
+  slot_plan_kernel<<<1, kHistThreads, 0, stream>>>(tot, NL, R, plan);
+  decltype(&launch_scatter<1, Cells>) const scatter[kMaxC] = {
+      launch_scatter<1, Cells>, launch_scatter<2, Cells>,
+      launch_scatter<3, Cells>, launch_scatter<4, Cells>};
+  err = scatter[C - 1](binned_fm, slot, gh, param, n, F, Fp, NL, U, UR, PW,
+                       part_smem, cnt, plan, rows_p, q_p, stream);
+  if (err != cudaSuccess) return err;
+
+  const size_t hist_smem = 4 * Cells::kWords * ((size_t)FG * B * C + 1);
+  err = ensure_smem(wave_part_hist_kernel<Cells>, hist_smem, &smem_hist);
+  if (err == cudaSuccess)
+    err = resident_blocks(wave_part_hist_kernel<Cells>, hist_smem, &occ_smem,
+                          &occ_blocks);
+  if (err != cudaSuccess) return err;
+  const long long G = (F + FG - 1) / FG;
+  const long long max_items = ((n + R - 1) / R + (long long)NL) * G;
+  const int grid = (int)std::max(1LL, std::min(
+      max_items, (long long)std::max(occ_blocks, 1) * sm_count()));
+  wave_part_hist_kernel<Cells><<<grid, kHistThreads, hist_smem, stream>>>(
+      rows_p, (const typename Cells::Q*)q_p, plan, NL, F, Fp, B, C, QS, FG,
+      R, acc, cnt_acc);
   return cudaGetLastError();
+}
+
+// The streaming kernel into zeroed acc and cnt_acc (slots [0, S)): one
+// wave of two blocks an SM (the launch bounds and a tile of at most half
+// an SM), each feature group cut into row chunks of a multiple of 128.
+template <int kC, typename Cells>
+cudaError_t launch_few(const void* binned_fm, const void* slot,
+                       const void* gh, const void* param, int n, int F,
+                       int B, int S, int FG, long long* acc,
+                       long long* cnt_acc, cudaStream_t stream) {
+  static int smem_set = 0;
+  const size_t smem = 4 * Cells::kWords * ((size_t)S * FG * B * kC + S);
+  cudaError_t err = ensure_smem(wave_few_kernel<kC, Cells>, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  const long long G = (F + FG - 1) / FG;
+  long long chunks = (2LL * sm_count() + G - 1) / G;  // two blocks an SM
+  chunks = std::max(1LL, std::min(chunks, (n + 1023LL) / 1024));
+  const long long rows = ((n + chunks - 1) / chunks + 127) / 128 * 128;
+  chunks = (n + rows - 1) / rows;
+  wave_few_kernel<kC, Cells><<<dim3((unsigned)chunks, (unsigned)G),
+                               kFewThreads, smem, stream>>>(
+      (const uint8_t*)binned_fm, (const int*)slot, (const float*)gh, param,
+      n, F, B, S, FG, (int)rows, acc, cnt_acc);
+  return cudaGetLastError();
+}
+
+template <typename Cells>
+cudaError_t run_few(const void* binned_fm, const void* slot, const void* gh,
+                    const void* param, int n, int F, int B, int C, int S,
+                    int FG, long long* acc, long long* cnt_acc,
+                    cudaStream_t stream) {
+  if (FG < 1 || FG > F || S < 1) return cudaErrorInvalidValue;
+  decltype(&launch_few<1, Cells>) const few[kMaxC] = {
+      launch_few<1, Cells>, launch_few<2, Cells>, launch_few<3, Cells>,
+      launch_few<4, Cells>};
+  return few[C - 1](binned_fm, slot, gh, param, n, F, B, S, FG, acc, cnt_acc,
+                    stream);
+}
+
+bool bad_shape(int n, int F, int B, int C, int NL) {
+  return C < 1 || C > kMaxC || n < 1 || n % 4 || F < 1 || B < 1 || NL < 1;
 }
 
 }  // namespace
@@ -649,73 +692,22 @@ cudaError_t launch_wave(const void* binned_fm, const void* slot,
 extern "C" {
 
 // K1.  exps: int32 [C+1] (device); acc: int64 [NL*F*B*C]; cnt_acc: int64
-// [NL]; UR rows per partition warp, PW warps per partition block, FG
-// (<= kTileFeatures) features and at most R rows per work item (the
-// wrapper's planner, wave_part_plan); scratch holds scratch_bytes (at
-// least wave_part_scratch of the same arguments).  With
-// hist == NULL the int64 sums are the result.
+// [NL]; UR, PW, FG (<= 8), R and scratch (at least part_scratch bytes)
+// from the wrapper's planner, wave_part_plan.  With hist == NULL the
+// int64 sums are the result.
 int wave_hist_f32(const void* binned_fm, const void* slot, const void* gh,
                   const void* exps, int n, int F, int B, int C, int NL,
                   int UR, int PW, int FG, int R, void* scratch,
                   long long scratch_bytes, void* acc, void* cnt_acc,
                   void* hist, void* counts, void* stream_ptr) {
-  static int smem_count = 0, smem_scatter[kMaxC] = {0}, smem_hist = 0;
-  static size_t occ_smem = 0;
-  static int occ_blocks = 0;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (C < 1 || C > kMaxC || UR < 128 || UR % 128 || n < 1 || n % 4 ||
-      PW < 1 || PW > 32 || FG < 1 || FG > kTileFeatures || R < 1 || NL < 1)
-    return (int)cudaErrorInvalidValue;
-  if (scratch_bytes < wave_part_scratch(n, F, C, NL, UR))
-    return (int)cudaErrorInvalidValue;
-  const int U = (n + UR - 1) / UR;
-  const int Fp = (F + 15) / 16 * 16, QS = (C + 2) / 2 * 2;
-  int* cnt = (int*)scratch;
-  int* tot = cnt + (long long)NL * U;
-  int* plan = tot + NL;
-  const long long ints = (long long)NL * U + NL + 2 * (NL + 1);
-  // rows_p and q_p start on 256-byte boundaries, so each packed row (and
-  // each row's gh, at Fp and 8 * QS bytes) fills whole 32-byte sectors
-  uint8_t* rows_p = (uint8_t*)scratch + (ints * 4 + 255) / 256 * 256;
-  long long* q_p =
-      (long long*)(rows_p + ((long long)n * Fp + 255) / 256 * 256);
+  if (bad_shape(n, F, B, C, NL)) return (int)cudaErrorInvalidValue;
   const long long acc_len = (long long)NL * F * B * C;
   cudaMemsetAsync(acc, 0, sizeof(long long) * acc_len, stream);
   cudaMemsetAsync(cnt_acc, 0, sizeof(long long) * NL, stream);
-
-  const size_t part_smem = sizeof(int) * (size_t)PW * NL;
-  cudaError_t err = ensure_smem(slot_count_kernel, part_smem, &smem_count);
-  if (err != cudaSuccess) return (int)err;
-  const int part_blocks = (U + PW - 1) / PW;
-  slot_count_kernel<<<part_blocks, 32 * PW, part_smem, stream>>>(
-      (const int*)slot, n, NL, U, UR, cnt);
-  slot_scan_kernel<<<NL, kHistThreads, 0, stream>>>(cnt, U, tot);
-  slot_plan_kernel<<<1, kHistThreads, 0, stream>>>(tot, NL, R, plan);
-  decltype(&launch_scatter<1>) const scatter[kMaxC] = {
-      launch_scatter<1>, launch_scatter<2>, launch_scatter<3>,
-      launch_scatter<4>};
-  err = scatter[C - 1](binned_fm, slot, gh, exps, n, F, Fp, QS, NL, U, UR,
-                       PW, part_smem, cnt, plan, rows_p, q_p,
-                       &smem_scatter[C - 1], stream);
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t hist_smem = sizeof(long long) * ((size_t)FG * B * C + 1);
-  err = ensure_smem(wave_part_hist_kernel, hist_smem, &smem_hist);
-  if (err != cudaSuccess) return (int)err;
-  if (occ_smem != hist_smem) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ_blocks, wave_part_hist_kernel, kHistThreads, hist_smem);
-    if (err != cudaSuccess) return (int)err;
-    occ_smem = hist_smem;
-  }
-  const long long G = (F + FG - 1) / FG;
-  const long long max_items = ((n + R - 1) / R + (long long)NL) * G;
-  const int grid = (int)std::max(1LL, std::min(
-      max_items, (long long)std::max(occ_blocks, 1) * sm_count()));
-  wave_part_hist_kernel<<<grid, kHistThreads, hist_smem, stream>>>(
-      rows_p, q_p, plan, NL, F, Fp, B, C, QS, FG, R, (long long*)acc,
-      (long long*)cnt_acc);
-  err = cudaGetLastError();
+  cudaError_t err = run_partition<FixedCells>(
+      binned_fm, slot, gh, exps, n, F, B, C, NL, UR, PW, FG, R, scratch,
+      scratch_bytes, (long long*)acc, (long long*)cnt_acc, stream);
   if (err != cudaSuccess || hist == nullptr) return (int)err;
   finish_fixed_kernel<<<grid_for(acc_len + NL), kThreads, 0, stream>>>(
       (const long long*)acc, (const long long*)cnt_acc, (const int*)exps, F,
@@ -723,51 +715,54 @@ int wave_hist_f32(const void* binned_fm, const void* slot, const void* gh,
   return (int)cudaGetLastError();
 }
 
-// K2.  scales: float32 [C] (device); acc: int32 [NL*F*B*C]; cnt_acc: int32
-// [NL].  With hist == NULL the int32 sums are the result.
+// K2.  scales: float32 [C] (device); acc: int64 [NL*F*B*C]; cnt_acc: int64
+// [NL].  few != 0 takes the streaming kernel (FG features per block, the
+// wrapper's wave_few_plan with 4-byte cells; UR, PW, R and scratch unused),
+// else the slot-partitioned pipeline (FG <= 16, the wrapper's
+// wave_part_plan with 4-byte cells).  With hist == NULL the int64 sums are
+// the result.
 int wave_hist_i32(const void* binned_fm, const void* slot, const void* gh,
                   const void* scales, int n, int F, int B, int C, int NL,
-                  int SG, int FG, void* acc, void* cnt_acc, void* hist,
-                  void* counts, void* stream_ptr) {
+                  int few, int UR, int PW, int FG, int R, void* scratch,
+                  long long scratch_bytes, void* acc, void* cnt_acc,
+                  void* hist, void* counts, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
-  cudaError_t err = launch_wave<int>(
-      binned_fm, slot, gh, nullptr, (const float*)scales, n, F, B, C, NL, SG,
-      FG, (int*)acc, (int*)cnt_acc, stream);
+  if (bad_shape(n, F, B, C, NL)) return (int)cudaErrorInvalidValue;
+  const long long acc_len = (long long)NL * F * B * C;
+  cudaMemsetAsync(acc, 0, sizeof(long long) * acc_len, stream);
+  cudaMemsetAsync(cnt_acc, 0, sizeof(long long) * NL, stream);
+  cudaError_t err =
+      few ? run_few<IntCells>(binned_fm, slot, gh, scales, n, F, B, C, NL,
+                              FG, (long long*)acc, (long long*)cnt_acc,
+                              stream)
+          : run_partition<IntCells>(binned_fm, slot, gh, scales, n, F, B, C,
+                                    NL, UR, PW, FG, R, scratch,
+                                    scratch_bytes, (long long*)acc,
+                                    (long long*)cnt_acc, stream);
   if (err != cudaSuccess || hist == nullptr) return (int)err;
-  long long acc_len = (long long)NL * F * B * C;
   finish_quant_kernel<<<grid_for(acc_len + NL), kThreads, 0, stream>>>(
-      (const int*)acc, (const int*)cnt_acc, (const float*)scales, F, B, C, NL,
-      (float*)hist, (float*)counts);
+      (const long long*)acc, (const long long*)cnt_acc, (const float*)scales,
+      F, B, C, NL, (float*)hist, (float*)counts);
   return (int)cudaGetLastError();
 }
 
-// K3.  acc: int64 [out_slots*F*B*C], cnt_acc: int64 [out_slots]; slots
+// K3.  Feature-major bins; acc: int64 [out_slots*F*B*C], cnt_acc: int64
+// [out_slots]; FG features per block (the wrapper's wave_few_plan).  Slots
 // past S stay 0 (the zero padding).  With hist == NULL the int64 sums are
 // the result.
-int wave_hist_hl_f32(const void* binned_rm, const void* slot, const void* gh,
+int wave_hist_hl_f32(const void* binned_fm, const void* slot, const void* gh,
                      const void* exps, int n, int F, int B, int C, int S,
                      int out_slots, int FG, void* acc, void* cnt_acc,
                      void* hist, void* counts, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
-  long long out_len = (long long)out_slots * F * B * C;
+  if (bad_shape(n, F, B, C, S) || out_slots < S)
+    return (int)cudaErrorInvalidValue;
+  const long long out_len = (long long)out_slots * F * B * C;
   cudaMemsetAsync(acc, 0, sizeof(long long) * out_len, stream);
   cudaMemsetAsync(cnt_acc, 0, sizeof(long long) * out_slots, stream);
-  size_t smem = sizeof(long long) * ((size_t)S * FG * B * C + S);
-  cudaError_t err = cudaFuncSetAttribute(
-      wave_hist_hl_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int tiles = (F + FG - 1) / FG;
-  int chunks = row_blocks(n, tiles);
-  int rows_per_block = (n + chunks - 1) / chunks;
-  dim3 grid(chunks, tiles);
-  wave_hist_hl_kernel<<<grid, kThreads, smem, stream>>>(
-      (const uint8_t*)binned_rm, (const int*)slot, (const float*)gh,
-      (const int*)exps, n, F, B, C, S, FG, rows_per_block, (long long*)acc,
-      (long long*)cnt_acc);
-  err = cudaGetLastError();
+  cudaError_t err = run_few<FixedCells>(binned_fm, slot, gh, exps, n, F, B,
+                                        C, S, FG, (long long*)acc,
+                                        (long long*)cnt_acc, stream);
   if (err != cudaSuccess || hist == nullptr) return (int)err;
   finish_fixed_kernel<<<grid_for(out_len + out_slots), kThreads, 0, stream>>>(
       (const long long*)acc, (const long long*)cnt_acc, (const int*)exps, F,

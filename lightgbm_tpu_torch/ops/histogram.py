@@ -36,13 +36,15 @@ that holds no row of a leaf is exactly 0 (`find_best_split`'s
 `build_histogram` (the segment method, `index_add_` in float32) is the
 plain single-leaf oracle the tests hold the other histograms against.
 
-Launch plans.  K1 and K4 take their shapes from the planners here
-(`wave_part_plan`, `rows_plan`), which the CPU tests check.  K1
-partitions the computed rows by slot on the card and walks work items
-of (slot, feature group, at most R rows).  It reads the feature-major
-bins only: its partition pass transposes each computed row into a
-packed row-major copy, so the row-major `binned_rm` that K3 and K4 read
-is not needed.
+Launch plans.  The kernels take their shapes from the planners here
+(`wave_part_plan`, `wave_few_plan`, `rows_plan`), which the CPU tests
+check.  K1, and K2 at many slots, partition the computed rows by slot on
+the card and walk work items of (slot, feature group, at most R rows).
+K3, and K2 at few slots (`K2_FEW_SLOTS`), stream every row through tiles
+that hold every computed slot of a feature group.  The wave kernels read
+the feature-major bins only; `build_histogram_wave_hl` keeps the JAX
+signature's row-major `binned_rm` (its plain version reads it), and only
+K4 reads a row-major copy.
 """
 
 from __future__ import annotations
@@ -53,9 +55,13 @@ import torch
 
 from . import _kernels
 
-# Shared memory one block may hold on an H100 (227 KB); the kernels' tile
-# rule below and `wave_hl_fits` budget against it.
+# Shared memory one block may hold on an H100 (227 KB), and one SM's
+# (228 KB, of which each resident block reserves 1 KB): the tile rules
+# below budget against them.
 SMEM_LIMIT = 232448
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+FEW_THREADS = 512    # threads of a streaming block (kFewThreads)
 ROW_TILE = 512
 
 
@@ -81,10 +87,12 @@ def wave_hl_profitable(max_bin: int, num_slots: int, C: int = 2) -> bool:
 
 
 def wave_hl_fits(max_bin: int, num_slots: int, C: int = 2) -> bool:
-    """Shared-memory budget rule of K3 (replaces the TPU VMEM rule
-    `_hl_fits` of learner/wave.py): every computed slot's histograms of
-    at least one feature, plus the slot counts, fit one block."""
-    return num_slots * (max_bin * C * 8 + 8) <= SMEM_LIMIT
+    """Shared-memory rule of K3 (replaces the TPU VMEM rule `_hl_fits` of
+    learner/wave.py): every computed slot's histograms of one feature,
+    plus the slot counts, fit the streaming kernel's tile budget
+    (`wave_few_plan`).  At max_bin <= 256 it holds for every wave that
+    `wave_hl_profitable` marks (at most 11 slots)."""
+    return num_slots * (max_bin * C * 8 + 8) <= FEW_TILE_BYTES
 
 
 def wave_slot_pad(num_slots: int) -> int:
@@ -94,46 +102,34 @@ def wave_slot_pad(num_slots: int) -> int:
     return (num_slots + 127) // 128 * 128
 
 
-def wave_tile(num_features: int, max_bin: int, num_slots: int, C: int,
-              cell_bytes: int = 8):
-    """(slot group, feature group) of one K2 block's shared-memory tile:
-    SG * FG * B * C histogram cells plus SG counts (K2's int32 cells pass
-    cell_bytes=4)."""
-    cb = cell_bytes
-    SG = min(num_slots, SMEM_LIMIT // (max_bin * C * cb + cb))
-    FG = min(num_features, (SMEM_LIMIT - cb * SG) // (SG * max_bin * C * cb))
-    if SG < 1 or FG < 1:
-        raise ValueError(f"max_bin={max_bin} with {C} channels does not fit "
-                         "the kernel's shared-memory tile")
-    return SG, FG
-
-
-def hl_feature_group(num_features: int, max_bin: int, num_slots: int,
-                     C: int) -> int:
-    """Features per K3 block: all `num_slots` slots of FG features."""
-    return min(num_features,
-               (SMEM_LIMIT - 8 * num_slots) // (num_slots * max_bin * C * 8))
-
-
-# K1 and K4 tiles: (features x B x C) int64 cells plus one count cell in
+# K1, K2 and K4 tiles: (features x B x C) cells plus one count cell in
 # at most this many bytes, so several blocks share an SM.
 TILE_BYTES = 32 * 1024
-TILE_FEATURES = 8    # most features of one tile (kTileFeatures)
-UNIT_ROWS = 512      # rows of one warp's chunk in K1's partition passes
+TILE_FEATURES = 8    # most features of one 8-byte-cell tile (kMaxFG)
+UNIT_ROWS = 512      # rows of one warp's chunk in the partition passes
 PART_WARPS = 8       # warps of one partition block, where they fit
 K4_MIN_ROWS = 512    # K4: rows of one block at least
 K4_BLOCKS = 2048     # K4: blocks aimed at for large segments
+# The streaming kernel (K3; K2 at few slots): every computed slot of a
+# feature group in a tile of at most FEW_TILE_BYTES, half an SM, so two
+# 512-thread blocks share an SM (on the card, fewer feature groups and
+# more warps per tile beat more, smaller tiles: PERF.md).  K2 takes it up
+# to K2_FEW_SLOTS slots and the partition above that.
+FEW_TILE_BYTES = SM_SMEM // 2 - BLOCK_RESERVED_SMEM
+K2_FEW_SLOTS = 8
 
 
-def tile_feature_group(num_features: int, max_bin: int, C: int) -> int:
-    """Features per K1 work item and per K4 block: the fewest equal
-    groups of at most TILE_FEATURES whose (FG x B x C) int64 tile and
-    count cell fit TILE_BYTES (one feature per group, up to SMEM_LIMIT,
-    where not even one fits)."""
-    per = max_bin * C * 8
-    fg_max = min(TILE_FEATURES, (TILE_BYTES - 8) // per)
+def tile_feature_group(num_features: int, max_bin: int, C: int,
+                       cell_bytes: int = 8) -> int:
+    """Features per K1/K2 work item and per K4 block: the fewest equal
+    groups of at most TILE_FEATURES (twice as many with K2's 4-byte
+    cells) whose (FG x B x C) tile and count cell fit TILE_BYTES (one
+    feature per group, up to SMEM_LIMIT, where not even one fits)."""
+    per = max_bin * C * cell_bytes
+    fg_max = min(TILE_FEATURES * 8 // cell_bytes,
+                 (TILE_BYTES - cell_bytes) // per)
     if fg_max < 1:
-        fg_max = 1 if per + 8 <= SMEM_LIMIT else 0
+        fg_max = 1 if per + cell_bytes <= SMEM_LIMIT else 0
     if fg_max < 1:
         raise ValueError(f"max_bin={max_bin} with {C} channels does not fit "
                          "the kernel's shared-memory tile")
@@ -142,11 +138,12 @@ def tile_feature_group(num_features: int, max_bin: int, C: int) -> int:
 
 
 class WavePlan(NamedTuple):
-    """K1's launch plan: PW warps per partition block (each keeps NL
-    int32 counters in shared memory); FG features and at most R rows per
-    work item; U warp units of UR rows in the partition; rows
-    packed at Fp bytes and fixed-point gh at QS int64s per row; bytes of
-    scratch, of a histogram tile and of a partition block's counters."""
+    """The partition's launch plan (K1; K2 at many slots): PW warps per
+    partition block (each keeps NL int32 counters in shared memory); FG
+    features and at most R rows per work item; U warp units of UR rows
+    in the partition; rows packed at Fp bytes and their values at QS
+    cells per row; bytes of scratch, of a histogram tile and of a
+    partition block's counters."""
     PW: int
     FG: int
     R: int
@@ -160,23 +157,51 @@ class WavePlan(NamedTuple):
 
 
 def wave_part_plan(n: int, num_features: int, max_bin: int, C: int,
-                   num_slots: int) -> WavePlan:
-    """K1's plan (`wave_hist.cu` wave_hist_f32 and wave_part_scratch use
-    the same layout)."""
-    FG = tile_feature_group(num_features, max_bin, C)
+                   num_slots: int, cell_bytes: int = 8) -> WavePlan:
+    """The partition's plan, for K1's 8-byte fixed-point cells or K2's
+    4-byte ints (`wave_hist.cu` run_partition and part_scratch use the
+    same layout)."""
+    FG = tile_feature_group(num_features, max_bin, C, cell_bytes)
     R = min(4096, max(256, n // 1024))
     U = -(-n // UNIT_ROWS)
     Fp = -(-num_features // 16) * 16
-    QS = (C + 2) // 2 * 2
+    QS = -(-(C + 1) * cell_bytes // 16) * 16 // cell_bytes
     ints = num_slots * U + num_slots + 2 * (num_slots + 1)
     scratch = (-(-ints * 4 // 256) * 256 + -(-n * Fp // 256) * 256
-               + n * QS * 8)
+               + n * QS * cell_bytes)
     PW = min(PART_WARPS, SMEM_LIMIT // (4 * num_slots))
     if PW < 1:
         raise ValueError(f"{num_slots} slots exceed the partition's shared "
                          "memory")
     return WavePlan(PW, FG, R, UNIT_ROWS, U, Fp, QS, scratch,
-                    8 * (FG * max_bin * C + 1), 4 * PW * num_slots)
+                    cell_bytes * (FG * max_bin * C + 1), 4 * PW * num_slots)
+
+
+class FewPlan(NamedTuple):
+    """The streaming kernel's plan (K3; K2 at few slots): FG features
+    per block, its tile's bytes, and the blocks one SM holds by shared
+    memory and threads."""
+    FG: int
+    tile_bytes: int
+    blocks_per_sm: int
+
+
+def wave_few_plan(num_features: int, max_bin: int, C: int, num_slots: int,
+                  cell_bytes: int = 8,
+                  tile_budget: int = FEW_TILE_BYTES) -> FewPlan:
+    """Feature groups of the streaming kernel: the fewest equal groups
+    whose tile (num_slots x FG x B x C cells plus num_slots counts) fits
+    `tile_budget` (`wave_hist.cu` launch_few sizes it the same way)."""
+    per = num_slots * max_bin * C * cell_bytes
+    fg_max = min(num_features, (tile_budget - cell_bytes * num_slots) // per)
+    if fg_max < 1:
+        raise ValueError(f"{num_slots} slots at max_bin={max_bin} exceed the "
+                         "few-slot kernel's shared memory")
+    FG = -(-num_features // -(-num_features // fg_max))
+    tile = cell_bytes * num_slots * (FG * max_bin * C + 1)
+    blocks = min(SM_SMEM // (tile + BLOCK_RESERVED_SMEM),
+                 2048 // FEW_THREADS)
+    return FewPlan(FG, tile, blocks)
 
 
 def rows_plan(S: int, num_features: int, max_bin: int, C: int):
@@ -239,7 +264,7 @@ def _quant_ints(gh: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 def _check_wave_inputs(binned: torch.Tensor, slot: torch.Tensor,
-                       gh: torch.Tensor, max_bin: int, row_major: bool):
+                       gh: torch.Tensor, max_bin: int):
     if binned.dtype != torch.uint8:
         raise TypeError(f"binned must be uint8, got {binned.dtype}")
     if slot.dtype != torch.int32:
@@ -250,7 +275,7 @@ def _check_wave_inputs(binned: torch.Tensor, slot: torch.Tensor,
         raise ValueError(f"gh must be [n, C+1], got {tuple(gh.shape)}")
     n = gh.shape[0]
     shape_ok = (binned.dim() == 2
-                and binned.shape[0 if row_major else 1] == n
+                and binned.shape[1] == n
                 and slot.shape == (n,))
     if not shape_ok:
         raise ValueError(f"inconsistent shapes: binned {tuple(binned.shape)}, "
@@ -288,6 +313,14 @@ def _check_scales(scales: torch.Tensor, gh: torch.Tensor) -> torch.Tensor:
 def _check_cuda(dev) -> None:
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+
+
+def _check_aligned(binned_fm, slot, gh) -> None:
+    """The wave kernels load 4 rows of one feature's bins as one 4-byte
+    word, and 4 rows' slots and gh as 16-byte vectors."""
+    if binned_fm.data_ptr() % 4 or slot.data_ptr() % 16 or gh.data_ptr() % 16:
+        raise ValueError("the wave kernels need binned_fm 4-byte aligned "
+                         "and slot and gh 16-byte aligned")
 
 
 def _ptr(t):
@@ -409,6 +442,7 @@ def _launch(dev, fn, *args):
 def _launch_wave(binned_fm, slot, gh, exps, max_bin, num_slots, finish):
     """K1 on the card: float32 (hist, counts) when `finish`, else the
     int64 sums."""
+    _check_aligned(binned_fm, slot, gh)
     F, n = binned_fm.shape
     C = gh.shape[1] - 1
     plan = wave_part_plan(n, F, max_bin, C, num_slots)
@@ -417,11 +451,7 @@ def _launch_wave(binned_fm, slot, gh, exps, max_bin, num_slots, finish):
                       device=dev)
     cnt_acc = torch.empty(num_slots, dtype=torch.int64, device=dev)
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
-    hist = counts = None
-    if finish:
-        hist = torch.empty((num_slots, F, max_bin, C), dtype=torch.float32,
-                           device=dev)
-        counts = torch.empty(num_slots, dtype=torch.float32, device=dev)
+    hist, counts = _finish_outputs(finish, num_slots, F, max_bin, C, dev)
     err = _launch(
         dev, _kernels.lib().wave_hist_f32, binned_fm.data_ptr(),
         slot.data_ptr(), gh.data_ptr(), exps.data_ptr(), n, F, max_bin, C,
@@ -433,51 +463,65 @@ def _launch_wave(binned_fm, slot, gh, exps, max_bin, num_slots, finish):
     return (hist, counts) if finish else (acc, cnt_acc)
 
 
+def _finish_outputs(finish, slots, F, max_bin, C, dev):
+    """float32 (hist, counts) for a finish pass, else (None, None)."""
+    if not finish:
+        return None, None
+    return (torch.empty((slots, F, max_bin, C), dtype=torch.float32,
+                        device=dev),
+            torch.empty(slots, dtype=torch.float32, device=dev))
+
+
 def _launch_wave_int(binned_fm, slot, gh, scales, max_bin, num_slots,
-                     finish):
+                     finish, few=None, tile_budget=FEW_TILE_BYTES):
     """K2 on the card: float32 (hist, counts) when `finish`, else the
-    int32 sums widened to int64."""
+    int64 sums.  `few` picks the route (default: the streaming kernel up
+    to K2_FEW_SLOTS slots, else the partition); `tile_budget` sizes the
+    streaming kernel's tile."""
+    _check_aligned(binned_fm, slot, gh)
     F, n = binned_fm.shape
     C = gh.shape[1] - 1
-    SG, FG = wave_tile(F, max_bin, num_slots, C, cell_bytes=4)
+    if few is None:
+        few = num_slots <= K2_FEW_SLOTS
     dev = gh.device
-    acc = torch.empty((num_slots, F, max_bin, C), dtype=torch.int32,
+    if few:
+        FG = wave_few_plan(F, max_bin, C, num_slots, 4, tile_budget).FG
+        UR = PW = R = nbytes = 0
+        scratch = None
+    else:
+        plan = wave_part_plan(n, F, max_bin, C, num_slots, cell_bytes=4)
+        FG, UR, PW, R = plan.FG, plan.UR, plan.PW, plan.R
+        nbytes = plan.scratch_bytes
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    acc = torch.empty((num_slots, F, max_bin, C), dtype=torch.int64,
                       device=dev)
-    cnt_acc = torch.empty(num_slots, dtype=torch.int32, device=dev)
-    hist = counts = None
-    if finish:
-        hist = torch.empty((num_slots, F, max_bin, C), dtype=torch.float32,
-                           device=dev)
-        counts = torch.empty(num_slots, dtype=torch.float32, device=dev)
+    cnt_acc = torch.empty(num_slots, dtype=torch.int64, device=dev)
+    hist, counts = _finish_outputs(finish, num_slots, F, max_bin, C, dev)
     err = _launch(
         dev, _kernels.lib().wave_hist_i32, binned_fm.data_ptr(),
         slot.data_ptr(), gh.data_ptr(), scales.data_ptr(), n, F, max_bin, C,
-        num_slots, SG, FG, acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist),
-        _ptr(counts))
+        num_slots, int(few), UR, PW, FG, R, _ptr(scratch), nbytes,
+        acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist), _ptr(counts))
     _kernels.check(err, "wave_hist_i32")
     build_histogram_wave_int.launches += 1
-    if finish:
-        return hist, counts
-    return acc.to(torch.int64), cnt_acc.to(torch.int64)
+    return (hist, counts) if finish else (acc, cnt_acc)
 
 
-def _launch_wave_hl(binned_rm, slot, gh, exps, max_bin, num_slots,
-                    out_slots, finish):
-    """K3 on the card: float32 when `finish`, else the int64 sums."""
-    n, F = binned_rm.shape
+def _launch_wave_hl(binned_fm, slot, gh, exps, max_bin, num_slots,
+                    out_slots, finish, tile_budget=FEW_TILE_BYTES):
+    """K3 on the card: float32 when `finish`, else the int64 sums;
+    `tile_budget` sizes the streaming kernel's tile."""
+    _check_aligned(binned_fm, slot, gh)
+    F, n = binned_fm.shape
     C = gh.shape[1] - 1
-    FG = hl_feature_group(F, max_bin, num_slots, C)
+    FG = wave_few_plan(F, max_bin, C, num_slots, 8, tile_budget).FG
     dev = gh.device
     acc = torch.empty((out_slots, F, max_bin, C), dtype=torch.int64,
                       device=dev)
     cnt_acc = torch.empty(out_slots, dtype=torch.int64, device=dev)
-    hist = counts = None
-    if finish:
-        hist = torch.empty((out_slots, F, max_bin, C), dtype=torch.float32,
-                           device=dev)
-        counts = torch.empty(out_slots, dtype=torch.float32, device=dev)
+    hist, counts = _finish_outputs(finish, out_slots, F, max_bin, C, dev)
     err = _launch(
-        dev, _kernels.lib().wave_hist_hl_f32, binned_rm.data_ptr(),
+        dev, _kernels.lib().wave_hist_hl_f32, binned_fm.data_ptr(),
         slot.data_ptr(), gh.data_ptr(), exps.data_ptr(), n, F, max_bin, C,
         num_slots, out_slots, FG, acc.data_ptr(), cnt_acc.data_ptr(),
         _ptr(hist), _ptr(counts))
@@ -528,7 +572,7 @@ def build_histogram_wave(binned_fm: torch.Tensor, slot: torch.Tensor,
     """
     if row_tile != ROW_TILE:
         raise ValueError(f"row_tile must be {ROW_TILE}")
-    _check_wave_inputs(binned_fm, slot, gh, max_bin, row_major=False)
+    _check_wave_inputs(binned_fm, slot, gh, max_bin)
     if quant_scales is not None:
         if quant_bins > 126:
             raise ValueError(f"quant_bins {quant_bins} > 126: the int8 "
@@ -559,7 +603,7 @@ def build_histogram_wave_fixed(binned_fm: torch.Tensor, slot: torch.Tensor,
     """K1's int64 sums on the caller's grid `exps` ([C+1] int32, e.g. the
     tree's `scale_exps`): (acc [NL, F, B, C], cnt [NL]).  The engines'
     variant of `build_histogram_wave`."""
-    _check_wave_inputs(binned_fm, slot, gh, max_bin, row_major=False)
+    _check_wave_inputs(binned_fm, slot, gh, max_bin)
     _check_exps(exps, gh.shape[1], gh.device)
     if gh.device.type == "cpu":
         return build_histogram_wave_plain(
@@ -576,9 +620,9 @@ def build_histogram_wave_int(binned_fm: torch.Tensor, slot: torch.Tensor,
     """K2's exact int64 sums (acc [NL, F, B, C], cnt [NL]) of the
     quantized integers: the wave engine's form of `build_histogram_wave`
     with `quant_scales`.  The caller keeps the JAX gate: quant_bins <=
-    126 and n * quant_bins < 2^31, so the kernel's int32 sums cannot
-    overflow."""
-    _check_wave_inputs(binned_fm, slot, gh, max_bin, row_major=False)
+    126 and n * quant_bins < 2^31, so the kernel's int32 tile cells
+    cannot overflow (its device sums are int64)."""
+    _check_wave_inputs(binned_fm, slot, gh, max_bin)
     quant_scales = _check_scales(quant_scales, gh)
     if gh.device.type == "cpu":
         return build_histogram_wave_int_plain(
@@ -596,9 +640,12 @@ def _check_hl(binned_fm, binned_rm, slot, gh, max_bin, num_slots,
               out_slots, row_tile):
     if row_tile != ROW_TILE:
         raise ValueError(f"row_tile must be {ROW_TILE}")
-    _check_wave_inputs(binned_rm, slot, gh, max_bin, row_major=True)
-    if binned_fm.shape != binned_rm.shape[::-1]:
-        raise ValueError("binned_fm must be the transpose of binned_rm")
+    _check_wave_inputs(binned_fm, slot, gh, max_bin)
+    if (binned_rm.dtype != torch.uint8
+            or binned_rm.shape != binned_fm.shape[::-1]
+            or binned_rm.device != gh.device):
+        raise ValueError("binned_rm must be the uint8 transpose of binned_fm "
+                         "on the data's device")
     if not 1 <= num_slots <= out_slots:
         raise ValueError(f"need 1 <= num_slots ({num_slots}) <= out_slots "
                          f"({out_slots})")
@@ -613,8 +660,11 @@ def build_histogram_wave_hl(binned_fm: torch.Tensor, binned_rm: torch.Tensor,
                             row_tile: int = ROW_TILE):
     """Few-slot variant of `build_histogram_wave` (K3).  `num_slots` is
     the true computed-slot bound; the output is zero-padded to
-    `out_slots` rows.  The kernel reads the row-major copy `binned_rm
-    [n, F]`.  Returns (hist [out_slots, F, B, C], counts [out_slots])."""
+    `out_slots` rows.  The kernel reads the feature-major bins; of the
+    JAX signature's row-major copy `binned_rm [n, F]` (which the plain
+    version reads) it checks the shape only, so a view such as
+    `binned_fm.t()` will do.  Returns (hist [out_slots, F, B, C],
+    counts [out_slots])."""
     _check_hl(binned_fm, binned_rm, slot, gh, max_bin, num_slots, out_slots,
               row_tile)
     if gh.device.type == "cpu":
@@ -622,7 +672,7 @@ def build_histogram_wave_hl(binned_fm: torch.Tensor, binned_rm: torch.Tensor,
             binned_fm, binned_rm, slot, gh, max_bin=max_bin,
             num_slots=num_slots, out_slots=out_slots)
     _check_cuda(gh.device)
-    return _launch_wave_hl(binned_rm, slot, gh, scale_exps(gh), max_bin,
+    return _launch_wave_hl(binned_fm, slot, gh, scale_exps(gh), max_bin,
                            num_slots, out_slots, finish=True)
 
 
@@ -644,7 +694,7 @@ def build_histogram_wave_hl_fixed(binned_fm: torch.Tensor,
             binned_fm, binned_rm, slot, gh, max_bin=max_bin,
             num_slots=num_slots, out_slots=out_slots, exps=exps, fixed=True)
     _check_cuda(gh.device)
-    return _launch_wave_hl(binned_rm, slot, gh, exps, max_bin, num_slots,
+    return _launch_wave_hl(binned_fm, slot, gh, exps, max_bin, num_slots,
                            out_slots, finish=False)
 
 

@@ -439,3 +439,98 @@ def test_rows_plan_covers_segment(S, F, B):
         assert groups * chunks >= 16
     if (F, B) == (28, 255):
         assert groups * chunks <= th.K4_BLOCKS
+
+
+# ------------------------------------------ the streaming kernel's plan
+def _few_cells(S, F, FG, B, C):
+    """Global cell (slot, feature, bin, channel) of every tile cell of
+    the streaming kernel (`wave_few_kernel` in wave_hist.cu), decoded as
+    its flush decodes them: feature group g holds [S][fg][B][C] cells."""
+    out = []
+    for f0 in range(0, F, FG):
+        fg = min(FG, F - f0)
+        per_slot = fg * B * C
+        for i in range(S * per_slot):
+            s, rem = divmod(i, per_slot)
+            fl, bc = divmod(rem, B * C)
+            out.append(((s * F + f0 + fl) * B) * C + bc)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("cell_bytes", [8, 4])
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_few_plan_fits_and_shares_an_sm(S, cell_bytes):
+    """K3's tile (8-byte cells) and K2's few-slot tile (4-byte cells) at
+    the main path's widths: within the budget, equal feature groups that
+    cover every (slot, feature, bin, channel) cell once, and at least two
+    blocks per SM at 8 slots (a 227 KB tile held one)."""
+    F, B, C = 28, 255, 2
+    plan = th.wave_few_plan(F, B, C, S, cell_bytes)
+    assert plan.tile_bytes <= th.FEW_TILE_BYTES
+    assert plan.tile_bytes == cell_bytes * S * (plan.FG * B * C + 1)
+    groups = -(-F // plan.FG)
+    assert groups * plan.FG >= F > (groups - 1) * plan.FG
+    assert plan.blocks_per_sm >= 2
+    assert plan.blocks_per_sm * (plan.tile_bytes
+                                 + th.BLOCK_RESERVED_SMEM) <= th.SM_SMEM
+    cells = _few_cells(S, F, plan.FG, B, C)
+    assert np.array_equal(np.sort(cells), np.arange(S * F * B * C))
+
+
+def test_few_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError):
+        th.wave_few_plan(28, 255, 2, 29)
+    assert th.wave_few_plan(28, 255, 2, 28).FG == 1
+    # 8 slots: 3 features a block (10 groups) in half an SM; a smaller
+    # budget takes fewer
+    assert th.wave_few_plan(28, 255, 2, 8).FG == 3
+    assert th.wave_few_plan(28, 255, 2, 8, tile_budget=64 * 1024).FG == 2
+
+
+def test_restated_hl_fits_keeps_the_dispatch():
+    """The fits rule restated for the streaming kernel's tile accepts
+    1/2/4/8 slots at B = 255 and every wave `wave_hl_profitable` marks
+    at B <= 256, as the 227 KB rule it replaces did, so the main path
+    launches K3 on the same waves."""
+    assert all(th.wave_hl_fits(255, S) for S in (1, 2, 4, 8))
+    for B in range(2, 257):
+        for S in range(1, 40):
+            if th.wave_hl_profitable(B, S):
+                old = S * (B * 2 * 8 + 8) <= th.SMEM_LIMIT
+                assert th.wave_hl_fits(B, S) and old, (B, S)
+                th.wave_few_plan(28, B, 2, S)      # the plan fits too
+
+
+def test_wave_wrappers_check_alignment():
+    """The kernels load bins as 4-byte words and slot / gh as 16-byte
+    vectors: a misaligned view is refused before any launch."""
+    n, F = 1024, 3
+    raw = torch.zeros(F * n + 16, dtype=torch.uint8)
+    slot = torch.zeros(n + 4, dtype=torch.int32)
+    gh = torch.zeros(3 * n + 4, dtype=torch.float32)
+    ok = (raw[:F * n].view(F, n), slot[:n], gh[:3 * n].view(n, 3))
+    th._check_aligned(*ok)
+    for bad in ((raw[1:F * n + 1].view(F, n), ok[1], ok[2]),
+                (ok[0], slot[1:n + 1], ok[2]),
+                (ok[0], ok[1], gh[1:3 * n + 1].view(n, 3))):
+        with pytest.raises(ValueError):
+            th._check_aligned(*bad)
+
+
+def test_hl_takes_a_row_major_view():
+    """K3's wrapper checks binned_rm's shape, not its layout: the wave
+    engine passes `binned_fm.t()`, a view, and gets the same result as
+    with a contiguous copy."""
+    binned, slot, gh = _mk(1024, 5, 63, 8, computed=4, seed=17)
+    b, s, g = (torch.from_numpy(binned), torch.from_numpy(slot),
+               torch.from_numpy(gh))
+    e = th.scale_exps(g)
+    view = th.build_histogram_wave_hl_fixed(b, b.t(), s, g, e, max_bin=63,
+                                            num_slots=4, out_slots=8)
+    copy = th.build_histogram_wave_hl_fixed(b, b.t().contiguous(), s, g, e,
+                                            max_bin=63, num_slots=4,
+                                            out_slots=8)
+    assert torch.equal(view[0], copy[0]) and torch.equal(view[1], copy[1])
+    with pytest.raises(ValueError):
+        th.build_histogram_wave_hl_fixed(b, b, s, g, e, max_bin=63,
+                                         num_slots=4, out_slots=8)

@@ -208,3 +208,132 @@ def test_k4_segment_shapes(S, hot, full):
     p = th.build_histogram_rows_plain(r, g, m, max_bin=255, exps=e,
                                       fixed=True)
     assert torch.equal(k, k2) and torch.equal(k, p)
+
+
+def _wave_case(case, n, F, NL, seed):
+    """(binned, slot, gh) on the card for K2/K3: 'even' slots, 'uneven'
+    (slot s takes a share ~ 1 / (s + 1)), 'hot' (every row in bin 17 of
+    every feature, so every computed row adds to one cell per feature)
+    or 'sentinel' (no computed row)."""
+    binned, slot, gh = _inputs(n, F, 255, NL, seed=seed)
+    if case == "uneven":
+        slot = _slots("uneven", n, NL, seed=seed)
+    elif case == "sentinel":
+        slot = _slots("all_sentinel", n, NL, seed=seed)
+    elif case == "hot":
+        binned[:] = 17
+    dev = torch.device("cuda")
+    return (torch.from_numpy(binned).to(dev), torch.from_numpy(slot).to(dev),
+            torch.from_numpy(gh).to(dev))
+
+
+def _reuse_dirty(nbytes):
+    """Leave a freed block of garbage in the caching allocator, so the
+    next outputs of that size land on memory that was not zero."""
+    torch.full((nbytes,), 0xAB, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,NL", [("even", 8192, 1), ("even", 8192, 2),
+                                       ("even", 8192, 4), ("even", 8192, 8),
+                                       ("even", 8192, 16),
+                                       ("even", 8192, 256),
+                                       ("uneven", 16384, 384),
+                                       ("even", 999_936, 8),
+                                       ("even", 999_936, 128),
+                                       ("hot", 8192, 8), ("hot", 8192, 256)])
+def test_k2_shapes(case, n, NL):
+    """K2 on both routes (the streaming kernel up to K2_FEW_SLOTS slots,
+    the partition above): int64 sums and float32 output bit-identical to
+    the plain version, on a repeat launch into reused memory too, and
+    each call counts one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, s, _ = _wave_case(case, n, 28, NL, seed=n + NL)
+    gh, scales = _quantized(n, seed=NL)
+    g, sc = torch.from_numpy(gh).cuda(), torch.from_numpy(scales).cuda()
+    launches = th.build_histogram_wave_int.launches
+    ki = th.build_histogram_wave_int(b, s, g, sc, max_bin=255, num_slots=NL)
+    _reuse_dirty(ki[0].numel() * 8)
+    ki2 = th.build_histogram_wave_int(b, s, g, sc, max_bin=255, num_slots=NL)
+    kf = th.build_histogram_wave(b, s, g, max_bin=255, num_slots=NL,
+                                 quant_bins=4, quant_scales=sc)
+    assert th.build_histogram_wave_int.launches == launches + 3
+    pi = th.build_histogram_wave_int_plain(b, s, g, sc, max_bin=255,
+                                           num_slots=NL, fixed=True)
+    pf = th.build_histogram_wave_int_plain(b, s, g, sc, max_bin=255,
+                                           num_slots=NL)
+    assert ki[0].dtype == torch.int64
+    for x, y in ((ki, pi), (ki2, pi), (kf, pf)):
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NL", [8, 16])
+def test_k2_routes_agree_at_the_boundary(NL):
+    """Both of K2's routes give the plain version's sums at the slot
+    counts where the choice between them is made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, s, _ = _wave_case("even", 65536, 28, NL, seed=NL)
+    gh, scales = _quantized(65536, seed=NL)
+    g, sc = torch.from_numpy(gh).cuda(), torch.from_numpy(scales).cuda()
+    p = th.build_histogram_wave_int_plain(b, s, g, sc, max_bin=255,
+                                          num_slots=NL, fixed=True)
+    for few in (True, False):
+        k = th._launch_wave_int(b, s, g, sc, 255, NL, finish=False, few=few)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot", "sentinel", "even"])
+@pytest.mark.parametrize("Ks", [1, 2, 4, 8])
+def test_k3_hot_cells_and_sentinel_waves(Ks, case):
+    """K3 where every computed row adds to one cell of each feature, on
+    a wave with no computed row, and on even slots: the int64 sums and
+    float32 output equal the plain version's, and the padding slots
+    Ks..out_slots come out zero on a repeat launch into memory that
+    held garbage."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, s, g = _wave_case(case, 8192, 28, Ks, seed=Ks)
+    out = th.wave_slot_pad(Ks)
+    e = th.scale_exps(g)
+    launches = th.build_histogram_wave_hl.launches
+    k = th.build_histogram_wave_hl_fixed(b, b.t(), s, g, e, max_bin=255,
+                                         num_slots=Ks, out_slots=out)
+    _reuse_dirty(k[0].numel() * 8)
+    k2 = th.build_histogram_wave_hl_fixed(b, b.t(), s, g, e, max_bin=255,
+                                          num_slots=Ks, out_slots=out)
+    _reuse_dirty(k[0].numel() * 4)
+    kf = th.build_histogram_wave_hl(b, b.t(), s, g, max_bin=255,
+                                    num_slots=Ks, out_slots=out)
+    assert th.build_histogram_wave_hl.launches == launches + 3
+    brm = b.t().contiguous()
+    p = th.build_histogram_wave_hl_plain(b, brm, s, g, max_bin=255,
+                                         num_slots=Ks, out_slots=out,
+                                         exps=e, fixed=True)
+    pf = th.build_histogram_wave_hl_plain(b, brm, s, g, max_bin=255,
+                                          num_slots=Ks, out_slots=out)
+    for x, y in ((k, p), (k2, p), (kf, pf)):
+        assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+    assert not k2[0][Ks:].any() and not k2[1][Ks:].any()
+    if case == "sentinel":
+        assert not k2[0].any() and not k2[1].any()
+
+
+@pytest.mark.cuda
+def test_wave_kernels_refuse_misaligned_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, F = 1024, 3
+    b, s, g = _wave_case("even", n, F, 8, seed=3)
+    raw = torch.zeros(F * n + 4, dtype=torch.uint8, device="cuda")
+    bad = raw[1:F * n + 1].view(F, n)
+    bad.copy_(b)
+    with pytest.raises(ValueError):
+        th.build_histogram_wave(bad, s, g, max_bin=255, num_slots=8)
+    with pytest.raises(ValueError):
+        th.build_histogram_wave_hl(bad, bad.t(), s, g, max_bin=255,
+                                   num_slots=2, out_slots=8)

@@ -39,6 +39,8 @@ from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops.split import SplitParams
 from lightgbm_tpu_torch.utils import random as R
 
+from test_torch_histogram import (CASES, _slot_case, _slot_partition_plain,
+                                  _wave_part_items)
 from test_torch_wave import _leaves_under, _port_inputs
 
 ROWS, FEATS = 6000, 10
@@ -273,3 +275,71 @@ def test_renew_matches_jax():
                             torch.from_numpy(mask), SplitParams()).numpy()
     assert got[L - 1] == leaf_value[L - 1]
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
+
+
+# ------------------------------------------------- K2's launch plans
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("F,B", [(28, 255), (5, 63), (40, 16)])
+def test_k2_part_plan_covers_each_cell_once(case, F, B):
+    """K2's partition plan (4-byte cells): each computed row's values
+    take 16 bytes (C + 1 = 3 ints rounded to 4), twice K1's features fit
+    the same tile budget (2 groups of 14 at F = 28, B = 255), and the
+    work items cut from it cover every (slot, feature, computed row)
+    once, so every (slot, feature, bin) cell gets each of its rows once."""
+    n, NL = 8192, 16
+    plan = th.wave_part_plan(n, F, B, 2, NL, cell_bytes=4)
+    k1 = th.wave_part_plan(n, F, B, 2, NL)
+    assert plan.QS == 4 and k1.QS == 4     # 16 bytes a row against 32
+    assert plan.tile_bytes == 4 * (plan.FG * B * 2 + 1) <= th.TILE_BYTES
+    assert 1 <= plan.FG <= 2 * th.TILE_FEATURES and plan.FG >= k1.FG
+    if (F, B) == (28, 255):
+        assert (plan.FG, k1.FG) == (14, 7)
+    assert plan.scratch_bytes >= n * (plan.Fp + 16)
+    assert plan.scratch_bytes < k1.scratch_bytes
+    slot = _slot_case(case, n, NL, seed=F + B)
+    perm, counts, starts = _slot_partition_plain(torch.from_numpy(slot), NL)
+    cover = np.zeros((perm.numel(), F), np.int64)
+    for s, f0, fg, a, b, owner in _wave_part_items(counts.tolist(), F,
+                                                   plan.FG, plan.R):
+        assert 0 < b - a <= plan.R and 1 <= fg <= plan.FG
+        assert starts[s] <= a and b <= starts[s + 1]
+        cover[a:b, f0:f0 + fg] += 1
+    assert np.all(cover == 1)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+def test_k2_few_slot_route(S):
+    """The wave engine's quantized waves pass num_slots = wave_slot_pad
+    (8 for the first five waves of a tree): those take the streaming
+    kernel, whose 4-byte tile fits and leaves two blocks or more per
+    SM."""
+    assert th.wave_slot_pad(S) <= th.K2_FEW_SLOTS
+    plan = th.wave_few_plan(28, 255, 2, th.wave_slot_pad(S), cell_bytes=4)
+    assert plan.tile_bytes <= th.FEW_TILE_BYTES and plan.blocks_per_sm >= 2
+
+
+def _wave_fits_before(F, B, L):
+    """`gbdt.wave_fits` as it stood before the streaming kernel: K2's
+    (slot group x feature group) tile of 8-byte cells (`wave_tile`), K1's
+    tile (`tile_feature_group`) and the partition's slot counters."""
+    NL, lim = th.wave_slot_pad(L), 232448
+    SG = min(NL, lim // (16 * B + 8))
+    if SG < 1 or min(F, (lim - 8 * SG) // (SG * 16 * B)) < 1:
+        return False
+    if min(8, (32768 - 8) // (16 * B)) < 1 and 16 * B + 8 > lim:
+        return False
+    return lim // (4 * NL) >= 1
+
+
+def test_wave_fits_decides_auto_as_before():
+    """`auto` picks the same engine at every (features, max_bin, leaves)
+    as before: the restated `wave_fits` equals the old rule on a grid
+    around each of its edges."""
+    from lightgbm_tpu_torch.boosting.gbdt import wave_fits
+    grid = [(F, B, L)
+            for F in (0, 1, 2, 7, 28, 100)
+            for B in (2, 15, 63, 255, 256, 1024, 14527, 14528, 20000)
+            for L in (2, 7, 8, 31, 255, 1000, 58112, 58113, 60000)]
+    got = [wave_fits(*x) for x in grid]
+    assert got == [_wave_fits_before(*x) for x in grid]
+    assert any(got) and not all(got)
