@@ -11,7 +11,17 @@ Phases, each printing one JSON line:
      holds `ATOMS.CAST` (a compare-and-swap loop) fails the run;
   3. main path: `Booster` updates with the bench workload (binary logloss,
      make_higgs_like(1_000_000, 28), 255 leaves, 255 bins, 13 iterations)
-     on the card; held-out AUC >= 0.72 and K1 and K3 launched;
+     on the card; held-out AUC >= 0.72 and K1 and K3 launched.  Then
+     `predict`: the 13 trees score the 1M training rows and the 100k
+     held-out rows through `Booster.predict` with default params (the
+     card's tensor traversal), with the DevicePredictor dispatch count
+     set to 0 just before and read just after (5 on the card, none on
+     the CPU); leaf ids equal to the native host predictor's, each raw
+     score within 2·T·2^-24·Σ_t|leaf value| of the float64 host score,
+     held-out AUC within 1e-6; rows/s of the card end to end, by device
+     time (kernels and copies), of the native OpenMP predictor and of
+     the Python loop (50,000 rows); the pack's depth, the bucket and
+     the peak device memory;
   4. path A, quantized training: the same workload with
      use_quantized_grad=true (4 bins, stochastic rounding), 13
      iterations; K2 launched, K1/K3 not; held-out AUC within 0.01 of
@@ -19,6 +29,10 @@ Phases, each printing one JSON line:
   5. path B, the leaf-wise engine: the same workload with
      tpu_growth_strategy=leafwise, 13 iterations; K4 launched, held-out
      AUC >= 0.72;
+  5a. device binning: make_higgs_like(2^21, 28) float32 binned by a
+     default (card) Dataset and by a device_type=cpu one: the bins equal
+     bit for bit, both `Dataset::binning` times, and one main-path update
+     on each grows the same tree (the card bins padded on the card);
   6. card against CPU: `train` at 65,536 rows, 3 iterations, on "cuda"
      and "cpu", for the main path and paths A and B: the same split
      features and thresholds in every tree, leaf values within rtol 1e-4;
@@ -68,6 +82,7 @@ same methods, for a comparison within one call.
 
 import functools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -502,10 +517,12 @@ def reset_counts(H):
         fn.launches = 0
 
 
-def drive_path(lgb, H, global_timer, name, extra, iterations, data):
+def drive_path(lgb, H, global_timer, name, extra, iterations, data,
+               after_training=None):
     """Train the bench workload with `extra` params on the card: counts
-    set to 0 just before the updates and read just after; then three
-    instrumented iterations for the breakdown."""
+    set to 0 just before the updates and read just after; then
+    `after_training(booster)`, if given; then three instrumented
+    iterations for the breakdown."""
     X, y, Xte, yte = data
     params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
@@ -538,6 +555,8 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data):
                               for t in booster._gbdt.models_],
           "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    if after_training is not None:
+        after_training(booster)
     # where the time goes: three more iterations with the port's timer on
     # (host scopes plus CUDA-event device scopes; the timer synchronizes
     # at scope ends, so these iterations run slower than the ones above)
@@ -562,8 +581,9 @@ def phase_paths(lgb, H, global_timer):
     Xte, yte = make_higgs_like(100_000, 28, seed=1)
     data = (X, y, Xte, yte)
     out = {}
-    launches, auc_main = drive_path(lgb, H, global_timer, "main_path", {},
-                                    13, data)
+    launches, auc_main = drive_path(
+        lgb, H, global_timer, "main_path", {}, 13, data,
+        after_training=lambda b: phase_predict(b, data))
     if auc_main < 0.72:
         raise AssertionError(f"main path: held-out AUC {auc_main} < 0.72")
     if launches["K1"] <= 0 or launches["K3"] <= 0:
@@ -588,6 +608,188 @@ def phase_paths(lgb, H, global_timer):
         raise AssertionError(f"path B: held-out AUC {auc_l} < 0.72")
     out["path_b_leafwise"] = launches
     return out
+
+
+def host_ms(fn, reps=3):
+    """Median milliseconds of fn() on the host clock, each call ending in
+    a synchronize (one warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_predict(booster, data):
+    """Batch prediction with the main path's booster after its 13 trees,
+    through `Booster.predict` with default params (device_predict=auto
+    on the card, float32 input): the training rows and the held-out
+    rows, raw scores, leaf ids and probabilities.  The DevicePredictor
+    dispatch count is set to 0 just before and read just after.  Held
+    against the native host predictor (OpenMP, float64): leaf ids equal
+    element for element; each raw score within 2·T·2^-24·Σ_t|leaf value|
+    of its row's float64 score; held-out AUC within 1e-6.  Then rows/s
+    of the card end to end (H2D and D2H included), of the card's device
+    time (torch.profiler: kernels, and copies apart), of the native
+    predictor and of the Python loop over the trees (50,000 rows)."""
+    from lightgbm_tpu_torch.inference import DevicePredictor
+    from lightgbm_tpu_torch.native import predictor_lib
+    X, _, Xte, yte = data
+    g = booster._gbdt
+    if predictor_lib() is None:
+        raise AssertionError("predict: the native host predictor did not "
+                             "build")
+    T = booster.num_trees()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    DevicePredictor.dispatches.clear()
+    raw = booster.predict(X, raw_score=True)
+    leaf = booster.predict(X, pred_leaf=True)
+    raw_te = booster.predict(Xte, raw_score=True)
+    leaf_te = booster.predict(Xte, pred_leaf=True)
+    prob_te = booster.predict(Xte)
+    dispatches = dict(DevicePredictor.dispatches)
+    peak = torch.cuda.max_memory_allocated()
+    if dispatches.get("cuda", 0) != 5 or dispatches.get("cpu", 0):
+        raise AssertionError(f"predict: DevicePredictor dispatches "
+                             f"{dispatches}, expected 5 on the card")
+    dp = g._device_pred[1]
+    packed = g._packed_for(0, T, 1)
+    worst = {}
+    for name, Xs, r, lf in (("train", X, raw, leaf),
+                            ("heldout", Xte, raw_te, leaf_te)):
+        X64 = Xs.astype(np.float64)
+        host_leaf = packed.predict_leaf(X64)
+        if not np.array_equal(lf, host_leaf):
+            bad = np.argwhere(lf != host_leaf)[:3].tolist()
+            raise AssertionError(f"predict {name}: card leaf ids differ "
+                                 f"from the native predictor's at {bad}")
+        host_raw = packed.predict(X64, 1, False)[:, 0]
+        sum_abs = np.zeros(len(Xs))
+        for i, t in enumerate(g.models_):
+            sum_abs += np.abs(t.leaf_value[lf[:, i]])
+        bound = 2.0 * T * 2.0 ** -24 * sum_abs
+        err = np.abs(r.astype(np.float64) - host_raw)
+        if (err > bound).any():
+            i = int(np.argmax(err - bound))
+            raise AssertionError(f"predict {name}: row {i} raw score "
+                                 f"{r[i]!r} vs host {host_raw[i]!r}, bound "
+                                 f"{bound[i]!r}")
+        worst[name] = {"max_abs_err": float(err.max()),
+                       "max_err_over_bound": float((err / bound).max())}
+        if name == "heldout":
+            auc_card, auc_host = auc(yte, r), auc(yte, host_raw)
+            if abs(auc_card - auc_host) > 1e-6:
+                raise AssertionError(f"predict: held-out AUC {auc_card} "
+                                     f"from the card, {auc_host} on host")
+            # the sigmoid's slope is at most 1/4; float32 rounds it
+            perr = np.abs(prob_te - 1 / (1 + np.exp(-host_raw)))
+            if (perr > bound / 4 + 2.0 ** -23).any():
+                raise AssertionError("predict: held-out probabilities "
+                                     "differ from the host's")
+    n = X.shape[0]
+    X64 = X.astype(np.float64)
+    e2e_ms = host_ms(lambda: booster.predict(X, raw_score=True))
+    leaf_ms = host_ms(lambda: booster.predict(X, pred_leaf=True))
+    _, per = device_ms(lambda: booster.predict(X, raw_score=True), reps=3)
+    copy_ms = sum(v for k, v in per.items() if k.startswith("Memcpy"))
+    kern_ms = sum(v for k, v in per.items() if not k.startswith("Memcpy"))
+    native_ms = host_ms(lambda: packed.predict(X64, 1, False))
+    n_py = min(n, 50_000)
+    Xp = X64[:n_py]
+
+    def py_loop():
+        acc = np.zeros(n_py)
+        for t in g.models_:
+            acc += t.predict(Xp)
+        return acc
+    t0 = time.perf_counter()
+    py_loop()
+    py_s = time.perf_counter() - t0
+    emit({"phase": "predict", "trees": T, "rows": n,
+          "heldout_rows": Xte.shape[0], "max_depth": dp.pack.max_depth,
+          "bucket": dp.bucket_rows(n),
+          "bucket_heldout": dp.bucket_rows(Xte.shape[0]),
+          "dispatches": dispatches, "leaf_ids_equal_native": True,
+          "score_error": worst, "heldout_auc_card": auc_card,
+          "heldout_auc_host": auc_host,
+          "peak_mem_gib": peak / 2**30,
+          "card_e2e_ms": e2e_ms, "card_e2e_rows_per_s": n / e2e_ms * 1e3,
+          "card_leaf_e2e_ms": leaf_ms,
+          "card_device_ms": kern_ms + copy_ms,
+          "card_kernel_ms": kern_ms, "card_copy_ms": copy_ms,
+          "card_device_rows_per_s": (n / (kern_ms + copy_ms) * 1e3
+                                     if per else None),
+          "card_kernel_rows_per_s": n / kern_ms * 1e3 if per else None,
+          "card_device_ms_by_name": per,
+          "host_share": (1.0 - (kern_ms + copy_ms) / e2e_ms
+                         if per else None),
+          "native_ms": native_ms,
+          "native_rows_per_s": n / native_ms * 1e3,
+          "native_threads": len(os.sched_getaffinity(0)),
+          "python_rows": n_py, "python_rows_per_s": n_py / py_s})
+
+
+def phase_device_bin(lgb, global_timer):
+    """Device binning at 2^21 x 28 float32 (make_higgs_like): the default
+    Dataset (device_type=cuda) bins on the card, a device_type=cpu
+    Dataset on the host; the bins must be equal bit for bit.  Then one
+    training update on each, on the card: the device bins are padded on
+    the card (no host pull) and grow the same tree."""
+    from lightgbm_tpu_torch.io.device_bin import bin_matrix_device
+    X, y = make_higgs_like(1 << 21, 28, seed=3)
+    times = {}
+    cores = {}
+    for dev in ("cuda", "cpu"):
+        global_timer.reset()
+        global_timer.enabled = True
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ds = lgb.Dataset(X, label=y, params={"device_type": dev,
+                                             "max_bin": 255})
+        core = ds.construct()._core
+        torch.cuda.synchronize()
+        times[dev] = {"construct_s": time.perf_counter() - t0,
+                      "binning_s": global_timer.snapshot()[
+                          "Dataset::binning"][0],
+                      "peak_mem_gib": torch.cuda.max_memory_allocated()
+                      / 2**30}
+        global_timer.enabled = False
+        cores[dev] = (ds, core)
+    dev_bins = cores["cuda"][1].binned
+    if not (isinstance(dev_bins, torch.Tensor)
+            and dev_bins.device.type == "cuda"):
+        raise AssertionError("device_bin: the cuda dataset did not bin on "
+                             "the card")
+    if not np.array_equal(dev_bins.cpu().numpy(), cores["cpu"][1].binned):
+        raise AssertionError("device_bin: card bins differ from host bins")
+    core = cores["cpu"][1]
+    pass_ms = host_ms(lambda: bin_matrix_device(
+        X, core.bin_mappers, core.used_features, "cuda"))
+    params = {"objective": "binary", "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 255, "min_data_in_leaf": 20,
+              "verbosity": -1, "device_type": "cuda"}
+    texts = {}
+    for dev, (ds, core) in cores.items():
+        b = lgb.Booster(params=params, train_set=ds)
+        b.update()
+        texts[dev] = b.model_to_string()
+        if dev == "cuda" and (core.binned is not b._gbdt.binned_dev
+                              or core._efb_sample_bins is None):
+            raise AssertionError("device_bin: GBDT.init did not keep the "
+                                 "device bins on the card")
+    if texts["cuda"] != texts["cpu"]:
+        raise AssertionError("device_bin: device-binned data grew another "
+                             "tree than host-binned data")
+    emit({"phase": "device_bin", "rows": X.shape[0], "features": X.shape[1],
+          "bins_equal_host": True, "first_tree_equal": True,
+          "card": times["cuda"], "host": times["cpu"],
+          "card_second_pass_ms": pass_ms})
 
 
 def phase_card_vs_cpu(lgb, name, extra):
@@ -673,6 +875,7 @@ def main(argv) -> int:
                                  f"(ATOMS.CAST) in {cas}")
 
     launches = phase_paths(lgb, H, global_timer)
+    phase_device_bin(lgb, global_timer)
     for name, extra in (("main_path", {}),
                         ("path_a_quantized", {"use_quantized_grad": True}),
                         ("path_b_leafwise",

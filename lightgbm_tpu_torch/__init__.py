@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of lightgbm_tpu (LightGBM-compatible GBDT).
 
 `train(params, Dataset(X, label=y), num_boost_round=N)` grows trees on the
-wave engine with hand-written Hopper histogram kernels.  It runs on the
-card unless `device_type="cpu"` is asked for.  This package imports
+wave engine with hand-written Hopper histogram kernels, and
+`Booster.predict` scores rows with a tensor traversal of the ensemble.
+Both run on the card unless `device_type="cpu"` is asked for.  This package imports
 torch and numpy, never JAX or the JAX package.
 """
 

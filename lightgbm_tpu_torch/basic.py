@@ -15,6 +15,7 @@ from .config import Config
 from .io.dataset import Dataset as _CoreDataset
 from .objective import create_objective
 from .utils import log
+from .utils.device import resolve_device
 
 
 def _coerce_matrix(data) -> np.ndarray:
@@ -80,7 +81,8 @@ class Dataset:
                 feature_pre_filter=cfg.feature_pre_filter,
                 seed=cfg.data_random_seed,
                 max_bin_by_feature=cfg.max_bin_by_feature or None,
-                forcedbins_filename=cfg.forcedbins_filename)
+                forcedbins_filename=cfg.forcedbins_filename,
+                device_type=cfg.device_type)
         if self.free_raw_data:
             self.data = None
         return self
@@ -111,10 +113,21 @@ class Booster:
             core = train_set._core_or_construct()
             self._gbdt = GBDT()
             self._gbdt.init(cfg, core, create_objective(cfg))
-        elif model_file is not None:
-            self._gbdt = load_model_from_file(model_file)
-        elif model_str is not None:
-            self._gbdt = load_model_from_string(model_str)
+        elif model_file is not None or model_str is not None:
+            self._gbdt = (load_model_from_file(model_file)
+                          if model_file is not None
+                          else load_model_from_string(model_str))
+            # the model text gives every setting but where to predict:
+            # device_type and device_predict come from `params`, with the
+            # training defaults (cuda, auto)
+            prev_verbosity = log.get_verbosity()
+            cfg = Config(self.params)
+            if "verbosity" not in cfg.raw_params:
+                # Config sets the process-wide log level as a side effect
+                log.set_verbosity(prev_verbosity)
+            self._gbdt.config.device_type = cfg.device_type
+            self._gbdt.config.device_predict = cfg.device_predict
+            self._gbdt.device = resolve_device(cfg.device_type)
         else:
             log.fatal("Booster needs train_set, model_file or model_str")
 
@@ -134,15 +147,27 @@ class Booster:
         return self._gbdt.num_trees
 
     def predict(self, data, start_iteration: int = 0, num_iteration: int = -1,
-                raw_score: bool = False) -> np.ndarray:
-        """Predictions through the host trees."""
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, pred_early_stop: bool = False,
+                pred_early_stop_freq: int = 10,
+                pred_early_stop_margin: float = 10.0) -> np.ndarray:
+        """Predictions, leaf ids (`pred_leaf`) or early-stopped scores.
+        On a card booster with `device_predict=auto` (the default) they
+        are computed on the card; float32 input passes through unchanged,
+        which is what the device routing needs to be exact."""
+        if pred_contrib:
+            raise NotImplementedError("pred_contrib (TreeSHAP) is not "
+                                      "ported yet (ROADMAP Queue 1 item 14)")
         if num_iteration is None or (num_iteration == -1
                                      and self.best_iteration > 0):
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else -1)
-        return self._gbdt.predict(_coerce_matrix(data), raw_score=raw_score,
-                                  start_iteration=start_iteration,
-                                  num_iteration=num_iteration)
+        return self._gbdt.predict(
+            _coerce_matrix(data), raw_score=raw_score,
+            start_iteration=start_iteration, num_iteration=num_iteration,
+            pred_leaf=pred_leaf, pred_early_stop=pred_early_stop,
+            pred_early_stop_freq=pred_early_stop_freq,
+            pred_early_stop_margin=pred_early_stop_margin)
 
     def model_to_string(self, num_iteration: int = None,
                         start_iteration: int = 0,

@@ -7,7 +7,10 @@ gradients (quantized when `use_quantized_grad`), grows one tree per class
 on the wave or the leaf-wise engine, updates the scores, and pulls the
 tree to the host as a `Tree` in one flat transfer (like CUDATree::ToHost,
 ref: src/io/cuda/cuda_tree.cpp) for model text and prediction.
-Prediction in this port runs the host trees.
+Prediction runs on the card by default (`device_predict=auto` on a
+card booster): the ensemble is packed once and traversed as tensors
+(`inference/`); the host paths are the native OpenMP predictor and the
+Python loop over the host trees.
 
 The port covers binary logloss on dense numerical data with the wave
 and leaf-wise engines and quantized gradients.  Every parameter whose
@@ -24,36 +27,23 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..inference import DevicePredictor
 from ..io.binning import BIN_CATEGORICAL
 from ..io.dataset import Dataset
 from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
                        grow_tree_wave_impl)
 from ..models.tree import Tree
+from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
 from ..objective import ObjectiveFunction
 from ..ops.histogram import wave_part_plan, wave_slot_pad
 from ..ops.split import SplitParams, leaf_output
 from ..utils import log
 from ..utils import random as jrandom
+from ..utils.device import resolve_device
 from ..utils.timer import global_timer
 
 K_EPSILON = 1e-15
 _PAD = 1024  # row padding multiple (a multiple of the kernels' row tile)
-
-
-def resolve_device(device_type: str) -> torch.device:
-    """`device_type` -> torch device.  The port runs on the card unless
-    the caller asks for the CPU; it never falls back silently."""
-    dt = str(device_type).strip().lower()
-    if dt in ("cuda", "gpu"):
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device_type={device_type!r} needs a CUDA device and torch "
-                "sees none; pass device_type='cpu' to train on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    if dt == "cpu":
-        return torch.device("cpu")
-    raise ValueError(f"device_type={device_type!r}: the PyTorch port runs "
-                     "on 'cuda' (default) or 'cpu'")
 
 
 def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
@@ -188,6 +178,15 @@ class GBDT:
         self.train_data: Optional[Dataset] = None
         self.objective: Optional[ObjectiveFunction] = None
         self.num_tree_per_iteration = 1
+        self.average_output_ = False
+        # the torch device of training and prediction: set by init, or by
+        # Booster for a loaded model
+        self.device: Optional[torch.device] = None
+        # prediction caches (native pack, DevicePredictor), keyed by the
+        # model slice, len(models_) and the in-place mutation count
+        self._model_mutations = 0
+        self._packed_pred = None
+        self._device_pred = None
 
     # ------------------------------------------------------------------ init
     def init(self, config: Config, train_data: Dataset,
@@ -205,12 +204,18 @@ class GBDT:
         self.num_data = n = train_data.num_data
         self.n_pad = (n + _PAD - 1) // _PAD * _PAD
 
-        binned = train_data.binned_host()
+        binned = train_data.binned
+        on_device = isinstance(binned, torch.Tensor)
         if config.enable_bundle and train_data.num_features > 1:
             # EFB is a device-layout optimization the port does not carry
-            # yet: refuse data it would bundle rather than train unbundled
+            # yet: refuse data it would bundle rather than train unbundled.
+            # Device-binned data plans from the host bins of the
+            # construction sample, never from a pull of the whole matrix.
             from ..io.bundle import plan_bundles
-            plan = plan_bundles(binned, train_data.bin_mappers,
+            plan_src = train_data.efb_sample_bins() if on_device else binned
+            if plan_src is None:
+                plan_src = train_data.binned_host()
+            plan = plan_bundles(plan_src, train_data.bin_mappers,
                                 train_data.used_features,
                                 max_conflict_rate=config.max_conflict_rate)
             if plan.effective:
@@ -221,9 +226,16 @@ class GBDT:
         if train_data.max_num_bin > 256:
             raise NotImplementedError("max_bin > 256: the wave kernels take "
                                       "uint8 bin codes")
-        host = np.zeros((binned.shape[0], self.n_pad), np.uint8)
-        host[:, :n] = binned
-        self.binned_dev = torch.from_numpy(host).to(dev)
+        if on_device:
+            # device bins (io/device_bin.py, or an earlier booster's
+            # padded copy) are padded on the device: no host round trip
+            self.binned_dev = torch.zeros((binned.shape[0], self.n_pad),
+                                          dtype=torch.uint8, device=dev)
+            self.binned_dev[:, :n] = binned[:, :n]
+        else:
+            host = np.zeros((binned.shape[0], self.n_pad), np.uint8)
+            host[:, :n] = binned
+            self.binned_dev = torch.from_numpy(host).to(dev)
         # the dataset's device-bins slot now holds the padded device copy
         train_data.binned = self.binned_dev
         pad = np.zeros(self.n_pad, np.float32)
@@ -521,34 +533,254 @@ class GBDT:
         return tree
 
     # ------------------------------------------------------------ predict
+    def _bump_model_mutations(self) -> None:
+        """Invalidate the packed/device predictor caches after an IN-PLACE
+        tree mutation that `len(models_)` cannot see (DART re-weighting,
+        refit, set_leaf_output: ROADMAP item 14).  Serving a model
+        mid-mutation must repack, never reuse stale leaf values."""
+        self._model_mutations += 1
+
+    def _slice_end(self, start_iteration: int, num_iteration: int) -> int:
+        K = self.num_tree_per_iteration
+        total_iters = len(self.models_) // max(K, 1)
+        if num_iteration is None or num_iteration < 0:
+            num_iteration = total_iters - start_iteration
+        return min(start_iteration + num_iteration, total_iters)
+
+    def _packed_for(self, start_iteration: int, end: int, K: int):
+        """Cached native PackedPredictor for a model slice, invalidated by
+        growth (len) and in-place mutation (_model_mutations)."""
+        if predictor_lib() is None:
+            return None
+        key = (start_iteration, end, len(self.models_),
+               self._model_mutations)
+        cached = self._packed_pred
+        if cached is None or cached[0] != key:
+            cached = (key, PackedPredictor(
+                self.models_[start_iteration * K:end * K]))
+            self._packed_pred = cached
+        packed = cached[1]
+        return packed if packed.ok else None
+
+    def make_single_row_fast(self, num_features: int,
+                             start_iteration: int = 0,
+                             num_iteration: int = -1,
+                             raw_score: bool = False):
+        """Cached single-row fast predictor (ref: c_api.h:1350
+        LGBM_BoosterPredictForMatSingleRowFastInit): pack once, reuse
+        buffers per call.  None when the native predictor is unavailable
+        (linear trees / no compiler)."""
+        K = self.num_tree_per_iteration
+        end = self._slice_end(start_iteration, num_iteration)
+        packed = self._packed_for(start_iteration, end, K)
+        if packed is None:
+            return None
+        conv = None
+        if not raw_score and self.objective is not None:
+            conv = self.objective.convert_output_host
+        sp = SingleRowFastPredictor(packed, num_features, K,
+                                    self.average_output_, convert=conv)
+        return sp if sp.ok else None
+
+    def _host_fallback(self, reason: str):
+        """One host-fallback decision of the device-predict router, named
+        by its KEY (the README's port section lists every key).  Returns
+        None for the caller."""
+        log.debug(f"device_predict: host fallback ({reason})")
+        return None
+
+    def _device_predictor(self, X, start_iteration: int,
+                          num_iteration: int):
+        """Route decision for device prediction.  Returns
+        (DevicePredictor, float32 matrix) ready to serve, or None when
+        the host paths must: device_predict=false, auto on a booster
+        whose device is not the card, float64 data that is NOT
+        losslessly float32-representable (the bit-exact routing argument
+        needs float32 inputs; lossless float64 is downcast and served),
+        non-float input, linear-tree models and empty slices.  With
+        `true` the traversal runs on the booster's device, the CPU
+        included."""
+        cfg = self.config
+        mode = cfg.device_predict if cfg is not None else "false"
+        if mode == "false":
+            return None
+        arr = X if isinstance(X, np.ndarray) else np.asarray(X)
+        if arr.dtype == np.float32:
+            X32 = arr
+        elif arr.dtype == np.float64:
+            # one downcast and one compare pass: equal after the round
+            # trip (NaN kept as missing) means the float32 traversal
+            # routes bit-identically to the float64 host path
+            X32 = arr.astype(np.float32)
+            if not bool(np.all((X32 == arr) | np.isnan(arr))):
+                return self._host_fallback("float64-lossy")
+        else:
+            return self._host_fallback("non-float-input")
+        dev = (self.device if self.device is not None
+               else resolve_device(cfg.device_type))
+        if mode == "auto" and dev.type != "cuda":
+            return None
+        K = self.num_tree_per_iteration
+        end = self._slice_end(start_iteration, num_iteration)
+        if end <= start_iteration:
+            return self._host_fallback("empty-slice")
+        dp = self._device_pred_for(start_iteration, end, K, dev)
+        # dp.ok is False exactly when the slice cannot pack: linear trees
+        # (inference/pack.py) are the one reachable case here
+        return (dp, X32) if dp.ok else self._host_fallback("linear-tree")
+
+    def _device_pred_for(self, start_iteration: int, end: int, K: int,
+                         device: torch.device):
+        """Cached DevicePredictor per model slice, invalidated by growth
+        (len) and in-place mutation, mirroring _packed_for."""
+        key = (start_iteration, end, len(self.models_),
+               self._model_mutations, device)
+        cached = self._device_pred
+        if cached is None or cached[0] != key:
+            obj = self.objective
+            cached = (key, DevicePredictor(
+                self.models_[start_iteration * K:end * K], num_class=K,
+                average=self.average_output_,
+                convert=obj.convert_output if obj is not None else None,
+                min_bucket=self.config.device_predict_min_bucket,
+                device=device))
+            self._device_pred = cached
+        return cached[1]
+
+    def _device_predict_run(self, dp, X, mode: str,
+                            early_stop=None) -> np.ndarray:
+        """One device predict dispatch under the `GBDT::predict_device`
+        timer scope.  `early_stop=(freq, margin)` runs the device masked
+        accumulation (parity with the host early-stop path)."""
+        with global_timer.scope("GBDT::predict_device"):
+            if mode == "leaf":
+                return dp.predict_leaf(X)
+            if mode == "raw":
+                return dp.predict_raw(X, early_stop=early_stop)
+            return dp.predict(X, early_stop=early_stop)
+
+    def _es_tuple(self, pred_early_stop, freq, margin):
+        """(freq, margin) when prediction early stopping engages: the
+        same gate as the host path's use_es (off under output averaging,
+        ref: gbdt_prediction.cpp)."""
+        if pred_early_stop and not self.average_output_ and freq > 0:
+            return (int(freq), float(margin))
+        return None
+
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
-                    num_iteration: int = -1) -> np.ndarray:
-        """Raw scores [n] or [n, K] through the host trees (ref:
-        gbdt_prediction.cpp PredictRaw)."""
+                    num_iteration: int = -1, pred_early_stop: bool = False,
+                    pred_early_stop_freq: int = 10,
+                    pred_early_stop_margin: float = 10.0) -> np.ndarray:
+        """Raw scores [n] or [n, K] (ref: gbdt_prediction.cpp PredictRaw;
+        early stopping per prediction_early_stop.cpp: rows whose margin
+        exceeds the threshold every round_period iterations keep their
+        partial sum; binary margin = 2|score|, multiclass = top1-top2)."""
+        hit = self._device_predictor(X, start_iteration, num_iteration)
+        if hit is not None:
+            es = self._es_tuple(pred_early_stop, pred_early_stop_freq,
+                                pred_early_stop_margin)
+            return self._device_predict_run(hit[0], hit[1], "raw", es)
+        with global_timer.scope("GBDT::predict"):
+            return self._predict_raw_impl(
+                X, start_iteration, num_iteration, pred_early_stop,
+                pred_early_stop_freq, pred_early_stop_margin)
+
+    def _predict_raw_impl(self, X, start_iteration, num_iteration,
+                          pred_early_stop, pred_early_stop_freq,
+                          pred_early_stop_margin) -> np.ndarray:
+        """The host paths: the native batch predictor (OpenMP over rows),
+        else the Python loop over the host trees, which also carries
+        early stopping."""
         X = np.asarray(X, dtype=np.float64)
         n = X.shape[0]
         K = self.num_tree_per_iteration
-        total_iters = len(self.models_) // K
-        if num_iteration < 0:
-            num_iteration = total_iters - start_iteration
-        end = min(start_iteration + num_iteration, total_iters)
+        end = self._slice_end(start_iteration, num_iteration)
+        use_es = pred_early_stop and not self.average_output_
+        if not use_es and end > start_iteration:
+            # the flattened pack is cached per model slice and
+            # invalidated by growth and in-place mutation
+            packed = self._packed_for(start_iteration, end, K)
+            if packed is not None:
+                res = packed.predict(X, K, self.average_output_)
+                if res is not None:
+                    return res[:, 0] if K == 1 else res
         out = np.zeros((K, n))
-        with global_timer.scope("GBDT::predict"):
-            for it in range(start_iteration, end):
-                for k in range(K):
-                    out[k] += self.models_[it * K + k].predict(X)
+        active_idx = np.arange(n) if use_es else None
+        Xa = X
+        for i, it in enumerate(range(start_iteration, end)):
+            if use_es and i > 0 and i % pred_early_stop_freq == 0:
+                sub = out[:, active_idx]
+                if K == 1:
+                    margin = 2.0 * np.abs(sub[0])
+                else:
+                    top2 = np.partition(sub, K - 2, axis=0)[K - 2:]
+                    margin = top2[1] - top2[0]
+                keep = margin <= pred_early_stop_margin
+                active_idx = active_idx[keep]
+                if len(active_idx) == 0:
+                    break
+                # the point of early stopping is SKIPPING work: later
+                # trees only traverse the still-active rows
+                Xa = X[active_idx]
+            for k in range(K):
+                pred = self.models_[it * K + k].predict(Xa)
+                if use_es:
+                    out[k][active_idx] += pred
+                else:
+                    out[k] += pred
+        if self.average_output_ and end > start_iteration:
+            out /= end - start_iteration  # ref: gbdt_prediction.cpp:57
         return out[0] if K == 1 else out.T
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
-                start_iteration: int = 0,
-                num_iteration: int = -1) -> np.ndarray:
-        raw = self.predict_raw(X, start_iteration, num_iteration)
+                start_iteration: int = 0, num_iteration: int = -1,
+                pred_leaf: bool = False, **pred_kwargs) -> np.ndarray:
+        if pred_leaf:
+            return self.predict_leaf_index(X, start_iteration, num_iteration)
+        if not raw_score and self.objective is not None:
+            hit = self._device_predictor(X, start_iteration, num_iteration)
+            if hit is not None:
+                es = self._es_tuple(
+                    pred_kwargs.get("pred_early_stop", False),
+                    pred_kwargs.get("pred_early_stop_freq", 10),
+                    pred_kwargs.get("pred_early_stop_margin", 10.0))
+                # convert_output runs on the device after the sums
+                return self._device_predict_run(hit[0], hit[1], "convert",
+                                                es)
+        raw = self.predict_raw(X, start_iteration, num_iteration,
+                               **pred_kwargs)
         if raw_score or self.objective is None:
             return raw
+        # host path: the scores are already NumPy; the objective's host
+        # converter avoids a round trip through the device
         conv = self.objective.convert_output_host
         if raw.ndim == 2:
             return np.asarray(conv(raw.T)).T
         return np.asarray(conv(raw))
+
+    def predict_leaf_index(self, X: np.ndarray, start_iteration: int = 0,
+                           num_iteration: int = -1) -> np.ndarray:
+        """Leaf ids [n, trees] (ref: tree.h:422 GetLeaf)."""
+        hit = self._device_predictor(X, start_iteration, num_iteration)
+        if hit is not None:
+            return self._device_predict_run(hit[0], hit[1], "leaf")
+        X = np.asarray(X, dtype=np.float64)
+        K = self.num_tree_per_iteration
+        end = self._slice_end(start_iteration, num_iteration)
+        if end > start_iteration:
+            # the native traversal as in predict, returning leaf ids;
+            # shares predict_raw's packed-model cache
+            packed = self._packed_for(start_iteration, end, K)
+            if packed is not None:
+                res = packed.predict_leaf(X)
+                if res is not None:
+                    return res
+        cols = []
+        for it in range(start_iteration, end):
+            for k in range(K):
+                cols.append(self.models_[it * K + k].get_leaf_index(X))
+        return (np.stack(cols, axis=1) if cols
+                else np.zeros((X.shape[0], 0), np.int32))
 
     # --------------------------------------------------------------- model
     @property

@@ -16,9 +16,11 @@ from .io.binning import BinMapper
 from .io.dataset import Dataset as _CoreDataset, Metadata
 
 
-def booster_from_jax(model_str: str) -> Booster:
-    """A port Booster from the JAX package's LightGBM v4 model text."""
-    return Booster(model_str=model_str)
+def booster_from_jax(model_str: str, params=None) -> Booster:
+    """A port Booster from the JAX package's LightGBM v4 model text.
+    `params` says where it predicts (`device_type`, `device_predict`);
+    every other setting comes from the text."""
+    return Booster(params=params, model_str=model_str)
 
 
 def bin_mappers_from_jax(mappers: Iterable[Mapping]) -> List[BinMapper]:

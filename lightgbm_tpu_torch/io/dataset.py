@@ -1,18 +1,19 @@
 """Dataset: binned feature tensors + Metadata (PyTorch port of
 `lightgbm_tpu/io/dataset.py`).
 
-All used features are binned on the host into one dense feature-major
-matrix `binned [F_used, n]` (ref: include/LightGBM/dataset.h:486,
-src/io/dataset_loader.cpp:593 ConstructFromSampleData).  When a booster
-takes the dataset over, the slot holds the padded device copy instead: a
-`torch.Tensor` of uint8 codes `[F_used, n_pad]` on the booster's device,
-and `binned_host()` recovers the `[F_used, n]` host view.  Trivial
-features are dropped at construction and restored at model-output time
-via `used_feature_map` (ref: dataset.h:556-647).
+All used features are binned into one dense feature-major matrix
+`binned [F_used, n]` (ref: include/LightGBM/dataset.h:486,
+src/io/dataset_loader.cpp:593 ConstructFromSampleData): on the host, or,
+for float32 data of at least 2^20 rows on a dataset whose `device_type`
+is the card, on the card (`io/device_bin.py`, bit-identical), where the
+slot holds a uint8 `torch.Tensor`.  When a booster takes the dataset
+over, the slot holds its padded device copy `[F_used, n_pad]`, and
+`binned_host()` recovers the `[F_used, n]` host view.  Trivial features
+are dropped at construction and restored at model-output time via
+`used_feature_map` (ref: dataset.h:556-647).
 
-This slice of the port covers dense in-memory arrays; file loading,
-streaming (two-round) ingestion and device binning stay with the JAX
-package until their ROADMAP items.
+This slice of the port covers dense in-memory arrays; file loading and
+streaming (two-round) ingestion come with ROADMAP Queue 1 item 1.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from ..utils import log
 from ..utils.timer import global_timer
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
+from .device_bin import bin_matrix_device, device_binnable, pull_host
 
 
 class Metadata:
@@ -126,12 +128,20 @@ class Dataset:
         self.bin_mappers: List[BinMapper] = []          # per original feature
         self.used_feature_map: List[int] = []            # original -> inner (-1 trivial)
         self.used_features: List[int] = []               # inner -> original
-        # [F_used, n] host bin codes, or the booster's padded device copy
-        # (torch.Tensor uint8 [F_used, n_pad]) once training took it over
+        # [F_used, n] host bin codes, or uint8 torch.Tensor codes on the
+        # device: [F_used, n] from the device second pass, [F_used, n_pad]
+        # once a booster took the dataset over
         self.binned = None
         self.metadata: Optional[Metadata] = None
         self.max_bin: int = 255
         self.raw_data: Optional[np.ndarray] = None
+        # where the second pass may bin (io/device_bin.py gate)
+        self.device_type: str = "cuda"
+        # float32 bin-construction sample rows, kept when `binned` lives
+        # on the device: EFB planning bins them lazily on the host
+        # (efb_sample_bins) instead of pulling the whole matrix
+        self._efb_sample_raw: Optional[np.ndarray] = None
+        self._efb_sample_bins: Optional[np.ndarray] = None
 
     # ------------------------------------------------------------------
     @property
@@ -152,10 +162,21 @@ class Dataset:
 
     def binned_host(self) -> np.ndarray:
         """Host view [F_used, n] of the bin matrix (pulled once when the
-        slot holds the booster's padded device copy)."""
+        slot holds device bins or the booster's padded device copy)."""
         if isinstance(self.binned, torch.Tensor):
-            self.binned = self.binned[:, :self.num_data].cpu().numpy()
+            self.binned = pull_host(self.binned[:, :self.num_data])
         return self.binned
+
+    def efb_sample_bins(self) -> Optional[np.ndarray]:
+        """Host [F_used, S] bin codes of the bin-construction sample (the
+        EFB planning input of device-binned datasets); binned lazily and
+        cached."""
+        if self._efb_sample_bins is None and self._efb_sample_raw is not None:
+            self._efb_sample_bins = np.stack([
+                self.bin_mappers[f].values_to_bins(
+                    np.asarray(self._efb_sample_raw[:, i], np.float64))
+                for i, f in enumerate(self.used_features)])
+        return self._efb_sample_bins
 
     # ------------------------------------------------------------------
     @classmethod
@@ -179,12 +200,15 @@ class Dataset:
             keep_raw_data: bool = False,
             reference: Optional["Dataset"] = None,
             max_bin_by_feature: Optional[Sequence[int]] = None,
-            forcedbins_filename: str = "") -> "Dataset":
+            forcedbins_filename: str = "",
+            device_type: str = "cuda") -> "Dataset":
         """Build a Dataset from a dense float matrix
         (ref: dataset_loader.cpp:593 ConstructFromSampleData + :1263 ExtractFeatures).
 
         When `reference` is given, reuse its bin mappers (validation-set path,
         ref: basic.py create_valid / LoadFromFileAlignWithOtherDataset).
+        `device_type` is where the second pass may bin (see the module
+        docstring).
         """
         # keep the caller's dtype: values_to_bins converts per column
         data = np.asarray(data)
@@ -197,6 +221,7 @@ class Dataset:
         ds.num_data = n
         ds.num_total_features = num_features
         ds.max_bin = max_bin
+        ds.device_type = device_type
         if feature_names is not None:
             ds.feature_names = [str(s) for s in feature_names]
         else:
@@ -228,15 +253,31 @@ class Dataset:
                 max_bin_by_feature=max_bin_by_feature,
                 forcedbins_filename=forcedbins_filename)
 
-        # bin every used feature (ref: ExtractFeaturesFromMemory PushOneRow)
+        # bin every used feature (ref: ExtractFeaturesFromMemory PushOneRow):
+        # float32 large-n numerical data on a card dataset bucketizes on
+        # the device (io/device_bin.py, exact), otherwise the host
+        # searchsorted loop runs per feature
         with global_timer.scope("Dataset::binning"):
-            narrow = all(ds.bin_mappers[f].num_bin <= 256
-                         for f in ds.used_features)
-            binned = np.empty((len(ds.used_features), n),
-                              dtype=np.uint8 if narrow else np.int32)
-            for inner, f in enumerate(ds.used_features):
-                binned[inner] = ds.bin_mappers[f].values_to_bins(data[:, f])
-            ds.binned = binned
+            if device_binnable(ds.bin_mappers, ds.used_features, data.dtype,
+                               n, device_type):
+                ds.binned = global_timer.block(bin_matrix_device(
+                    data, ds.bin_mappers, ds.used_features, device_type))
+                if reference is None:
+                    # keep the (already sampled) bin-finding rows: EFB
+                    # planning bins them lazily (efb_sample_bins)
+                    ds._efb_sample_raw = np.ascontiguousarray(
+                        sample[:, ds.used_features]
+                        if sample.shape[1] != len(ds.used_features)
+                        else sample)
+            else:
+                narrow = all(ds.bin_mappers[f].num_bin <= 256
+                             for f in ds.used_features)
+                binned = np.empty((len(ds.used_features), n),
+                                  dtype=np.uint8 if narrow else np.int32)
+                for inner, f in enumerate(ds.used_features):
+                    binned[inner] = ds.bin_mappers[f].values_to_bins(
+                        data[:, f])
+                ds.binned = binned
 
         md = Metadata(n)
         if label is not None:
@@ -298,7 +339,7 @@ class Dataset:
                      init_score=None) -> "Dataset":
         return Dataset.construct_from_arrays(
             data, label=label, weight=weight, group=group, init_score=init_score,
-            reference=self)
+            reference=self, device_type=self.device_type)
 
     # ------------------------------------------------------------------
     def feature_infos(self) -> List[str]:

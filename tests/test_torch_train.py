@@ -91,7 +91,8 @@ def test_same_bin_mappers():
 
 def test_booster_from_jax_predicts_as_jax(boosters):
     bj, _, X = boosters
-    port = convert.booster_from_jax(bj.model_to_string())
+    port = convert.booster_from_jax(bj.model_to_string(),
+                                    params={"device_type": "cpu"})
     assert port.num_trees() == 5
     np.testing.assert_allclose(port.predict(X), bj.predict(X), rtol=0,
                                atol=1e-12)
@@ -105,8 +106,10 @@ def test_port_model_text_loads_in_jax(boosters):
     np.testing.assert_allclose(bj2.predict(X), bt.predict(X), rtol=0,
                                atol=1e-12)
     # and back: the port reloads its own text to the same predictions
-    np.testing.assert_allclose(tlgb.Booster(model_str=text).predict(X),
-                               bt.predict(X), rtol=0, atol=0)
+    np.testing.assert_allclose(
+        tlgb.Booster(model_str=text,
+                     params={"device_type": "cpu"}).predict(X),
+        bt.predict(X), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -163,4 +166,6 @@ def test_save_model_round_trip(boosters, tmp_path):
     bt.save_model(str(path))
     assert path.read_text() == bt.model_to_string()
     np.testing.assert_array_equal(
-        tlgb.Booster(model_file=str(path)).predict(X), bt.predict(X))
+        tlgb.Booster(model_file=str(path),
+                     params={"device_type": "cpu"}).predict(X),
+        bt.predict(X))
