@@ -29,7 +29,25 @@ Phases, each printing one JSON line:
   5. path B, the leaf-wise engine: the same workload with
      tpu_growth_strategy=leafwise, 13 iterations; K4 launched, held-out
      AUC >= 0.72;
-  5a. device binning: make_higgs_like(2^21, 28) float32 binned by a
+  5a. valid path: `train` on the main path's workload with
+     valid_sets=[train, valid] (valid = make_higgs_like(100_000, 28,
+     seed=1)), metric=["auc", "binary_logloss"], early_stopping_round=5,
+     early_stopping_min_delta=VALID_MIN_DELTA, num_boost_round=100, and
+     record_evaluation and log_evaluation(10) callbacks, the port's timer
+     on.  Gates: (a) the training metrics ran on the card through
+     DeviceEval, one transfer per tick, no host fallback; (b) the last
+     tick's AUC and logloss within 2^-23 relative of the float64 host
+     Metric's on the pulled training scores; (c) each recorded valid AUC
+     within 1e-6 of the host AUC of predict(num_iteration=i+1); (d) the
+     stop fired 5 iterations after best_iteration, which the min_delta
+     rule replayed over the recorded history gives too; (e) predict()
+     equals predict(num_iteration=best_iteration) exactly; (f) K1 and K3
+     launched; (g) cv(nfold=3) at 60,000 rows on the card returns
+     mean/stdv lists of one length and a cvbooster.  One `valid` line:
+     GBDT::eval ms/iter and its share, s/iter with evaluation beside the
+     main path's (both with the timer on), best_iteration, iterations
+     and fetches per tick, the card's name and power limit;
+  5b. device binning: make_higgs_like(2^21, 28) float32 binned by a
      default (card) Dataset and by a device_type=cpu one: the bins equal
      bit for bit, both `Dataset::binning` times, and one main-path update
      on each grows the same tree (the card bins padded on the card);
@@ -98,6 +116,7 @@ N_ODD = 1953 * 512             # rows that are no multiple of K1's chunks
 F, B, C = 28, 255, 2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+VALID_MIN_DELTA = 0.001        # early_stopping_min_delta of the valid path
 
 
 def emit(obj) -> None:
@@ -573,7 +592,7 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
           "instrumented_s_per_iter": wall,
           "ms_per_iter": {k: v[0] * 1e3 / 3 for k, v in snap.items()},
           "calls_per_iter": {k: v[1] / 3 for k, v in snap.items()}})
-    return launches, score
+    return launches, score, wall
 
 
 def phase_paths(lgb, H, global_timer):
@@ -581,7 +600,7 @@ def phase_paths(lgb, H, global_timer):
     Xte, yte = make_higgs_like(100_000, 28, seed=1)
     data = (X, y, Xte, yte)
     out = {}
-    launches, auc_main = drive_path(
+    launches, auc_main, main_wall = drive_path(
         lgb, H, global_timer, "main_path", {}, 13, data,
         after_training=lambda b: phase_predict(b, data))
     if auc_main < 0.72:
@@ -590,7 +609,7 @@ def phase_paths(lgb, H, global_timer):
         raise AssertionError(f"main path: a kernel was not launched: "
                              f"{launches}")
     out["main_path"] = launches
-    launches, auc_q = drive_path(lgb, H, global_timer, "path_a_quantized",
+    launches, auc_q, _ = drive_path(lgb, H, global_timer, "path_a_quantized",
                                  {"use_quantized_grad": True}, 13, data)
     if launches["K2"] <= 0 or launches["K1"] or launches["K3"]:
         raise AssertionError(f"path A: K2 must carry every histogram: "
@@ -599,7 +618,7 @@ def phase_paths(lgb, H, global_timer):
         raise AssertionError(f"path A: held-out AUC {auc_q} is more than "
                              f"0.01 from the float path's {auc_main}")
     out["path_a_quantized"] = launches
-    launches, auc_l = drive_path(lgb, H, global_timer, "path_b_leafwise",
+    launches, auc_l, _ = drive_path(lgb, H, global_timer, "path_b_leafwise",
                                  {"tpu_growth_strategy": "leafwise"}, 13,
                                  data)
     if launches["K4"] <= 0:
@@ -607,7 +626,155 @@ def phase_paths(lgb, H, global_timer):
     if auc_l < 0.72:
         raise AssertionError(f"path B: held-out AUC {auc_l} < 0.72")
     out["path_b_leafwise"] = launches
-    return out
+    return out, main_wall
+
+
+def replay_early_stop(hist, rounds, min_delta, higher):
+    """The early-stopping rule (callback.early_stopping) replayed over a
+    recorded history: (best iteration index, stop index) or None."""
+    order = [(n, m) for n in hist for m in hist[n]]
+    best, best_it = {}, {}
+    for i in range(len(hist[order[0][0]][order[0][1]])):
+        for name, metric in order:
+            if name == "training":
+                continue
+            v = hist[name][metric][i]
+            key = (name, metric)
+            if key not in best or (v > best[key] + min_delta
+                                   if higher[metric]
+                                   else v < best[key] - min_delta):
+                best[key], best_it[key] = v, i
+            elif i - best_it[key] >= rounds:
+                return best_it[key], i
+    return None
+
+
+def phase_valid_path(lgb, H, global_timer, card, main_wall):
+    """`train` with validation sets, device eval and early stopping at
+    the main path's width (gates (a)-(g) of the module docstring)."""
+    from lightgbm_tpu_torch.metric import AUCMetric, create_metrics
+    X, y = make_higgs_like(1_000_000, 28)
+    Xte, yte = make_higgs_like(100_000, 28, seed=1)
+    params = {"objective": "binary", "num_leaves": 255,
+              "learning_rate": 0.1, "max_bin": 255, "min_data_in_leaf": 20,
+              "verbosity": -1, "device_type": "cuda",
+              "metric": ["auc", "binary_logloss"],
+              "early_stopping_round": 5,
+              "early_stopping_min_delta": VALID_MIN_DELTA}
+    # the datasets are binned before the timed run
+    train_ds = lgb.Dataset(X, label=y, params=params).construct()
+    valid_ds = train_ds.create_valid(Xte, label=yte).construct()
+    hist = {}
+    torch.cuda.synchronize()
+    reset_counts(H)
+    global_timer.reset()
+    global_timer.enabled = True
+    t0 = time.perf_counter()
+    booster = lgb.train(params, train_ds, num_boost_round=100,
+                        valid_sets=[train_ds, valid_ds],
+                        valid_names=["training", "valid"],
+                        callbacks=[lgb.record_evaluation(hist),
+                                   lgb.log_evaluation(10)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    snap = global_timer.snapshot()
+    global_timer.enabled = False
+    launches = launch_counts(H)
+    g = booster._gbdt
+    iters = booster.current_iteration()
+    best = booster.best_iteration
+    # (a) the training metrics ran on the card, one transfer per tick
+    de = g._device_eval
+    if de is None or not de.ok or g.device.type != "cuda":
+        raise AssertionError("valid path: training metrics did not run "
+                             "through DeviceEval on the card")
+    fetches = de.fetches
+    if fetches != iters or len(hist["training"]["auc"]) != iters:
+        raise AssertionError(f"valid path: {fetches} transfers for "
+                             f"{iters} ticks")
+    # (b) the tick against the float64 host metrics on the pulled scores
+    pulled = booster._inner_predict_train().astype(np.float64)
+    host_train = dict(g._eval(pulled[None, :], g.train_metrics))
+    tick_err = {}
+    for m, v in host_train.items():
+        got = hist["training"][m][-1]
+        tick_err[m] = abs(got - v)
+        if tick_err[m] > 2.0 ** -23 * abs(v):
+            raise AssertionError(f"valid path: training {m} {got!r} from "
+                                 f"the card, {v!r} on the host")
+    # (c) each recorded valid AUC against predict(num_iteration=i+1)
+    auc_m = AUCMetric(g.config)
+    auc_m.init(g.valid_sets[0].metadata, len(yte))
+    worst = 0.0
+    for i in range(iters):
+        s = booster.predict(Xte, num_iteration=i + 1, raw_score=True)
+        ref = auc_m.eval(s.astype(np.float64))[0][1]
+        worst = max(worst, abs(hist["valid"]["auc"][i] - ref))
+    if worst > 1e-6:
+        raise AssertionError(f"valid path: a recorded valid AUC is {worst} "
+                             "from the AUC of predict(num_iteration)")
+    # (d) the stop fired, where the min_delta rule puts it
+    higher = {m.name: m.is_higher_better
+              for m in create_metrics(g.config)}
+    replay = replay_early_stop(hist, 5, VALID_MIN_DELTA, higher)
+    if not (0 < best < iters <= 100) or iters - best != 5:
+        raise AssertionError(f"valid path: best_iteration {best}, "
+                             f"{iters} iterations run")
+    if replay is None or (replay[0] + 1, replay[1] + 1) != (best, iters):
+        raise AssertionError(f"valid path: the min_delta rule over the "
+                             f"history gives {replay}, the run stopped at "
+                             f"{iters} with best {best}")
+    # (e) predict uses best_iteration
+    if not np.array_equal(booster.predict(Xte),
+                          booster.predict(Xte, num_iteration=best)):
+        raise AssertionError("valid path: predict() differs from "
+                             "predict(num_iteration=best_iteration)")
+    # (f) the main path's kernels carried the histograms
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        raise AssertionError(f"valid path: a kernel was not launched: "
+                             f"{launches}")
+    # (g) a small cv on the card
+    Xc, yc = make_higgs_like(60_000, 28, seed=4)
+    res = lgb.cv({**params, "num_leaves": 63, "early_stopping_round": 0},
+                 lgb.Dataset(Xc, label=yc), num_boost_round=5, nfold=3,
+                 return_cvbooster=True)
+    lens = {k: len(v) for k, v in res.items() if k != "cvbooster"}
+    cvb = res.get("cvbooster")
+    if (set(lens) != {"valid auc-mean", "valid auc-stdv",
+                      "valid binary_logloss-mean",
+                      "valid binary_logloss-stdv"}
+            or set(lens.values()) != {5} or cvb is None
+            or len(cvb.boosters) != 3
+            or any(b._gbdt.device.type != "cuda" for b in cvb.boosters)):
+        raise AssertionError(f"valid path: cv returned {lens}, {cvb}")
+    # the parts of an iteration's evaluation, each alone on the final
+    # model (host clock, ending in a synchronize): the training tick, the
+    # valid set's host metrics, the valid traversal of the last tree
+    parts_ms = {"train_tick": host_ms(g.eval_train),
+                "valid_host_metrics": host_ms(lambda: g.eval_valid(0)),
+                "valid_traversal": host_ms(
+                    lambda: g._tree_leaf_ids(g.models_[-1], 0))}
+    ms = {k: v[0] * 1e3 / iters for k, v in snap.items()}
+    eval_ms = ms.get("GBDT::eval", 0.0)
+    emit({"phase": "valid", "rows": X.shape[0], "valid_rows": Xte.shape[0],
+          "features": X.shape[1], "num_leaves": 255, "max_bin": 255,
+          "early_stopping_round": 5, "min_delta": VALID_MIN_DELTA,
+          "best_iteration": best, "iterations": iters,
+          "best_valid_auc": booster.best_score["valid"]["auc"],
+          "best_valid_logloss": booster.best_score["valid"]["binary_logloss"],
+          "ticks": iters, "fetches": fetches,
+          "fetches_per_tick": fetches / iters,
+          "tick_vs_host_abs_err": tick_err,
+          "valid_auc_vs_predict_max_abs_err": worst,
+          "eval_ms_per_iter": eval_ms,
+          "train_one_iter_ms_per_iter": ms.get("GBDT::train_one_iter"),
+          "eval_share": eval_ms / (wall / iters * 1e3),
+          "s_per_iter_with_eval": wall / iters,
+          "main_path_instrumented_s_per_iter": main_wall,
+          "ms_per_iter": ms, "eval_parts_ms": parts_ms,
+          "launches": launches,
+          "cv_rounds": sorted(set(lens.values())),
+          "cv_valid_auc_mean": res["valid auc-mean"], "nvidia_smi": card})
 
 
 def host_ms(fn, reps=3):
@@ -874,7 +1041,8 @@ def main(argv) -> int:
             raise AssertionError(f"{src}: compare-and-swap shared atomics "
                                  f"(ATOMS.CAST) in {cas}")
 
-    launches = phase_paths(lgb, H, global_timer)
+    launches, main_wall = phase_paths(lgb, H, global_timer)
+    phase_valid_path(lgb, H, global_timer, card, main_wall)
     phase_device_bin(lgb, global_timer)
     for name, extra in (("main_path", {}),
                         ("path_a_quantized", {"use_quantized_grad": True}),

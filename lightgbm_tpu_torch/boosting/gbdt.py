@@ -12,6 +12,12 @@ card booster): the ensemble is packed once and traversed as tensors
 (`inference/`); the host paths are the native OpenMP predictor and the
 Python loop over the host trees.
 
+Training metrics are evaluated on the booster's device, one packed
+transfer per tick (`ops/metrics.py` DeviceEval).  Validation sets keep
+float64 scores on the host, advanced per finished tree by the leaf ids of
+a bin-space traversal of their bin codes, which are put on the device
+once (`leaf_index_bin_space`); the host `Metric` classes evaluate them.
+
 The port covers binary logloss on dense numerical data with the wave
 and leaf-wise engines and quantized gradients.  Every parameter whose
 behaviour it does not carry raises NotImplementedError naming the
@@ -21,17 +27,18 @@ different model.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..inference import DevicePredictor
-from ..io.binning import BIN_CATEGORICAL
+from ..io.binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO
 from ..io.dataset import Dataset
 from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
                        grow_tree_wave_impl)
+from ..metric import Metric
 from ..models.tree import Tree
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
 from ..objective import ObjectiveFunction
@@ -151,6 +158,61 @@ def renew_leaf_values(leaf_value: torch.Tensor, leaf_id: torch.Tensor,
     return torch.where(sh > 0, out, leaf_value)
 
 
+def tree_depth(tree: Tree) -> int:
+    """Depth of the deepest leaf, from the child arrays (the number of
+    steps a traversal from the root takes)."""
+    ni = tree.num_leaves - 1
+    depth, stack = 0, [(0, 0)] if ni > 0 else []
+    while stack:
+        node, d = stack.pop()
+        for child in (tree.left_child[node], tree.right_child[node]):
+            if child >= 0:
+                stack.append((int(child), d + 1))
+            else:
+                depth = max(depth, d + 1)
+    return depth
+
+
+def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
+                         missing_type: np.ndarray, num_bin: np.ndarray,
+                         default_bin: np.ndarray) -> torch.Tensor:
+    """Leaf index of every row of `binned` [F_used, n] (bin codes on the
+    device) for a host tree trained on the same bin mappers: the
+    bin-space traversal of the JAX package (boosting/gbdt.py:104
+    leaf_index_bin_space; ref: dense_bin.hpp:346-366 SplitInner) for
+    numerical splits, `tree_depth` steps of elementwise torch with no
+    host synchronization.  The feature metadata are the host arrays of
+    the used features; each node's row of one table carries its
+    feature's offset into `binned`, threshold, default direction, the
+    bin code that means missing (-1 for none) and its children, so a
+    step gathers one row per data row.  Categorical splits come with
+    ROADMAP Queue 1 item 3."""
+    n = binned.shape[1]
+    dev = binned.device
+    nl = tree.num_leaves
+    if nl <= 1:
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+    ni = nl - 1
+    sf = tree.split_feature_inner[:ni].astype(np.int64)
+    mt = missing_type[sf]
+    miss = np.where(mt == MISSING_NAN, num_bin[sf] - 1,
+                    np.where(mt == MISSING_ZERO, default_bin[sf], -1))
+    table = torch.from_numpy(np.stack([
+        sf * n, tree.threshold_in_bin[:ni], (tree.decision_type[:ni] & 2) > 0,
+        miss, tree.left_child[:ni], tree.right_child[:ni]],
+        1).astype(np.int64)).to(dev)
+    rows = torch.arange(n, device=dev)
+    flat = binned.reshape(-1)
+    node = torch.zeros(n, dtype=torch.int64, device=dev)
+    for _ in range(tree_depth(tree)):
+        t = table[node.clamp(min=0)]
+        b = flat[t[:, 0] + rows]
+        go_left = torch.where(b == t[:, 3], t[:, 2] > 0, b <= t[:, 1])
+        node = torch.where(node >= 0,
+                           torch.where(go_left, t[:, 4], t[:, 5]), node)
+    return (~node).to(torch.int32)
+
+
 def wave_fits(num_features: int, max_bin: int, num_leaves: int) -> bool:
     """The wave kernels' shared-memory tiles hold one slot's histograms of
     one feature and the partition holds the slot counters (the analogue
@@ -187,16 +249,28 @@ class GBDT:
         self._model_mutations = 0
         self._packed_pred = None
         self._device_pred = None
+        self.train_metrics: List[Metric] = []
+        self.valid_sets: List[Dataset] = []
+        self.valid_metrics: List[List[Metric]] = []
+        # float64 [K, n] host scores of each valid set, and its bin codes
+        # on the booster's device
+        self.valid_scores: List[np.ndarray] = []
+        self.valid_bins: List[torch.Tensor] = []
+        self._device_eval = None    # ops.metrics.DeviceEval, built lazily
+        self._grad_ok = None        # device flag: every gradient finite
+        self._finite_cache = None   # (grads_finite, scores_finite) of iter
 
     # ------------------------------------------------------------------ init
     def init(self, config: Config, train_data: Dataset,
-             objective: Optional[ObjectiveFunction]) -> None:
+             objective: Optional[ObjectiveFunction],
+             metrics: Sequence[Metric] = ()) -> None:
         check_slice(config, train_data)
         self.device = resolve_device(config.device_type)
         dev = self.device
         self.config = config
         self.train_data = train_data
         self.objective = objective
+        self.train_metrics = list(metrics)
         self.shrinkage_rate = config.learning_rate
         self.num_tree_per_iteration = (objective.num_model_per_iteration()
                                        if objective is not None
@@ -224,8 +298,10 @@ class GBDT:
                     "ported yet (ROADMAP Queue 1 item 5); pass "
                     "enable_bundle=false to train without bundling")
         if train_data.max_num_bin > 256:
-            raise NotImplementedError("max_bin > 256: the wave kernels take "
-                                      "uint8 bin codes")
+            raise NotImplementedError(
+                "more than 256 bins per feature (max_bin > 256) is not "
+                "ported yet (ROADMAP Queue 1 item 2): the histogram kernels "
+                "take uint8 bin codes")
         if on_device:
             # device bins (io/device_bin.py, or an earlier booster's
             # padded copy) are padded on the device: no host round trip
@@ -338,6 +414,33 @@ class GBDT:
                 self.weight_dev = torch.from_numpy(w).to(dev)
             if getattr(objective, "need_train", True) is False:
                 self.class_need_train = [False] * K
+        for m in self.train_metrics:
+            m.init(md, n)
+
+    def add_valid_data(self, valid_data: Dataset,
+                       metrics: Sequence[Metric]) -> None:
+        """A validation set (ref: gbdt.cpp AddValidDataset): float64 host
+        scores from its init_score, its bin codes on the device once."""
+        self.valid_sets.append(valid_data)
+        ms = list(metrics)
+        for m in ms:
+            m.init(valid_data.metadata, valid_data.num_data)
+        self.valid_metrics.append(ms)
+        K = self.num_tree_per_iteration
+        sc = np.zeros((K, valid_data.num_data), np.float64)
+        md = valid_data.metadata
+        if md.init_score is not None:
+            init = np.asarray(md.init_score, np.float64)
+            sc += (np.tile(init, (K, 1)) if init.ndim == 1 and K > 1
+                   else init.reshape(K, -1))
+        self.valid_scores.append(sc)
+        binned = valid_data.binned
+        if isinstance(binned, torch.Tensor):
+            vb = binned[:, :valid_data.num_data].to(self.device)
+        else:
+            vb = torch.from_numpy(np.asarray(binned, np.uint8)).to(
+                self.device)
+        self.valid_bins.append(vb.contiguous())
 
     # ------------------------------------------------------------ gradients
     def _boost_from_average(self, class_id: int) -> float:
@@ -349,6 +452,8 @@ class GBDT:
             init = obj.boost_from_score(class_id)
             if abs(init) > K_EPSILON:
                 self.scores[class_id] += init
+                for sc in self.valid_scores:
+                    sc[class_id] += init
                 log.info(f"Start training from score {init:.6f}")
                 return init
         return 0.0
@@ -363,6 +468,8 @@ class GBDT:
         """One boosting iteration; returns True when training should stop
         (ref: gbdt.cpp:338 TrainOneIter)."""
         K = self.num_tree_per_iteration
+        # the sentinel flags fetched for the previous iteration are stale
+        self._finite_cache = None
         init_scores = [0.0] * K
         if gradients is None:
             for k in range(K):
@@ -370,6 +477,12 @@ class GBDT:
             with global_timer.scope("GBDT::gradients"):
                 grad, hess = self._compute_gradients()
                 grad, hess = global_timer.block((grad, hess))
+            if self.config.nonfinite_check_freq > 0:
+                # device flag, accumulated with no host synchronization;
+                # the engine's sentinel fetches it (gradients_finite)
+                ok = torch.isfinite(grad).all() & torch.isfinite(hess).all()
+                self._grad_ok = (ok if self._grad_ok is None
+                                 else self._grad_ok & ok)
         else:
             grad = self._pad_rows(gradients, K)
             hess = self._pad_rows(hessians, K)
@@ -441,6 +554,8 @@ class GBDT:
                 and not self.has_init_score):
             init = self.objective.boost_from_score(k)
             self.scores[k] += init
+            for sc in self.valid_scores:
+                sc[k] += init
         tree.leaf_value[0] = init
         tree.shrinkage = 1.0
         return tree
@@ -528,9 +643,81 @@ class GBDT:
         if tree is None:
             return None
         tree.apply_shrinkage(self.shrinkage_rate)
+        # valid scores on the host, before the init score joins the
+        # first tree's leaves (gbdt.py:1543 of the JAX package)
+        for vi in range(len(self.valid_sets)):
+            self._add_valid_tree_score(vi, tree, class_id)
         if abs(init_score) > K_EPSILON:
             tree.add_bias(init_score)
         return tree
+
+    def _tree_leaf_ids(self, tree: Tree, vi: int) -> np.ndarray:
+        """Leaf index of every row of valid set `vi` (the traversal runs
+        on the booster's device; one transfer of the ids)."""
+        ids = leaf_index_bin_space(tree, self.valid_bins[vi],
+                                   self.f_missing_type, self.f_num_bin,
+                                   self.f_default_bin)
+        return ids.cpu().numpy()
+
+    def _add_valid_tree_score(self, vi: int, tree: Tree,
+                              class_id: int) -> None:
+        """valid score += the tree's leaf outputs, in float64 on the host
+        (gbdt.py:1673-1681 of the JAX package)."""
+        vids = self._tree_leaf_ids(tree, vi)
+        self.valid_scores[vi][class_id] += tree.leaf_value[vids]
+
+    # ------------------------------------------------------------ eval
+    def _ensure_finite_flags(self):
+        """(gradients_finite, scores_finite) for the current iteration:
+        from the eval tick's packed transfer when one ran, else one
+        dedicated transfer of a [2] vector."""
+        if self._finite_cache is None:
+            flag = (self._grad_ok if self._grad_ok is not None
+                    else torch.tensor(True, device=self.device))
+            flags = torch.stack([
+                flag.to(torch.float32),
+                torch.isfinite(self.scores).all().to(torch.float32)])
+            flags = flags.cpu().numpy()
+            self._finite_cache = (bool(flags[0] > 0), bool(flags[1] > 0))
+        return self._finite_cache
+
+    def gradients_finite(self) -> bool:
+        """Every gradient since training began was finite (the engine's
+        sentinel)."""
+        return self._ensure_finite_flags()[0]
+
+    def scores_finite(self) -> bool:
+        """Every training score is finite (the engine's sentinel)."""
+        return self._ensure_finite_flags()[1]
+
+    def eval_train(self):
+        """Training metrics: one device tick (ops/metrics.py DeviceEval),
+        or the host Metric classes on the pulled scores when the metric
+        set has no full device form or `device_eval=false`."""
+        de = self._device_eval
+        if de is None:
+            from ..ops.metrics import DeviceEval
+            de = self._device_eval = DeviceEval(self)
+        if de.ok:
+            if not de._plans:
+                return []
+            out, grads_ok, scores_ok = de.run(self.scores, self._grad_ok)
+            # the sentinel flags rode the packed transfer
+            self._finite_cache = (grads_ok, scores_ok)
+            return out
+        score = self.scores[:, :self.num_data].cpu().numpy().astype(
+            np.float64)
+        return self._eval(score, self.train_metrics)
+
+    def eval_valid(self, idx: int):
+        return self._eval(self.valid_scores[idx], self.valid_metrics[idx])
+
+    def _eval(self, score, metrics):
+        out = []
+        sc = score[0] if score.shape[0] == 1 else score
+        for m in metrics:
+            out.extend(m.eval(sc, self.objective))
+        return out
 
     # ------------------------------------------------------------ predict
     def _bump_model_mutations(self) -> None:

@@ -334,6 +334,48 @@ class Dataset:
                 self.used_feature_map.append(len(self.used_features))
                 self.used_features.append(f)
 
+    def copy_subrow(self, used_indices: np.ndarray) -> "Dataset":
+        """Row-subset copy on the same bin mappers (ref: dataset.h:660
+        CopySubrow; `cv`'s folds)."""
+        used_indices = np.asarray(used_indices, dtype=np.int64)
+        sub = Dataset()
+        sub.num_data = len(used_indices)
+        sub.num_total_features = self.num_total_features
+        sub.feature_names = self.feature_names
+        sub.bin_mappers = self.bin_mappers
+        sub.used_feature_map = self.used_feature_map
+        sub.used_features = self.used_features
+        sub.max_bin = self.max_bin
+        sub.device_type = self.device_type
+        sub.binned = self.binned_host()[:, used_indices]
+        md = Metadata(sub.num_data)
+        src = self.metadata
+        md.set_label(src.label[used_indices])
+        if src.weight is not None:
+            md.set_weight(src.weight[used_indices])
+        if src.init_score is not None:
+            if len(src.init_score) == self.num_data:
+                md.set_init_score(src.init_score[used_indices])
+            else:  # num_data * num_class layout (ref: metadata.cpp)
+                num_class = len(src.init_score) // self.num_data
+                stacked = src.init_score.reshape(num_class, self.num_data)
+                md.set_init_score(stacked[:, used_indices].reshape(-1))
+        if src.query_boundaries is not None:
+            # query boundaries from the selected rows' query ids (ref:
+            # metadata.cpp Metadata::Init(metadata, used_indices))
+            qid = np.searchsorted(src.query_boundaries, used_indices,
+                                  side="right") - 1
+            counts = np.bincount(qid, minlength=src.num_queries)
+            counts = counts[counts > 0]
+            md.query_boundaries = np.concatenate(
+                [[0], np.cumsum(counts)]).astype(np.int32)
+        if src.position is not None:
+            md.set_position(src.position[used_indices])
+        sub.metadata = md
+        if self.raw_data is not None:
+            sub.raw_data = self.raw_data[used_indices]
+        return sub
+
     # ------------------------------------------------------------------
     def create_valid(self, data: np.ndarray, label=None, weight=None, group=None,
                      init_score=None) -> "Dataset":

@@ -109,7 +109,7 @@ def bundle_hist_to_features(hist_g, sum_g, sum_h, meta: FeatureMeta,
     histogram is already per feature."""
     if has_bundles:
         raise NotImplementedError(
-            "EFB bundles are not ported yet (ROADMAP Queue 1 item 14)")
+            "EFB bundles are not ported yet (ROADMAP Queue 1 item 5)")
     return hist_g
 
 

@@ -122,6 +122,7 @@ def test_port_model_text_loads_in_jax(boosters):
     ({"tree_learner": "voting"}, "item 15"),
     ({"boosting": "dart"}, "item 14"),
     ({"linear_tree": True}, "item 14"),
+    ({"max_bin": 300}, "item 2"),
     ({"categorical_feature": "0"}, "item 3")])
 def test_unported_options_refuse(extra, item):
     X, y = _data()
@@ -169,3 +170,20 @@ def test_save_model_round_trip(boosters, tmp_path):
         tlgb.Booster(model_file=str(path),
                      params={"device_type": "cpu"}).predict(X),
         bt.predict(X))
+
+
+def test_efb_refusals_name_item_5():
+    """Data EFB would bundle (mutually exclusive sparse features) is
+    refused naming ROADMAP Queue 1 item 5, by the booster and by the
+    growth engines' bundle hook alike."""
+    from lightgbm_tpu_torch.learner.grow import bundle_hist_to_features
+    rng = np.random.RandomState(4)
+    X = np.zeros((2048, 8), np.float32)
+    col = rng.randint(0, 8, 2048)
+    X[np.arange(2048), col] = rng.rand(2048) + 0.5
+    y = (rng.rand(2048) < 0.5).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tlgb.train({**PARAMS, "device_type": "cpu"},
+                   tlgb.Dataset(X, label=y), num_boost_round=1)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        bundle_hist_to_features(None, None, None, None, 63, 63, True)
