@@ -51,9 +51,40 @@ Phases, each printing one JSON line:
      default (card) Dataset and by a device_type=cpu one: the bins equal
      bit for bit, both `Dataset::binning` times, and one main-path update
      on each grows the same tree (the card bins padded on the card);
+  5c. sampling: the main path's workload (1M x 28, 255 leaves, 255
+     bins, 13 iterations, held-out AUC on the 100k rows) with (a)
+     bagging_fraction=0.8, bagging_freq=1, feature_fraction=0.8 on the
+     wave engine; (b) data_sample_strategy=goss,
+     feature_fraction_bynode=0.8 on the wave engine (at learning_rate 0.1
+     GOSS samples from iteration 10 on, the line says so); (c)
+     extra_trees=true with (a)'s bagging on the leaf-wise engine; (d)
+     (a) with use_quantized_grad=true (K2 under bagging).  Gates: K1 and
+     K3 launched for (a) and (b), K4 for (c), K2 for (d); each
+     iteration's in-bag count int(n * 0.8) for (a), (c) and (d); every
+     split feature of a tree of (a) and (d) inside that tree's column
+     mask (the NumPy draws replayed here); held-out AUC >= 0.72 for (a),
+     (b) and (d), >= 0.715 for (c) (a CPU rehearsal at 125,000 rows gave
+     0.72459, PERF.md).  One
+     `sampling` line per run: s/iter of iterations 4-13 beside the main
+     path's, `GBDT::bagging` and `GBDT::col_sampling` ms/iter (from the
+     breakdown iterations), AUC, launches, in-bag counts, the card's
+     name and power limit;
+  5d. continue: 7 rounds of (a) through `train`, then 6 more with
+     `init_model=<the first booster's model text>`,
+     `keep_training_booster=True` and the 100k rows as a valid set
+     (metric auc).  Gates: 13 trees, the first 7 with the init model's
+     text; held-out AUC >= 0.72; the first recorded valid AUC within 1e-6
+     of the AUC of predict(num_iteration=8) (the valid scores were
+     seeded from the init model); K1 and K3 launched by the continued
+     run (the counts set to 0 after the 7 init rounds).  Then
+     rollback_one_iter(): 12 trees, and predict equal bit for bit to the
+     unrolled booster's predict(num_iteration=12).  One `continue` line;
   6. card against CPU: `train` at 65,536 rows, 3 iterations, on "cuda"
-     and "cpu", for the main path and paths A and B: the same split
-     features and thresholds in every tree, leaf values within rtol 1e-4;
+     and "cpu", for the main path, paths A and B, sampling runs (a), (b)
+     at learning_rate 0.5 (GOSS samples from iteration 2), (c), and (a)
+     with use_quantized_grad=true (K2 on a sampling path, gated): the
+     same split features and thresholds in every tree, leaf values within
+     rtol 1e-4; the card run's launch counts in each line;
   7. kernels at the main path's widths (28 features, 255 bins, 2
      channels), one `kernel` line per shape: K1 at 1/2/4/8/16/128/256
      slots on n = 2^20 rows (half on the sentinel), at 384 slots of
@@ -537,11 +568,14 @@ def reset_counts(H):
 
 
 def drive_path(lgb, H, global_timer, name, extra, iterations, data,
-               after_training=None):
+               after_training=None, after_update=None):
     """Train the bench workload with `extra` params on the card: counts
-    set to 0 just before the updates and read just after; then
-    `after_training(booster)`, if given; then three instrumented
-    iterations for the breakdown."""
+    set to 0 just before the updates and read just after
+    (`after_update(booster)`, if given, runs after each update, outside
+    its time); then `after_training(booster)`, if given; then three
+    instrumented iterations for the breakdown.  Returns a dict: launches,
+    auc, s_per_iter (iterations 4-13), instrumented wall s/iter and the
+    breakdown's ms per iteration."""
     X, y, Xte, yte = data
     params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
@@ -559,6 +593,8 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
             raise AssertionError(f"{name}: training stopped early")
         torch.cuda.synchronize()
         iters.append(time.perf_counter() - t0)
+        if after_update is not None:
+            after_update(booster)
     launches = launch_counts(H)
     score = auc(yte, booster.predict(Xte, raw_score=True))
     last = iters[-10:]
@@ -588,11 +624,13 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
     wall = (time.perf_counter() - t0) / 3
     snap = global_timer.snapshot()
     global_timer.enabled = False
+    ms_per_iter = {k: v[0] * 1e3 / 3 for k, v in snap.items()}
     emit({"phase": f"{name}_breakdown", "iterations": 3,
-          "instrumented_s_per_iter": wall,
-          "ms_per_iter": {k: v[0] * 1e3 / 3 for k, v in snap.items()},
+          "instrumented_s_per_iter": wall, "ms_per_iter": ms_per_iter,
           "calls_per_iter": {k: v[1] / 3 for k, v in snap.items()}})
-    return launches, score, wall
+    return {"launches": launches, "auc": score, "wall": wall,
+            "s_per_iter": sum(last) / len(last), "ms_per_iter": ms_per_iter,
+            "booster": booster}
 
 
 def phase_paths(lgb, H, global_timer):
@@ -600,17 +638,19 @@ def phase_paths(lgb, H, global_timer):
     Xte, yte = make_higgs_like(100_000, 28, seed=1)
     data = (X, y, Xte, yte)
     out = {}
-    launches, auc_main, main_wall = drive_path(
-        lgb, H, global_timer, "main_path", {}, 13, data,
-        after_training=lambda b: phase_predict(b, data))
+    r = drive_path(lgb, H, global_timer, "main_path", {}, 13, data,
+                   after_training=lambda b: phase_predict(b, data))
+    launches, auc_main, main_wall = r["launches"], r["auc"], r["wall"]
+    main_s = r["s_per_iter"]
     if auc_main < 0.72:
         raise AssertionError(f"main path: held-out AUC {auc_main} < 0.72")
     if launches["K1"] <= 0 or launches["K3"] <= 0:
         raise AssertionError(f"main path: a kernel was not launched: "
                              f"{launches}")
     out["main_path"] = launches
-    launches, auc_q, _ = drive_path(lgb, H, global_timer, "path_a_quantized",
-                                 {"use_quantized_grad": True}, 13, data)
+    r = drive_path(lgb, H, global_timer, "path_a_quantized",
+                   {"use_quantized_grad": True}, 13, data)
+    launches, auc_q = r["launches"], r["auc"]
     if launches["K2"] <= 0 or launches["K1"] or launches["K3"]:
         raise AssertionError(f"path A: K2 must carry every histogram: "
                              f"{launches}")
@@ -618,15 +658,15 @@ def phase_paths(lgb, H, global_timer):
         raise AssertionError(f"path A: held-out AUC {auc_q} is more than "
                              f"0.01 from the float path's {auc_main}")
     out["path_a_quantized"] = launches
-    launches, auc_l, _ = drive_path(lgb, H, global_timer, "path_b_leafwise",
-                                 {"tpu_growth_strategy": "leafwise"}, 13,
-                                 data)
+    r = drive_path(lgb, H, global_timer, "path_b_leafwise",
+                   {"tpu_growth_strategy": "leafwise"}, 13, data)
+    launches, auc_l = r["launches"], r["auc"]
     if launches["K4"] <= 0:
         raise AssertionError(f"path B: K4 was not launched: {launches}")
     if auc_l < 0.72:
         raise AssertionError(f"path B: held-out AUC {auc_l} < 0.72")
     out["path_b_leafwise"] = launches
-    return out, main_wall
+    return out, main_wall, main_s
 
 
 def replay_early_stop(hist, rounds, min_delta, higher):
@@ -959,16 +999,170 @@ def phase_device_bin(lgb, global_timer):
           "card_second_pass_ms": pass_ms})
 
 
-def phase_card_vs_cpu(lgb, name, extra):
+BAG = {"bagging_fraction": 0.8, "bagging_freq": 1}
+SAMPLING_RUNS = (
+    # (name, params, kernels that must launch, held-out AUC bound)
+    ("sampling_a_bagging", {**BAG, "feature_fraction": 0.8}, ("K1", "K3"),
+     0.72),
+    ("sampling_b_goss", {"data_sample_strategy": "goss",
+                         "feature_fraction_bynode": 0.8}, ("K1", "K3"),
+     0.72),
+    ("sampling_c_extra_trees", {**BAG, "extra_trees": True,
+                                "tpu_growth_strategy": "leafwise"},
+     ("K4",), 0.715),
+    ("sampling_d_quantized_bagging", {**BAG, "feature_fraction": 0.8,
+                                      "use_quantized_grad": True},
+     ("K2",), 0.72))
+
+
+def phase_sampling(lgb, H, global_timer, card, main_s):
+    """Row and column sampling at the main path's width (runs (a)-(d) of
+    the module docstring), each driven like the paths; one `sampling`
+    line per run.  Returns the launches of each run."""
+    X, y = make_higgs_like(1_000_000, 28)
+    Xte, yte = make_higgs_like(100_000, 28, seed=1)
+    data = (X, y, Xte, yte)
+    n = X.shape[0]
+    out = {}
+    for name, extra, kernels, auc_min in SAMPLING_RUNS:
+        in_bag = []
+        r = drive_path(lgb, H, global_timer, name, extra, 13, data,
+                       after_update=lambda b: in_bag.append(
+                           int(b._gbdt._bag_mask_host[:n].sum())))
+        launches, g = r["launches"], r["booster"]._gbdt
+        if any(launches[k] <= 0 for k in kernels):
+            raise AssertionError(f"{name}: {kernels} must launch: {launches}")
+        if "bagging_fraction" in extra and set(in_bag) != {int(n * 0.8)}:
+            raise AssertionError(f"{name}: in-bag counts {in_bag}, not "
+                                 f"{int(n * 0.8)} each iteration")
+        if r["auc"] < auc_min:
+            raise AssertionError(f"{name}: held-out AUC {r['auc']} < "
+                                 f"{auc_min}")
+        line = {"phase": "sampling", "run": name, "rows": n,
+                "params": extra, "iterations": 13,
+                "s_per_iter_4_13": r["s_per_iter"],
+                "main_path_s_per_iter_4_13": main_s,
+                "bagging_ms_per_iter": r["ms_per_iter"].get("GBDT::bagging"),
+                "col_sampling_ms_per_iter": r["ms_per_iter"].get(
+                    "GBDT::col_sampling"),
+                "instrumented_s_per_iter": r["wall"],
+                "heldout_auc": r["auc"], "auc_min": auc_min,
+                "launches": launches, "in_bag": in_bag, "card": card}
+        if "feature_fraction" in extra:
+            # replay the per-tree column draws: every split feature of a
+            # tree lies in that tree's mask
+            rng = np.random.RandomState(g.config.feature_fraction_seed)
+            F = g.train_data.num_features
+            cnt = max(1, int(round(F * extra["feature_fraction"])))
+            for i, t in enumerate(g.models_):
+                mask = np.zeros(F, bool)
+                mask[rng.choice(F, cnt, replace=False)] = True
+                used = t.split_feature_inner[:t.num_leaves - 1]
+                if not mask[used].all():
+                    raise AssertionError(f"{name}: tree {i} splits on a "
+                                         "feature outside its column mask")
+            line["trees_within_col_mask"] = len(g.models_)
+        if extra.get("data_sample_strategy") == "goss":
+            # no sampling for the first 1 / learning_rate iterations
+            line["goss_samples_from_iteration"] = int(
+                1.0 / g.config.learning_rate)
+        emit(line)
+        out[name] = launches
+        del r, g
+    return out
+
+
+def phase_continue(lgb, H, global_timer, card):
+    """Continued training and rollback at the main path's width, run (a)'s
+    params: 7 rounds, then 6 more from the first booster's model text
+    with a valid set, the timer on (the line's `continue_ms_by_scope`:
+    `GBDT::continue_from` is the seeding), then one rollback (gates in
+    the module docstring)."""
+    X, y = make_higgs_like(1_000_000, 28)
+    Xte, yte = make_higgs_like(100_000, 28, seed=1)
+    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
+              "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
+              "device_type": "cuda", "metric": "auc",
+              **SAMPLING_RUNS[0][1]}
+    t0 = time.perf_counter()
+    b1 = lgb.train(params, lgb.Dataset(X, label=y), 7)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    text = b1.model_to_string()
+    hist = {}
+    # the continued run's own launches
+    reset_counts(H)
+    # the timer on for the continued run: the seeding's own scope
+    global_timer.reset()
+    global_timer.enabled = True
+    t0 = time.perf_counter()
+    b2 = lgb.train(params, lgb.Dataset(X, label=y), 6, init_model=text,
+                   keep_training_booster=True,
+                   valid_sets=[lgb.Dataset(Xte, label=yte)],
+                   callbacks=[lgb.record_evaluation(hist)])
+    torch.cuda.synchronize()
+    t_cont = time.perf_counter() - t0
+    snap = global_timer.snapshot()
+    global_timer.enabled = False
+    launches = launch_counts(H)
+    g = b2._gbdt
+    if b2.num_trees() != 13 or g.num_init_iteration_ != 7:
+        raise AssertionError(f"continue: {b2.num_trees()} trees, "
+                             f"{g.num_init_iteration_} init iterations")
+    if ([t.to_string(i) for i, t in enumerate(g.models_[:7])]
+            != [t.to_string(i) for i, t in enumerate(b1._gbdt.models_)]):
+        raise AssertionError("continue: the first 7 trees' text differs "
+                             "from the init model's")
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        raise AssertionError(f"continue: K1/K3 not launched: {launches}")
+    score = auc(yte, b2.predict(Xte, raw_score=True))
+    if score < 0.72:
+        raise AssertionError(f"continue: held-out AUC {score} < 0.72")
+    first = hist["valid_0"]["auc"][0]
+    want = auc(yte, b2.predict(Xte, num_iteration=8, raw_score=True))
+    if abs(first - want) > 1e-6:
+        raise AssertionError(f"continue: the first recorded valid AUC "
+                             f"{first} is not predict(num_iteration=8)'s "
+                             f"{want}: the valid scores were not seeded")
+    p12 = b2.predict(Xte, num_iteration=12)
+    b2.rollback_one_iter()
+    if b2.num_trees() != 12:
+        raise AssertionError(f"rollback: {b2.num_trees()} trees, not 12")
+    if not np.array_equal(b2.predict(Xte), p12):
+        raise AssertionError("rollback: predict differs from the unrolled "
+                             "booster's predict(num_iteration=12)")
+    emit({"phase": "continue", "rows": X.shape[0], "params": params,
+          "init_iterations": 7, "continued_iterations": 6,
+          "init_train_s": t_init, "continue_train_s": t_cont,
+          "continue_ms_by_scope": {k: v[0] * 1e3 for k, v in snap.items()
+                                   if k in ("GBDT::continue_from",
+                                            "Dataset::binning",
+                                            "GBDT::train_one_iter",
+                                            "GBDT::eval")},
+          "heldout_auc": score,
+          "first_valid_auc": first, "predict_8_auc": want,
+          "first_valid_auc_diff": abs(first - want),
+          "trees_after_rollback": b2.num_trees(),
+          "launches": launches, "launches_of": "the 6 continued rounds",
+          "card": card})
+    return launches
+
+
+def phase_card_vs_cpu(lgb, H, name, extra):
+    """`train` at 65,536 rows, 3 iterations, on the card and the CPU: the
+    same trees.  Returns the card run's launches."""
     X, y = make_higgs_like(65_536, 28, seed=2)
     params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
               **extra}
     models = {}
     for dev in ("cuda", "cpu"):
+        reset_counts(H)
         b = lgb.train({**params, "device_type": dev},
                       lgb.Dataset(X, label=y), num_boost_round=3)
         models[dev] = b._gbdt.models_
+        if dev == "cuda":
+            launches = launch_counts(H)
     worst = 0.0
     for i, (a, b) in enumerate(zip(models["cuda"], models["cpu"])):
         ni = a.num_leaves - 1
@@ -995,7 +1189,8 @@ def phase_card_vs_cpu(lgb, name, extra):
     emit({"phase": "card_vs_cpu", "path": name, "params": extra,
           "rows": 65_536, "trees": 3,
           "leaves": [t.num_leaves for t in models["cuda"]],
-          "max_rel_leaf_diff": worst})
+          "max_rel_leaf_diff": worst, "card_launches": launches})
+    return launches
 
 
 def main(argv) -> int:
@@ -1041,14 +1236,29 @@ def main(argv) -> int:
             raise AssertionError(f"{src}: compare-and-swap shared atomics "
                                  f"(ATOMS.CAST) in {cas}")
 
-    launches, main_wall = phase_paths(lgb, H, global_timer)
+    launches, main_wall, main_s = phase_paths(lgb, H, global_timer)
     phase_valid_path(lgb, H, global_timer, card, main_wall)
     phase_device_bin(lgb, global_timer)
+    launches.update(phase_sampling(lgb, H, global_timer, card, main_s))
+    launches["continue"] = phase_continue(lgb, H, global_timer, card)
+    sampling_a, sampling_b, sampling_c = (r[1] for r in SAMPLING_RUNS[:3])
     for name, extra in (("main_path", {}),
                         ("path_a_quantized", {"use_quantized_grad": True}),
                         ("path_b_leafwise",
-                         {"tpu_growth_strategy": "leafwise"})):
-        phase_card_vs_cpu(lgb, name, extra)
+                         {"tpu_growth_strategy": "leafwise"}),
+                        ("sampling_a_bagging", sampling_a),
+                        ("sampling_b_goss_lr0.5",
+                         {**sampling_b, "learning_rate": 0.5}),
+                        ("sampling_c_extra_trees", sampling_c),
+                        ("sampling_a_quantized",
+                         {**sampling_a, "use_quantized_grad": True})):
+        card_launches = phase_card_vs_cpu(lgb, H, name, extra)
+        if name == "sampling_a_quantized":
+            # K2 on a sampling path
+            if card_launches["K2"] <= 0:
+                raise AssertionError(f"{name}: K2 was not launched: "
+                                     f"{card_launches}")
+            launches[f"card_vs_cpu_{name}"] = card_launches
     per_shape = phase_kernels(H, dev)
     per_shape.update(phase_kernels_k2_k4(H, dev))
     phase_sweep(H, dev)

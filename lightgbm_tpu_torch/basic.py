@@ -279,6 +279,12 @@ class Booster:
                                       "(ROADMAP Queue 1 item 14)")
         return self._gbdt.train_one_iter()
 
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees (ref: basic.py
+        rollback_one_iter; the JAX package's keeps the scores)."""
+        self._gbdt.rollback_one_iter()
+        return self
+
     def current_iteration(self) -> int:
         return self._gbdt.current_iteration()
 

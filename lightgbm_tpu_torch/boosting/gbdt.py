@@ -12,6 +12,18 @@ card booster): the ensemble is packed once and traversed as tensors
 (`inference/`); the host paths are the native OpenMP predictor and the
 Python loop over the host trees.
 
+Row sampling (`GBDT::bagging`) follows the JAX booster: bagging and
+balanced bagging draw a host mask from NumPy's `RandomState(bagging_seed)`
+every `bagging_freq` iterations and put it on the device; GOSS keeps the
+top rows by |g·h| and samples the rest with the threefry stream keyed by
+the absolute iteration, rescaling them.  The mask (padding folded in) is
+the growth engines' row mask.  `feature_fraction` draws a per-tree column
+mask from `RandomState(feature_fraction_seed)`; extra-trees and
+`feature_fraction_bynode` draw per leaf scan inside the engines, their
+keys folded with the absolute iteration.  `continue_from` adopts an
+earlier model's trees and seeds the scores with its predictions;
+`rollback_one_iter` drops the last iteration's trees.
+
 Training metrics are evaluated on the booster's device, one packed
 transfer per tick (`ops/metrics.py` DeviceEval).  Validation sets keep
 float64 scores on the host, advanced per finished tree by the leaf ids of
@@ -27,6 +39,7 @@ different model.
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -39,7 +52,7 @@ from ..io.dataset import Dataset
 from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
                        grow_tree_wave_impl)
 from ..metric import Metric
-from ..models.tree import Tree
+from ..models.tree import K_CATEGORICAL_MASK, Tree
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
 from ..objective import ObjectiveFunction
 from ..ops.histogram import wave_part_plan, wave_slot_pad
@@ -67,18 +80,6 @@ def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
         refuse(f"objective={c.objective!r}", "14")
     if c.boosting != "gbdt":
         refuse(f"boosting={c.boosting!r}", "14")
-    if c.data_sample_strategy == "goss":
-        refuse("GOSS sampling", "14")
-    if c.bagging_freq > 0 and (c.bagging_fraction < 1.0
-                               or c.pos_bagging_fraction < 1.0
-                               or c.neg_bagging_fraction < 1.0):
-        refuse("bagging", "6")
-    if c.feature_fraction < 1.0:
-        refuse("feature_fraction < 1", "6")
-    if c.feature_fraction_bynode < 1.0:
-        refuse("feature_fraction_bynode < 1", "11")
-    if c.extra_trees:
-        refuse("extra_trees", "11")
     if any(int(m) != 0 for m in (c.monotone_constraints or [])):
         refuse("monotone constraints", "3")
     if c.interaction_constraints:
@@ -102,7 +103,8 @@ def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
     if train_data is not None:
         if any(train_data.bin_mappers[f].bin_type == BIN_CATEGORICAL
                for f in train_data.used_features):
-            refuse("categorical features", "3")
+            refuse("categorical features with extra_trees" if c.extra_trees
+                   else "categorical features", "3")
 
 
 def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
@@ -135,6 +137,31 @@ def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     hi = (torch.ones_like(hess) if const_hess
           else torch.trunc(hess / hscale + rh))
     return gi * gscale, hi * hscale, torch.stack([gscale, hscale])
+
+
+def goss_sample(grad: torch.Tensor, hess: torch.Tensor,
+                pad_mask: torch.Tensor, key: torch.Tensor, top_k: int,
+                other_k: int):
+    """Gradient one-side sampling (ref: goss.hpp:118-165; port of the JAX
+    booster's `_goss_sample`, gbdt.py:53): keep the top_k rows by
+    Σ_k |g·h|, keep each other row with probability other_k / rest and
+    scale its gradients by rest / other_k.  Every step is float32, as in
+    the JAX package, so the same float32 inputs give the same rows and
+    the same bits.  grad, hess: [K, n]; returns (keep mask [n] float32,
+    grad, hess)."""
+    imp = (grad * hess).abs().sum(0) * pad_mask
+    thr = torch.topk(imp, top_k).values[-1]
+    real = pad_mask > 0
+    is_top = (imp >= thr) & real
+    rest = pad_mask.sum() - is_top.to(torch.float32).sum()
+    prob = other_k / torch.clamp(rest, min=1.0)
+    u = jrandom.uniform(key, imp.shape, device=imp.device)
+    sampled = (u < prob) & ~is_top & real
+    scale = torch.where(sampled, rest / other_k,
+                        torch.ones((), dtype=torch.float32,
+                                   device=imp.device))
+    keep = (is_top | sampled).to(grad.dtype)
+    return keep, grad * scale[None, :], hess * scale[None, :]
 
 
 def renew_leaf_values(leaf_value: torch.Tensor, leaf_id: torch.Tensor,
@@ -233,8 +260,8 @@ class GBDT:
     def __init__(self):
         self.models_: List[Tree] = []
         self.iter_ = 0
-        # iterations of a loaded init model (continued training is not
-        # ported, so 0); keys the quantization stream like the JAX booster
+        # iterations of an init model (continue_from); with iter_ it keys
+        # the threefry streams (quantization, GOSS, extra-trees, bynode)
         self.num_init_iteration_ = 0
         self.config: Optional[Config] = None
         self.train_data: Optional[Dataset] = None
@@ -317,6 +344,12 @@ class GBDT:
         pad = np.zeros(self.n_pad, np.float32)
         pad[:n] = 1.0
         self.pad_mask = torch.from_numpy(pad).to(dev)
+        # row and column sampling streams (the JAX booster's, gbdt.py:898):
+        # the bag mask holds the padding's zeros and starts as all rows
+        self._rng_bag = np.random.RandomState(config.bagging_seed)
+        self._rng_feat = np.random.RandomState(config.feature_fraction_seed)
+        self._bag_mask_host = pad
+        self.bag_mask = self.pad_mask
 
         mt, nb, db = [], [], []
         for f in train_data.used_features:
@@ -359,14 +392,18 @@ class GBDT:
                 min_data_in_leaf=config.min_data_in_leaf,
                 min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
                 min_gain_to_split=config.min_gain_to_split,
-                max_delta_step=config.max_delta_step),
+                max_delta_step=config.max_delta_step,
+                extra_trees=config.extra_trees,
+                extra_seed=config.extra_seed),
             wave_tail_halving=config.wave_tail_halving,
             wave_prune=config.wave_prune,
             wave_prune_overshoot=config.wave_prune_overshoot,
             wave_spike_reserve=config.wave_spike_reserve,
             wave_spike_k=config.wave_spike_k,
             use_hist_stack=stack_bytes <= budget,
-            quant_bins=quant_bins)
+            quant_bins=quant_bins,
+            feature_fraction_bynode=config.feature_fraction_bynode,
+            bynode_seed=config.feature_fraction_seed + 1)
         # growth engine (gbdt.py:582-636 of the JAX package): wave when at
         # least 8 leaves and the wave kernels' tile fits, else leaf-wise
         strategy = config.tpu_growth_strategy
@@ -442,6 +479,103 @@ class GBDT:
                 self.device)
         self.valid_bins.append(vb.contiguous())
 
+    # ---------------------------------------------------- continued training
+    def _reconstruct_raw(self, ds: Dataset, bins: torch.Tensor) -> np.ndarray:
+        """Raw feature matrix of `ds` for prediction: its kept raw data, else
+        each bin's representative value (gbdt.py:905 `_raw_or_reconstruct`
+        of the JAX package): exact for trees trained on the same bin
+        mappers, whose numerical thresholds are bin upper bounds.  `bins`
+        are the set's [F_used, num_data] codes on the device."""
+        if ds.raw_data is not None:
+            return ds.raw_data
+        codes = bins[:, :ds.num_data].cpu().numpy()
+        X = np.zeros((ds.num_data, ds.num_total_features))
+        for i, f in enumerate(ds.used_features):
+            m = ds.bin_mappers[f]
+            lut = np.array([m.bin_to_value(b) for b in range(m.num_bin)])
+            # missing bins reconstruct to what default_left routes
+            if m.missing_type == MISSING_NAN:
+                lut[m.num_bin - 1] = np.nan
+            elif m.missing_type == MISSING_ZERO:
+                lut[m.default_bin] = 0.0
+            X[:, f] = lut[np.clip(codes[i], 0, m.num_bin - 1)]
+        return X
+
+    def _reconstruct_bin_space(self, tree: Tree) -> None:
+        """Bin-space routing fields (split_feature_inner, threshold_in_bin)
+        of a tree read from model text, against this run's bin mappers
+        (gbdt.py:1583 of the JAX package): the real threshold is the
+        upper bound of its bin, so a search recovers the bin."""
+        if getattr(tree, "_bin_space_valid", True):
+            return
+        tree._bin_space_valid = True
+        ni = tree.num_leaves - 1
+        if ni <= 0:
+            return
+        if np.any(tree.decision_type[:ni] & K_CATEGORICAL_MASK):
+            raise NotImplementedError(
+                "continuing a model with categorical splits is not ported "
+                "yet (ROADMAP Queue 1 item 3)")
+        ds = self.train_data
+        inner_of = {f: i for i, f in enumerate(ds.used_features)}
+        for nd in range(ni):
+            f = int(tree.split_feature[nd])
+            if f in inner_of:
+                tree.split_feature_inner[nd] = inner_of[f]
+            mapper = ds.bin_mappers[f]
+            ub = np.asarray(mapper.bin_upper_bound, np.float64)
+            b = int(np.searchsorted(ub, float(tree.threshold[nd]),
+                                    side="left"))
+            tree.threshold_in_bin[nd] = min(b, max(mapper.num_bin - 1, 0))
+
+    def continue_from(self, prev: "GBDT", train_raw=None,
+                      valid_raws=None) -> None:
+        """Continued training (gbdt.py:925 of the JAX package; ref:
+        application.cpp:94-97, gbdt.h:70 MergeFrom): adopt prev's trees,
+        seed the training and valid scores with its raw predictions, and
+        count its iterations into the absolute iteration."""
+        K = self.num_tree_per_iteration
+        if prev.num_tree_per_iteration != K:
+            log.fatal("Cannot continue training: the initial model has "
+                      f"{prev.num_tree_per_iteration} trees per iteration, "
+                      f"this one needs {K}")
+        if prev.average_output_ != self.average_output_:
+            log.fatal("Cannot continue training across averaging modes "
+                      "(rf vs gbdt/dart): tree outputs would be combined "
+                      "with the wrong weights")
+        self.models_ = [copy.deepcopy(t) for t in prev.models_]
+        for t in self.models_:
+            self._reconstruct_bin_space(t)
+        self.num_init_iteration_ = len(self.models_) // max(K, 1)
+        self.iter_ = 0
+        self._bump_model_mutations()
+        n = self.num_data
+        X = (train_raw if train_raw is not None
+             else self._reconstruct_raw(self.train_data, self.binned_dev))
+        raw = prev.predict_raw(np.asarray(X, np.float64))
+        raw = raw[:, None] if raw.ndim == 1 else raw             # [n, K]
+        sc = np.zeros((K, self.n_pad), np.float32)
+        sc[:, :n] = raw.T.astype(np.float32)
+        self.scores = self.scores + torch.from_numpy(sc).to(self.device)
+        for vi, vds in enumerate(self.valid_sets):
+            vX = (valid_raws[vi] if valid_raws is not None
+                  and valid_raws[vi] is not None
+                  else self._reconstruct_raw(vds, self.valid_bins[vi]))
+            vraw = prev.predict_raw(np.asarray(vX, np.float64))
+            vraw = vraw[:, None] if vraw.ndim == 1 else vraw
+            self.valid_scores[vi] += vraw.T
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's trees (ref: gbdt.cpp:443
+        RollbackOneIter; the JAX booster's, gbdt.py:2308, which keeps the
+        training and valid scores as they are) and the prediction caches
+        built from them."""
+        K = self.num_tree_per_iteration
+        if len(self.models_) >= K:
+            del self.models_[-K:]
+            self.iter_ -= 1
+            self._bump_model_mutations()
+
     # ------------------------------------------------------------ gradients
     def _boost_from_average(self, class_id: int) -> float:
         """ref: gbdt.cpp:313 BoostFromAverage."""
@@ -463,6 +597,59 @@ class GBDT:
         g, h = self.objective.get_gradients(self.scores[0], self.label_dev,
                                             self.weight_dev)
         return g[None, :], h[None, :]
+
+    def _update_bagging(self, grad, hess):
+        """Row sampling for this iteration (the JAX booster's
+        `_update_bagging`, gbdt.py:1115; ref: bagging.hpp, goss.hpp).
+        Returns (row mask [n_pad] on the device, grad, hess).  The streams
+        are keyed by the absolute iteration, so continued training
+        advances GOSS's; the NumPy bagging stream restarts from its seed
+        in each booster, as in the JAX package."""
+        cfg = self.config
+        n = self.num_data
+        abs_iter = self.num_init_iteration_ + self.iter_
+        if cfg.data_sample_strategy == "goss":
+            # no sampling for the first 1/learning_rate iterations
+            if abs_iter < int(1.0 / max(cfg.learning_rate, 1e-10)):
+                return self.bag_mask, grad, hess
+            key = jrandom.PRNGKey(cfg.bagging_seed + abs_iter,
+                                  device=self.device)
+            return goss_sample(grad, hess, self.pad_mask, key,
+                               max(1, int(n * cfg.top_rate)),
+                               max(1, int(n * cfg.other_rate)))
+        if (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
+                and abs_iter % cfg.bagging_freq == 0):
+            mask = np.zeros(self.n_pad, np.float32)
+            pos_frac, neg_frac = (cfg.pos_bagging_fraction,
+                                  cfg.neg_bagging_fraction)
+            if ((pos_frac < 1.0 or neg_frac < 1.0)
+                    and self.objective is not None
+                    and self.objective.name == "binary"):
+                # balanced bagging (ref: bagging.hpp balanced_bagging_)
+                lab = np.asarray(self.train_data.metadata.label) > 0
+                for cls_mask, frac in ((lab, pos_frac), (~lab, neg_frac)):
+                    cls_idx = np.nonzero(cls_mask)[0]
+                    take = int(len(cls_idx) * frac)
+                    mask[self._rng_bag.choice(cls_idx, take,
+                                              replace=False)] = 1.0
+            else:
+                cnt = int(n * cfg.bagging_fraction)
+                mask[self._rng_bag.choice(n, cnt, replace=False)] = 1.0
+            self._bag_mask_host = mask
+            self.bag_mask = torch.from_numpy(mask).to(self.device)
+        return self.bag_mask, grad, hess
+
+    def _col_mask(self) -> torch.Tensor:
+        """Per-tree feature_fraction mask [F_used] (gbdt.py:1157 of the JAX
+        package; ref: col_sampler.hpp ResetByTree)."""
+        cfg = self.config
+        if cfg.feature_fraction >= 1.0:
+            return self.col_mask
+        F = self.train_data.num_features
+        cnt = max(1, int(round(F * cfg.feature_fraction)))
+        mask = np.zeros(F, bool)
+        mask[self._rng_feat.choice(F, cnt, replace=False)] = True
+        return torch.from_numpy(mask).to(self.device)
 
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
         """One boosting iteration; returns True when training should stop
@@ -486,6 +673,9 @@ class GBDT:
         else:
             grad = self._pad_rows(gradients, K)
             hess = self._pad_rows(hessians, K)
+        with global_timer.scope("GBDT::bagging"):
+            bag_mask, grad, hess = self._update_bagging(grad, hess)
+            global_timer.block(bag_mask)
         for k in range(K):
             tree = None
             if self.class_need_train[k] and self.train_data.num_features > 0:
@@ -503,25 +693,37 @@ class GBDT:
                         g_k, h_k, qscales = discretize_gradients(
                             g_k, h_k, self.config.num_grad_quant_bins,
                             self._quant_const_hess, key)
+                # the per-scan draws' keys advance with the absolute
+                # iteration (gbdt.py:1242-1248 of the JAX package)
+                extra_tag = None
+                if (self.config.extra_trees
+                        or self.config.feature_fraction_bynode < 1.0):
+                    extra_tag = (self.num_init_iteration_ + self.iter_) * K + k
+                with global_timer.scope("GBDT::col_sampling"):
+                    col_mask = self._col_mask()
                 with global_timer.scope("GBDT::grow_tree"):
                     if self.growth_strategy == "wave":
                         arrays, leaf_id = grow_tree_wave_impl(
-                            self.binned_dev, g_k, h_k, self.pad_mask,
-                            self.col_mask, self.meta, self.grow_params,
+                            self.binned_dev, g_k, h_k, bag_mask, col_mask,
+                            self.meta, self.grow_params,
                             quant_scales=(qscales
                                           if self.grow_params.quant_bins > 0
-                                          else None))
+                                          else None),
+                            extra_tag=extra_tag)
                     else:
                         arrays, leaf_id = grow_tree_impl(
-                            self.binned_dev, g_k, h_k, self.pad_mask,
-                            self.col_mask, self.meta, self.grow_params,
-                            binned_rm=self.binned_rm_dev)
+                            self.binned_dev, g_k, h_k, bag_mask, col_mask,
+                            self.meta, self.grow_params,
+                            binned_rm=self.binned_rm_dev,
+                            extra_tag=extra_tag)
                     global_timer.block(leaf_id)
                 if self.use_quant and self.config.quant_train_renew_leaf:
-                    # leaf outputs from the float gradients (gbdt.py:1494)
+                    # leaf outputs from the float gradients (gbdt.py:1494),
+                    # summed over the bagging mask (the whole data under
+                    # GOSS, whose rescaled gradients they are)
                     arrays = arrays._replace(leaf_value=renew_leaf_values(
                         arrays.leaf_value, leaf_id, grad[k], hess[k],
-                        self.pad_mask, self._renew_params))
+                        self.bag_mask, self._renew_params))
                 with global_timer.scope("GBDT::finalize_tree"):
                     tree = self._finalize_tree(arrays, leaf_id, k,
                                                init_scores[k])
@@ -721,10 +923,12 @@ class GBDT:
 
     # ------------------------------------------------------------ predict
     def _bump_model_mutations(self) -> None:
-        """Invalidate the packed/device predictor caches after an IN-PLACE
-        tree mutation that `len(models_)` cannot see (DART re-weighting,
-        refit, set_leaf_output: ROADMAP item 14).  Serving a model
-        mid-mutation must repack, never reuse stale leaf values."""
+        """Invalidate the packed/device predictor caches after a change of
+        the trees that `len(models_)` cannot see: a rollback followed by
+        new trees, adopted trees, and later in-place mutations (DART
+        re-weighting, refit, set_leaf_output: ROADMAP item 14).  Serving
+        a model mid-mutation must repack, never reuse stale leaf
+        values."""
         self._model_mutations += 1
 
     def _slice_end(self, start_iteration: int, num_iteration: int) -> int:

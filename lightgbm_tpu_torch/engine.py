@@ -2,16 +2,17 @@
 `lightgbm_tpu/engine.py`; ref: python-package/lightgbm/engine.py).
 
 `train` takes validation sets, `feval` and callbacks, with early
-stopping and the non-finite sentinel.  What stays refused names the
-ROADMAP Queue 1 item that brings it: continued training (`init_model`,
-`keep_training_booster`, item 6), custom objectives (`fobj`, item 14),
-and the host planes (`checkpoint_dir`, `metrics_dir`, `profile_dir`,
-`metrics_port`, item 16).
+stopping and the non-finite sentinel, and continues an `init_model` (a
+Booster, a model file or model text).  What stays refused names the
+ROADMAP Queue 1 item that brings it: custom objectives (`fobj`, item
+14), and the host planes (`checkpoint_dir`, `metrics_dir`,
+`profile_dir`, `metrics_port`, item 16).
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -54,12 +55,8 @@ def _check_finite(booster: Booster, evals, iteration: int,
                 "Set nonfinite_check_freq=0 to disable this sentinel.")
 
 
-def _refuse_unported(cfg: Config, init_model, keep_training_booster,
-                     fobj, checkpoint_dir, metrics_dir) -> None:
-    if init_model is not None or keep_training_booster:
-        raise NotImplementedError("continued training (init_model, "
-                                  "keep_training_booster) is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
+def _refuse_unported(cfg: Config, fobj, checkpoint_dir,
+                     metrics_dir) -> None:
     if fobj is not None:
         raise NotImplementedError("custom objectives (fobj) are not ported "
                                   "yet (ROADMAP Queue 1 item 14)")
@@ -72,6 +69,28 @@ def _refuse_unported(cfg: Config, init_model, keep_training_booster,
                                       "Queue 1 item 16)")
 
 
+def _init_booster(init_model, device_type: str) -> Booster:
+    """The model to continue: a Booster as it is, else model text (a
+    string holding a newline) or the path of a model file, loaded on the
+    training device (ref: engine.py init_model -> _InnerPredictor)."""
+    if isinstance(init_model, Booster):
+        return init_model
+    if isinstance(init_model, (str, bytes, os.PathLike)):
+        params = {"device_type": device_type}
+        if isinstance(init_model, str) and "\n" in init_model:
+            return Booster(model_str=init_model, params=params)
+        return Booster(model_file=os.fspath(init_model), params=params)
+    log.fatal(f"Unknown init_model type: {type(init_model)}")
+
+
+def _raw_of(ds: Dataset):
+    """A Dataset's raw matrix when it was kept (free_raw_data=False)."""
+    d = getattr(ds, "data", None)
+    if d is None or isinstance(d, (str, bytes)):
+        return None
+    return d.values if hasattr(d, "values") else np.asarray(d)
+
+
 def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
@@ -81,17 +100,20 @@ def train(params: Dict[str, Any], train_set: Dataset,
           checkpoint_dir: Optional[str] = None,
           metrics_dir: Optional[str] = None) -> Booster:
     """Train a booster for `num_boost_round` iterations, or until no leaf
-    can split or early stopping fires (ref: engine.py:66 train)."""
+    can split or early stopping fires (ref: engine.py:66 train).  With
+    `init_model` the booster starts from that model's trees and scores;
+    `keep_training_booster` is accepted as the JAX package accepts it (the
+    returned booster can always train on)."""
     params = dict(params or {})
     cfg = Config(params)
     # an explicitly passed num_iterations (or alias) wins over the default
     if "num_iterations" in cfg.raw_params:
         num_boost_round = cfg.num_iterations
-    _refuse_unported(cfg, init_model, keep_training_booster, fobj,
-                     checkpoint_dir, metrics_dir)
+    _refuse_unported(cfg, fobj, checkpoint_dir, metrics_dir)
 
     booster = Booster(params=params, train_set=train_set)
     train_in_valid = False
+    valid_wrappers = []
     for i, vs in enumerate(valid_sets or []):
         if vs is train_set:
             train_in_valid = True
@@ -99,6 +121,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
         name = (valid_names[i] if valid_names and i < len(valid_names)
                 else f"valid_{i}")
         booster.add_valid(vs, name)
+        valid_wrappers.append(vs)
+    if init_model is not None:
+        # continued training: the returned booster holds old + new trees
+        prev = _init_booster(init_model, cfg.device_type)
+        with global_timer.scope("GBDT::continue_from"):
+            booster._gbdt.continue_from(
+                prev._gbdt, train_raw=_raw_of(train_set),
+                valid_raws=[_raw_of(vs) for vs in valid_wrappers])
 
     callbacks = list(callbacks or [])
     if cfg.early_stopping_round > 0 and valid_sets:

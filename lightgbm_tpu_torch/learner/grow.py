@@ -26,8 +26,12 @@ its split and its row segment).
   children are rebuilt.
 
 Every histogram goes through `build_histogram_rows_fixed` (K4 on the
-card).  Voting, monotone, CEGB, forced splits, interaction constraints,
-extra-trees and bynode sampling are not ported (GBDT.init refuses them).
+card).  Extra-trees thresholds and `feature_fraction_bynode` column
+subsets are the JAX engine's threefry draws, one per leaf scan, keyed by
+the scan's tag (0 for the root, 2i+1 and 2i+2 for the children of split
+i) under a key folded with the booster's `extra_tag`; the tree's draws
+are made at once.  Voting, monotone, CEGB, forced splits and interaction
+constraints are not ported (GBDT.init refuses them).
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..ops.histogram import (ROW_TILE, build_histogram_rows_fixed,
                              fixed_unit, from_fixed, scale_exps)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO,
                          SplitParams, SplitResult, find_best_split)
+from ..utils import random as jrandom
 from ..utils.timer import global_timer
 
 
@@ -81,6 +86,10 @@ class GrowParams(NamedTuple):
     # quantized training: num_grad_quant_bins when the K2 gate holds
     # (the wave engine then sums quantized integers; 0 disables)
     quant_bins: int = 0
+    # per-node column sampling (ref: col_sampler.hpp fraction_bynode_):
+    # each leaf scan draws an exactly-k feature subset of this fraction
+    feature_fraction_bynode: float = 1.0
+    bynode_seed: int = 2
 
 
 class TreeArrays(NamedTuple):
@@ -113,10 +122,62 @@ def bundle_hist_to_features(hist_g, sum_g, sum_h, meta: FeatureMeta,
     return hist_g
 
 
+class ScanDraws:
+    """The JAX engines' per-scan random draws (ref:
+    feature_histogram.hpp:204 USE_RAND thresholds; col_sampler.hpp
+    GetByNode subsets): for a scan tag, `rand_bins(tag)` gives `shape`
+    thresholds and `bynode(tag)` `shape` exactly-k column masks, bit for
+    bit the JAX package's `_rand_bins` and `_bynode_mask(s)`; a 1-D
+    tensor of tags gives [T, *shape] in one pass.  Each key is
+    PRNGKey(seed), folded with `extra_tag` when the booster passes one.
+    None for an option that is off."""
+
+    def __init__(self, params: GrowParams, meta: FeatureMeta, shape,
+                 extra_tag, device):
+        self.shape = tuple(shape)
+        self.num_bin = meta.num_bin
+        sp = params.split
+
+        def key_of(seed):
+            key = jrandom.PRNGKey(seed, device=device)
+            return key if extra_tag is None else jrandom.fold_in(
+                key, int(extra_tag))
+        self.extra_key = key_of(sp.extra_seed) if sp.extra_trees else None
+        self.bynode_key = None
+        if params.feature_fraction_bynode < 1.0:
+            F = meta.num_bin.shape[0]
+            self.bynode_key = key_of(params.bynode_seed)
+            self.bynode_k = max(1, int(round(
+                params.feature_fraction_bynode * F)))
+
+    @property
+    def active(self) -> bool:
+        return self.extra_key is not None or self.bynode_key is not None
+
+    def rand_bins(self, tags):
+        """Random thresholds in [0, num_bin - 3] (2-bin features take 0)."""
+        if self.extra_key is None:
+            return None
+        u = jrandom.uniform(jrandom.fold_in(self.extra_key, tags),
+                            self.shape)
+        nb = self.num_bin.to(torch.int32)
+        span = torch.clamp(nb - 2, min=1).to(torch.float32)
+        return torch.minimum(torch.clamp((u * span).to(torch.int32), min=0),
+                             torch.clamp(nb - 3, min=0))
+
+    def bynode(self, tags):
+        if self.bynode_key is None:
+            return None
+        u = jrandom.uniform(jrandom.fold_in(self.bynode_key, tags),
+                            self.shape)
+        return jrandom.topk_mask(u, self.bynode_k)
+
+
 def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, row_mask: torch.Tensor,
                    col_mask: torch.Tensor, meta: FeatureMeta,
-                   params: GrowParams, binned_rm: torch.Tensor = None):
+                   params: GrowParams, binned_rm: torch.Tensor = None,
+                   extra_tag: int = None):
     """Grow one leaf-wise tree.
 
     Args:
@@ -124,6 +185,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
       grad, hess, row_mask: [n] float32 (row_mask: bagging x padding).
       col_mask: [F] bool.  meta, params: as the wave engine's.
       binned_rm: optional [n, F] row-major copy (made here when None).
+      extra_tag: folds the extra-trees and bynode keys (the booster's
+        absolute iteration x classes + class).
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
@@ -160,13 +223,24 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             return build_histogram_rows_fixed(rows, gh_sub, member_mask,
                                               exps, max_bin=B)
 
-    def best_of(hists, sum_g, sum_h, cnt, parent_out) -> SplitResult:
-        """Scan k leaves' int64 histograms [k, F, B, 2]."""
+    # every scan's draws at once: tag 0 is the root's, 2i+1 and 2i+2 the
+    # children's of split i (the JAX engine's rand_tag)
+    draws = ScanDraws(params, meta, (F,), extra_tag, dev)
+    tags = torch.arange(2 * L - 1, dtype=i64, device=dev)
+    rand_all, bym_all = draws.rand_bins(tags), draws.bynode(tags)
+
+    def best_of(hists, sum_g, sum_h, cnt, parent_out, tag0) -> SplitResult:
+        """Scan k leaves' int64 histograms [k, F, B, 2]; the leaves' scan
+        tags are tag0, tag0 + 1, ..."""
+        k = hists.shape[0]
+        cm = (col_mask if bym_all is None
+              else col_mask[None, :] & bym_all[tag0:tag0 + k])
+        rb = None if rand_all is None else rand_all[tag0:tag0 + k]
         with global_timer.device_scope("Tree::split_find", dev):
             return find_best_split(
                 from_fixed(hists, unit), meta.num_bin, meta.missing_type,
-                meta.default_bin, meta.penalty, col_mask, sum_g, sum_h, cnt,
-                parent_out, sp)
+                meta.default_bin, meta.penalty, cm, sum_g, sum_h, cnt,
+                parent_out, sp, rand_bin=rb)
 
     def go_left_of(fbins, feat, dleft, thr):
         """ref: dense_bin.hpp:346-366 SplitInner, in bin space."""
@@ -186,7 +260,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     cnt0 = row_mask.sum(dtype=torch.float64).to(i32)
     root_hist = hist_of(ones)
     root_best = best_of(root_hist[None], sum_g0[None], sum_h0[None],
-                        cnt0[None], torch.zeros(1, dtype=f32, device=dev))
+                        cnt0[None], torch.zeros(1, dtype=f32, device=dev), 0)
 
     ni = max(L - 1, 1)
     # host-side structure (decided by host ints); float fields on device
@@ -350,7 +424,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             torch.stack([pb["left_sum_gradient"], pb["right_sum_gradient"]]),
             torch.stack([pb["left_sum_hessian"], pb["right_sum_hessian"]]),
             torch.stack([cnt_l, cnt_r]),
-            torch.stack([pb["left_output"], pb["right_output"]]))
+            torch.stack([pb["left_output"], pb["right_output"]]), 2 * i + 1)
         idx = torch.tensor([best, new], dtype=i64, device=dev)
         for k, v in res._asdict().items():
             pend[k].index_copy_(0, idx, v)

@@ -17,7 +17,11 @@ log2(num_leaves) waves of vectorized work:
   2. one gain scan over every leaf (ops/split.py, ref:
      feature_histogram.hpp:192 FindBestThreshold, batched over leaves), or
      only over the leaves the previous wave created when that bound is
-     small (the incremental rescan);
+     small (the incremental rescan).  Extra-trees thresholds and bynode
+     column subsets are drawn once per wave as [Lp, F] under the tag
+     num_leaves (the JAX engine's `_rand_bins`/`_bynode_masks`), row l
+     for leaf l; a fresh draw changes every leaf's scan, so these modes
+     always scan every leaf, as the JAX engine does;
   3. one recolor pass: each row looks up its leaf's split in a packed
      per-leaf table (ref: dense_bin.hpp:346 SplitInner on all splitting
      leaves at once), which also assigns the next wave's computed slots.
@@ -53,7 +57,8 @@ from ..ops.histogram import (build_histogram_wave_fixed,
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
                          find_best_split)
 from ..utils.timer import global_timer
-from .grow import FeatureMeta, GrowParams, TreeArrays, bundle_hist_to_features
+from .grow import (FeatureMeta, GrowParams, ScanDraws, TreeArrays,
+                   bundle_hist_to_features)
 
 _NODE_FIELDS = ("split_feature", "threshold_bin", "default_left",
                 "split_gain", "left_child", "right_child", "internal_value",
@@ -242,7 +247,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                         hess: torch.Tensor, row_mask: torch.Tensor,
                         col_mask: torch.Tensor, meta: FeatureMeta,
                         params: GrowParams,
-                        quant_scales: torch.Tensor = None):
+                        quant_scales: torch.Tensor = None,
+                        extra_tag: int = None):
     """Grow one tree by waves.
 
     Args:
@@ -251,6 +257,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
       quant_scales: [2] float32 (gradient, hessian) scales of quantized
         gradients; with params.quant_bins > 0 every wave's histograms go
         to K2 (ref: dense_bin.hpp:174 ConstructHistogramIntInner).
+      extra_tag: folds the extra-trees and bynode keys (the booster's
+        absolute iteration x classes + class).
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
@@ -389,15 +397,21 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         cache_c.index_copy_(0, pv, torch.where(sl_of, cnt, other_c))
         cache_c.index_copy_(0, qv, torch.where(sl_of, other_c, cnt))
 
-    def scan(idx: torch.Tensor) -> SplitResult:
+    draws = ScanDraws(params, meta, (Lp, F), extra_tag, dev)
+
+    def scan(idx: torch.Tensor, rb=None, bym=None) -> SplitResult:
+        """Scan the leaves `idx`; rb/bym are the wave's [Lp, F] draws, row
+        l for leaf l."""
+        cm = col_mask if bym is None else col_mask[None, :] & bym[idx]
         with global_timer.device_scope("Tree::split_find", dev):
             hists = deq_h(cache_h[idx])
             hists = bundle_hist_to_features(hists, None, None, meta, B, B,
                                             False)
             return find_best_split(
                 hists, meta.num_bin, meta.missing_type, meta.default_bin,
-                meta.penalty, col_mask, leaf_sum_g[idx], leaf_sum_h[idx],
-                torch.round(deq_c(cache_c[idx])).to(i32), leaf_out[idx], sp)
+                meta.penalty, cm, leaf_sum_g[idx], leaf_sum_h[idx],
+                torch.round(deq_c(cache_c[idx])).to(i32), leaf_out[idx], sp,
+                rand_bin=None if rb is None else rb[idx])
 
     def wave_body(NLp: int, Kb: int, first: bool = False, Ks=None,
                   lg_cap=None, budget_cap=None):
@@ -411,8 +425,12 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         active = ar < NL
         # a leaf's best split changes only when the leaf is created, so
         # the scan may cover just the <= 2*Kb leaves of the previous wave
-        # when that bound is a small fraction of NLp
-        if first or 4 * Kb > NLp:
+        # when that bound is a small fraction of NLp; a wave's fresh draws
+        # change every leaf's scan
+        if draws.active:
+            best_state.store(ar, scan(ar, draws.rand_bins(NL),
+                                      draws.bynode(NL)))
+        elif first or 4 * Kb > NLp:
             best_state.store(ar, scan(ar))
         else:
             order = torch.sort(-pend["sel"].to(i32), stable=True).indices

@@ -15,9 +15,11 @@ REVERSE, smallest for FORWARD) and the smaller feature index; and
 canonical end, since a prefix sum may disagree in the last ulp between
 two thresholds that induce the same partition.
 
-Categorical features, monotone constraints, extra-trees, CEGB and path
-smoothing are outside this slice of the port (GBDT.init refuses them);
-`max_delta_step` is carried because it costs one clamp.
+Extra-trees (USE_RAND, hpp:899) keeps only each leaf's random threshold
+`rand_bin` as a candidate, in both scan directions.  Categorical
+features, monotone constraints, CEGB and path smoothing are outside this
+slice of the port (GBDT.init refuses them); `max_delta_step` is carried
+because it costs one clamp.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ class SplitParams(NamedTuple):
     min_sum_hessian_in_leaf: float = 1e-3
     min_gain_to_split: float = 0.0
     max_delta_step: float = 0.0
+    # extra-trees: one random threshold per (leaf, feature) is the only
+    # candidate; extra_seed seeds the engines' draws
+    extra_trees: bool = False
+    extra_seed: int = 6
 
 
 class SplitResult(NamedTuple):
@@ -104,7 +110,8 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
                     feature_penalty: torch.Tensor, col_mask: torch.Tensor,
                     sum_gradient: torch.Tensor, sum_hessian: torch.Tensor,
                     num_data: torch.Tensor, parent_output: torch.Tensor,
-                    params: SplitParams) -> SplitResult:
+                    params: SplitParams,
+                    rand_bin: torch.Tensor = None) -> SplitResult:
     """Scan all (feature, threshold, direction) candidates of every leaf;
     return each leaf's best.
 
@@ -112,11 +119,13 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
       hist: [L, F, B, 2] (sum_gradient, sum_hessian) per bin.
       num_bin/missing_type/default_bin: [F] int32 per-feature metadata.
       feature_penalty: [F] gain multiplier (feature_contri).
-      col_mask: [F] bool feature sampling mask.
+      col_mask: [F] bool feature sampling mask, or [L, F] per leaf.
       sum_gradient/sum_hessian: [L] leaf totals (hessian WITHOUT the
         +2eps, added here, ref: feature_histogram.hpp:169).
       num_data: [L] int32 row count per leaf.
       parent_output: [L] leaf's current output.
+      rand_bin: [L, F] int32 extra-trees thresholds (ref:
+        feature_histogram.hpp:204 USE_RAND), or None.
     """
     L, F, B, _ = hist.shape
     dev = hist.device
@@ -190,6 +199,11 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
     # REVERSE: left = bins <= tau (+NaN, +zero bin when default_left)
     rev_tau_ok = (bins <= nb - 2 - na_extra) & in_range
     rev_tau_ok &= ~((mt == MISSING_ZERO) & (bins == db - 1))
+    if rand_bin is not None:
+        # only the leaf's random threshold is a candidate (hpp:899
+        # `t - 1 + offset != rand_threshold -> continue`)
+        is_rand = bins == rand_bin.to(torch.int32)[..., None]     # [L,F,B]
+        rev_tau_ok = rev_tau_ok & is_rand
     rev_left_g = sum_g - (tg - pg)
     rev_left_h_raw = sum_h - (th - ph) - 2 * K_EPSILON
     rev_left_c = nd - (tc - pc)
@@ -203,6 +217,8 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
     # FORWARD: left = inclusive prefix at tau; missing goes right
     fwd_tau_ok = (bins <= nb - 2) & in_range & (mt != MISSING_NONE)
     fwd_tau_ok &= ~((mt == MISSING_ZERO) & (bins == db))
+    if rand_bin is not None:
+        fwd_tau_ok = fwd_tau_ok & is_rand
     fwd_gain = eval_candidates(pg, ph, pc, fwd_tau_ok)
     fwd_best_idx = torch.argmax(fwd_gain, dim=-1).to(torch.int32)
     fwd_best_idx = snap_over_empty(fwd_best_idx, fwd_gain, up=False)
@@ -224,7 +240,8 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
     # -> smaller index, SplitInfo::operator>)
     mgs = min_gain_shift[:, :, 0]                                   # [L, 1]
     shifted = (best_gain_f - mgs) * feature_penalty.to(f32)[None, :]
-    shifted = torch.where(col_mask[None, :] & (best_gain_f > K_MIN_SCORE),
+    cm = col_mask if col_mask.dim() == 2 else col_mask[None, :]
+    shifted = torch.where(cm & (best_gain_f > K_MIN_SCORE),
                           shifted, torch.full_like(shifted, K_MIN_SCORE))
     best_f = torch.argmax(shifted, dim=-1).to(torch.int32)          # [L]
 

@@ -8,11 +8,16 @@ layout (`jax_threefry_partitionable=True`, the default of jax 0.9).
 
 * `PRNGKey(seed)`: key (0, seed mod 2^32), as JAX builds it from a
   Python int in its default 32-bit mode.
-* `fold_in(key, data)`: threefry2x32(key, (0, data)).
+* `fold_in(key, data)`: threefry2x32(key, (0, data)); `data` may be a
+  1-D tensor of tags, which gives one key per tag, [T, 2].
 * `split(key, num)`: key i = threefry2x32(key, (hi(i), lo(i))).
 * `random_bits(key, shape)`: flat index i hashed as the counter
   (hi(i), lo(i)); the word is the XOR of the two output halves.
-* `uniform(key, shape)`: float32 in [0, 1) from the top 23 bits.
+* `uniform(key, shape)`: float32 in [0, 1) from the top 23 bits.  A
+  batch of keys [T, 2] draws [T, *shape] in one pass, row t equal to
+  `uniform(key[t], shape)`.
+* `topk_mask(u, k)`: the exactly-k subset `u >= top_k(u, k)[-1]` along
+  the last axis (the JAX package's per-node column sampling).
 
 uint32 words are held in int64 tensors and masked after every add and
 shift, so the same code runs on the CPU and on the card.  A key is an
@@ -55,11 +60,14 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
-def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """`jax.random.fold_in(key, data)`."""
-    zero = key.new_zeros(1)
-    y1, y2 = threefry2x32(key[0], key[1], zero, zero + (int(data) & _M32))
-    return torch.cat([y1, y2])
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)` for an int (a key [2]) or for a
+    1-D tensor of tags (keys [T, 2])."""
+    if not isinstance(data, torch.Tensor):
+        return fold_in(key, key.new_full((1,), int(data) & _M32))[0]
+    d = data.to(device=key.device, dtype=torch.int64) & _M32
+    y1, y2 = threefry2x32(key[0], key[1], torch.zeros_like(d), d)
+    return torch.stack([y1, y2], dim=1)
 
 
 def _counters(num: int, device):
@@ -76,7 +84,8 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def random_bits(key: torch.Tensor, shape: Union[int, Sequence[int]],
                 device=None) -> torch.Tensor:
-    """32 random bits per element (int64 holding a uint32)."""
+    """32 random bits per element (int64 holding a uint32); keys [T, 2]
+    give [T, *shape]."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     dev = key.device if device is None else torch.device(device)
     key = key.to(dev)
@@ -84,7 +93,10 @@ def random_bits(key: torch.Tensor, shape: Union[int, Sequence[int]],
     for d in shape:
         num *= int(d)
     hi, lo = _counters(num, dev)
-    y1, y2 = threefry2x32(key[0], key[1], hi, lo)
+    if key.dim() == 2:
+        shape = (key.shape[0],) + shape
+    keys = key.reshape(-1, 2)
+    y1, y2 = threefry2x32(keys[:, :1], keys[:, 1:], hi, lo)
     return (y1 ^ y2).reshape(shape)
 
 
@@ -94,3 +106,8 @@ def uniform(key: torch.Tensor, shape: Union[int, Sequence[int]],
     bits = random_bits(key, shape, device)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def topk_mask(u: torch.Tensor, k: int) -> torch.Tensor:
+    """Exactly-k subset along the last axis: `u >= top_k(u, k)[-1]`."""
+    return u >= torch.topk(u, k, dim=-1).values[..., -1:]

@@ -114,23 +114,28 @@ def test_port_model_text_loads_in_jax(boosters):
 
 @pytest.mark.parametrize("extra,item", [
     ({"objective": "regression"}, "item 14"),
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "item 6"),
-    ({"feature_fraction": 0.5}, "item 6"),
-    ({"extra_trees": True}, "item 11"),
+    # row and column sampling are ported: these three cases hold options
+    # that stay refused
+    ({"path_smooth": 1.0}, "item 3"),
+    ({"interaction_constraints": [[0, 1]]}, "item 5"),
+    ({"cegb_penalty_split": 1.0}, "item 13"),
     ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]}, "item 3"),
     ({"cegb_penalty_feature_lazy": [1.0] * 8}, "item 13"),
     ({"tree_learner": "voting"}, "item 15"),
     ({"boosting": "dart"}, "item 14"),
     ({"linear_tree": True}, "item 14"),
     ({"max_bin": 300}, "item 2"),
-    ({"categorical_feature": "0"}, "item 3")])
+    ({"categorical_feature": "0"}, "item 3"),
+    ({"categorical_feature": "0", "extra_trees": True},
+     "categorical features with extra_trees.*item 3")])
 def test_unported_options_refuse(extra, item):
     X, y = _data()
     X = X[:1024].copy()
     if "categorical_feature" in extra:
         X[:, 0] = np.abs(np.round(X[:, 0] * 3))
         ds = tlgb.Dataset(X, label=y[:1024], categorical_feature=[0])
-        extra = {}
+        extra = {k: v for k, v in extra.items()
+                 if k != "categorical_feature"}
     else:
         ds = tlgb.Dataset(X, label=y[:1024])
     with pytest.raises(NotImplementedError, match=item):

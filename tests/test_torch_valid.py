@@ -418,8 +418,10 @@ def test_booster_eval_train_and_feval(runs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"init_model": "model.txt"}, "item 6"),
-    ({"keep_training_booster": True}, "item 6"),
+    # continued training is ported: these two cases hold options that
+    # stay refused
+    ({"params": {"boosting": "dart"}}, "item 14"),
+    ({"params": {"tree_learner": "voting"}}, "item 15"),
     ({"fobj": lambda s, d: (s, s)}, "item 14"),
     ({"checkpoint_dir": "ck"}, "item 16"),
     ({"metrics_dir": "m"}, "item 16"),
