@@ -79,12 +79,40 @@ Phases, each printing one JSON line:
      run (the counts set to 0 after the 7 init rounds).  Then
      rollback_one_iter(): 12 trees, and predict equal bit for bit to the
      unrolled booster's predict(num_iteration=12).  One `continue` line;
+  5e. split_features: three runs of the main path's workload (13
+     iterations, held-out AUC on the 100k rows), each driven like the
+     paths: `categorical`, columns 0, 1 and 3 replaced by category codes
+     (each its equal-frequency bucket index, 32, 3 and 200 buckets, put
+     through RandomState(7).permutation(K); column 1 one-hot, 0 and 3
+     sorted-subset; 1% of column 3 NaN) passed as categorical_feature,
+     the 100k rows as a valid set (metric auc); `monotone`,
+     monotone_constraints sign(w) on features 2, 5 and 8 (w the data's
+     weights); `smooth_cegb`, path_smooth=1.0, cegb_penalty_split=1e-5
+     and a coupled penalty of 2e-4 x rows on every feature.  Gates: K1
+     and K3 launched in each; categorical: categorical splits in the
+     model, card leaf ids equal the native predictor's on all 1.1M rows
+     and raw scores within the predict phase's bound, the recorded valid
+     AUC within 1e-6 of the AUC of predict, the model text reloads to
+     bit-equal predictions, held-out AUC >= CAT_AUC_MIN (chip_rehearsal.py
+     at 1/8 of the rows, less 0.01); monotone: each constrained feature
+     swept over 64 values in 1,000 held-out rows gives monotone
+     predictions exactly; smooth_cegb: its first 13 trees split on fewer
+     distinct features than the main path's.  One `split_features` line
+     per run (emitted after the card-vs-CPU phase): s/iter of iterations
+     4-13 and `Tree::split_find::device` ms/iter beside the main path's,
+     scan calls per tree and launches of one scan (torch.profiler
+     traces of the run's last scan, replayed after every path has run),
+     launches, peak GiB, AUC;
   6. card against CPU: `train` at 65,536 rows, 3 iterations, on "cuda"
      and "cpu", for the main path, paths A and B, sampling runs (a), (b)
      at learning_rate 0.5 (GOSS samples from iteration 2), (c), and (a)
-     with use_quantized_grad=true (K2 on a sampling path, gated): the
-     same split features and thresholds in every tree, leaf values within
-     rtol 1e-4; the card run's launch counts in each line;
+     with use_quantized_grad=true (K2 on a sampling path, gated); then on
+     the categorical run's transform of the data: the wave engine (K1,
+     K3 gated), extra_trees on the leaf-wise engine (K4), quantized (K2),
+     and monotone + path_smooth + CEGB on the leaf-wise engine (K4): the
+     same split features, thresholds, decision types and category sets
+     in every tree, leaf values within rtol 1e-4; the card run's launch
+     counts in each line;
   7. kernels at the main path's widths (28 features, 255 bins, 2
      channels), one `kernel` line per shape: K1 at 1/2/4/8/16/128/256
      slots on n = 2^20 rows (half on the sentinel), at 384 slots of
@@ -568,20 +596,25 @@ def reset_counts(H):
 
 
 def drive_path(lgb, H, global_timer, name, extra, iterations, data,
-               after_training=None, after_update=None):
-    """Train the bench workload with `extra` params on the card: counts
-    set to 0 just before the updates and read just after
-    (`after_update(booster)`, if given, runs after each update, outside
-    its time); then `after_training(booster)`, if given; then three
-    instrumented iterations for the breakdown.  Returns a dict: launches,
-    auc, s_per_iter (iterations 4-13), instrumented wall s/iter and the
-    breakdown's ms per iteration."""
+               after_training=None, after_update=None, dataset_kw=None,
+               before_training=None):
+    """Train the bench workload with `extra` params on the card
+    (`dataset_kw` to its Dataset; `before_training(booster)`, if given,
+    runs before the counts are set): counts set to 0 just before the
+    updates and read just after (`after_update(booster)`, if given, runs
+    after each update, outside its time); then `after_training(booster)`,
+    if given; then three instrumented iterations for the breakdown.
+    Returns a dict: launches, auc, s_per_iter (iterations 4-13),
+    instrumented wall s/iter and the breakdown's ms per iteration."""
     X, y, Xte, yte = data
     params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
               "device_type": "cuda", **extra}
     t0 = time.perf_counter()
-    booster = lgb.Booster(params=params, train_set=lgb.Dataset(X, label=y))
+    booster = lgb.Booster(params=params, train_set=lgb.Dataset(
+        X, label=y, **(dataset_kw or {})))
+    if before_training is not None:
+        before_training(booster)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -596,6 +629,7 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
         if after_update is not None:
             after_update(booster)
     launches = launch_counts(H)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     score = auc(yte, booster.predict(Xte, raw_score=True))
     last = iters[-10:]
     emit({"phase": name, "rows": X.shape[0], "features": X.shape[1],
@@ -608,8 +642,7 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
           "num_trees": booster.num_trees(),
           "leaves_per_tree": [t.num_leaves
                               for t in booster._gbdt.models_],
-          "launches": launches,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+          "launches": launches, "peak_mem_gib": peak})
     if after_training is not None:
         after_training(booster)
     # where the time goes: three more iterations with the port's timer on
@@ -630,18 +663,24 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
           "calls_per_iter": {k: v[1] / 3 for k, v in snap.items()}})
     return {"launches": launches, "auc": score, "wall": wall,
             "s_per_iter": sum(last) / len(last), "ms_per_iter": ms_per_iter,
-            "booster": booster}
+            "booster": booster, "peak_gib": peak}
 
 
-def phase_paths(lgb, H, global_timer):
+def phase_paths(lgb, H, global_timer, probe):
     X, y = make_higgs_like(1_000_000, 28)
     Xte, yte = make_higgs_like(100_000, 28, seed=1)
     data = (X, y, Xte, yte)
     out = {}
+    probe.reset()
     r = drive_path(lgb, H, global_timer, "main_path", {}, 13, data,
                    after_training=lambda b: phase_predict(b, data))
+    calls = probe.keep("main_path")
     launches, auc_main, main_wall = r["launches"], r["auc"], r["wall"]
-    main_s = r["s_per_iter"]
+    main = {"s_per_iter": r["s_per_iter"], "ms_per_iter": r["ms_per_iter"],
+            "auc": auc_main,
+            "scan_calls_per_tree": calls / len(r["booster"]._gbdt.models_),
+            "features": distinct_features(r["booster"]._gbdt.models_[:13])}
+    del r
     if auc_main < 0.72:
         raise AssertionError(f"main path: held-out AUC {auc_main} < 0.72")
     if launches["K1"] <= 0 or launches["K3"] <= 0:
@@ -666,7 +705,7 @@ def phase_paths(lgb, H, global_timer):
     if auc_l < 0.72:
         raise AssertionError(f"path B: held-out AUC {auc_l} < 0.72")
     out["path_b_leafwise"] = launches
-    return out, main_wall, main_s
+    return out, main_wall, main
 
 
 def replay_early_stop(hist, rounds, min_delta, higher):
@@ -831,6 +870,34 @@ def host_ms(fn, reps=3):
     return statistics.median(times)
 
 
+def hold_to_native(g, what, Xs, r, lf):
+    """Card leaf ids `lf` and raw scores `r` of rows `Xs` against the
+    native host predictor (OpenMP, float64): leaf ids equal element for
+    element, each raw score within 2·T·2^-24·Σ_t|leaf value| of its row's
+    float64 score.  Returns (errors, host raw scores, bounds)."""
+    T = len(g.models_)
+    packed = g._packed_for(0, T, 1)
+    X64 = Xs.astype(np.float64)
+    host_leaf = packed.predict_leaf(X64)
+    if not np.array_equal(lf, host_leaf):
+        bad = np.argwhere(lf != host_leaf)[:3].tolist()
+        raise AssertionError(f"{what}: card leaf ids differ from the "
+                             f"native predictor's at {bad}")
+    host_raw = packed.predict(X64, 1, False)[:, 0]
+    sum_abs = np.zeros(len(Xs))
+    for i, t in enumerate(g.models_):
+        sum_abs += np.abs(t.leaf_value[lf[:, i]])
+    bound = 2.0 * T * 2.0 ** -24 * sum_abs
+    err = np.abs(r.astype(np.float64) - host_raw)
+    if (err > bound).any():
+        i = int(np.argmax(err - bound))
+        raise AssertionError(f"{what}: row {i} raw score {r[i]!r} vs host "
+                             f"{host_raw[i]!r}, bound {bound[i]!r}")
+    return ({"max_abs_err": float(err.max()),
+             "max_err_over_bound": float((err / bound).max())},
+            host_raw, bound)
+
+
 def phase_predict(booster, data):
     """Batch prediction with the main path's booster after its 13 trees,
     through `Booster.predict` with default params (device_predict=auto
@@ -869,25 +936,8 @@ def phase_predict(booster, data):
     worst = {}
     for name, Xs, r, lf in (("train", X, raw, leaf),
                             ("heldout", Xte, raw_te, leaf_te)):
-        X64 = Xs.astype(np.float64)
-        host_leaf = packed.predict_leaf(X64)
-        if not np.array_equal(lf, host_leaf):
-            bad = np.argwhere(lf != host_leaf)[:3].tolist()
-            raise AssertionError(f"predict {name}: card leaf ids differ "
-                                 f"from the native predictor's at {bad}")
-        host_raw = packed.predict(X64, 1, False)[:, 0]
-        sum_abs = np.zeros(len(Xs))
-        for i, t in enumerate(g.models_):
-            sum_abs += np.abs(t.leaf_value[lf[:, i]])
-        bound = 2.0 * T * 2.0 ** -24 * sum_abs
-        err = np.abs(r.astype(np.float64) - host_raw)
-        if (err > bound).any():
-            i = int(np.argmax(err - bound))
-            raise AssertionError(f"predict {name}: row {i} raw score "
-                                 f"{r[i]!r} vs host {host_raw[i]!r}, bound "
-                                 f"{bound[i]!r}")
-        worst[name] = {"max_abs_err": float(err.max()),
-                       "max_err_over_bound": float((err / bound).max())}
+        worst[name], host_raw, bound = hold_to_native(
+            g, f"predict {name}", Xs, r, lf)
         if name == "heldout":
             auc_card, auc_host = auc(yte, r), auc(yte, host_raw)
             if abs(auc_card - auc_host) > 1e-6:
@@ -1148,10 +1198,241 @@ def phase_continue(lgb, H, global_timer, card):
     return launches
 
 
-def phase_card_vs_cpu(lgb, H, name, extra):
-    """`train` at 65,536 rows, 3 iterations, on the card and the CPU: the
-    same trees.  Returns the card run's launches."""
+# columns of the categorical run, their bucket counts (column 1: one-hot
+# mode at max_cat_to_onehot=4; columns 0 and 3: sorted-subset mode)
+CAT_COLUMNS = (0, 1, 3)
+CAT_BUCKETS = (32, 3, 200)
+MONOTONE_FEATURES = (2, 5, 8)   # uniform features outside the interaction
+CEGB_PENALTY_SPLIT = 1e-5
+CEGB_COUPLED_PER_ROW = 2e-4     # coupled penalty = this x training rows
+# the categorical run's held-out AUC gate: 0.70201 in the CPU rehearsal
+# at 1/8 of the rows (chip_rehearsal.py), less 0.01 for the noise of the
+# smaller sets
+CAT_AUC_MIN = 0.692
+
+
+def categorical_transform(*mats):
+    """Columns 0, 1 and 3 become category codes: each column's
+    equal-frequency bucket index (32, 3 and 200 buckets, edges from the
+    first matrix's quantiles) put through
+    np.random.RandomState(7).permutation(K), so that the codes' order
+    carries no signal; 1% of column 3 NaN (its own draw per matrix)."""
+    base = mats[0]
+    edges = [np.quantile(base[:, c], np.linspace(0, 1, k + 1)[1:-1])
+             for c, k in zip(CAT_COLUMNS, CAT_BUCKETS)]
+    perms = [np.random.RandomState(7).permutation(k) for k in CAT_BUCKETS]
+    out = []
+    for i, M in enumerate(mats):
+        M = M.copy()
+        for c, e, p in zip(CAT_COLUMNS, edges, perms):
+            M[:, c] = p[np.searchsorted(e, M[:, c], side="right")]
+        M[np.random.RandomState(11 + i).rand(len(M)) < 0.01, 3] = np.nan
+        out.append(M)
+    return out
+
+
+def monotone_signs():
+    """sign(w) on MONOTONE_FEATURES, w make_higgs_like's weights."""
+    w = np.random.RandomState(1234).randn(F) / np.sqrt(F)
+    mc = [0] * F
+    for f in MONOTONE_FEATURES:
+        mc[f] = int(np.sign(w[f]))
+    return mc
+
+
+class ScanProbe:
+    """Counts the split scan's calls (one per wave on the wave engine) and
+    keeps each run's last call, so that its launches can be counted later
+    by a replay under torch.profiler (after every path has run)."""
+
+    def __init__(self):
+        from lightgbm_tpu_torch.learner import grow, wave
+        self.fn = wave.find_best_split
+        self.calls, self.last, self.kept = 0, None, {}
+
+        def probed(*a, **k):
+            self.calls += 1
+            self.last = (a, k)
+            return self.fn(*a, **k)
+        grow.find_best_split = wave.find_best_split = probed
+
+    def reset(self):
+        self.calls, self.last = 0, None
+
+    def keep(self, run):
+        """File the last call under `run`; returns the calls so far."""
+        self.kept[run] = self.last
+        calls, self.calls, self.last = self.calls, 0, None
+        return calls
+
+    def launches(self, reps=5, tries=3):
+        """{run: device launches (kernels, copies, memsets) of one scan},
+        None where no trace holds a device record.  A trace may lose
+        records: each counts `reps` replays of the run's last scan, a
+        name's launches per scan are its count / reps rounded, and the
+        most of `tries` traces is kept."""
+        out = {}
+        act = [torch.profiler.ProfilerActivity.CUDA]
+        for run, (a, k) in self.kept.items():
+            self.fn(*a, **k)
+            torch.cuda.synchronize()
+            best = 0
+            for _ in range(tries):
+                with torch.profiler.profile(activities=act) as prof:
+                    for _ in range(reps):
+                        self.fn(*a, **k)
+                    torch.cuda.synchronize()
+                n = 0
+                for ev in prof.key_averages():
+                    t = getattr(ev, "device_time_total", None)
+                    if t is None:
+                        t = getattr(ev, "cuda_time_total", 0)
+                    if t and ev.count:
+                        n += max(1, round(ev.count / reps))
+                best = max(best, n)
+            out[run] = best or None
+        return out
+
+
+def distinct_features(models):
+    return sorted({int(f) for t in models
+                   for f in t.split_feature[:t.num_leaves - 1]})
+
+
+def phase_split_features(lgb, H, global_timer, card, main, probe):
+    """The split scan's categorical, monotone and smoothing/CEGB branches
+    at the main path's width (runs and gates in the module docstring).
+    Returns ({run: launches}, {run: line}); the lines are emitted after
+    the scan launches are counted."""
+    from lightgbm_tpu_torch.metric import AUCMetric
+    X0, y = make_higgs_like(1_000_000, 28)
+    Xte0, yte = make_higgs_like(100_000, 28, seed=1)
+    n = X0.shape[0]
+    Xc, Xtec = categorical_transform(X0, Xte0)
+    mc = monotone_signs()
+    coupled = CEGB_COUPLED_PER_ROW * n
+    runs = (
+        ("categorical", {"metric": "auc"}, (Xc, y, Xtec, yte),
+         {"categorical_feature": list(CAT_COLUMNS)}),
+        ("monotone", {"monotone_constraints": mc}, (X0, y, Xte0, yte), {}),
+        ("smooth_cegb", {"path_smooth": 1.0,
+                         "cegb_penalty_split": CEGB_PENALTY_SPLIT,
+                         "cegb_penalty_feature_coupled": [coupled] * F},
+         (X0, y, Xte0, yte), {}))
+    launches, lines = {}, {}
+    for name, extra, data, ds_kw in runs:
+        X, _, Xte, _ = data
+        valid = {}
+
+        def add_valid(b):
+            valid["ds"] = lgb.Dataset(Xte, label=yte)
+            b.add_valid(valid["ds"], "heldout")
+
+        probe.reset()
+        r = drive_path(lgb, H, global_timer, f"split_features_{name}", extra,
+                       13, data, dataset_kw=ds_kw,
+                       before_training=(add_valid if name == "categorical"
+                                        else None))
+        calls = probe.keep(name)
+        b, g = r["booster"], r["booster"]._gbdt
+        lc = r["launches"]
+        if lc["K1"] <= 0 or lc["K3"] <= 0:
+            raise AssertionError(f"{name}: K1/K3 not launched: {lc}")
+        trees = len(g.models_)          # 13 counted + 3 breakdown trees
+        line = {"phase": "split_features", "run": name, "rows": n,
+                "params": extra, "iterations": 13,
+                "s_per_iter_4_13": r["s_per_iter"],
+                "main_path_s_per_iter_4_13": main["s_per_iter"],
+                "split_find_device_ms_per_iter": r["ms_per_iter"].get(
+                    "Tree::split_find::device"),
+                "main_path_split_find_device_ms_per_iter": main[
+                    "ms_per_iter"].get("Tree::split_find::device"),
+                "scan_calls_per_tree": calls / trees,
+                "instrumented_s_per_iter": r["wall"],
+                "peak_mem_gib": r["peak_gib"], "heldout_auc": r["auc"],
+                "main_path_heldout_auc": main["auc"], "launches": lc,
+                "leaves_per_tree": [t.num_leaves for t in g.models_],
+                "prune": (g.grow_params.wave_prune
+                          and not g.grow_params.split.has_monotone
+                          and not g.grow_params.split.has_cegb),
+                "card": card}
+        if name == "categorical":
+            ncat = sum(t.num_cat for t in g.models_)
+            if ncat == 0:
+                raise AssertionError("categorical: no categorical split")
+            T = len(g.models_)
+            errs = {}
+            for what, Xs in (("train", X), ("heldout", Xte)):
+                errs[what], _, _ = hold_to_native(
+                    g, f"categorical {what}", Xs,
+                    b.predict(Xs, raw_score=True), b.predict(Xs,
+                                                             pred_leaf=True))
+            # the valid AUC recorded through the bin-space traversal of
+            # categorical nodes, against the AUC of predict
+            rec = [v for _, m, v, _ in b.eval_valid() if m == "auc"][0]
+            auc_m = AUCMetric(g.config)
+            auc_m.init(g.valid_sets[0].metadata, len(yte))
+            want = auc_m.eval(b.predict(Xte, raw_score=True).astype(
+                np.float64))[0][1]
+            if abs(rec - want) > 1e-6:
+                raise AssertionError(f"categorical: valid AUC {rec} is not "
+                                     f"predict's {want}")
+            re_b = lgb.Booster(model_str=b.model_to_string())
+            if not np.array_equal(re_b.predict(Xte), b.predict(Xte)):
+                raise AssertionError("categorical: the reloaded model text "
+                                     "predicts other scores")
+            if r["auc"] < CAT_AUC_MIN:
+                raise AssertionError(f"categorical: held-out AUC {r['auc']} "
+                                     f"< {CAT_AUC_MIN}")
+            line.update(categorical_splits=ncat, trees=T,
+                        leaf_ids_equal_native_rows=n + len(Xte),
+                        score_error=errs, valid_auc_recorded=rec,
+                        valid_auc_predict=want, auc_min=CAT_AUC_MIN,
+                        reload_bit_equal=True)
+        elif name == "monotone":
+            # each constrained feature swept over 64 values in 1,000
+            # held-out rows: predictions monotone exactly
+            rows = Xte[:1000]
+            worst = {}
+            for f in MONOTONE_FEATURES:
+                grid = np.linspace(X[:, f].min(), X[:, f].max(), 64,
+                                   dtype=np.float32)
+                Xs = np.repeat(rows, 64, axis=0)
+                Xs[:, f] = np.tile(grid, len(rows))
+                pred = b.predict(Xs, raw_score=True).reshape(len(rows), 64)
+                steps = np.diff(pred.astype(np.float64), axis=1) * mc[f]
+                bad = int((steps < 0).sum())
+                if bad:
+                    raise AssertionError(f"monotone: {bad} steps against "
+                                         f"the constraint of feature {f}")
+                worst[f] = float(np.abs(pred[:, -1] - pred[:, 0]).mean())
+            line.update(monotone_constraints=mc, sweep_rows=len(rows),
+                        sweep_values=64, mean_abs_sweep_change=worst)
+        else:
+            used = distinct_features(g.models_[:13])
+            if len(used) >= len(main["features"]):
+                raise AssertionError(f"smooth_cegb: {len(used)} distinct "
+                                     f"features, the main path "
+                                     f"{len(main['features'])}")
+            line.update(distinct_features=len(used),
+                        main_path_distinct_features=len(main["features"]),
+                        features=used, coupled_penalty=coupled)
+        launches[f"split_features_{name}"] = lc
+        lines[name] = line
+        del r, b, g
+    return launches, lines
+
+
+def phase_card_vs_cpu(lgb, H, name, extra, categorical=False):
+    """`train` at 65,536 rows, 3 iterations, on the card and the CPU
+    (`categorical`: the split_features phase's transform of the data,
+    columns 0, 1 and 3 as `categorical_feature`): the same trees, category
+    sets included.  Returns the card run's launches."""
     X, y = make_higgs_like(65_536, 28, seed=2)
+    ds_kw = {}
+    if categorical:
+        X, = categorical_transform(X)
+        ds_kw = {"categorical_feature": list(CAT_COLUMNS)}
     params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
               **extra}
@@ -1159,16 +1440,24 @@ def phase_card_vs_cpu(lgb, H, name, extra):
     for dev in ("cuda", "cpu"):
         reset_counts(H)
         b = lgb.train({**params, "device_type": dev},
-                      lgb.Dataset(X, label=y), num_boost_round=3)
+                      lgb.Dataset(X, label=y, **ds_kw), num_boost_round=3)
         models[dev] = b._gbdt.models_
         if dev == "cuda":
             launches = launch_counts(H)
     worst = 0.0
+    cat_nodes = 0
     for i, (a, b) in enumerate(zip(models["cuda"], models["cpu"])):
         ni = a.num_leaves - 1
+        # on a categorical node `threshold` is the index of its category
+        # set: the sets themselves are compared too
         same = (a.num_leaves == b.num_leaves
                 and np.array_equal(a.split_feature[:ni], b.split_feature[:ni])
-                and np.array_equal(a.threshold[:ni], b.threshold[:ni]))
+                and np.array_equal(a.threshold[:ni], b.threshold[:ni])
+                and np.array_equal(a.decision_type[:ni],
+                                   b.decision_type[:ni])
+                and a.cat_boundaries == b.cat_boundaries
+                and a.cat_threshold == b.cat_threshold)
+        cat_nodes += a.num_cat
         if not same:
             diff = [j for j in range(min(a.num_leaves, b.num_leaves) - 1)
                     if (a.split_feature[j], a.threshold[j])
@@ -1186,8 +1475,11 @@ def phase_card_vs_cpu(lgb, H, name, extra):
                                         / np.maximum(np.abs(lv_b), 1e-30))))
     if len(models["cuda"]) != 3 or len(models["cpu"]) != 3:
         raise AssertionError(f"{name}: card/CPU tree counts differ from 3")
+    if categorical and cat_nodes == 0:
+        raise AssertionError(f"{name}: no categorical split to compare")
     emit({"phase": "card_vs_cpu", "path": name, "params": extra,
-          "rows": 65_536, "trees": 3,
+          "rows": 65_536, "trees": 3, "categorical": categorical,
+          "categorical_nodes": cat_nodes,
           "leaves": [t.num_leaves for t in models["cuda"]],
           "max_rel_leaf_diff": worst, "card_launches": launches})
     return launches
@@ -1236,11 +1528,16 @@ def main(argv) -> int:
             raise AssertionError(f"{src}: compare-and-swap shared atomics "
                                  f"(ATOMS.CAST) in {cas}")
 
-    launches, main_wall, main_s = phase_paths(lgb, H, global_timer)
+    probe = ScanProbe()
+    launches, main_wall, main = phase_paths(lgb, H, global_timer, probe)
     phase_valid_path(lgb, H, global_timer, card, main_wall)
     phase_device_bin(lgb, global_timer)
-    launches.update(phase_sampling(lgb, H, global_timer, card, main_s))
+    launches.update(phase_sampling(lgb, H, global_timer, card,
+                                   main["s_per_iter"]))
     launches["continue"] = phase_continue(lgb, H, global_timer, card)
+    sf_launches, sf_lines = phase_split_features(lgb, H, global_timer, card,
+                                                 main, probe)
+    launches.update(sf_launches)
     sampling_a, sampling_b, sampling_c = (r[1] for r in SAMPLING_RUNS[:3])
     for name, extra in (("main_path", {}),
                         ("path_a_quantized", {"use_quantized_grad": True}),
@@ -1259,6 +1556,33 @@ def main(argv) -> int:
                 raise AssertionError(f"{name}: K2 was not launched: "
                                      f"{card_launches}")
             launches[f"card_vs_cpu_{name}"] = card_launches
+    # the split_features phase's data: categorical columns 0, 1 and 3
+    for name, extra, kernels in (
+            ("categorical_wave", {}, ("K1", "K3")),
+            ("categorical_extra_trees_leafwise",
+             {"extra_trees": True, "tpu_growth_strategy": "leafwise"},
+             ("K4",)),
+            ("categorical_quantized", {"use_quantized_grad": True}, ("K2",)),
+            ("monotone_smooth_cegb_leafwise",
+             {"monotone_constraints": monotone_signs(), "path_smooth": 1.0,
+              "cegb_penalty_split": CEGB_PENALTY_SPLIT,
+              "cegb_penalty_feature_coupled": [
+                  CEGB_COUPLED_PER_ROW * 65_536] * F,
+              "tpu_growth_strategy": "leafwise"}, ("K4",))):
+        card_launches = phase_card_vs_cpu(lgb, H, name, extra,
+                                          categorical=True)
+        if any(card_launches[k] <= 0 for k in kernels):
+            raise AssertionError(f"{name}: {kernels} must launch: "
+                                 f"{card_launches}")
+        launches[f"card_vs_cpu_{name}"] = card_launches
+    # the scan's launches, counted after every path has run (a profiler
+    # trace of one replayed scan of each run)
+    scan_launches = probe.launches()
+    for name, line in sf_lines.items():
+        emit({**line, "scan_launches_per_wave": scan_launches.get(name),
+              "main_path_scan_launches_per_wave":
+                  scan_launches.get("main_path"),
+              "main_path_scan_calls_per_tree": main["scan_calls_per_tree"]})
     per_shape = phase_kernels(H, dev)
     per_shape.update(phase_kernels_k2_k4(H, dev))
     phase_sweep(H, dev)

@@ -30,8 +30,13 @@ float64 scores on the host, advanced per finished tree by the leaf ids of
 a bin-space traversal of their bin codes, which are put on the device
 once (`leaf_index_bin_space`); the host `Metric` classes evaluate them.
 
-The port covers binary logloss on dense numerical data with the wave
-and leaf-wise engines and quantized gradients.  Every parameter whose
+The split scan carries categorical features, basic monotone constraints,
+path smoothing and CEGB's split and coupled penalties; a booster-level
+vector of the features earlier trees used carries CEGB's coupled
+penalty from tree to tree.
+
+The port covers binary logloss on dense data with the wave and
+leaf-wise engines and quantized gradients.  Every parameter whose
 behaviour it does not carry raises NotImplementedError naming the
 ROADMAP item that brings it, so the port never quietly trains a
 different model.
@@ -52,11 +57,11 @@ from ..io.dataset import Dataset
 from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
                        grow_tree_wave_impl)
 from ..metric import Metric
-from ..models.tree import K_CATEGORICAL_MASK, Tree
+from ..models.tree import K_CATEGORICAL_MASK, Tree, _to_bitset
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
 from ..objective import ObjectiveFunction
 from ..ops.histogram import wave_part_plan, wave_slot_pad
-from ..ops.split import SplitParams, leaf_output
+from ..ops.split import SplitParams, cat_bitset_words, leaf_output
 from ..utils import log
 from ..utils import random as jrandom
 from ..utils.device import resolve_device
@@ -66,7 +71,7 @@ K_EPSILON = 1e-15
 _PAD = 1024  # row padding multiple (a multiple of the kernels' row tile)
 
 
-def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
+def check_slice(config: Config) -> None:
     """Refuse every option this slice of the port does not carry."""
     c = config
 
@@ -81,17 +86,17 @@ def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
     if c.boosting != "gbdt":
         refuse(f"boosting={c.boosting!r}", "14")
     if any(int(m) != 0 for m in (c.monotone_constraints or [])):
-        refuse("monotone constraints", "3")
+        method = c.monotone_constraints_method
+        if method not in ("basic", "intermediate", "advanced"):
+            log.fatal(f"Unknown monotone_constraints_method {method!r}")
+        if method != "basic":
+            refuse(f"monotone_constraints_method={method}", "13")
     if c.interaction_constraints:
         refuse("interaction constraints", "5")
     if c.forcedsplits_filename:
         refuse("forced splits", "5")
-    if (c.cegb_tradeoff < 1.0 or c.cegb_penalty_split > 0.0
-            or c.cegb_penalty_feature_coupled
-            or c.cegb_penalty_feature_lazy):
-        refuse("cost-effective gradient boosting", "13")
-    if c.path_smooth > K_EPSILON:
-        refuse("path_smooth", "3")
+    if c.cegb_penalty_feature_lazy:
+        refuse("cegb_penalty_feature_lazy", "13")
     if c.linear_tree:
         refuse("linear trees", "14")
     if c.tpu_growth_strategy not in ("auto", "wave", "leafwise"):
@@ -100,11 +105,6 @@ def check_slice(config: Config, train_data: Optional[Dataset]) -> None:
                          "or leafwise")
     if c.tree_learner not in ("serial",):
         refuse(f"tree_learner={c.tree_learner!r}", "15")
-    if train_data is not None:
-        if any(train_data.bin_mappers[f].bin_type == BIN_CATEGORICAL
-               for f in train_data.used_features):
-            refuse("categorical features with extra_trees" if c.extra_trees
-                   else "categorical features", "3")
 
 
 def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
@@ -206,14 +206,16 @@ def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
     """Leaf index of every row of `binned` [F_used, n] (bin codes on the
     device) for a host tree trained on the same bin mappers: the
     bin-space traversal of the JAX package (boosting/gbdt.py:104
-    leaf_index_bin_space; ref: dense_bin.hpp:346-366 SplitInner) for
-    numerical splits, `tree_depth` steps of elementwise torch with no
-    host synchronization.  The feature metadata are the host arrays of
-    the used features; each node's row of one table carries its
-    feature's offset into `binned`, threshold, default direction, the
-    bin code that means missing (-1 for none) and its children, so a
-    step gathers one row per data row.  Categorical splits come with
-    ROADMAP Queue 1 item 3."""
+    leaf_index_bin_space; ref: dense_bin.hpp:346-366 SplitInner and
+    tree.h:372 CategoricalDecision), `tree_depth` steps of elementwise
+    torch with no host synchronization.  The feature metadata are the
+    host arrays of the used features; each node's row of one table
+    carries its feature's offset into `binned`, threshold, default
+    direction, the bin code that means missing (-1 for none), its
+    children, whether it is categorical, and, for a categorical node,
+    its bins-left bitset (`cat_threshold_inner`, zero-padded to the
+    widest node's words): a bin goes left when its bit is set.  A step
+    gathers one row per data row."""
     n = binned.shape[1]
     dev = binned.device
     nl = tree.num_leaves
@@ -224,10 +226,22 @@ def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
     mt = missing_type[sf]
     miss = np.where(mt == MISSING_NAN, num_bin[sf] - 1,
                     np.where(mt == MISSING_ZERO, default_bin[sf], -1))
-    table = torch.from_numpy(np.stack([
-        sf * n, tree.threshold_in_bin[:ni], (tree.decision_type[:ni] & 2) > 0,
-        miss, tree.left_child[:ni], tree.right_child[:ni]],
-        1).astype(np.int64)).to(dev)
+    is_cat = (tree.decision_type[:ni] & K_CATEGORICAL_MASK) > 0
+    cols = [sf * n, tree.threshold_in_bin[:ni],
+            (tree.decision_type[:ni] & 2) > 0, miss, tree.left_child[:ni],
+            tree.right_child[:ni], is_cat]
+    W = 0
+    if is_cat.any():
+        cb = np.asarray(tree.cat_boundaries_inner, np.int64)
+        ct = np.asarray(tree.cat_threshold_inner, np.int64)
+        W = int(np.diff(cb).max())
+        words = np.zeros((ni, W), np.int64)
+        for nd in np.nonzero(is_cat)[0]:
+            ci = int(tree.threshold_in_bin[nd])
+            seg = ct[cb[ci]:cb[ci + 1]]
+            words[nd, :len(seg)] = seg
+        cols += list(words.T)
+    table = torch.from_numpy(np.stack(cols, 1).astype(np.int64)).to(dev)
     rows = torch.arange(n, device=dev)
     flat = binned.reshape(-1)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -235,6 +249,12 @@ def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
         t = table[node.clamp(min=0)]
         b = flat[t[:, 0] + rows]
         go_left = torch.where(b == t[:, 3], t[:, 2] > 0, b <= t[:, 1])
+        if W:
+            bl = b.to(torch.int64)
+            wi = bl // 32
+            word = torch.gather(t[:, 7:], 1, wi.clamp(max=W - 1)[:, None])
+            cat_left = (wi < W) & (((word[:, 0] >> (bl % 32)) & 1) > 0)
+            go_left = torch.where(t[:, 6] > 0, cat_left, go_left)
         node = torch.where(node >= 0,
                            torch.where(go_left, t[:, 4], t[:, 5]), node)
     return (~node).to(torch.int32)
@@ -291,7 +311,7 @@ class GBDT:
     def init(self, config: Config, train_data: Dataset,
              objective: Optional[ObjectiveFunction],
              metrics: Sequence[Metric] = ()) -> None:
-        check_slice(config, train_data)
+        check_slice(config)
         self.device = resolve_device(config.device_type)
         dev = self.device
         self.config = config
@@ -351,25 +371,53 @@ class GBDT:
         self._bag_mask_host = pad
         self.bag_mask = self.pad_mask
 
-        mt, nb, db = [], [], []
+        mt, nb, db, cat = [], [], [], []
         for f in train_data.used_features:
             m = train_data.bin_mappers[f]
             mt.append(m.missing_type)
             nb.append(m.num_bin)
             db.append(m.default_bin)
+            cat.append(m.bin_type == BIN_CATEGORICAL)
         self.f_missing_type = np.array(mt, np.int32)
         self.f_num_bin = np.array(nb, np.int32)
         self.f_default_bin = np.array(db, np.int32)
+        self.f_is_cat = np.array(cat, bool)
         penalty = np.ones(len(nb), np.float32)
         if config.feature_contri:
             for i, f in enumerate(train_data.used_features):
                 if f < len(config.feature_contri):
                     penalty[i] = config.feature_contri[f]
+        # monotone constraints and coupled CEGB penalties are indexed by
+        # real feature; the scan takes them per used feature
+        mono = np.zeros(len(nb), np.int32)
+        mc_list = list(config.monotone_constraints or [])
+        for i, f in enumerate(train_data.used_features):
+            if f < len(mc_list):
+                mono[i] = int(mc_list[f])
+        has_mono = bool(np.any(mono != 0))
+        coupled = np.zeros(len(nb), np.float32)
+        if config.cegb_penalty_feature_coupled:
+            cp = list(config.cegb_penalty_feature_coupled)
+            if len(cp) != train_data.num_total_features:
+                log.fatal("cegb_penalty_feature_coupled should be the same "
+                          "size as feature number.")
+            for i, f in enumerate(train_data.used_features):
+                coupled[i] = cp[f]
+        # ref: cost_effective_gradient_boosting.hpp IsEnable
+        has_cegb = (config.cegb_tradeoff < 1.0
+                    or config.cegb_penalty_split > 0.0
+                    or bool(config.cegb_penalty_feature_coupled))
+        # the features any tree has split on, carried from tree to tree
+        self.cegb_used = (torch.zeros(len(nb), dtype=torch.bool, device=dev)
+                          if has_cegb else None)
         self.meta = FeatureMeta(
             num_bin=torch.from_numpy(self.f_num_bin).to(dev),
             missing_type=torch.from_numpy(self.f_missing_type).to(dev),
             default_bin=torch.from_numpy(self.f_default_bin).to(dev),
-            penalty=torch.from_numpy(penalty).to(dev))
+            penalty=torch.from_numpy(penalty).to(dev),
+            is_cat=torch.from_numpy(self.f_is_cat).to(dev),
+            monotone=torch.from_numpy(mono).to(dev),
+            cegb_coupled=torch.from_numpy(coupled).to(dev))
         max_b = int(self.f_num_bin.max()) if len(nb) else 1
         # histogram stack memory guard (HistogramPool analogue): the
         # leaf-wise engine's int64 stack against histogram_pool_size MB
@@ -393,8 +441,20 @@ class GBDT:
                 min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
                 min_gain_to_split=config.min_gain_to_split,
                 max_delta_step=config.max_delta_step,
+                path_smooth=config.path_smooth,
+                has_categorical=bool(self.f_is_cat.any()),
+                cat_features=tuple(np.nonzero(self.f_is_cat)[0].tolist()),
+                max_cat_to_onehot=config.max_cat_to_onehot,
+                max_cat_threshold=config.max_cat_threshold,
+                cat_l2=config.cat_l2, cat_smooth=config.cat_smooth,
+                min_data_per_group=config.min_data_per_group,
+                has_monotone=has_mono,
+                monotone_penalty=config.monotone_penalty,
                 extra_trees=config.extra_trees,
-                extra_seed=config.extra_seed),
+                extra_seed=config.extra_seed,
+                has_cegb=has_cegb,
+                cegb_tradeoff=config.cegb_tradeoff,
+                cegb_penalty_split=config.cegb_penalty_split),
             wave_tail_halving=config.wave_tail_halving,
             wave_prune=config.wave_prune,
             wave_prune_overshoot=config.wave_prune_overshoot,
@@ -512,21 +572,40 @@ class GBDT:
         ni = tree.num_leaves - 1
         if ni <= 0:
             return
-        if np.any(tree.decision_type[:ni] & K_CATEGORICAL_MASK):
-            raise NotImplementedError(
-                "continuing a model with categorical splits is not ported "
-                "yet (ROADMAP Queue 1 item 3)")
         ds = self.train_data
         inner_of = {f: i for i, f in enumerate(ds.used_features)}
+        cat_mask = (tree.decision_type[:ni] & K_CATEGORICAL_MASK) > 0
+        per_ci_bins = {}
         for nd in range(ni):
             f = int(tree.split_feature[nd])
             if f in inner_of:
                 tree.split_feature_inner[nd] = inner_of[f]
             mapper = ds.bin_mappers[f]
+            if cat_mask[nd]:
+                # the model's bitset holds category values; the bin-space
+                # one holds this run's bins of those values (gbdt.py
+                # :1610-1636 of the JAX package)
+                ci = int(tree.threshold[nd])
+                tree.threshold_in_bin[nd] = ci
+                lo, hi = tree.cat_boundaries[ci], tree.cat_boundaries[ci + 1]
+                cats = [32 * w + j
+                        for w, word in enumerate(tree.cat_threshold[lo:hi])
+                        for j in range(32) if (word >> j) & 1]
+                c2b = getattr(mapper, "categorical_2_bin", {})
+                per_ci_bins[ci] = _to_bitset(
+                    [c2b[c] for c in cats if c in c2b])
+                continue
             ub = np.asarray(mapper.bin_upper_bound, np.float64)
             b = int(np.searchsorted(ub, float(tree.threshold[nd]),
                                     side="left"))
             tree.threshold_in_bin[nd] = min(b, max(mapper.num_bin - 1, 0))
+        if tree.num_cat > 0:
+            ct_inner, cb_inner = [], [0]
+            for ci in range(tree.num_cat):
+                ct_inner.extend(per_ci_bins.get(ci, []))
+                cb_inner.append(len(ct_inner))
+            tree.cat_threshold_inner = ct_inner
+            tree.cat_boundaries_inner = cb_inner
 
     def continue_from(self, prev: "GBDT", train_raw=None,
                       valid_raws=None) -> None:
@@ -709,14 +788,19 @@ class GBDT:
                             quant_scales=(qscales
                                           if self.grow_params.quant_bins > 0
                                           else None),
-                            extra_tag=extra_tag)
+                            extra_tag=extra_tag, cegb_used=self.cegb_used)
                     else:
                         arrays, leaf_id = grow_tree_impl(
                             self.binned_dev, g_k, h_k, bag_mask, col_mask,
                             self.meta, self.grow_params,
                             binned_rm=self.binned_rm_dev,
-                            extra_tag=extra_tag)
+                            extra_tag=extra_tag, cegb_used=self.cegb_used)
                     global_timer.block(leaf_id)
+                if self.cegb_used is not None:
+                    # the tree's split features become used (gbdt.py:1270
+                    # of the JAX package)
+                    self.cegb_used[arrays.split_feature[
+                        :arrays.num_leaves - 1].to(torch.int64)] = True
                 if self.use_quant and self.config.quant_train_renew_leaf:
                     # leaf outputs from the float gradients (gbdt.py:1494),
                     # summed over the bagging mask (the whole data under
@@ -775,7 +859,8 @@ class GBDT:
             bits(t.default_left), t.split_gain, bits(t.left_child),
             bits(t.right_child), t.internal_value, t.internal_weight,
             bits(t.internal_count), t.leaf_value, t.leaf_weight,
-            bits(t.leaf_count), bits(t.leaf_parent), bits(t.leaf_depth)])
+            bits(t.leaf_count), bits(t.leaf_parent), bits(t.leaf_depth),
+            bits(t.split_is_cat), bits(t.cat_bitset.reshape(-1))])
 
     def _packed_to_tree(self, flat: np.ndarray) -> Optional[Tree]:
         """Decode the packed flat tree buffer into a host Tree (None when
@@ -783,20 +868,23 @@ class GBDT:
         ints = flat.view(np.int32)
         L = self.config.num_leaves
         ni = max(L - 1, 1)
+        W = cat_bitset_words(self.grow_params.max_bin)
         parts = []
         off = 1
         for size, is_int in ((ni, True), (ni, True), (ni, True),
                              (ni, False), (ni, True), (ni, True),
                              (ni, False), (ni, False), (ni, True),
                              (L, False), (L, False), (L, True),
-                             (L, True), (L, True)):
+                             (L, True), (L, True), (ni, True),
+                             (ni * W, True)):
             parts.append(ints[off:off + size] if is_int
                          else flat[off:off + size])
             off += size
         (split_feature, threshold_bin, default_left, split_gain,
          left_child, right_child, internal_value, internal_weight,
          internal_count, leaf_value, leaf_weight, leaf_count,
-         leaf_parent, leaf_depth) = parts
+         leaf_parent, leaf_depth, split_is_cat, cat_bits) = parts
+        cat_bits = cat_bits.reshape(ni, W).astype(np.uint32)
         num_leaves = int(ints[0])
         if num_leaves <= 1:
             return None
@@ -813,6 +901,17 @@ class GBDT:
         tree.threshold_in_bin[:ni] = thr_bin
         for i in range(ni):
             mapper = ds.bin_mappers[tree.split_feature[i]]
+            if split_is_cat[i]:
+                # the bins-left bitset becomes the category set (gbdt.py
+                # :1418-1437 of the JAX package)
+                words = cat_bits[i]
+                bins_left = [b for b in range(mapper.num_bin)
+                             if (words[b // 32] >> (b % 32)) & 1]
+                cats_left = [mapper.bin_2_categorical[b] for b in bins_left
+                             if mapper.bin_2_categorical[b] >= 0]
+                tree.register_cat_split(i, bins_left, cats_left,
+                                        mapper.missing_type)
+                continue
             tree.threshold[i] = mapper.bin_to_value(int(thr_bin[i]))
             dt = 0
             if dleft[i]:

@@ -30,8 +30,15 @@ card).  Extra-trees thresholds and `feature_fraction_bynode` column
 subsets are the JAX engine's threefry draws, one per leaf scan, keyed by
 the scan's tag (0 for the root, 2i+1 and 2i+2 for the children of split
 i) under a key folded with the booster's `extra_tag`; the tree's draws
-are made at once.  Voting, monotone, CEGB, forced splits and interaction
-constraints are not ported (GBDT.init refuses them).
+are made at once.  Categorical splits route rows by their bin bitset
+(ref: tree.h:372 CategoricalDecision); basic monotone constraints bound
+both children of a monotone split at the midpoint of their outputs
+(monotone_constraints.hpp:489 BasicLeafConstraints::Update); CEGB marks
+each split's feature used before the children's scans and refunds the
+coupled penalty to other leaves' pending splits on that feature
+(cost_effective_gradient_boosting.hpp UpdateLeafBestSplits).  Voting,
+intermediate/advanced monotone modes, lazy CEGB, forced splits and
+interaction constraints are not ported (GBDT.init refuses them).
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import torch
 from ..ops.histogram import (ROW_TILE, build_histogram_rows_fixed,
                              fixed_unit, from_fixed, scale_exps)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO,
-                         SplitParams, SplitResult, find_best_split)
+                         SplitParams, SplitResult, cat_bitset_words,
+                         find_best_split, monotone_gain_penalty)
 from ..utils import random as jrandom
 from ..utils.timer import global_timer
 
@@ -56,6 +64,9 @@ class FeatureMeta(NamedTuple):
     missing_type: torch.Tensor   # [F] int32
     default_bin: torch.Tensor    # [F] int32
     penalty: torch.Tensor        # [F] float32 (feature_contri)
+    is_cat: torch.Tensor = None  # [F] bool (categorical features)
+    monotone: torch.Tensor = None     # [F] int32 -1/0/+1
+    cegb_coupled: torch.Tensor = None  # [F] float32 coupled penalties
 
 
 class GrowParams(NamedTuple):
@@ -109,6 +120,8 @@ class TreeArrays(NamedTuple):
     leaf_count: torch.Tensor      # [L] int32
     leaf_parent: torch.Tensor     # [L] int32
     leaf_depth: torch.Tensor      # [L] int32
+    split_is_cat: torch.Tensor = None  # [L-1] bool (categorical split)
+    cat_bitset: torch.Tensor = None    # [L-1, W] int32 bins-left bitsets
 
 
 def bundle_hist_to_features(hist_g, sum_g, sum_h, meta: FeatureMeta,
@@ -126,8 +139,9 @@ class ScanDraws:
     """The JAX engines' per-scan random draws (ref:
     feature_histogram.hpp:204 USE_RAND thresholds; col_sampler.hpp
     GetByNode subsets): for a scan tag, `rand_bins(tag)` gives `shape`
-    thresholds and `bynode(tag)` `shape` exactly-k column masks, bit for
-    bit the JAX package's `_rand_bins` and `_bynode_mask(s)`; a 1-D
+    thresholds, `rand_cat_u(tag)` the categorical draws [*shape, 2] and
+    `bynode(tag)` `shape` exactly-k column masks, bit for bit the JAX
+    package's `_rand_bins`, `_rand_cat_us` and `_bynode_mask(s)`; a 1-D
     tensor of tags gives [T, *shape] in one pass.  Each key is
     PRNGKey(seed), folded with `extra_tag` when the booster passes one.
     None for an option that is off."""
@@ -143,6 +157,10 @@ class ScanDraws:
             return key if extra_tag is None else jrandom.fold_in(
                 key, int(extra_tag))
         self.extra_key = key_of(sp.extra_seed) if sp.extra_trees else None
+        # the categorical USE_RAND draws: a stream of their own under the
+        # extra-trees key (the JAX engines' `_rand_cat_us`)
+        self.cat_key = (jrandom.fold_in(self.extra_key, 0x5EED)
+                        if sp.extra_trees and sp.has_categorical else None)
         self.bynode_key = None
         if params.feature_fraction_bynode < 1.0:
             F = meta.num_bin.shape[0]
@@ -165,6 +183,15 @@ class ScanDraws:
         return torch.minimum(torch.clamp((u * span).to(torch.int32), min=0),
                              torch.clamp(nb - 3, min=0))
 
+    def rand_cat_u(self, tags):
+        """[*shape, 2] uniforms: the one-hot candidate bin and the
+        sorted-subset prefix length of each categorical scan
+        (feature_histogram.cpp:187,268)."""
+        if self.cat_key is None:
+            return None
+        return jrandom.uniform(jrandom.fold_in(self.cat_key, tags),
+                               self.shape + (2,))
+
     def bynode(self, tags):
         if self.bynode_key is None:
             return None
@@ -177,7 +204,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, row_mask: torch.Tensor,
                    col_mask: torch.Tensor, meta: FeatureMeta,
                    params: GrowParams, binned_rm: torch.Tensor = None,
-                   extra_tag: int = None):
+                   extra_tag: int = None, cegb_used: torch.Tensor = None):
     """Grow one leaf-wise tree.
 
     Args:
@@ -187,6 +214,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
       binned_rm: optional [n, F] row-major copy (made here when None).
       extra_tag: folds the extra-trees and bynode keys (the booster's
         absolute iteration x classes + class).
+      cegb_used: [F] bool, the features earlier trees used (CEGB).
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
@@ -210,6 +238,16 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     nb_h = meta.num_bin.cpu().numpy()
     mt_h = meta.missing_type.cpu().numpy()
     db_h = meta.default_bin.cpu().numpy()
+    W = cat_bitset_words(B)
+    if sp.has_monotone:
+        mono_h = meta.monotone.cpu().numpy()
+        leaf_cmin = torch.full((L,), float("-inf"), dtype=f32, device=dev)
+        leaf_cmax = torch.full((L,), float("inf"), dtype=f32, device=dev)
+    if sp.has_cegb:
+        # features used so far (the booster's, then this tree's splits)
+        used_h = (np.zeros(F, bool) if cegb_used is None
+                  else cegb_used.cpu().numpy().astype(bool))
+        used_dev = torch.from_numpy(used_h.copy()).to(dev)
 
     def hist_of(member_mask):
         """Histogram of every row under a membership mask (int64)."""
@@ -228,22 +266,43 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     draws = ScanDraws(params, meta, (F,), extra_tag, dev)
     tags = torch.arange(2 * L - 1, dtype=i64, device=dev)
     rand_all, bym_all = draws.rand_bins(tags), draws.bynode(tags)
+    rcu_all = draws.rand_cat_u(tags)
 
-    def best_of(hists, sum_g, sum_h, cnt, parent_out, tag0) -> SplitResult:
+    def best_of(hists, sum_g, sum_h, cnt, parent_out, tag0, cmin=None,
+                cmax=None, depth=None) -> SplitResult:
         """Scan k leaves' int64 histograms [k, F, B, 2]; the leaves' scan
-        tags are tag0, tag0 + 1, ..."""
+        tags are tag0, tag0 + 1, ...; cmin/cmax/depth: the leaves' [k]
+        monotone bounds and depths."""
         k = hists.shape[0]
         cm = (col_mask if bym_all is None
               else col_mask[None, :] & bym_all[tag0:tag0 + k])
-        rb = None if rand_all is None else rand_all[tag0:tag0 + k]
+        kw = {}
+        if rand_all is not None:
+            kw["rand_bin"] = rand_all[tag0:tag0 + k]
+        if rcu_all is not None:
+            kw["rand_cat_u"] = rcu_all[tag0:tag0 + k]
+        if sp.has_categorical:
+            kw["is_cat_feature"] = meta.is_cat
+        if sp.has_monotone:
+            kw.update(monotone=meta.monotone, constraint_min=cmin,
+                      constraint_max=cmax,
+                      mono_penalty=monotone_gain_penalty(
+                          depth, sp.monotone_penalty))
+        if sp.has_cegb:
+            kw.update(cegb_coupled=meta.cegb_coupled, cegb_used=used_dev)
         with global_timer.device_scope("Tree::split_find", dev):
             return find_best_split(
                 from_fixed(hists, unit), meta.num_bin, meta.missing_type,
                 meta.default_bin, meta.penalty, cm, sum_g, sum_h, cnt,
-                parent_out, sp, rand_bin=rb)
+                parent_out, sp, **kw)
 
-    def go_left_of(fbins, feat, dleft, thr):
-        """ref: dense_bin.hpp:346-366 SplitInner, in bin space."""
+    def go_left_of(fbins, feat, dleft, thr, isc, bitset):
+        """ref: dense_bin.hpp:346-366 SplitInner, in bin space; a
+        categorical split sends the bins of its bitset left (tree.h:372
+        CategoricalDecision; bin 0, NaN/other, is never in it)."""
+        if isc:
+            word = bitset[torch.clamp(fbins // 32, max=W - 1).to(i64)]
+            return ((word >> (fbins % 32)) & 1) > 0
         mt = int(mt_h[feat])
         if mt == MISSING_NAN:
             missing = fbins == int(nb_h[feat]) - 1
@@ -259,8 +318,10 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     sum_h0 = hess.sum(dtype=torch.float64).to(f32)
     cnt0 = row_mask.sum(dtype=torch.float64).to(i32)
     root_hist = hist_of(ones)
+    inf1 = torch.full((1,), float("inf"), dtype=f32, device=dev)
     root_best = best_of(root_hist[None], sum_g0[None], sum_h0[None],
-                        cnt0[None], torch.zeros(1, dtype=f32, device=dev), 0)
+                        cnt0[None], torch.zeros(1, dtype=f32, device=dev), 0,
+                        -inf1, inf1, torch.zeros(1, dtype=i32, device=dev))
 
     ni = max(L - 1, 1)
     # host-side structure (decided by host ints); float fields on device
@@ -271,6 +332,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     right_child = np.zeros(ni, np.int32)
     leaf_parent = np.full(L, -1, np.int32)
     leaf_depth = np.zeros(L, np.int32)
+    split_is_cat = np.zeros(ni, bool)
+    cat_bitset = torch.zeros((ni, W), dtype=i32, device=dev)
     node_f = {k: torch.zeros(ni, dtype=dt, device=dev) for k, dt in (
         ("split_gain", f32), ("internal_value", f32),
         ("internal_weight", f32), ("internal_count", i32))}
@@ -281,7 +344,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     depth_dev = torch.zeros(L, dtype=i32, device=dev)
 
     # best pending split per leaf (ref: best_split_per_leaf_)
-    pend = {k: torch.zeros(L, dtype=v.dtype, device=dev)
+    pend = {k: torch.zeros((L,) + v.shape[1:], dtype=v.dtype, device=dev)
             for k, v in root_best._asdict().items()}
     pend["gain"].fill_(K_MIN_SCORE)
     idx0 = torch.zeros(1, dtype=i64, device=dev)
@@ -300,7 +363,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         leaf_seg = torch.zeros(L, dtype=i64, device=dev)
         leaf_seg[0] = n
 
-    def partition_and_hist(best, new, feat, thr, dleft, start, seg):
+    def partition_and_hist(best, new, feat, thr, dleft, isc, bitset, start,
+                           seg):
         """Partitioned engine (ref: DataPartition::Split + the
         partitioned histogram scan, dense_bin.hpp:99)."""
         S = (seg + ROW_TILE - 1) // ROW_TILE * ROW_TILE
@@ -310,7 +374,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                 idxs = torch.cat([idxs, idxs.new_zeros(S - seg)])
             valid = torch.arange(S, device=dev) < seg
             rows = binned_rm[idxs]                            # [S, F]
-            gl = go_left_of(rows[:, feat].to(i32), feat, dleft, thr)
+            gl = go_left_of(rows[:, feat].to(i32), feat, dleft, thr, isc,
+                            bitset)
             lm = gl & valid
             rm = ~gl & valid
             rmask = row_mask[idxs]
@@ -335,10 +400,11 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             small_hist = hist_of_rows(rows, gh[idxs], small_m)
         return small_hist, cnt_l, cnt_r, smaller_is_left
 
-    def mask_and_hist(best, new, feat, thr, dleft):
+    def mask_and_hist(best, new, feat, thr, dleft, isc, bitset):
         """Masked engine: recolor by scanning all rows."""
         with global_timer.device_scope("Tree::partition", dev):
-            gl = go_left_of(binned[feat].to(i32), feat, dleft, thr)
+            gl = go_left_of(binned[feat].to(i32), feat, dleft, thr, isc,
+                            bitset)
             in_leaf = leaf_id[:n] == best
             leaf_id[:n] = torch.where(in_leaf & ~gl, new, leaf_id[:n])
             lmaskf = (in_leaf & gl).to(f32) * row_mask
@@ -363,20 +429,22 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         bl = torch.argmax(sel)
         head = [bl, (sel[bl] > 0.0).to(i64), pend["feature"][bl].to(i64),
                 pend["threshold"][bl].to(i64),
-                pend["default_left"][bl].to(i64)]
+                pend["default_left"][bl].to(i64),
+                pend["is_cat"][bl].to(i64)]
         if use_partition:
             head += [leaf_start[bl], leaf_seg[bl]]
         head = torch.stack(head).tolist()                 # the host read
-        best, proceed, feat, thr, dleft = head[:5]
+        best, proceed, feat, thr, dleft, isc = head[:6]
         if not proceed:
             break
         node, new = i, i + 1
+        bitset = pend["cat_bitset"][best].clone() if isc else None
         if use_partition:
             small_hist, cnt_l, cnt_r, sil = partition_and_hist(
-                best, new, feat, thr, dleft, head[5], head[6])
+                best, new, feat, thr, dleft, isc, bitset, head[6], head[7])
         else:
             small_hist, cnt_l, cnt_r, sil = mask_and_hist(
-                best, new, feat, thr, dleft)
+                best, new, feat, thr, dleft, isc, bitset)
 
         # tree arrays (ref: tree.cpp Tree::Split)
         parent = leaf_parent[best]
@@ -388,6 +456,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         depth = leaf_depth[best] + 1
         split_feature[node], threshold_bin[node] = feat, thr
         default_left[node] = bool(dleft)
+        if isc:
+            split_is_cat[node] = True
+            cat_bitset[node] = bitset
         left_child[node], right_child[node] = ~best, ~new
         leaf_parent[best] = leaf_parent[new] = node
         leaf_depth[best] = leaf_depth[new] = depth
@@ -419,12 +490,44 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             lid = leaf_id[:n]
             hist_l = hist_of((lid == best).to(f32) * row_mask)
             hist_r = hist_of((lid == new).to(f32) * row_mask)
+        # basic monotone propagation (monotone_constraints.hpp:489
+        # BasicLeafConstraints::Update): the new leaf clones the parent's
+        # bounds; a numerical split on a monotone feature bounds both
+        # children at the midpoint of their outputs
+        mono_kw = {}
+        if sp.has_monotone:
+            p_min, p_max = leaf_cmin[best].clone(), leaf_cmax[best].clone()
+            l_min, l_max, r_min, r_max = p_min, p_max, p_min, p_max
+            mc = int(mono_h[feat])
+            if mc != 0 and not isc:
+                mid = (pb["left_output"] + pb["right_output"]) / 2.0
+                if mc > 0:
+                    l_max = torch.minimum(p_max, mid)
+                    r_min = torch.maximum(p_min, mid)
+                else:
+                    l_min = torch.maximum(p_min, mid)
+                    r_max = torch.minimum(p_max, mid)
+            leaf_cmin[best], leaf_cmin[new] = l_min, r_min
+            leaf_cmax[best], leaf_cmax[new] = l_max, r_max
+            mono_kw = dict(cmin=torch.stack([l_min, r_min]),
+                           cmax=torch.stack([l_max, r_max]),
+                           depth=depth_dev[[best, new]])
+        if sp.has_cegb and not used_h[feat]:
+            # the coupled penalty is paid once: other leaves' pending
+            # splits on this feature get it back
+            used_h[feat] = True
+            used_dev[feat] = True
+            refund = sp.cegb_tradeoff * meta.cegb_coupled[feat]
+            pend["gain"] = pend["gain"] + torch.where(
+                (pend["feature"] == feat) & (pend["gain"] > K_MIN_SCORE),
+                refund, torch.zeros((), dtype=f32, device=dev))
         res = best_of(
             torch.stack([hist_l, hist_r]),
             torch.stack([pb["left_sum_gradient"], pb["right_sum_gradient"]]),
             torch.stack([pb["left_sum_hessian"], pb["right_sum_hessian"]]),
             torch.stack([cnt_l, cnt_r]),
-            torch.stack([pb["left_output"], pb["right_output"]]), 2 * i + 1)
+            torch.stack([pb["left_output"], pb["right_output"]]), 2 * i + 1,
+            **mono_kw)
         idx = torch.tensor([best, new], dtype=i64, device=dev)
         for k, v in res._asdict().items():
             pend[k].index_copy_(0, idx, v)
@@ -440,5 +543,6 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         default_left=dev_of(default_left),
         left_child=dev_of(left_child), right_child=dev_of(right_child),
         leaf_parent=dev_of(leaf_parent), leaf_depth=dev_of(leaf_depth),
+        split_is_cat=dev_of(split_is_cat), cat_bitset=cat_bitset,
         **node_f, **leaf_f)
     return tree, leaf_id[:n].to(i32)

@@ -17,14 +17,26 @@ log2(num_leaves) waves of vectorized work:
   2. one gain scan over every leaf (ops/split.py, ref:
      feature_histogram.hpp:192 FindBestThreshold, batched over leaves), or
      only over the leaves the previous wave created when that bound is
-     small (the incremental rescan).  Extra-trees thresholds and bynode
-     column subsets are drawn once per wave as [Lp, F] under the tag
-     num_leaves (the JAX engine's `_rand_bins`/`_bynode_masks`), row l
-     for leaf l; a fresh draw changes every leaf's scan, so these modes
-     always scan every leaf, as the JAX engine does;
+     small (the incremental rescan).  Extra-trees thresholds (and their
+     categorical draws) and bynode column subsets are drawn once per
+     wave as [Lp, F] under the tag num_leaves (the JAX engine's
+     `_rand_bins`/`_rand_cat_us`/`_bynode_masks`), row l for leaf l; a
+     fresh draw changes every leaf's scan, so these modes always scan
+     every leaf, as the JAX engine does;
   3. one recolor pass: each row looks up its leaf's split in a packed
      per-leaf table (ref: dense_bin.hpp:346 SplitInner on all splitting
      leaves at once), which also assigns the next wave's computed slots.
+     With categorical features the table carries each split's is_cat
+     flag and bitset words (a torch gather: no 16-bit split of the words
+     as the JAX engine's bf16 matmul needs).
+
+Basic monotone constraints keep each leaf's [cmin, cmax] and update
+them per wave (both children of a monotone numerical split bounded at
+the midpoint of their outputs); CEGB marks every feature a wave split on
+as used after the wave, so leaves of one wave that split on a new
+feature each pay its coupled penalty (the JAX engine's wave-batching
+deviation from the reference's per-split accounting, kept here).  Both
+rescan every leaf each wave, since their scan inputs change globally.
 
 The JAX engine unrolls the waves inside one jit under `lax.cond`; here
 they run as a host loop of torch ops with one host sync per wave (the
@@ -32,7 +44,9 @@ wave's split count).  Per-slot arrays keep one extra "dump" row (index
 `Lp`, or `ni` for node arrays) that absorbs the writes the JAX engine
 drops with `mode="drop"`.
 
-Overgrow-and-prune (`wave_prune`, the default): the ladder grows to
+Overgrow-and-prune (`wave_prune`, the default; off under monotone
+constraints and CEGB, whose gains depend on the order of the splits):
+the ladder grows to
 Lg = ceil(1.5 L) leaves, then `_prune_to_leafwise` replays the reference's
 strict leaf-wise pop order (serial_tree_learner.cpp:219) over the
 overgrown gains on the host — the tree is a few hundred nodes — and the
@@ -55,14 +69,15 @@ from ..ops.histogram import (build_histogram_wave_fixed,
                              wave_hl_fits,
                              wave_hl_profitable, wave_slot_pad)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
-                         find_best_split)
+                         cat_bitset_words, find_best_split,
+                         monotone_gain_penalty)
 from ..utils.timer import global_timer
 from .grow import (FeatureMeta, GrowParams, ScanDraws, TreeArrays,
                    bundle_hist_to_features)
 
 _NODE_FIELDS = ("split_feature", "threshold_bin", "default_left",
                 "split_gain", "left_child", "right_child", "internal_value",
-                "internal_weight", "internal_count")
+                "internal_weight", "internal_count", "split_is_cat")
 _LEAF_FIELDS = ("leaf_value", "leaf_weight", "leaf_count", "leaf_parent",
                 "leaf_depth")
 
@@ -200,6 +215,9 @@ def _prune_to_leafwise(t: Dict[str, np.ndarray], num_leaves: int, L: int,
     out["internal_value"] = gat(t["internal_value"], 0.0)
     out["internal_weight"] = gat(t["internal_weight"], 0.0)
     out["internal_count"] = gat(t["internal_count"])
+    out["split_is_cat"] = gat(t["split_is_cat"], False)
+    out["cat_bitset"] = np.where(valid_t[:, None], t["cat_bitset"][old],
+                                 0).astype(np.int32)
 
     # overgrown leaf slot -> nearest kept ancestor's side leaf: walk up
     # until the current node is kept (or the root is passed)
@@ -224,7 +242,7 @@ def _prune_to_leafwise(t: Dict[str, np.ndarray], num_leaves: int, L: int,
 class _Best:
     """Per-leaf best splits (SplitResult fields as [Lp + 1] tensors)."""
 
-    def __init__(self, Lp: int, device):
+    def __init__(self, Lp: int, W: int, device):
         f32, i32 = torch.float32, torch.int32
         z = lambda dt: torch.zeros(Lp + 1, dtype=dt, device=device)
         self.fields = dict(
@@ -233,7 +251,9 @@ class _Best:
             left_sum_gradient=z(f32), left_sum_hessian=z(f32),
             left_count=z(i32), left_output=z(f32),
             right_sum_gradient=z(f32), right_sum_hessian=z(f32),
-            right_count=z(i32), right_output=z(f32))
+            right_count=z(i32), right_output=z(f32),
+            is_cat=z(torch.bool),
+            cat_bitset=torch.zeros((Lp + 1, W), dtype=i32, device=device))
 
     def store(self, idx: torch.Tensor, res: SplitResult) -> None:
         for k, v in res._asdict().items():
@@ -248,7 +268,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                         col_mask: torch.Tensor, meta: FeatureMeta,
                         params: GrowParams,
                         quant_scales: torch.Tensor = None,
-                        extra_tag: int = None):
+                        extra_tag: int = None,
+                        cegb_used: torch.Tensor = None):
     """Grow one tree by waves.
 
     Args:
@@ -259,6 +280,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         to K2 (ref: dense_bin.hpp:174 ConstructHistogramIntInner).
       extra_tag: folds the extra-trees and bynode keys (the booster's
         absolute iteration x classes + class).
+      cegb_used: [F] bool, the features earlier trees used (CEGB).
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
@@ -301,7 +323,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     sum_h0 = hess.sum(dtype=torch.float64).to(f32)
     cnt0 = row_mask.sum(dtype=torch.float64).to(i32)
 
-    prune = params.wave_prune and L > 2
+    prune = (params.wave_prune and L > 2 and not sp.has_monotone
+             and not sp.has_cegb)
     Lg = (min(max(L, int(math.ceil(L * params.wave_prune_overshoot))),
               4 * L) if prune else L)
     spike_k = int(params.wave_spike_k or 8)
@@ -314,6 +337,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     ni = max(Lg - 1, 1)
     Lp = wave_slot_pad(Lg)
     Dh = F * B * 2
+    W = cat_bitset_words(B)
 
     def zeros(size, dt):
         return torch.zeros(size, dtype=dt, device=dev)
@@ -323,7 +347,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         ("default_left", torch.bool), ("split_gain", f32),
         ("left_child", i32), ("right_child", i32),
         ("internal_value", f32), ("internal_weight", f32),
-        ("internal_count", i32))}
+        ("internal_count", i32), ("split_is_cat", torch.bool))}
+    node["cat_bitset"] = zeros((ni + 1, W), i32)
     leaf = {k: zeros(Lp + 1, dt) for k, dt in (
         ("leaf_value", f32), ("leaf_weight", f32), ("leaf_count", i32),
         ("leaf_depth", i32))}
@@ -335,6 +360,12 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     leaf_sum_h = zeros(Lp + 1, f32)
     leaf_sum_h[0] = sum_h0
     leaf_out = zeros(Lp + 1, f32)
+    if sp.has_monotone:
+        leaf_cmin = torch.full((Lp + 1,), float("-inf"), device=dev)
+        leaf_cmax = torch.full((Lp + 1,), float("inf"), device=dev)
+    if sp.has_cegb:
+        used_vec = (zeros(F, torch.bool) if cegb_used is None
+                    else cegb_used.to(dev, torch.bool).clone())
     # per-leaf histogram cache of integer sums, completed by exact sibling
     # subtraction (the HistogramPool analogue, feature_histogram.hpp:1367)
     cache_h = zeros((Lp + 1, Dh), i64)
@@ -344,7 +375,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     # smaller-is-left flag
     pend = dict(sel=zeros(Lp, torch.bool), new=zeros(Lp, i32),
                 rank=zeros(Lp, i32), sl=zeros(Lp, torch.bool))
-    best_state = _Best(Lp, dev)
+    best_state = _Best(Lp, W, dev)
     leaf_id = zeros(n, i64)
     kslot = zeros(n, i32)
     state = dict(NL=1, cont=L > 1, kslot=kslot, leaf_id=leaf_id)
@@ -399,10 +430,24 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
 
     draws = ScanDraws(params, meta, (Lp, F), extra_tag, dev)
 
-    def scan(idx: torch.Tensor, rb=None, bym=None) -> SplitResult:
-        """Scan the leaves `idx`; rb/bym are the wave's [Lp, F] draws, row
-        l for leaf l."""
+    def scan(idx: torch.Tensor, rb=None, bym=None, rcu=None) -> SplitResult:
+        """Scan the leaves `idx`; rb/bym/rcu are the wave's [Lp, F] draws,
+        row l for leaf l."""
         cm = col_mask if bym is None else col_mask[None, :] & bym[idx]
+        kw = {}
+        if rb is not None:
+            kw["rand_bin"] = rb[idx]
+        if rcu is not None:
+            kw["rand_cat_u"] = rcu[idx]
+        if sp.has_categorical:
+            kw["is_cat_feature"] = meta.is_cat
+        if sp.has_monotone:
+            kw.update(monotone=meta.monotone, constraint_min=leaf_cmin[idx],
+                      constraint_max=leaf_cmax[idx],
+                      mono_penalty=monotone_gain_penalty(
+                          leaf["leaf_depth"][idx], sp.monotone_penalty))
+        if sp.has_cegb:
+            kw.update(cegb_coupled=meta.cegb_coupled, cegb_used=used_vec)
         with global_timer.device_scope("Tree::split_find", dev):
             hists = deq_h(cache_h[idx])
             hists = bundle_hist_to_features(hists, None, None, meta, B, B,
@@ -411,7 +456,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                 hists, meta.num_bin, meta.missing_type, meta.default_bin,
                 meta.penalty, cm, leaf_sum_g[idx], leaf_sum_h[idx],
                 torch.round(deq_c(cache_c[idx])).to(i32), leaf_out[idx], sp,
-                rand_bin=None if rb is None else rb[idx])
+                **kw)
 
     def wave_body(NLp: int, Kb: int, first: bool = False, Ks=None,
                   lg_cap=None, budget_cap=None):
@@ -429,8 +474,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         # change every leaf's scan
         if draws.active:
             best_state.store(ar, scan(ar, draws.rand_bins(NL),
-                                      draws.bynode(NL)))
-        elif first or 4 * Kb > NLp:
+                                      draws.bynode(NL), draws.rand_cat_u(NL)))
+        elif first or 4 * Kb > NLp or sp.has_monotone or sp.has_cegb:
             best_state.store(ar, scan(ar))
         else:
             order = torch.sort(-pend["sel"].to(i32), stable=True).indices
@@ -487,7 +532,9 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                      ("internal_value", leaf_vals_old),
                      ("internal_weight",
                       best.left_sum_hessian + best.right_sum_hessian),
-                     ("internal_count", counts)):
+                     ("internal_count", counts),
+                     ("split_is_cat", best.is_cat),
+                     ("cat_bitset", best.cat_bitset)):
             node[k].index_copy_(0, drop, v)
 
         # leaf records: the old slot becomes the left child, the new slot
@@ -512,6 +559,19 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         lset(leaf_sum_g, best.left_sum_gradient, best.right_sum_gradient)
         lset(leaf_sum_h, best.left_sum_hessian, best.right_sum_hessian)
         lset(leaf_out, best.left_output, best.right_output)
+        if sp.has_monotone:
+            # basic-mode propagation (BasicLeafConstraints::Update):
+            # children of a monotone numerical split bounded at the
+            # midpoint of their outputs
+            p_min, p_max = leaf_cmin[:NLp].clone(), leaf_cmax[:NLp].clone()
+            mc_w = meta.monotone[best.feature.to(i64)]
+            mid = (best.left_output + best.right_output) / 2.0
+            apply = split_sel & (mc_w != 0) & ~best.is_cat
+            pos, neg = apply & (mc_w > 0), apply & (mc_w < 0)
+            lset(leaf_cmin, torch.where(neg, torch.maximum(p_min, mid), p_min),
+                 torch.where(pos, torch.maximum(p_min, mid), p_min))
+            lset(leaf_cmax, torch.where(pos, torch.minimum(p_max, mid), p_max),
+                 torch.where(neg, torch.minimum(p_max, mid), p_max))
 
         # recolor rows through one packed per-leaf table gather; the
         # smaller side of each pair (by the scan's counts) is the next
@@ -523,6 +583,9 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
             best.default_left.to(i32), newleaf_of.to(i32),
             meta.missing_type[feat], meta.default_bin[feat],
             meta.num_bin[feat], rank_of.to(i32), small_left.to(i32)], dim=1)
+        if sp.has_categorical:
+            table = torch.cat([table, best.is_cat.to(i32)[:, None],
+                               best.cat_bitset], dim=1)
         with global_timer.device_scope("Tree::partition", dev):
             lid = state["leaf_id"]
             prow = table[lid]                                # [n, 10]
@@ -534,12 +597,24 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                           | ((mt_r == MISSING_ZERO) & (fbin == db_r)))
             go_left = torch.where(is_missing, prow[:, 3] > 0,
                                   fbin <= prow[:, 2])
+            if sp.has_categorical:
+                word = torch.gather(
+                    prow[:, 11:], 1,
+                    torch.clamp(fbin // 32, max=W - 1).to(i64)[:, None])[:, 0]
+                cat_left = ((word >> (fbin % 32)) & 1) > 0
+                go_left = torch.where(prow[:, 10] > 0, cat_left, go_left)
             state["leaf_id"] = torch.where(sel_r & ~go_left,
                                            prow[:, 4].to(i64), lid)
             state["kslot"] = torch.where(
                 sel_r & (go_left == (prow[:, 9] > 0)), prow[:, 8],
                 torch.full_like(prow[:, 8], Lp)).contiguous()
 
+        if sp.has_cegb:
+            # every feature of this wave's splits becomes used (the JAX
+            # engine's per-wave accounting, see the module docstring)
+            hit = zeros(F + 1, torch.bool).index_fill_(
+                0, torch.where(split_sel, best.feature.to(i64), F), True)
+            used_vec.logical_or_(hit[:F])
         pend["sel"] = zeros(Lp, torch.bool)
         pend["sel"][:NLp] = split_sel
         pend["new"] = zeros(Lp, i32)
@@ -579,7 +654,9 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     nf = max(L - 1, 1)
     if prune and num_waves > 0:
         host = _to_host({**{k: node[k][:ni] for k in _NODE_FIELDS},
-                         **{k: leaf[k][:Lp] for k in _LEAF_FIELDS}})
+                         **{k: leaf[k][:Lp] for k in _LEAF_FIELDS},
+                         "cat_bitset": node["cat_bitset"][:ni].reshape(-1)})
+        host["cat_bitset"] = host["cat_bitset"].reshape(ni, W)
         nl_final, pruned, lid_map = _prune_to_leafwise(
             host, state["NL"], L, Lp, ni)
         lid_map = torch.from_numpy(lid_map).to(dev)
@@ -593,6 +670,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     else:
         nl_final = state["NL"]
         out = {k: node[k][:nf] for k in _NODE_FIELDS}
+        out["cat_bitset"] = node["cat_bitset"][:nf]
         out.update({k: leaf[k][:Lp] for k in _LEAF_FIELDS})
         if num_waves > 0:
             out["leaf_count"] = zeros(Lp, f32).index_add_(

@@ -33,7 +33,7 @@ def _imported_modules(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py", ROOT / "chip_rehearsal.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     for mod in _imported_modules(path):

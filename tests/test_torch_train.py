@@ -112,32 +112,33 @@ def test_port_model_text_loads_in_jax(boosters):
         bt.predict(X), rtol=0, atol=0)
 
 
+# the ids keep the positions of the cases they replaced
 @pytest.mark.parametrize("extra,item", [
-    ({"objective": "regression"}, "item 14"),
-    # row and column sampling are ported: these three cases hold options
-    # that stay refused
-    ({"path_smooth": 1.0}, "item 3"),
-    ({"interaction_constraints": [[0, 1]]}, "item 5"),
-    ({"cegb_penalty_split": 1.0}, "item 13"),
-    ({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0]}, "item 3"),
-    ({"cegb_penalty_feature_lazy": [1.0] * 8}, "item 13"),
-    ({"tree_learner": "voting"}, "item 15"),
-    ({"boosting": "dart"}, "item 14"),
-    ({"linear_tree": True}, "item 14"),
-    ({"max_bin": 300}, "item 2"),
-    ({"categorical_feature": "0"}, "item 3"),
-    ({"categorical_feature": "0", "extra_trees": True},
-     "categorical features with extra_trees.*item 3")])
+    pytest.param({"objective": "regression"}, "item 14", id="extra0-item 14"),
+    # row and column sampling, categorical features, basic monotone
+    # constraints, path_smooth and CEGB's split and coupled penalties are
+    # ported: these cases hold options that stay refused
+    pytest.param({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
+                  "monotone_constraints_method": "intermediate"},
+                 "monotone_constraints_method=intermediate.*item 13",
+                 id="extra1-item 13"),
+    pytest.param({"interaction_constraints": [[0, 1]]}, "item 5",
+                 id="extra2-item 5"),
+    pytest.param({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
+                  "monotone_constraints_method": "advanced"},
+                 "monotone_constraints_method=advanced.*item 13",
+                 id="extra3-item 13"),
+    pytest.param({"forcedsplits_filename": "forced_splits.json"},
+                 "forced splits.*item 5", id="extra4-item 5"),
+    pytest.param({"cegb_penalty_feature_lazy": [1.0] * 8},
+                 "cegb_penalty_feature_lazy.*item 13", id="extra5-item 13"),
+    pytest.param({"tree_learner": "voting"}, "item 15", id="extra6-item 15"),
+    pytest.param({"boosting": "dart"}, "item 14", id="extra7-item 14"),
+    pytest.param({"linear_tree": True}, "item 14", id="extra8-item 14"),
+    pytest.param({"max_bin": 300}, "item 2", id="extra9-item 2")])
 def test_unported_options_refuse(extra, item):
     X, y = _data()
-    X = X[:1024].copy()
-    if "categorical_feature" in extra:
-        X[:, 0] = np.abs(np.round(X[:, 0] * 3))
-        ds = tlgb.Dataset(X, label=y[:1024], categorical_feature=[0])
-        extra = {k: v for k, v in extra.items()
-                 if k != "categorical_feature"}
-    else:
-        ds = tlgb.Dataset(X, label=y[:1024])
+    ds = tlgb.Dataset(X[:1024], label=y[:1024])
     with pytest.raises(NotImplementedError, match=item):
         tlgb.train({**PARAMS, "device_type": "cpu", **extra}, ds,
                    num_boost_round=1)
