@@ -1,14 +1,17 @@
-"""Rehearse chip_smoke.py's split_features phase on the CPU at 1/8 of its
-rows, to size its gates before a run on the card:
+"""Rehearse chip_smoke.py's split_features and objectives phases on the
+CPU at 1/8 of their rows, to size their gates before a run on the card:
 
-    python3 chip_rehearsal.py
+    python3 chip_rehearsal.py [split_features] [objectives]
 
-The main path and the three runs of the phase (categorical, monotone,
-smooth_cegb) train on make_higgs_like(125_000, 28) with 12,500 held-out
-rows (every `make_higgs_like(n, ...)` of chip_smoke.py at n / 8), on
-`device_type=cpu`, with chip_smoke.py's gates; the kernels' launch
-counts are not read (the kernels count only on the card) and no device
-time or memory is measured.  Prints each run's line.
+(both when no phase is named).  The main path and the runs of each
+phase (split_features: categorical, monotone, smooth_cegb; objectives:
+regression, quantile, multiclass, rf, dart) train on
+make_higgs_like(125_000, 28) with 12,500 held-out rows (every
+`make_higgs_like(n, ...)` of chip_smoke.py at n / 8), on
+`device_type=cpu`, with chip_smoke.py's gates but the held-out bounds
+that are sized from these values; the kernels' launch counts are not
+read (the kernels count only on the card) and no device time or memory
+is measured.  Prints each run's line.
 """
 
 import json
@@ -21,7 +24,9 @@ import chip_smoke as cs
 SCALE = 8
 
 
-def main() -> int:
+def main(argv) -> int:
+    phases = [a for a in argv if not a.startswith("-")] or [
+        "split_features", "objectives"]
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.ops import histogram as H
     from lightgbm_tpu_torch.utils.timer import global_timer
@@ -49,8 +54,11 @@ def main() -> int:
     torch.cuda.max_memory_allocated = lambda *a: 0
     # launch counts are card-only: every kernel reads as launched
     cs.launch_counts = lambda H: {k: 1 for k in cs.KERNELS}
-    # the rehearsal measures the AUC that the gate is taken from
+    # the rehearsal measures the values that the gates are taken from
     cs.CAT_AUC_MIN = 0.0
+    cs.OBJECTIVE_GATES = {k: (m, sense, None)
+                          for k, (m, sense, _) in cs.OBJECTIVE_GATES.items()}
+    cs.QUANTILE_COVER_BAND = None
     probe = cs.ScanProbe()
     probe.reset()
     data = (*cs.make_higgs_like(1_000_000, 28),
@@ -63,15 +71,20 @@ def main() -> int:
     print(json.dumps({"rehearsal": "main_path", "heldout_auc": r["auc"],
                       "distinct_features": len(main["features"])}))
     del r
-    _, lines = cs.phase_split_features(Rehearsal(), H, global_timer,
-                                       "cpu rehearsal", main, probe)
-    for line in lines.values():
-        keep = {k: v for k, v in line.items()
-                if "ms" not in k and "s_per_iter" not in k
-                and k not in ("peak_mem_gib", "launches", "card")}
-        print(json.dumps({"rehearsal": line["run"], **keep}))
+    for phase in phases:
+        if phase == "split_features":
+            _, lines = cs.phase_split_features(Rehearsal(), H, global_timer,
+                                               "cpu rehearsal", main, probe)
+        else:
+            _, lines = cs.phase_objectives(Rehearsal(), H, global_timer,
+                                           "cpu rehearsal", main)
+        for line in lines.values():
+            keep = {k: v for k, v in line.items()
+                    if "ms" not in k and "s_per_iter" not in k
+                    and k not in ("peak_mem_gib", "launches", "card")}
+            print(json.dumps({"rehearsal": line["run"], **keep}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -103,13 +103,43 @@ Phases, each printing one JSON line:
      scan calls per tree and launches of one scan (torch.profiler
      traces of the run's last scan, replayed after every path has run),
      launches, peak GiB, AUC;
+  5f. objectives: five runs of the main path's width (1M x 28, 255
+     leaves, 255 bins, 13 iterations, wave engine, held-out rows
+     make_higgs_like(100_000, 28, seed=1)), each driven like the paths:
+     (a) `regression` on the label make_higgs_like's logit (X @ w + 0.5
+     X0 X1) plus 0.5 x N(0, 1) from its own stream; (b) `quantile`,
+     alpha 0.9, on (a)'s label (the leaf renewal at width); (c)
+     `multiclass`, 5 classes: the logit plus logistic noise cut at the
+     training rows' 20/40/60/80% quantiles (the same cuts for the
+     held-out rows, a valid set with multi_logloss and multi_error); (d)
+     `rf` on the binary label: bagging_fraction 0.632, bagging_freq 1,
+     feature_fraction 0.8; (e) `dart` on the binary label: drop_rate
+     0.1, skip_drop 0.5.  Gates in each: K1 and K3 launched; card leaf
+     ids equal the native predictor's on all 1.1M rows, raw scores
+     within the predict phase's bound (per class; RF's averages with one
+     more rounding), converted predictions within the conversion's slope
+     times it plus 2^-21 of the float64 host conversion; the training
+     metric through DeviceEval; a held-out bound (OBJECTIVE_GATES, sized
+     by chip_rehearsal.py at 1/8 of the rows).  (b): the held-out share
+     of labels under the prediction within QUANTILE_COVER_BAND of 0.9.
+     (c): each recorded valid metric within 1e-6 of the host metric of
+     predict(num_iteration=i + 1); predicted rows sum to 1 within 1e-6.
+     (e): the drops of each iteration equal a replay of
+     RandomState(drop_seed).  One `objectives` line per run: s/iter of
+     iterations 4-13 beside the main path's, `GBDT::gradients`
+     ms/iter, `GBDT::renew` ms/iter (b), `DART::drop` ms/iter (e),
+     trees, launches, peak GiB, the held-out measure, the card;
   6. card against CPU: `train` at 65,536 rows, 3 iterations, on "cuda"
      and "cpu", for the main path, paths A and B, sampling runs (a), (b)
      at learning_rate 0.5 (GOSS samples from iteration 2), (c), and (a)
      with use_quantized_grad=true (K2 on a sampling path, gated); then on
      the categorical run's transform of the data: the wave engine (K1,
      K3 gated), extra_trees on the leaf-wise engine (K4), quantized (K2),
-     and monotone + path_smooth + CEGB on the leaf-wise engine (K4): the
+     and monotone + path_smooth + CEGB on the leaf-wise engine (K4); then
+     the objectives: regression_l1 on the wave engine (renewal; K1, K3
+     gated), multiclass with 3 classes on the wave engine (K1, K3) and
+     quantized (K2), tweedie on the leaf-wise engine (K4), dart on the
+     wave engine (K1, K3) and rf on the leaf-wise engine (K4): the
      same split features, thresholds, decision types and category sets
      in every tree, leaf values within rtol 1e-4; the card run's launch
      counts in each line;
@@ -193,10 +223,16 @@ def make_higgs_like(n, F, seed=0):
             X[:, f] = np.abs(rng.randn(n)) ** 1.5
         else:
             X[:, f] = rng.rand(n)
-    w = np.random.RandomState(1234).randn(F) / np.sqrt(F)
-    logit = X @ w + 0.5 * X[:, 0] * X[:, 1]
-    y = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    y = (rng.rand(n) < 1 / (1 + np.exp(-higgs_logit(X)))).astype(
+        np.float32)
     return X, y
+
+
+def higgs_logit(X):
+    """make_higgs_like's logit of rows X: X @ w + 0.5 * X0 * X1, with the
+    generator's fixed weights w."""
+    w = np.random.RandomState(1234).randn(X.shape[1]) / np.sqrt(X.shape[1])
+    return X @ w + 0.5 * X[:, 0] * X[:, 1]
 
 
 def auc(y, s):
@@ -597,15 +633,17 @@ def reset_counts(H):
 
 def drive_path(lgb, H, global_timer, name, extra, iterations, data,
                after_training=None, after_update=None, dataset_kw=None,
-               before_training=None):
+               before_training=None, metric=None):
     """Train the bench workload with `extra` params on the card
     (`dataset_kw` to its Dataset; `before_training(booster)`, if given,
     runs before the counts are set): counts set to 0 just before the
     updates and read just after (`after_update(booster)`, if given, runs
     after each update, outside its time); then `after_training(booster)`,
     if given; then three instrumented iterations for the breakdown.
-    Returns a dict: launches, auc, s_per_iter (iterations 4-13),
-    instrumented wall s/iter and the breakdown's ms per iteration."""
+    `metric` = (name, fn(booster, Xte, yte)) is the held-out measure,
+    the AUC of the raw scores by default.  Returns a dict: launches, auc
+    (the measure), s_per_iter (iterations 4-13), instrumented wall
+    s/iter and the breakdown's ms per iteration."""
     X, y, Xte, yte = data
     params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
@@ -630,7 +668,10 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
             after_update(booster)
     launches = launch_counts(H)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    score = auc(yte, booster.predict(Xte, raw_score=True))
+    metric_name, metric_fn = metric or (
+        "heldout_auc", lambda b, Xs, ys: auc(ys, b.predict(Xs,
+                                                           raw_score=True)))
+    score = metric_fn(booster, Xte, yte)
     last = iters[-10:]
     emit({"phase": name, "rows": X.shape[0], "features": X.shape[1],
           "num_leaves": 255, "max_bin": 255, "params": extra,
@@ -638,7 +679,7 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
           "growth_strategy": booster._gbdt.growth_strategy,
           "setup_s": setup_s, "first_iter_s": iters[0],
           f"s_per_iter_last{len(last)}": sum(last) / len(last),
-          "iter_s": iters, "heldout_auc": score,
+          "iter_s": iters, metric_name: score,
           "num_trees": booster.num_trees(),
           "leaves_per_tree": [t.num_leaves
                               for t in booster._gbdt.models_],
@@ -874,23 +915,31 @@ def hold_to_native(g, what, Xs, r, lf):
     """Card leaf ids `lf` and raw scores `r` of rows `Xs` against the
     native host predictor (OpenMP, float64): leaf ids equal element for
     element, each raw score within 2·T·2^-24·Σ_t|leaf value| of its row's
-    float64 score.  Returns (errors, host raw scores, bounds)."""
-    T = len(g.models_)
-    packed = g._packed_for(0, T, 1)
+    float64 score, T the trees of its class (for K classes `r` is
+    [n, K]); under RF's averaging both are divided by T, and one more
+    rounding is allowed for the division.  Returns (errors, host raw
+    scores, bounds)."""
+    K = g.num_tree_per_iteration
+    T = len(g.models_) // K
+    avg = g.average_output_
+    packed = g._packed_for(0, T, K)
     X64 = Xs.astype(np.float64)
     host_leaf = packed.predict_leaf(X64)
     if not np.array_equal(lf, host_leaf):
         bad = np.argwhere(lf != host_leaf)[:3].tolist()
         raise AssertionError(f"{what}: card leaf ids differ from the "
                              f"native predictor's at {bad}")
-    host_raw = packed.predict(X64, 1, False)[:, 0]
-    sum_abs = np.zeros(len(Xs))
+    host_raw = packed.predict(X64, K, avg)
+    host_raw = host_raw[:, 0] if K == 1 else host_raw
+    sum_abs = np.zeros((len(Xs), K))
     for i, t in enumerate(g.models_):
-        sum_abs += np.abs(t.leaf_value[lf[:, i]])
-    bound = 2.0 * T * 2.0 ** -24 * sum_abs
+        sum_abs[:, i % K] += np.abs(t.leaf_value[lf[:, i]])
+    sum_abs = sum_abs[:, 0] if K == 1 else sum_abs
+    bound = (2.0 * (T + 1) * 2.0 ** -24 * sum_abs / T if avg
+             else 2.0 * T * 2.0 ** -24 * sum_abs)
     err = np.abs(r.astype(np.float64) - host_raw)
     if (err > bound).any():
-        i = int(np.argmax(err - bound))
+        i = np.unravel_index(int(np.argmax(err - bound)), err.shape)
         raise AssertionError(f"{what}: row {i} raw score {r[i]!r} vs host "
                              f"{host_raw[i]!r}, bound {bound[i]!r}")
     return ({"max_abs_err": float(err.max()),
@@ -1423,12 +1472,263 @@ def phase_split_features(lgb, H, global_timer, card, main, probe):
     return launches, lines
 
 
-def phase_card_vs_cpu(lgb, H, name, extra, categorical=False):
+# the objectives phase: labels of make_higgs_like's rows
+REG_NOISE = 0.5           # regression label noise, x N(0, 1)
+MC_CLASSES = 5
+MC_CUTS = (0.2, 0.4, 0.6, 0.8)   # class cuts at these training quantiles
+RF = {"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+      "feature_fraction": 0.8}
+DART = {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.5}
+# each run's held-out gate: (measure, "max" or "min", bound).  The
+# bounds are the CPU rehearsal's values at 1/8 of the rows
+# (chip_rehearsal.py, PERF.md: l2 0.62856, quantile 0.14940,
+# multi_logloss 1.50734, rf AUC 0.72144, dart AUC 0.71507) with a margin
+# for the smaller sets; the rehearsal sets them to None and prints the
+# values.
+OBJECTIVE_GATES = {
+    "regression": ("l2", "max", 0.64),
+    "quantile": ("quantile", "max", 0.155),
+    "multiclass": ("multi_logloss", "max", 1.52),
+    "rf": ("auc", "min", 0.71),
+    "dart": ("auc", "min", 0.705),
+}
+# the quantile run's held-out share of labels under the prediction:
+# within this band around alpha = 0.9 (the rehearsal's 0.9112, plus a
+# margin)
+QUANTILE_COVER_BAND = 0.025
+
+
+def objective_labels(X, seed, cuts=None):
+    """(regression label, 5-class label, the class cuts) of rows X:
+    make_higgs_like's logit plus REG_NOISE x N(0, 1) noise, and the logit
+    plus logistic noise cut at `cuts` (the training rows' MC_CUTS
+    quantiles when None); each noise from its own stream keyed by
+    `seed`."""
+    logit = higgs_logit(X)
+    reg = (logit + REG_NOISE * np.random.RandomState(21 + seed).randn(
+        len(X))).astype(np.float32)
+    latent = logit + np.random.RandomState(31 + seed).logistic(size=len(X))
+    if cuts is None:
+        cuts = np.quantile(latent, MC_CUTS)
+    mc = np.searchsorted(cuts, latent, side="right").astype(np.float32)
+    return reg, mc, cuts
+
+
+def heldout_measure(kind, alpha=0.9):
+    """fn(booster, X, y) -> the held-out measure `kind` of the converted
+    predictions (auc of the raw scores)."""
+    def fn(b, X, y):
+        if kind == "auc":
+            return auc(y, b.predict(X, raw_score=True))
+        p = b.predict(X).astype(np.float64)
+        y = y.astype(np.float64)
+        if kind == "l2":
+            return float(np.mean((p - y) ** 2))
+        if kind == "quantile":
+            d = y - p
+            return float(np.mean(np.where(d >= 0, alpha * d,
+                                          (alpha - 1.0) * d)))
+        if kind == "multi_logloss":
+            pl = p[np.arange(len(y)), y.astype(np.int64)]
+            return float(np.mean(-np.log(np.clip(pl, 1e-15, 1.0))))
+        raise ValueError(kind)
+    return fn
+
+
+def replay_dart_drops(cfg, iterations):
+    """The trees DART drops in each of its first `iterations`
+    iterations, replayed from RandomState(drop_seed) with the weight
+    bookkeeping of ref: dart.hpp (weighted drop, not xgboost mode)."""
+    rng = np.random.RandomState(cfg.drop_seed)
+    weight, total, out = [], 0.0, []
+    for it in range(iterations):
+        drop = []
+        if rng.rand() >= cfg.skip_drop and total > 0:
+            inv_avg = len(weight) / total
+            rate = cfg.drop_rate
+            if cfg.max_drop > 0:
+                rate = min(rate, cfg.max_drop * inv_avg / total)
+            for i in range(it):
+                if rng.rand() < rate * weight[i] * inv_avg:
+                    drop.append(i)
+                    if cfg.max_drop > 0 and len(drop) >= cfg.max_drop:
+                        break
+        k = len(drop)
+        for i in drop:
+            total -= weight[i] / (k + 1.0)
+            weight[i] *= k / (k + 1.0)
+        lr = cfg.learning_rate / (1.0 + k)
+        weight.append(lr)
+        total += lr
+        out.append(drop)
+    return out
+
+
+def hold_converted(g, what, pred, host_raw, bound, slope):
+    """Converted card predictions against the objective's float64 host
+    conversion of the native raw scores: within slope x the raw bound
+    (the conversion's largest slope: 1 for the identity, 1/4 for the
+    sigmoid, 1/2 for softmax) plus 2^-21 for the card's float32
+    conversion.  Returns the largest error."""
+    conv = g.objective.convert_output_host
+    want = (conv(host_raw.T).T if host_raw.ndim == 2 else conv(host_raw))
+    err = np.abs(pred.astype(np.float64) - want)
+    b = bound.max(axis=1, keepdims=True) if bound.ndim == 2 else bound
+    if (err > slope * b + 2.0 ** -21).any():
+        i = np.unravel_index(int(np.argmax(err - slope * b)), err.shape)
+        raise AssertionError(f"{what}: converted prediction {pred[i]!r} vs "
+                             f"host {want[i]!r}")
+    return float(err.max())
+
+
+def phase_objectives(lgb, H, global_timer, card, main):
+    """The objectives and boosting modes at the main path's width (runs
+    (a)-(e) and gates in the module docstring), each driven like the
+    paths.  Returns ({run: launches}, {run: line})."""
+    from lightgbm_tpu_torch.metric import create_metrics
+    X, yb = make_higgs_like(1_000_000, 28)
+    Xte, ybte = make_higgs_like(100_000, 28, seed=1)
+    yr, ym, cuts = objective_labels(X, 0)
+    yrte, ymte, _ = objective_labels(Xte, 1, cuts)
+    mc_metrics = ["multi_logloss", "multi_error"]
+    runs = (
+        ("regression", {"objective": "regression"}, yr, yrte, 1.0),
+        ("quantile", {"objective": "quantile", "alpha": 0.9}, yr, yrte, 1.0),
+        ("multiclass", {"objective": "multiclass",
+                        "num_class": MC_CLASSES, "metric": mc_metrics},
+         ym, ymte, 0.5),
+        ("rf", RF, yb, ybte, 0.25),
+        ("dart", DART, yb, ybte, 0.25))
+    launches, lines = {}, {}
+    for name, extra, y, yte, slope in runs:
+        kind, sense, gate = OBJECTIVE_GATES[name]
+        rec, checks = [], {}
+
+        def before(b, yte=yte):
+            if name == "multiclass":
+                b.add_valid(lgb.Dataset(Xte, label=yte), "heldout")
+
+        def after_update(b):
+            g = b._gbdt
+            if name == "multiclass":
+                rec.append(dict((m, v) for _, m, v, _ in b.eval_valid()))
+            elif name == "dart":
+                rec.append(list(g.drop_index_))
+
+        def after_training(b, yte=yte, slope=slope):
+            g = b._gbdt
+            errs, conv = {}, {}
+            for what, Xs in (("train", X), ("heldout", Xte)):
+                raw = b.predict(Xs, raw_score=True)
+                leaf = b.predict(Xs, pred_leaf=True)
+                errs[what], host_raw, bound = hold_to_native(
+                    g, f"{name} {what}", Xs, raw, leaf)
+                pred = b.predict(Xs)
+                conv[what] = hold_converted(g, f"{name} {what}", pred,
+                                            host_raw, bound, slope)
+                if what == "heldout":
+                    checks["pred"] = pred
+            # the default metric runs on the card through DeviceEval
+            b.eval_train()
+            de = g._device_eval
+            if de is None or not de.ok:
+                raise AssertionError(f"{name}: the training metrics did "
+                                     "not run through DeviceEval")
+            checks.update(score_error=errs, converted_max_abs_err=conv,
+                          device_eval=[p[0] for p in de._plans])
+            if name == "multiclass":
+                # each recorded valid metric against the host metric of
+                # predict(num_iteration=i + 1)
+                ms = create_metrics(g.config)
+                for m in ms:
+                    m.init(g.valid_sets[0].metadata, len(yte))
+                worst = 0.0
+                for i, r in enumerate(rec):
+                    s = b.predict(Xte, num_iteration=i + 1,
+                                  raw_score=True).astype(np.float64)
+                    for m in ms:
+                        for mn, v in m.eval(s.T, g.objective):
+                            worst = max(worst, abs(r[mn] - v))
+                if worst > 1e-6:
+                    raise AssertionError(f"multiclass: a recorded valid "
+                                         f"metric is {worst} from predict's")
+                rows = checks["pred"].astype(np.float64).sum(axis=1)
+                if np.abs(rows - 1.0).max() > 1e-6:
+                    raise AssertionError("multiclass: predict rows do not "
+                                         "sum to 1")
+                checks.update(valid_metric_max_abs_err=worst,
+                              row_sum_max_err=float(np.abs(rows - 1).max()))
+            if name == "dart":
+                want = replay_dart_drops(g.config, len(rec))
+                if rec != want:
+                    raise AssertionError(f"dart: drops {rec}, the replay "
+                                         f"of RandomState(drop_seed) {want}")
+                checks.update(drops=rec)
+
+        r = drive_path(lgb, H, global_timer, f"objectives_{name}", extra,
+                       13, (X, y, Xte, yte), after_training=after_training,
+                       after_update=after_update, before_training=before,
+                       metric=(f"heldout_{kind}", heldout_measure(kind)))
+        b, g = r["booster"], r["booster"]._gbdt
+        lc, value = r["launches"], r["auc"]
+        if lc["K1"] <= 0 or lc["K3"] <= 0:
+            raise AssertionError(f"{name}: K1/K3 not launched: {lc}")
+        if gate is not None and (value > gate if sense == "max"
+                                 else value < gate):
+            raise AssertionError(f"{name}: held-out {kind} {value} against "
+                                 f"the gate {sense} {gate}")
+        line = {"phase": "objectives", "run": name, "rows": X.shape[0],
+                "params": extra, "iterations": 13,
+                "s_per_iter_4_13": r["s_per_iter"],
+                "main_path_s_per_iter_4_13": main["s_per_iter"],
+                "gradients_ms_per_iter": r["ms_per_iter"].get(
+                    "GBDT::gradients"),
+                "instrumented_s_per_iter": r["wall"],
+                "trees": len(g.models_), "launches": lc,
+                "peak_mem_gib": r["peak_gib"], f"heldout_{kind}": value,
+                "gate": [sense, gate],
+                "leaf_ids_equal_native_rows": X.shape[0] + Xte.shape[0],
+                **{k: v for k, v in checks.items() if k != "pred"},
+                "card": card}
+        if name == "quantile":
+            cover = float(np.mean(yte <= checks["pred"]))
+            if (QUANTILE_COVER_BAND is not None
+                    and abs(cover - 0.9) > QUANTILE_COVER_BAND):
+                raise AssertionError(f"quantile: held-out share under the "
+                                     f"prediction {cover}, not within "
+                                     f"{QUANTILE_COVER_BAND} of 0.9")
+            line.update(renew_ms_per_iter=r["ms_per_iter"].get(
+                "GBDT::renew"), heldout_share_under=cover,
+                cover_band=QUANTILE_COVER_BAND)
+        if name == "dart":
+            line["drop_ms_per_iter"] = r["ms_per_iter"].get("DART::drop")
+        if name == "multiclass":
+            line["num_class"] = MC_CLASSES
+        emit(line)
+        launches[f"objectives_{name}"] = lc
+        lines[name] = line
+        del r, b, g
+    return launches, lines
+
+
+def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
+                      label="binary"):
     """`train` at 65,536 rows, 3 iterations, on the card and the CPU
     (`categorical`: the split_features phase's transform of the data,
-    columns 0, 1 and 3 as `categorical_feature`): the same trees, category
-    sets included.  Returns the card run's launches."""
+    columns 0, 1 and 3 as `categorical_feature`; `label`: "binary", the
+    objectives phase's "regression" label, its non-negative part
+    ("nonnegative") or its class label cut into 3 classes
+    ("multiclass3")): the same trees, category sets included.  Returns
+    the card run's launches."""
     X, y = make_higgs_like(65_536, 28, seed=2)
+    if label != "binary":
+        reg, _, _ = objective_labels(X, 2)
+        latent = higgs_logit(X) + np.random.RandomState(33).logistic(
+            size=len(X))
+        y = {"regression": reg, "nonnegative": np.maximum(reg, 0.0),
+             "multiclass3": np.searchsorted(
+                 np.quantile(latent, (1 / 3, 2 / 3)), latent,
+                 side="right").astype(np.float32)}[label]
     ds_kw = {}
     if categorical:
         X, = categorical_transform(X)
@@ -1473,12 +1773,15 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False):
             raise AssertionError(f"{name} tree {i}: leaf values differ")
         worst = max(worst, float(np.max(np.abs(lv_a - lv_b)
                                         / np.maximum(np.abs(lv_b), 1e-30))))
-    if len(models["cuda"]) != 3 or len(models["cpu"]) != 3:
-        raise AssertionError(f"{name}: card/CPU tree counts differ from 3")
+    K = extra.get("num_class", 1)
+    if len(models["cuda"]) != 3 * K or len(models["cpu"]) != 3 * K:
+        raise AssertionError(f"{name}: card/CPU tree counts differ from "
+                             f"{3 * K}")
     if categorical and cat_nodes == 0:
         raise AssertionError(f"{name}: no categorical split to compare")
     emit({"phase": "card_vs_cpu", "path": name, "params": extra,
-          "rows": 65_536, "trees": 3, "categorical": categorical,
+          "rows": 65_536, "trees": 3 * K, "categorical": categorical,
+          "label": label,
           "categorical_nodes": cat_nodes,
           "leaves": [t.num_leaves for t in models["cuda"]],
           "max_rel_leaf_diff": worst, "card_launches": launches})
@@ -1538,6 +1841,8 @@ def main(argv) -> int:
     sf_launches, sf_lines = phase_split_features(lgb, H, global_timer, card,
                                                  main, probe)
     launches.update(sf_launches)
+    obj_launches, _ = phase_objectives(lgb, H, global_timer, card, main)
+    launches.update(obj_launches)
     sampling_a, sampling_b, sampling_c = (r[1] for r in SAMPLING_RUNS[:3])
     for name, extra in (("main_path", {}),
                         ("path_a_quantized", {"use_quantized_grad": True}),
@@ -1571,6 +1876,28 @@ def main(argv) -> int:
               "tpu_growth_strategy": "leafwise"}, ("K4",))):
         card_launches = phase_card_vs_cpu(lgb, H, name, extra,
                                           categorical=True)
+        if any(card_launches[k] <= 0 for k in kernels):
+            raise AssertionError(f"{name}: {kernels} must launch: "
+                                 f"{card_launches}")
+        launches[f"card_vs_cpu_{name}"] = card_launches
+    # the objectives phase's six cases
+    for name, extra, lab, kernels in (
+            ("regression_l1_wave", {"objective": "regression_l1"},
+             "regression", ("K1", "K3")),
+            ("multiclass3_wave", {"objective": "multiclass",
+                                  "num_class": 3}, "multiclass3",
+             ("K1", "K3")),
+            ("multiclass3_quantized", {"objective": "multiclass",
+                                       "num_class": 3,
+                                       "use_quantized_grad": True},
+             "multiclass3", ("K2",)),
+            ("tweedie_leafwise", {"objective": "tweedie",
+                                  "tpu_growth_strategy": "leafwise"},
+             "nonnegative", ("K4",)),
+            ("dart_wave", DART, "binary", ("K1", "K3")),
+            ("rf_leafwise", {**RF, "tpu_growth_strategy": "leafwise"},
+             "binary", ("K4",))):
+        card_launches = phase_card_vs_cpu(lgb, H, name, extra, label=lab)
         if any(card_launches[k] <= 0 for k in kernels):
             raise AssertionError(f"{name}: {kernels} must launch: "
                                  f"{card_launches}")

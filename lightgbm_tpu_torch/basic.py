@@ -8,7 +8,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .boosting import GBDT
+from .boosting import create_boosting
 from .boosting.model_io import (load_model_from_file, load_model_from_string,
                                 save_model_to_file, save_model_to_string)
 from .config import Config
@@ -16,6 +16,7 @@ from .io.dataset import Dataset as _CoreDataset
 from .io.dataset import Metadata
 from .metric import _METRIC_CLASSES, create_metrics
 from .objective import create_objective
+from .reliability import NonFiniteError
 from .utils import log
 from .utils.device import resolve_device
 
@@ -137,7 +138,7 @@ class Booster:
             cfg = Config(self.params)
             train_set.params = {**self.params, **train_set.params}
             core = train_set._core_or_construct()
-            self._gbdt = GBDT()
+            self._gbdt = create_boosting(cfg.boosting)
             self._gbdt.init(cfg, core, create_objective(cfg),
                             create_metrics(cfg))
         elif model_file is not None or model_str is not None:
@@ -271,12 +272,34 @@ class Booster:
         return sc[0] if sc.shape[0] == 1 else sc
 
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
-        """One boosting iteration; returns True if stopped."""
+        """One boosting iteration; returns True if stopped.  A custom
+        objective `fobj(score, train_set) -> (grad, hess)` gets the
+        training scores as [n] or, for K classes, [n, K], and may return
+        [n, K] or class-major [K * n] gradients (ref: basic.py
+        Booster.update -> LGBM_BoosterUpdateOneIterCustom)."""
         if train_set is not None:
             log.fatal("Resetting training data is not yet supported")
         if fobj is not None:
-            raise NotImplementedError("custom objectives are not ported yet "
-                                      "(ROADMAP Queue 1 item 14)")
+            g = self._gbdt
+            K, n = g.num_tree_per_iteration, g.num_data
+            g.pre_gradient_hook()
+            score = self._inner_predict_train()
+            grad, hess = fobj(score if K == 1 else score.T, self._train_set)
+            grad = np.asarray(grad, np.float32)
+            hess = np.asarray(hess, np.float32)
+            if not (np.all(np.isfinite(grad)) and np.all(np.isfinite(hess))):
+                raise NonFiniteError(
+                    "Custom objective returned NaN/Inf gradients at "
+                    f"iteration {g.current_iteration()}: boosting "
+                    "on non-finite values produces garbage trees. Check the "
+                    "objective for division by zero / log of non-positive "
+                    "values.")
+            if K > 1:
+                grad = (grad.T.reshape(K, n) if grad.ndim == 2
+                        else grad.reshape(K, n))
+                hess = (hess.T.reshape(K, n) if hess.ndim == 2
+                        else hess.reshape(K, n))
+            return g.train_one_iter(grad, hess)
         return self._gbdt.train_one_iter()
 
     def rollback_one_iter(self) -> "Booster":

@@ -35,11 +35,18 @@ path smoothing and CEGB's split and coupled penalties; a booster-level
 vector of the features earlier trees used carries CEGB's coupled
 penalty from tree to tree.
 
-The port covers binary logloss on dense data with the wave and
-leaf-wise engines and quantized gradients.  Every parameter whose
-behaviour it does not carry raises NotImplementedError naming the
-ROADMAP item that brings it, so the port never quietly trains a
-different model.
+The objectives' gradients are [K, n_pad] (softmax over the classes for
+multiclass); L1, quantile and MAPE renew each tree's leaf outputs on the
+device from the scores before the tree's update (objective.py
+`percentile_by_leaf`).  A custom objective (`fobj`) hands its gradients
+to `train_one_iter`.  RF and DART (rf.py, dart.py) subclass this loop;
+`_add_tree_score` adds a host tree's current outputs to the device
+scores through a bin-space traversal.
+
+The port covers dense data with the wave and leaf-wise engines and
+quantized gradients.  Every parameter whose behaviour it does not carry
+raises NotImplementedError naming the ROADMAP item that brings it, so
+the port never quietly trains a different model.
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
 from ..metric import Metric
 from ..models.tree import K_CATEGORICAL_MASK, Tree, _to_bitset
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
-from ..objective import ObjectiveFunction
+from ..objective import UNPORTED, ObjectiveFunction
 from ..ops.histogram import wave_part_plan, wave_slot_pad
 from ..ops.split import SplitParams, cat_bitset_words, leaf_output
 from ..utils import log
@@ -78,13 +85,13 @@ def check_slice(config: Config) -> None:
     def refuse(what: str, item: str) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP Queue 1 item {item}); "
-            "the PyTorch port trains binary logloss on the wave and "
-            "leaf-wise engines")
+            "the PyTorch port trains the pointwise, multiclass and "
+            "cross-entropy objectives on the wave and leaf-wise engines")
 
-    if c.objective != "binary":
+    if c.objective in UNPORTED:
         refuse(f"objective={c.objective!r}", "14")
-    if c.boosting != "gbdt":
-        refuse(f"boosting={c.boosting!r}", "14")
+    if c.boosting not in ("gbdt", "rf", "dart"):
+        log.fatal(f"Unknown boosting type: {c.boosting}")
     if any(int(m) != 0 for m in (c.monotone_constraints or [])):
         method = c.monotone_constraints_method
         if method not in ("basic", "intermediate", "advanced"):
@@ -669,13 +676,26 @@ class GBDT:
                     sc[class_id] += init
                 log.info(f"Start training from score {init:.6f}")
                 return init
+        elif obj.name in ("regression_l1", "quantile", "mape"):
+            log.warning(f"Disabling boost_from_average in {obj.name} "
+                        "may cause the slow convergence")
         return 0.0
 
     def _compute_gradients(self):
-        """Per-class gradients [K, n_pad] (ref: gbdt.cpp:220 Boosting)."""
-        g, h = self.objective.get_gradients(self.scores[0], self.label_dev,
-                                            self.weight_dev)
+        """Per-class gradients [K, n_pad] (ref: gbdt.cpp:220 Boosting):
+        a multiclass objective takes the [K, n_pad] scores, the others
+        the one class's row."""
+        obj = self.objective
+        if self.num_tree_per_iteration > 1:
+            return obj.get_gradients(self.scores, self.label_dev,
+                                     self.weight_dev)
+        g, h = obj.get_gradients(self.scores[0], self.label_dev,
+                                 self.weight_dev)
         return g[None, :], h[None, :]
+
+    def pre_gradient_hook(self) -> None:
+        """Runs before the training scores are read for the gradients, a
+        custom objective's too (DART drops its trees here)."""
 
     def _update_bagging(self, grad, hess):
         """Row sampling for this iteration (the JAX booster's
@@ -755,6 +775,7 @@ class GBDT:
         with global_timer.scope("GBDT::bagging"):
             bag_mask, grad, hess = self._update_bagging(grad, hess)
             global_timer.block(bag_mask)
+        grew = False
         for k in range(K):
             tree = None
             if self.class_need_train[k] and self.train_data.num_features > 0:
@@ -778,29 +799,11 @@ class GBDT:
                 if (self.config.extra_trees
                         or self.config.feature_fraction_bynode < 1.0):
                     extra_tag = (self.num_init_iteration_ + self.iter_) * K + k
-                with global_timer.scope("GBDT::col_sampling"):
-                    col_mask = self._col_mask()
-                with global_timer.scope("GBDT::grow_tree"):
-                    if self.growth_strategy == "wave":
-                        arrays, leaf_id = grow_tree_wave_impl(
-                            self.binned_dev, g_k, h_k, bag_mask, col_mask,
-                            self.meta, self.grow_params,
-                            quant_scales=(qscales
-                                          if self.grow_params.quant_bins > 0
-                                          else None),
-                            extra_tag=extra_tag, cegb_used=self.cegb_used)
-                    else:
-                        arrays, leaf_id = grow_tree_impl(
-                            self.binned_dev, g_k, h_k, bag_mask, col_mask,
-                            self.meta, self.grow_params,
-                            binned_rm=self.binned_rm_dev,
-                            extra_tag=extra_tag, cegb_used=self.cegb_used)
-                    global_timer.block(leaf_id)
-                if self.cegb_used is not None:
-                    # the tree's split features become used (gbdt.py:1270
-                    # of the JAX package)
-                    self.cegb_used[arrays.split_feature[
-                        :arrays.num_leaves - 1].to(torch.int64)] = True
+                arrays, leaf_id = self._grow(
+                    g_k, h_k, bag_mask,
+                    quant_scales=(qscales if self.grow_params.quant_bins > 0
+                                  else None),
+                    extra_tag=extra_tag)
                 if self.use_quant and self.config.quant_train_renew_leaf:
                     # leaf outputs from the float gradients (gbdt.py:1494),
                     # summed over the bagging mask (the whole data under
@@ -812,16 +815,49 @@ class GBDT:
                     tree = self._finalize_tree(arrays, leaf_id, k,
                                                init_scores[k])
             if tree is None:
-                # no split: the reference's stop (gbdt.cpp:338-418); the
-                # first iteration keeps a constant stump
-                log.warning("Stopped training because there are no more "
-                            "leaves that meet the split requirements")
-                if not self.models_:
-                    self.models_.append(self._make_const_stump(k))
-                return True
+                # no split: this class keeps a stump, a constant one in
+                # the first iteration (ref: gbdt.cpp:372-391)
+                tree = (self._make_const_stump(k) if len(self.models_) < K
+                        else self._stump())
+            else:
+                grew = True
             self.models_.append(tree)
+        if not grew:
+            # no class split: the reference's stop (gbdt.cpp:338-418)
+            # drops the iteration, keeping the first one's constant stumps
+            log.warning("Stopped training because there are no more "
+                        "leaves that meet the split requirements")
+            if len(self.models_) > K:
+                del self.models_[-K:]
+            return True
         self.iter_ += 1
         return False
+
+    def _grow(self, g_k, h_k, bag_mask, quant_scales=None, extra_tag=None):
+        """One tree on this iteration's column mask, on the booster's
+        engine; marks its split features for CEGB.  Returns (device tree
+        arrays, leaf id of every row)."""
+        with global_timer.scope("GBDT::col_sampling"):
+            col_mask = self._col_mask()
+        with global_timer.scope("GBDT::grow_tree"):
+            if self.growth_strategy == "wave":
+                arrays, leaf_id = grow_tree_wave_impl(
+                    self.binned_dev, g_k, h_k, bag_mask, col_mask,
+                    self.meta, self.grow_params, quant_scales=quant_scales,
+                    extra_tag=extra_tag, cegb_used=self.cegb_used)
+            else:
+                arrays, leaf_id = grow_tree_impl(
+                    self.binned_dev, g_k, h_k, bag_mask, col_mask,
+                    self.meta, self.grow_params,
+                    binned_rm=self.binned_rm_dev, extra_tag=extra_tag,
+                    cegb_used=self.cegb_used)
+            global_timer.block(leaf_id)
+        if self.cegb_used is not None:
+            # the tree's split features become used (gbdt.py:1270 of the
+            # JAX package)
+            self.cegb_used[arrays.split_feature[
+                :arrays.num_leaves - 1].to(torch.int64)] = True
+        return arrays, leaf_id
 
     def _pad_rows(self, values, K: int) -> torch.Tensor:
         a = np.asarray(values, np.float32).reshape(K, -1)
@@ -829,11 +865,18 @@ class GBDT:
         out[:, :a.shape[1]] = a
         return torch.from_numpy(out).to(self.device)
 
+    @staticmethod
+    def _stump() -> Tree:
+        """A one-leaf tree of output 0."""
+        tree = Tree(2)
+        tree.num_leaves = 1
+        tree.shrinkage = 1.0
+        return tree
+
     def _make_const_stump(self, k: int) -> Tree:
         """One-leaf tree for a class with no first-iteration split
         (ref: gbdt.cpp:372-391)."""
-        tree = Tree(2)
-        tree.num_leaves = 1
+        tree = self._stump()
         init = 0.0
         if (self.objective is not None
                 and not self.config.boost_from_average
@@ -843,7 +886,6 @@ class GBDT:
             for sc in self.valid_scores:
                 sc[k] += init
         tree.leaf_value[0] = init
-        tree.shrinkage = 1.0
         return tree
 
     # ------------------------------------------------------------ tree pull
@@ -932,17 +974,50 @@ class GBDT:
         tree.leaf_depth[:nl] = leaf_depth[:nl]
         return tree
 
+    def _renew_by_objective(self, leaf_id: torch.Tensor, score: torch.Tensor,
+                            num_leaves: int) -> torch.Tensor:
+        """The objective's leaf renewal (L1, quantile, MAPE) over the
+        in-bag rows (the bagging mask; every row under GOSS, as in the
+        JAX package, gbdt.py:1527-1536): float64 [num_leaves] on the
+        device, from `score` [num_data] of before this tree's update."""
+        n = self.num_data
+        with global_timer.scope("GBDT::renew"):
+            ids = torch.where(self.bag_mask[:n] > 0,
+                              leaf_id[:n].to(torch.int64),
+                              torch.full((n,), -1, dtype=torch.int64,
+                                         device=leaf_id.device))
+            out = self.objective.renew_tree_output(ids, score, num_leaves)
+            return global_timer.block(out)
+
+    def _pull_tree(self, arrays) -> Optional[Tree]:
+        """The device tree as a host Tree, in one transfer (None when it
+        grew no split)."""
+        return self._packed_to_tree(self._pack_tree(arrays).cpu().numpy())
+
     def _finalize_tree(self, arrays, leaf_id, class_id: int,
                        init_score: float) -> Optional[Tree]:
-        """Shrink, update the scores on the device and pull the tree
-        (ref: gbdt.cpp:395-407)."""
+        """Renew the leaf outputs (L1, quantile, MAPE), shrink, update the
+        scores on the device and pull the tree (ref: gbdt.cpp:395-407)."""
         lv = arrays.leaf_value
-        delta = (lv * self.shrinkage_rate)[
-            leaf_id.to(torch.int64).clamp(0, lv.shape[0] - 1)]
+        renewed = None
+        obj = self.objective
+        if obj is not None and obj.need_renew_tree_output:
+            # from the scores before this tree's update; the renewed
+            # values replace the grown ones before the shrinkage and the
+            # score updates (gbdt.py:1524-1543 of the JAX package)
+            renewed = self._renew_by_objective(
+                leaf_id, self.scores[class_id, :self.num_data], lv.shape[0])
+            delta = (renewed * self.shrinkage_rate).to(torch.float32)
+        else:
+            delta = lv * self.shrinkage_rate
+        delta = delta[leaf_id.to(torch.int64).clamp(0, lv.shape[0] - 1)]
         self.scores[class_id] += delta * self.pad_mask
-        tree = self._packed_to_tree(self._pack_tree(arrays).cpu().numpy())
+        tree = self._pull_tree(arrays)
         if tree is None:
             return None
+        if renewed is not None:
+            nl = tree.num_leaves
+            tree.leaf_value[:nl] = renewed[:nl].cpu().numpy()
         tree.apply_shrinkage(self.shrinkage_rate)
         # valid scores on the host, before the init score joins the
         # first tree's leaves (gbdt.py:1543 of the JAX package)
@@ -951,6 +1026,31 @@ class GBDT:
         if abs(init_score) > K_EPSILON:
             tree.add_bias(init_score)
         return tree
+
+    def _add_tree_score(self, tree: Tree, class_id: int, train: bool = True,
+                        valid: bool = True,
+                        train_ids: Optional[torch.Tensor] = None
+                        ) -> Optional[torch.Tensor]:
+        """score += the host tree's current leaf outputs (ref:
+        score_updater.hpp:21 AddScore; DART's drops and normalization, RF's
+        averaging): the training scores on the device, through a
+        bin-space traversal of the training bins (or `train_ids`, the leaf
+        ids of an earlier call), the valid scores in float64 on the host.
+        Returns the training rows' leaf ids."""
+        if train:
+            if train_ids is None:
+                train_ids = leaf_index_bin_space(
+                    tree, self.binned_dev, self.f_missing_type,
+                    self.f_num_bin, self.f_default_bin)
+            nl = max(tree.num_leaves, 1)
+            vals = torch.from_numpy(
+                tree.leaf_value[:nl].astype(np.float32)).to(self.device)
+            self.scores[class_id] += (vals[train_ids.to(torch.int64)]
+                                      * self.pad_mask)
+        if valid:
+            for vi in range(len(self.valid_sets)):
+                self._add_valid_tree_score(vi, tree, class_id)
+        return train_ids
 
     def _tree_leaf_ids(self, tree: Tree, vi: int) -> np.ndarray:
         """Leaf index of every row of valid set `vi` (the traversal runs
@@ -1227,20 +1327,21 @@ class GBDT:
                 pred_leaf: bool = False, **pred_kwargs) -> np.ndarray:
         if pred_leaf:
             return self.predict_leaf_index(X, start_iteration, num_iteration)
-        if not raw_score and self.objective is not None:
-            hit = self._device_predictor(X, start_iteration, num_iteration)
-            if hit is not None:
-                es = self._es_tuple(
-                    pred_kwargs.get("pred_early_stop", False),
-                    pred_kwargs.get("pred_early_stop_freq", 10),
-                    pred_kwargs.get("pred_early_stop_margin", 10.0))
-                # convert_output runs on the device after the sums
-                return self._device_predict_run(hit[0], hit[1], "convert",
-                                                es)
-        raw = self.predict_raw(X, start_iteration, num_iteration,
-                               **pred_kwargs)
         if raw_score or self.objective is None:
-            return raw
+            return self.predict_raw(X, start_iteration, num_iteration,
+                                    **pred_kwargs)
+        es_args = (pred_kwargs.get("pred_early_stop", False),
+                   pred_kwargs.get("pred_early_stop_freq", 10),
+                   pred_kwargs.get("pred_early_stop_margin", 10.0))
+        hit = self._device_predictor(X, start_iteration, num_iteration)
+        if hit is not None:
+            # convert_output runs on the device after the sums
+            return self._device_predict_run(hit[0], hit[1], "convert",
+                                            self._es_tuple(*es_args))
+        # the route is decided once: the host paths from here
+        with global_timer.scope("GBDT::predict"):
+            raw = self._predict_raw_impl(X, start_iteration, num_iteration,
+                                         *es_args)
         # host path: the scores are already NumPy; the objective's host
         # converter avoids a round trip through the device
         conv = self.objective.convert_output_host

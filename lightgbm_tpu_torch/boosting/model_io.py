@@ -116,7 +116,7 @@ def load_model_from_string(text: str):
     """ref: gbdt_model_text.cpp GBDT::LoadModelFromString.  Returns a GBDT in
     predictor mode (no train data)."""
     from ..config import Config
-    from ..objective import create_objective
+    from ..objective import UNPORTED, create_objective
     from .gbdt import GBDT
 
     booster = GBDT()
@@ -165,20 +165,24 @@ def load_model_from_string(text: str):
     # serving daemon loads models mid-flight and must keep its logs)
     log.set_verbosity(prev_verbosity)
     booster.config = cfg
-    try:
+    if obj_tokens[0] in UNPORTED:
+        # ranking is not ported yet; its conversion is the identity, so
+        # the model predicts raw scores as its objective would
+        obj = None
+    else:
+        # custom/none give None; any other objective that fails to build
+        # raises, so a model never predicts in the wrong space
         obj = create_objective(cfg)
-        if obj is not None and obj_tokens[0] not in ("lambdarank", "rank_xendcg"):
-            # predictor-mode init with a dummy label so convert_output works
-            class _MD:
-                label = np.zeros(1, np.float32)
-                weight = None
-                init_score = None
-                query_boundaries = None
-            if obj_tokens[0] not in ("multiclass", "multiclassova"):
-                obj.init(_MD(), 1)
-        booster.objective = obj
-    except Exception:  # custom/unknown objective: raw-score predictor
-        booster.objective = None
+    if obj is not None and obj_tokens[0] not in ("multiclass",
+                                                 "multiclassova"):
+        # predictor-mode init with a dummy label so convert_output works
+        class _MD:
+            label = np.zeros(1, np.float32)
+            weight = None
+            init_score = None
+            query_boundaries = None
+        obj.init(_MD(), 1)
+    booster.objective = obj
 
     # tree blocks
     if rest:

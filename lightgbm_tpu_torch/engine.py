@@ -1,12 +1,12 @@
 """Training entry points: `train` and `cv` (PyTorch port of
 `lightgbm_tpu/engine.py`; ref: python-package/lightgbm/engine.py).
 
-`train` takes validation sets, `feval` and callbacks, with early
-stopping and the non-finite sentinel, and continues an `init_model` (a
-Booster, a model file or model text).  What stays refused names the
-ROADMAP Queue 1 item that brings it: custom objectives (`fobj`, item
-14), and the host planes (`checkpoint_dir`, `metrics_dir`,
-`profile_dir`, `metrics_port`, item 16).
+`train` takes validation sets, `feval`, a custom objective (`fobj`) and
+callbacks, with early stopping and the non-finite sentinel, and
+continues an `init_model` (a Booster, a model file or model text).  What
+stays refused names the ROADMAP Queue 1 item that brings it: the host
+planes (`checkpoint_dir`, `metrics_dir`, `profile_dir`, `metrics_port`,
+item 16).
 """
 
 from __future__ import annotations
@@ -55,11 +55,7 @@ def _check_finite(booster: Booster, evals, iteration: int,
                 "Set nonfinite_check_freq=0 to disable this sentinel.")
 
 
-def _refuse_unported(cfg: Config, fobj, checkpoint_dir,
-                     metrics_dir) -> None:
-    if fobj is not None:
-        raise NotImplementedError("custom objectives (fobj) are not ported "
-                                  "yet (ROADMAP Queue 1 item 14)")
+def _refuse_unported(cfg: Config, checkpoint_dir, metrics_dir) -> None:
     for what, on in (("checkpoint_dir", checkpoint_dir or cfg.checkpoint_dir),
                      ("metrics_dir", metrics_dir or cfg.metrics_dir),
                      ("profile_dir", cfg.profile_dir),
@@ -109,7 +105,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # an explicitly passed num_iterations (or alias) wins over the default
     if "num_iterations" in cfg.raw_params:
         num_boost_round = cfg.num_iterations
-    _refuse_unported(cfg, fobj, checkpoint_dir, metrics_dir)
+    _refuse_unported(cfg, checkpoint_dir, metrics_dir)
 
     booster = Booster(params=params, train_set=train_set)
     train_in_valid = False
@@ -157,7 +153,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
             for cb in callbacks_before:
                 cb(env)
             with global_timer.scope("GBDT::train_one_iter"):
-                if booster.update():
+                if booster.update(fobj=fobj):
                     break
             evals = []
             with global_timer.scope("GBDT::eval"):

@@ -113,9 +113,13 @@ def _gain(g, h, left, lam):
     return gl * gl / (hl + lam) + gr * gr / (hr + lam)
 
 
-def same_trees(ta, tb, X, g, h, lam_of, atol=1e-5):
-    """Tree tb (port) equals ta (JAX) up to exact ties; returns (tie
-    nodes, whether a tie moved rows to another partition)."""
+def same_trees(ta, tb, X, g, h, lam_of, atol=1e-5, rtol=0.0,
+               feature_ties=False):
+    """Tree tb (port) equals ta (JAX) up to exact ties, its leaf values
+    within atol + rtol * |ta's|; returns (tie nodes, whether a tie moved
+    rows to another partition).  With `feature_ties` a tie may also pick
+    another feature (discrete gradients, such as quantile's two values,
+    tie across features exactly)."""
     assert ta.num_leaves == tb.num_leaves
     ni = ta.num_leaves - 1
     reach = _reach(ta, X)
@@ -124,16 +128,16 @@ def same_trees(ta, tb, X, g, h, lam_of, atol=1e-5):
     for j in range(ni):
         if j in skip:
             continue
-        assert ta.split_feature[j] == tb.split_feature[j], ("feature", j)
+        if not feature_ties:
+            assert ta.split_feature[j] == tb.split_feature[j], ("feature", j)
         if _node_key(ta, j) != _node_key(tb, j):
             rows = reach[j]
-            f = ta.split_feature[j]
+            fa, fb = ta.split_feature[j], tb.split_feature[j]
             nodes_j = np.full(int(rows.sum()), j)
-            la = ta._decision(X[rows, f], nodes_j)
-            lb = tb._decision(X[rows, f], nodes_j)
-            lam = lam_of(ta, j)
-            ga = _gain(g[rows], h[rows], la, lam)
-            gb = _gain(g[rows], h[rows], lb, lam)
+            la = ta._decision(X[rows, fa], nodes_j)
+            lb = tb._decision(X[rows, fb], nodes_j)
+            ga = _gain(g[rows], h[rows], la, lam_of(ta, j))
+            gb = _gain(g[rows], h[rows], lb, lam_of(tb, j))
             assert abs(ga - gb) <= 1e-6 * max(ga, gb), ("not a tie", j, ga,
                                                         gb)
             print(f"tie at node {j}: {_node_key(ta, j)} vs "
@@ -153,8 +157,8 @@ def same_trees(ta, tb, X, g, h, lam_of, atol=1e-5):
             gain_tol), ("split_gain", j, ta.split_gain[j], tb.split_gain[j])
     keep = [leaf for leaf in range(ta.num_leaves) if leaf not in moved]
     np.testing.assert_array_equal(ta.leaf_count[keep], tb.leaf_count[keep])
-    np.testing.assert_allclose(ta.leaf_value[keep], tb.leaf_value[keep],
-                               rtol=0, atol=atol)
+    np.testing.assert_allclose(tb.leaf_value[keep], ta.leaf_value[keep],
+                               rtol=rtol, atol=atol)
     return ties, changed
 
 

@@ -418,11 +418,11 @@ def test_booster_eval_train_and_feval(runs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # continued training is ported: these two cases hold options that
-    # stay refused
-    ({"params": {"boosting": "dart"}}, "item 14"),
+    # continued training, DART and custom objectives are ported: these
+    # cases hold options that stay refused
+    ({"params": {"objective": "lambdarank"}}, "item 14"),
     ({"params": {"tree_learner": "voting"}}, "item 15"),
-    ({"fobj": lambda s, d: (s, s)}, "item 14"),
+    ({"params": {"linear_tree": True}}, "item 14"),
     ({"checkpoint_dir": "ck"}, "item 16"),
     ({"metrics_dir": "m"}, "item 16"),
     ({"params": {"profile_dir": "p"}}, "item 16"),
