@@ -1,17 +1,23 @@
-"""Rehearse chip_smoke.py's split_features and objectives phases on the
-CPU at 1/8 of their rows, to size their gates before a run on the card:
+"""Rehearse chip_smoke.py's split_features, objectives, efb and
+forced_interaction phases on the CPU at 1/8 of their rows, to size their
+gates before a run on the card:
 
-    python3 chip_rehearsal.py [split_features] [objectives]
+    python3 chip_rehearsal.py [split_features] [objectives] [efb]
+                              [forced_interaction]
 
-(both when no phase is named).  The main path and the runs of each
-phase (split_features: categorical, monotone, smooth_cegb; objectives:
-regression, quantile, multiclass, rf, dart) train on
+(the first two when no phase is named).  The main path and the runs of
+each phase (split_features: categorical, monotone, smooth_cegb;
+objectives: regression, quantile, multiclass, rf, dart; efb: the
+one-hot CSR run; forced_interaction: forced, interaction) train on
 make_higgs_like(125_000, 28) with 12,500 held-out rows (every
-`make_higgs_like(n, ...)` of chip_smoke.py at n / 8), on
-`device_type=cpu`, with chip_smoke.py's gates but the held-out bounds
-that are sized from these values; the kernels' launch counts are not
-read (the kernels count only on the card) and no device time or memory
-is measured.  Prints each run's line.
+`make_higgs_like(n, ...)` of chip_smoke.py at n / 8, the efb phase's
+categoricals beside it), on `device_type=cpu`, with chip_smoke.py's gates
+but the held-out bounds that are sized from these values and the host
+RSS gate (its bound scales with the rows, the process's libraries do
+not); the kernels' launch counts are not read (the kernels count only
+on the card) and no device time or memory is measured.  Prints each
+run's line.  The efb phase scans 778 features a wave on the CPU: about
+10 minutes.
 """
 
 import json
@@ -59,6 +65,12 @@ def main(argv) -> int:
     cs.OBJECTIVE_GATES = {k: (m, sense, None)
                           for k, (m, sense, _) in cs.OBJECTIVE_GATES.items()}
     cs.QUANTILE_COVER_BAND = None
+    cs.EFB_AUC_MIN = cs.FORCED_AUC_MIN = cs.INTERACTION_AUC_MIN = 0.0
+
+    def rss_not_read(self):
+        self.done.set()
+        return 0.0, "not read in the rehearsal"
+    cs.RssPeak.stop = rss_not_read
     probe = cs.ScanProbe()
     probe.reset()
     data = (*cs.make_higgs_like(1_000_000, 28),
@@ -75,14 +87,24 @@ def main(argv) -> int:
         if phase == "split_features":
             _, lines = cs.phase_split_features(Rehearsal(), H, global_timer,
                                                "cpu rehearsal", main, probe)
-        else:
+        elif phase == "objectives":
             _, lines = cs.phase_objectives(Rehearsal(), H, global_timer,
                                            "cpu rehearsal", main)
+        elif phase == "efb":
+            _, line = cs.phase_efb(Rehearsal(), H, global_timer,
+                                   "cpu rehearsal")
+            lines = {"efb": {**line, "run": "efb"}}
+        else:
+            _, lines = cs.phase_forced_interaction(
+                Rehearsal(), H, global_timer, "cpu rehearsal", main)
+        probe.reset()
         for line in lines.values():
             keep = {k: v for k, v in line.items()
                     if "ms" not in k and "s_per_iter" not in k
+                    and "rss" not in k
                     and k not in ("peak_mem_gib", "launches", "card")}
-            print(json.dumps({"rehearsal": line["run"], **keep}))
+            print(json.dumps({"rehearsal": line["run"], **keep}),
+                  flush=True)
     return 0
 
 

@@ -29,6 +29,40 @@ Phases, each printing one JSON line:
   5. path B, the leaf-wise engine: the same workload with
      tpu_growth_strategy=leafwise, 13 iterations; K4 launched, held-out
      AUC >= 0.72;
+  5.1 efb: exclusive feature bundling from scipy sparse input at full
+     width: make_higgs_like(1_000_000, 28)'s 28 columns beside four
+     one-hot categoricals of 50, 100, 200 and 400 levels (778 columns,
+     32M nonzeros; label: higgs_logit plus a per-level effect of
+     N(0, 0.5^2) per categorical, a Bernoulli draw), handed to `Dataset` as a
+     float32 CSR built from its nonzeros; 255 leaves, 255 bins, 13
+     iterations, the wave engine, default enable_bundle; held-out rows:
+     the same construction at 100k rows, seed 1, scored through
+     `Booster.predict(csr)`.  One `efb` line: bundle columns F', bundles,
+     group_max_bin, device bytes of the bundle codes against n x 778,
+     construction seconds, peak host RSS (the phase's resident set
+     sampled every 5 ms), s/iter of
+     iterations 4-13, `Tree::histogram`, `Tree::split_find` and
+     `Tree::partition` device ms/iter, launches, peak device GiB,
+     held-out AUC.  Gates: K1 and K3 launched; the booster trained on
+     the dataset's plan; held-out AUC >= EFB_AUC_MIN (chip_rehearsal.py
+     efb at 1/8 of the rows, less a margin); the card's leaf ids equal
+     the native predictor's on the 100k held-out rows, raw scores
+     within the predict phase's bound; peak host RSS below the dense
+     float32 matrix's 3.1 GB, counted as the phase's peak over the
+     resident set it began with (it runs first of the training phases,
+     so that set is little more than the CUDA context and libraries);
+  5.2 forced_interaction: the main path's workload with (a)
+     `forcedsplits_filename`, a JSON the script writes: a depth-2 forced
+     tree on features 0, 1 and 2 at their medians (root, left child,
+     right child); (b) interaction_constraints=[[0..9], [10..19],
+     [20..27]].  One `forced_interaction` line per run: s/iter, the
+     `Tree::split_find` device ms/iter beside the main path's, launches
+     (the forced prologue's one-slot K3 waves among them), held-out
+     AUC.  Gates: K1 and K3 launched; (a) every tree's first three
+     internal nodes are the forced splits (feature and bin upper bound
+     of the median); (b) every root-to-leaf path uses the features of
+     one set; held-out AUC >= FORCED_AUC_MIN, INTERACTION_AUC_MIN
+     (chip_rehearsal.py forced_interaction, less a margin);
   5a. valid path: `train` on the main path's workload with
      valid_sets=[train, valid] (valid = make_higgs_like(100_000, 28,
      seed=1)), metric=["auc", "binary_logloss"], early_stopping_round=5,
@@ -139,10 +173,16 @@ Phases, each printing one JSON line:
      the objectives: regression_l1 on the wave engine (renewal; K1, K3
      gated), multiclass with 3 classes on the wave engine (K1, K3) and
      quantized (K2), tweedie on the leaf-wise engine (K4), dart on the
-     wave engine (K1, K3) and rf on the leaf-wise engine (K4): the
-     same split features, thresholds, decision types and category sets
-     in every tree, leaf values within rtol 1e-4; the card run's launch
-     counts in each line;
+     wave engine (K1, K3) and rf on the leaf-wise engine (K4); then EFB
+     on the efb phase's construction with categoricals of 10, 20, 40 and 80
+     levels (178 columns): a dense one-hot numpy matrix on the wave
+     engine (K1, K3), CSR on the wave engine (K1, K3), the leaf-wise
+     engine (K4) and quantized (K2), the same bundle plan on both
+     devices; then forced splits (the rows' medians, held on both
+     devices) and interaction constraints on the leaf-wise engine (K4):
+     the same split features, thresholds, decision types and category
+     sets in every tree, leaf values within rtol 1e-4; the card run's
+     launch counts in each line;
   7. kernels at the main path's widths (28 features, 255 bins, 2
      channels), one `kernel` line per shape: K1 at 1/2/4/8/16/128/256
      slots on n = 2^20 rows (half on the sentinel), at 384 slots of
@@ -156,7 +196,10 @@ Phases, each printing one JSON line:
      the mask or all.  Then `sweep` lines (skipped where the checkout's
      kernels predate them): the streaming kernel (K3, K2 at few slots)
      at three tile budgets, and K2 on both routes at 4/8/16 slots, the
-     choice of K2_FEW_SLOTS.
+     choice of K2_FEW_SLOTS.  Then one row per kernel at the efb run's
+     group space (its F' bundle columns, codes over [0, 256) with half
+     of them 0, max_bin 256): K1 and K2 at 256 slots, K3 at 8, K4 at
+     2^20 rows.
      Every kernel's output must equal its plain PyTorch version's bit
      for bit (all four sum exact integers) and repeat bit for bit on a
      second launch, and each call must advance the kernel's launch count
@@ -203,6 +246,7 @@ KERNELS = ("K1", "K2", "K3", "K4")
 N_KERNEL = 1 << 20
 N_ODD = 1953 * 512             # rows that are no multiple of K1's chunks
 F, B, C = 28, 255, 2
+GROUP_BINS = 256               # EFB bundle codes: MAX_BUNDLE_BINS
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 VALID_MIN_DELTA = 0.001        # early_stopping_min_delta of the valid path
@@ -318,14 +362,19 @@ def card_line() -> str:
 
 
 def kernel_inputs(num_slots, dev, seed, n=N_KERNEL, uneven=False,
-                  hot=False):
+                  hot=False, width=(F, B)):
     """Main-path-shaped inputs: half the rows in computed slots (the
     smaller children), the rest on the sentinel slot.  `uneven` gives
     the slots the main path's leaf sizes: slot s takes a share
     proportional to 1 / (s + 1), so one slot is large and most small.
-    `hot` puts every row in bin 17 of every feature (the hot cell)."""
+    `hot` puts every row in bin 17 of every feature (the hot cell).
+    `width` = (columns, bins); at GROUP_BINS bins (EFB's bundle codes)
+    half the codes are 0, every member of a bundle at its default."""
+    Fw, Bw = width
     g = torch.Generator(device="cpu").manual_seed(seed)
-    binned = torch.randint(0, B, (F, n), generator=g, dtype=torch.uint8)
+    binned = torch.randint(0, Bw, (Fw, n), generator=g, dtype=torch.uint8)
+    if Bw == GROUP_BINS:
+        binned[torch.rand(Fw, n, generator=g) < 0.5] = 0
     if hot:
         binned.fill_(17)
     if uneven:
@@ -345,13 +394,14 @@ def kernel_inputs(num_slots, dev, seed, n=N_KERNEL, uneven=False,
             gh.contiguous().to(dev))
 
 
-def bound_of(binned_bytes, n, num_slots, rows_in_slots):
+def bound_of(binned_bytes, n, num_slots, rows_in_slots, width=(F, B)):
     """(bound_ms, bound_by): bytes each input read once and each output
     written once over HBM bandwidth, against one add per computed row,
     feature and channel (plus the count) over the float32 peak."""
+    Fw, Bw = width
     nbytes = (binned_bytes + 4 * n + 4 * (C + 1) * n
-              + num_slots * F * B * C * 4 + num_slots * 4)
-    ops = rows_in_slots * (F * C + 1)
+              + num_slots * Fw * Bw * C * 4 + num_slots * 4)
+    ops = rows_in_slots * (Fw * C + 1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -397,16 +447,17 @@ def kernel_row(name, counter, k, p, lib, **extra):
     return row
 
 
-def wave_yardstick(binned, slot, gh, NL, dev, vals_of=None):
+def wave_yardstick(binned, slot, gh, NL, dev, vals_of=None, width=(F, B)):
     """One `index_add_` over precomputed flat (slot, feature, bin) ids of
     the computed rows (float32 values; int64 through vals_of)."""
+    Fw, Bw = width
     valid = (slot >= 0) & (slot < NL)
-    ids = ((slot.long()[None, :] * F
-            + torch.arange(F, device=dev)[:, None]) * B
+    ids = ((slot.long()[None, :] * Fw
+            + torch.arange(Fw, device=dev)[:, None]) * Bw
            + binned.long())[:, valid].reshape(-1)
     v = gh[valid][:, :C] if vals_of is None else vals_of(gh[valid])
-    vals = v.repeat(F, 1)
-    out = torch.zeros(NL * F * B, C, dtype=vals.dtype, device=dev)
+    vals = v.repeat(Fw, 1)
+    out = torch.zeros(NL * Fw * Bw, C, dtype=vals.dtype, device=dev)
     return (lambda: out.index_add_(0, ids, vals)), int(valid.sum())
 
 
@@ -472,13 +523,14 @@ def quantized_gh(n, gen, qbins=4):
     return gh.to(torch.float32).contiguous(), scales
 
 
-def bound_rows(S, rows_in_mask):
+def bound_rows(S, rows_in_mask, width=(F, B)):
     """K4's (bound_ms, bound_by): rows, gh and mask read once and the
     float32 histograms written once, against one add per masked row,
     feature and channel."""
-    nbytes = S * F + 4 * C * S + 4 * S + F * B * C * 4
+    Fw, Bw = width
+    nbytes = S * Fw + 4 * C * S + 4 * S + Fw * Bw * C * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = rows_in_mask * F * C / F32_OPS_PER_S * 1e3
+    t_ops = rows_in_mask * Fw * C / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -618,6 +670,79 @@ def phase_sweep(H, dev):
                   "ms": cuda_ms(fn), "K2_FEW_SLOTS": H.K2_FEW_SLOTS})
 
 
+def phase_kernels_group_space(H, dev, Fg):
+    """K1-K4 at the efb run's group space: Fg bundle columns, codes over
+    [0, 256) (half of them 0), max_bin GROUP_BINS; K1 and K2 at 256
+    slots, K3 at 8, K4 at 2^20 rows.  Each row held bit for bit against
+    its plain version and on repeat, as the main rows are.  Returns
+    {kernel: row}."""
+    W = (Fg, GROUP_BINS)
+    out = {}
+    for name, NL in (("K1", 256), ("K3", 8), ("K2", 256)):
+        binned, binned_rm, slot, gh = kernel_inputs(NL, dev, seed=700 + NL,
+                                                    width=W)
+        if name == "K1":
+            k = functools.partial(H.build_histogram_wave, binned, slot, gh,
+                                  max_bin=GROUP_BINS, num_slots=NL)
+            p = functools.partial(H.build_histogram_wave_plain, binned, slot,
+                                  gh, max_bin=GROUP_BINS, num_slots=NL)
+            lib, rows_in = wave_yardstick(binned, slot, gh, NL, dev, width=W)
+            counter, extra = H.build_histogram_wave, {"num_slots": NL}
+        elif name == "K3":
+            Kb = H.wave_slot_pad(NL)
+            k = functools.partial(H.build_histogram_wave_hl, binned,
+                                  binned_rm, slot, gh, max_bin=GROUP_BINS,
+                                  num_slots=NL, out_slots=Kb)
+            p = functools.partial(H.build_histogram_wave_hl_plain, binned,
+                                  binned_rm, slot, gh, max_bin=GROUP_BINS,
+                                  num_slots=NL, out_slots=Kb)
+            lib, rows_in = wave_yardstick(binned, slot, gh, NL, dev, width=W)
+            counter, extra = H.build_histogram_wave_hl, {"num_slots": NL,
+                                                         "out_slots": Kb}
+        else:
+            gh, scales = quantized_gh(N_KERNEL,
+                                      torch.Generator().manual_seed(NL + 1))
+            gh, scales = gh.to(dev), scales.to(dev)
+            k = functools.partial(H.build_histogram_wave, binned, slot, gh,
+                                  max_bin=GROUP_BINS, num_slots=NL,
+                                  quant_bins=4, quant_scales=scales)
+            p = functools.partial(H.build_histogram_wave_int_plain, binned,
+                                  slot, gh, scales, max_bin=GROUP_BINS,
+                                  num_slots=NL)
+            lib, rows_in = wave_yardstick(
+                binned, slot, gh, NL, dev, width=W,
+                vals_of=lambda v: torch.round(v[:, :C] / scales).to(
+                    torch.int64))
+            counter, extra = H.build_histogram_wave_int, {"num_slots": NL}
+        bound, by = bound_of(Fg * N_KERNEL, N_KERNEL, NL, rows_in, width=W)
+        out[name] = kernel_row(name, counter, k, p, lib, group_space=True,
+                               features=Fg, max_bin=GROUP_BINS,
+                               bound_ms=bound, bound_by=by, **extra)
+        del lib, binned, binned_rm, slot, gh
+    S = 1 << 20
+    g = torch.Generator().manual_seed(S + 5)
+    rows = kernel_inputs(1, torch.device("cpu"), seed=705, n=S,
+                         width=W)[1].to(dev)
+    gh = torch.stack([torch.randn(S, generator=g),
+                      torch.rand(S, generator=g) * 0.25], 1)
+    gh = gh.contiguous().to(dev)
+    mask = (torch.rand(S, generator=g) < 0.5).to(torch.float32).to(dev)
+    k = functools.partial(H.build_histogram_rows_pallas, rows, gh, mask,
+                          max_bin=GROUP_BINS)
+    p = functools.partial(H.build_histogram_rows_plain, rows, gh, mask,
+                          max_bin=GROUP_BINS)
+    ids = (torch.arange(Fg, device=dev)[None, :] * GROUP_BINS
+           + rows.long()).reshape(-1)
+    vals = (gh * mask[:, None]).repeat_interleave(Fg, dim=0)
+    lib_out = torch.zeros(Fg * GROUP_BINS, C, device=dev)
+    bound, by = bound_rows(S, int((mask != 0).sum()), width=W)
+    out["K4"] = kernel_row("K4", H.build_histogram_rows_pallas, k, p,
+                           lambda: lib_out.index_add_(0, ids, vals),
+                           group_space=True, rows=S, features=Fg,
+                           max_bin=GROUP_BINS, bound_ms=bound, bound_by=by)
+    return out
+
+
 def launch_counts(H):
     return {"K1": H.build_histogram_wave.launches,
             "K2": H.build_histogram_wave_int.launches,
@@ -633,9 +758,10 @@ def reset_counts(H):
 
 def drive_path(lgb, H, global_timer, name, extra, iterations, data,
                after_training=None, after_update=None, dataset_kw=None,
-               before_training=None, metric=None):
+               before_training=None, metric=None, train_set=None):
     """Train the bench workload with `extra` params on the card
-    (`dataset_kw` to its Dataset; `before_training(booster)`, if given,
+    (`dataset_kw` to its Dataset, or the Dataset `train_set` already
+    made; `before_training(booster)`, if given,
     runs before the counts are set): counts set to 0 just before the
     updates and read just after (`after_update(booster)`, if given, runs
     after each update, outside its time); then `after_training(booster)`,
@@ -649,7 +775,7 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
               "device_type": "cuda", **extra}
     t0 = time.perf_counter()
-    booster = lgb.Booster(params=params, train_set=lgb.Dataset(
+    booster = lgb.Booster(params=params, train_set=train_set or lgb.Dataset(
         X, label=y, **(dataset_kw or {})))
     if before_training is not None:
         before_training(booster)
@@ -1711,16 +1837,318 @@ def phase_objectives(lgb, H, global_timer, card, main):
     return launches, lines
 
 
+# the efb phase: one-hot categoricals beside make_higgs_like's 28 columns
+EFB_LEVELS = (50, 100, 200, 400)
+EFB_EFFECT_SD = 0.5
+# card_vs_cpu's one-hot cases: narrower categoricals, so that the CPU's scan
+# over every feature stays short
+CARD_EFB_LEVELS = (10, 20, 40, 80)
+# held-out AUC gates: the CPU rehearsal at 1/8 of the rows
+# (chip_rehearsal.py: efb 0.69987, forced 0.71676, interaction 0.71753)
+# less 0.01 for the noise of the smaller sets
+EFB_AUC_MIN = 0.690
+FORCED_AUC_MIN = 0.706
+INTERACTION_AUC_MIN = 0.707
+INTERACTION_SETS = (tuple(range(0, 10)), tuple(range(10, 20)),
+                    tuple(range(20, 28)))
+FORCED_FEATURES = (0, 1, 2)   # root, its left child, its right child
+
+
+def make_onehot_csr(n, seed=0, levels=None):
+    """make_higgs_like(n, 28, seed)'s 28 dense columns and one one-hot
+    block per categorical of `levels` levels (codes from RandomState(seed +
+    100)), as a float32 CSR [n, 28 + sum(levels)] built from its
+    nonzeros (no dense matrix of that width is made), and the label:
+    higgs_logit of the dense columns plus each categorical's per-level effect
+    (N(0, EFB_EFFECT_SD^2), one draw per level, the same for every
+    seed), then a Bernoulli draw."""
+    import scipy.sparse as sps
+    levels = EFB_LEVELS if levels is None else levels
+    X, _ = make_higgs_like(n, 28, seed)
+    n = X.shape[0]
+    rng = np.random.RandomState(seed + 100)
+    codes = [rng.randint(0, k, n) for k in levels]
+    logit = higgs_logit(X)
+    for i, (k, c) in enumerate(zip(levels, codes)):
+        logit += np.random.RandomState(500 + i).normal(
+            0.0, EFB_EFFECT_SD, k)[c]
+    y = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    per_row = 28 + len(levels)
+    starts = 28 + np.cumsum((0,) + tuple(levels[:-1]))
+    indices = np.empty((n, per_row), np.int32)
+    indices[:, :28] = np.arange(28, dtype=np.int32)
+    data = np.ones((n, per_row), np.float32)
+    data[:, :28] = X
+    del X
+    for i, c in enumerate(codes):
+        indices[:, 28 + i] = starts[i] + c
+    indptr = np.arange(0, n * per_row + 1, per_row, dtype=np.int64)
+    csr = sps.csr_matrix((data.reshape(-1), indices.reshape(-1), indptr),
+                         shape=(n, 28 + sum(levels)))
+    return csr, y
+
+
+def current_rss_bytes():
+    """This process's resident set now (/proc/self/statm), or None."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return None
+
+
+class RssPeak:
+    """The peak resident set while it runs: /proc/self/statm sampled every
+    5 ms by a thread, or, where that file cannot be read, getrusage's
+    peak over the process's life.  `stop()` returns (GiB, how it was
+    counted)."""
+
+    def __init__(self):
+        import threading
+        self.start = self.peak = current_rss_bytes()
+        self.done = threading.Event()
+        self.thread = None
+        if self.peak is not None:
+            self.thread = threading.Thread(target=self._run, daemon=True)
+            self.thread.start()
+
+    def _run(self):
+        while not self.done.wait(0.005):
+            self.peak = max(self.peak, current_rss_bytes() or 0)
+
+    def stop(self):
+        if self.thread is None:
+            import resource
+            kib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            return kib * 1024 / 2**30, "getrusage peak since the process began"
+        self.done.set()
+        self.thread.join()
+        return self.peak / 2**30, "/proc/self/statm every 5 ms in the phase"
+
+    def growth_gib(self):
+        """Peak less the resident set when sampling began (None without
+        samples)."""
+        if self.thread is None:
+            return None
+        return (self.peak - self.start) / 2**30
+
+
+def hold_sparse_to_native(g, what, csr, r, lf):
+    """hold_to_native over the rows of `csr` in chunks of 10,000 (each
+    chunk densified alone); returns the largest error over bound."""
+    worst = 0.0
+    for i in range(0, csr.shape[0], 10_000):
+        e, _, _ = hold_to_native(g, what, csr[i:i + 10_000].toarray(),
+                                 r[i:i + 10_000], lf[i:i + 10_000])
+        worst = max(worst, e["max_err_over_bound"])
+    return worst
+
+
+def phase_efb(lgb, H, global_timer, card):
+    """Exclusive feature bundling from scipy CSR at full width (module
+    docstring, phase 5.1).  Returns (launches, line)."""
+    rss = RssPeak()
+    stages = {"start": current_rss_bytes()}
+    X, y = make_onehot_csr(1_000_000)
+    Xte, yte = make_onehot_csr(100_000, seed=1)
+    stages["data"] = current_rss_bytes()
+    n, width = X.shape
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y).construct()
+    construct_s = time.perf_counter() - t0
+    stages["constructed"] = current_rss_bytes()
+    plan = ds._core.pre_bundled_plan
+    if plan is None:
+        raise AssertionError("efb: the CSR dataset holds no bundle plan")
+    r = drive_path(lgb, H, global_timer, "efb", {}, 13, (X, y, Xte, yte),
+                   train_set=ds)
+    stages["trained"] = current_rss_bytes()
+    b, g = r["booster"], r["booster"]._gbdt
+    lc = r["launches"]
+    if g.bundle_plan is not plan or not g.grow_params.has_bundles:
+        raise AssertionError("efb: the booster did not train on the plan")
+    if lc["K1"] <= 0 or lc["K3"] <= 0:
+        raise AssertionError(f"efb: K1/K3 not launched: {lc}")
+    # the card's leaf ids and raw scores of the held-out CSR rows (all
+    # the booster's trees) against the native predictor's
+    err = hold_sparse_to_native(g, "efb heldout", Xte,
+                                b.predict(Xte, raw_score=True),
+                                b.predict(Xte, pred_leaf=True))
+    stages["predicted"] = current_rss_bytes()
+    peak_rss, method = rss.stop()
+    growth = rss.growth_gib()
+    dense_gb = n * width * 4 / 1e9
+    # the phase's own host memory: its peak over the resident set it
+    # began with (the CUDA context and the libraries are not its doing)
+    held = peak_rss if growth is None else growth
+    if held * 2**30 / 1e9 >= dense_gb:
+        raise AssertionError(f"efb: the phase's peak host RSS grew by "
+                             f"{held:.3f} GiB, not below the dense float32 "
+                             f"{dense_gb} GB")
+    auc_te = r["auc"]
+    if auc_te < EFB_AUC_MIN:
+        raise AssertionError(f"efb: held-out AUC {auc_te} < {EFB_AUC_MIN}")
+    ms = r["ms_per_iter"]
+    line = {"phase": "efb", "rows": n, "columns": width,
+            "nonzeros": int(X.nnz), "levels": list(EFB_LEVELS),
+            "features": len(g.train_data.used_features),
+            "bundle_columns": plan.num_groups,
+            "bundles": int(sum(len(m) > 1 for m in plan.groups)),
+            "group_max_bin": g.grow_params.group_max_bin,
+            "device_bytes": int(g.binned_dev.numel()
+                                * g.binned_dev.element_size()),
+            "dense_uint8_bytes": n * width,
+            "dense_float32_gb": dense_gb,
+            "construct_s": construct_s, "peak_host_rss_gib": peak_rss,
+            "peak_host_rss_counted": method,
+            "peak_host_rss_growth_gib": growth,
+            "host_rss_gib_by_stage": {
+                k: (None if v is None else v / 2**30)
+                for k, v in stages.items()},
+            "s_per_iter_4_13": r["s_per_iter"],
+            "histogram_device_ms_per_iter": ms.get("Tree::histogram::device"),
+            "split_find_device_ms_per_iter": ms.get(
+                "Tree::split_find::device"),
+            "partition_device_ms_per_iter": ms.get(
+                "Tree::partition::device"),
+            "launches": lc, "peak_mem_gib": r["peak_gib"],
+            "heldout_auc": auc_te, "auc_min": EFB_AUC_MIN,
+            "leaf_ids_equal_native_rows": len(yte),
+            "max_err_over_bound": err, "card": card}
+    emit(line)
+    return lc, line
+
+
+def forced_splits_json(X):
+    """A depth-2 forced tree on FORCED_FEATURES at their medians over the
+    rows X: the root, then its left and its right child."""
+    f0, f1, f2 = FORCED_FEATURES
+    med = [float(np.median(X[:, f])) for f in FORCED_FEATURES]
+    return {"feature": f0, "threshold": med[0],
+            "left": {"feature": f1, "threshold": med[1]},
+            "right": {"feature": f2, "threshold": med[2]}}
+
+
+def path_features(tree):
+    """The features on each root-to-leaf path of a host tree."""
+    out, stack = [], [(0, frozenset())] if tree.num_leaves > 1 else []
+    while stack:
+        node, feats = stack.pop()
+        feats = feats | {int(tree.split_feature[node])}
+        for c in (int(tree.left_child[node]), int(tree.right_child[node])):
+            if c < 0:
+                out.append(feats)
+            else:
+                stack.append((c, feats))
+    return out
+
+
+def check_forced(g, forced):
+    """Every tree's first three internal nodes are the forced splits:
+    node 0 the root, 1 and 2 its children, each on its feature at the
+    bin upper bound of its median."""
+    mappers = g.train_data.bin_mappers
+    want = [(forced["feature"], forced["threshold"]),
+            (forced["left"]["feature"], forced["left"]["threshold"]),
+            (forced["right"]["feature"], forced["right"]["threshold"])]
+    for i, t in enumerate(g.models_):
+        if t.left_child[0] != 1 or t.right_child[0] != 2:
+            raise AssertionError(f"forced: tree {i}'s root children are "
+                                 f"{t.left_child[0]}, {t.right_child[0]}")
+        for j, (f, v) in enumerate(want):
+            m = mappers[f]
+            thr = m.bin_to_value(m.value_to_bin(v))
+            if t.split_feature[j] != f or t.threshold[j] != thr:
+                raise AssertionError(
+                    f"forced: tree {i} node {j} splits feature "
+                    f"{t.split_feature[j]} at {t.threshold[j]!r}, not "
+                    f"{f} at {thr!r}")
+
+
+def phase_forced_interaction(lgb, H, global_timer, card, main):
+    """Forced splits and interaction constraints at the main path's width
+    (module docstring, phase 5.2).  Returns (launches, lines)."""
+    X, y = make_higgs_like(1_000_000, 28)
+    Xte, yte = make_higgs_like(100_000, 28, seed=1)
+    forced = forced_splits_json(X)
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "chip_smoke_forced_splits.json")
+    with open(path, "w") as f:
+        json.dump(forced, f)
+    sets = [list(s) for s in INTERACTION_SETS]
+    launches, lines = {}, {}
+    for name, extra, auc_min in (
+            ("forced", {"forcedsplits_filename": path}, FORCED_AUC_MIN),
+            ("interaction", {"interaction_constraints": sets},
+             INTERACTION_AUC_MIN)):
+        r = drive_path(lgb, H, global_timer, f"forced_interaction_{name}",
+                       extra, 13, (X, y, Xte, yte))
+        g = r["booster"]._gbdt
+        lc = r["launches"]
+        if lc["K1"] <= 0 or lc["K3"] <= 0:
+            raise AssertionError(f"{name}: K1/K3 not launched: {lc}")
+        if name == "forced":
+            check_forced(g, forced)
+            gate = {"forced_nodes_per_tree": 3, "trees": len(g.models_)}
+        else:
+            for i, t in enumerate(g.models_):
+                for feats in path_features(t):
+                    if not any(feats <= set(s) for s in INTERACTION_SETS):
+                        raise AssertionError(f"interaction: tree {i} has a "
+                                             f"path on {sorted(feats)}")
+            gate = {"paths_checked": sum(len(path_features(t))
+                                         for t in g.models_),
+                    "sets": sets}
+        if r["auc"] < auc_min:
+            raise AssertionError(f"{name}: held-out AUC {r['auc']} < "
+                                 f"{auc_min}")
+        line = {"phase": "forced_interaction", "run": name,
+                "rows": X.shape[0], "params": extra, "iterations": 13,
+                "s_per_iter_4_13": r["s_per_iter"],
+                "main_path_s_per_iter_4_13": main["s_per_iter"],
+                "split_find_device_ms_per_iter": r["ms_per_iter"].get(
+                    "Tree::split_find::device"),
+                "main_path_split_find_device_ms_per_iter": main[
+                    "ms_per_iter"].get("Tree::split_find::device"),
+                "launches": lc, "peak_mem_gib": r["peak_gib"],
+                "heldout_auc": r["auc"], "auc_min": auc_min,
+                "main_path_heldout_auc": main["auc"],
+                "leaves_per_tree": [t.num_leaves for t in g.models_],
+                **gate, "card": card}
+        if name == "forced":
+            line["forced_splits"] = forced
+        emit(line)
+        launches[name] = lc
+        lines[name] = line
+        del r, g
+    return launches, lines
+
+
 def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
-                      label="binary"):
+                      label="binary", data="higgs", forced=False):
     """`train` at 65,536 rows, 3 iterations, on the card and the CPU
     (`categorical`: the split_features phase's transform of the data,
     columns 0, 1 and 3 as `categorical_feature`; `label`: "binary", the
     objectives phase's "regression" label, its non-negative part
     ("nonnegative") or its class label cut into 3 classes
-    ("multiclass3")): the same trees, category sets included.  Returns
-    the card run's launches."""
-    X, y = make_higgs_like(65_536, 28, seed=2)
+    ("multiclass3"); `data`: "higgs", or the efb phase's construction
+    with CARD_EFB_LEVELS as CSR ("efb_csr") or as a dense numpy matrix
+    ("efb_dense"), bundled on both devices; `forced`: the forced
+    splits of the rows' medians, held on both devices): the same trees,
+    category sets included.  Returns the card run's launches."""
+    if data == "higgs":
+        X, y = make_higgs_like(65_536, 28, seed=2)
+    else:
+        X, y = make_onehot_csr(65_536, seed=2, levels=CARD_EFB_LEVELS)
+        if data == "efb_dense":
+            X = X.toarray()
+    if forced:
+        os.makedirs("build", exist_ok=True)
+        path = os.path.join("build", "chip_smoke_forced_card.json")
+        forced = forced_splits_json(X)
+        with open(path, "w") as f:
+            json.dump(forced, f)
+        extra = {**extra, "forcedsplits_filename": path}
     if label != "binary":
         reg, _, _ = objective_labels(X, 2)
         latent = higgs_logit(X) + np.random.RandomState(33).logistic(
@@ -1736,14 +2164,21 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
     params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
               **extra}
-    models = {}
+    models, plans = {}, {}
     for dev in ("cuda", "cpu"):
         reset_counts(H)
         b = lgb.train({**params, "device_type": dev},
                       lgb.Dataset(X, label=y, **ds_kw), num_boost_round=3)
         models[dev] = b._gbdt.models_
+        plans[dev] = b._gbdt.bundle_plan
+        if forced:
+            check_forced(b._gbdt, forced)
         if dev == "cuda":
             launches = launch_counts(H)
+    if data != "higgs" and (plans["cuda"] is None or plans["cpu"] is None
+                            or plans["cuda"].groups != plans["cpu"].groups):
+        raise AssertionError(f"{name}: the bundle plans differ or are "
+                             "missing")
     worst = 0.0
     cat_nodes = 0
     for i, (a, b) in enumerate(zip(models["cuda"], models["cpu"])):
@@ -1781,7 +2216,9 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
         raise AssertionError(f"{name}: no categorical split to compare")
     emit({"phase": "card_vs_cpu", "path": name, "params": extra,
           "rows": 65_536, "trees": 3 * K, "categorical": categorical,
-          "label": label,
+          "label": label, "data": data, "columns": X.shape[1],
+          "bundle_columns": (None if plans["cuda"] is None
+                             else plans["cuda"].num_groups),
           "categorical_nodes": cat_nodes,
           "leaves": [t.num_leaves for t in models["cuda"]],
           "max_rel_leaf_diff": worst, "card_launches": launches})
@@ -1798,18 +2235,28 @@ def main(argv) -> int:
     from lightgbm_tpu_torch.utils.timer import global_timer
     from lightgbm_tpu_torch.ops import histogram as H
 
+    rss_imported = current_rss_bytes()
     dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)
     card = card_line()
+    # the host resident set before any phase: after the imports, and
+    # with the CUDA context up (the efb phase's memory gate reads its
+    # growth over the set it begins with)
+    rss_gib = {k: (None if v is None else v / 2**30) for k, v in (
+        ("imported", rss_imported), ("cuda_context", current_rss_bytes()))}
     emit({"phase": "environment", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0), "nvidia_smi": card})
+          "device": torch.cuda.get_device_name(0), "nvidia_smi": card,
+          "host_rss_gib": rss_gib})
 
     t0 = time.perf_counter()
     _kernels.build_all()
     for src in _kernels.SOURCES:
         _kernels.lib(src)
+    rss = current_rss_bytes()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": list(_kernels.SOURCES)})
+          "sources": list(_kernels.SOURCES),
+          "host_rss_gib": None if rss is None else rss / 2**30})
     if kernels_only:
         phase_kernels(H, dev)
         phase_kernels_k2_k4(H, dev)
@@ -1832,7 +2279,15 @@ def main(argv) -> int:
                                  f"(ATOMS.CAST) in {cas}")
 
     probe = ScanProbe()
+    # EFB first: its host memory gate reads the process's resident set
+    efb_launches, efb_line = phase_efb(lgb, H, global_timer, card)
+    probe.reset()
     launches, main_wall, main = phase_paths(lgb, H, global_timer, probe)
+    launches["efb"] = efb_launches
+    fi_launches, _ = phase_forced_interaction(lgb, H, global_timer, card,
+                                              main)
+    launches.update(fi_launches)
+    probe.reset()
     phase_valid_path(lgb, H, global_timer, card, main_wall)
     phase_device_bin(lgb, global_timer)
     launches.update(phase_sampling(lgb, H, global_timer, card,
@@ -1902,6 +2357,30 @@ def main(argv) -> int:
             raise AssertionError(f"{name}: {kernels} must launch: "
                                  f"{card_launches}")
         launches[f"card_vs_cpu_{name}"] = card_launches
+    # EFB's bundle codes, forced splits and interaction constraints
+    for name, extra, data, kernels in (
+            ("efb_dense_onehot_wave", {"tpu_growth_strategy": "wave"},
+             "efb_dense", ("K1", "K3")),
+            ("efb_csr_wave", {"tpu_growth_strategy": "wave"}, "efb_csr",
+             ("K1", "K3")),
+            ("efb_csr_leafwise", {"tpu_growth_strategy": "leafwise"},
+             "efb_csr", ("K4",)),
+            ("efb_csr_quantized", {"tpu_growth_strategy": "wave",
+                                   "use_quantized_grad": True}, "efb_csr",
+             ("K2",)),
+            ("forced_leafwise", {"tpu_growth_strategy": "leafwise"},
+             "higgs", ("K4",)),
+            ("interaction_leafwise", {
+                "tpu_growth_strategy": "leafwise",
+                "interaction_constraints": [list(s)
+                                            for s in INTERACTION_SETS]},
+             "higgs", ("K4",))):
+        card_launches = phase_card_vs_cpu(lgb, H, name, extra, data=data,
+                                          forced=name.startswith("forced"))
+        if any(card_launches[k] <= 0 for k in kernels):
+            raise AssertionError(f"{name}: {kernels} must launch: "
+                                 f"{card_launches}")
+        launches[f"card_vs_cpu_{name}"] = card_launches
     # the scan's launches, counted after every path has run (a profiler
     # trace of one replayed scan of each run)
     scan_launches = probe.launches()
@@ -1913,6 +2392,7 @@ def main(argv) -> int:
     per_shape = phase_kernels(H, dev)
     per_shape.update(phase_kernels_k2_k4(H, dev))
     phase_sweep(H, dev)
+    group = phase_kernels_group_space(H, dev, efb_line["bundle_columns"])
 
     csrc = "lightgbm_tpu_torch/ops/csrc/"
     hist_py = "lightgbm_tpu/ops/histogram.py"
@@ -1949,6 +2429,16 @@ def main(argv) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "status": "ported",
             "shape": shape})
+        gs = group[key[0]]
+        entries[-1]["group_space"] = {
+            "features": efb_line["bundle_columns"], "B": GROUP_BINS,
+            "C": C, **{k: gs[k] for k in (
+                "num_slots", "rows", "max_abs_err", "ms", "kernel_ms",
+                "loop_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms") if k in gs},
+            "efb_launches": launches["efb"][key[0]]}
+        entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"],
+                                         gs["max_abs_err"])
         if key[0] == "K2":    # the streaming route at 8 slots
             few = per_shape[("K2", 8, False)]
             entries[-1]["few_slot_route"] = {

@@ -14,6 +14,7 @@ from .boosting.model_io import (load_model_from_file, load_model_from_string,
 from .config import Config
 from .io.dataset import Dataset as _CoreDataset
 from .io.dataset import Metadata
+from .io.sparse import construct_from_sparse, is_scipy_sparse
 from .metric import _METRIC_CLASSES, create_metrics
 from .objective import create_objective
 from .reliability import NonFiniteError
@@ -21,10 +22,21 @@ from .utils import log
 from .utils.device import resolve_device
 
 
+# bytes of float64 one row chunk of a sparse matrix to predict may take
+# when densified (ref: the CSR predictor paths of c_api.cpp go by rows)
+SPARSE_CHUNK_BYTES = 64 << 20
+
+
 def _coerce_matrix(data) -> np.ndarray:
-    """pandas / array-like -> float ndarray (float32 passes through)."""
+    """pandas / scipy-sparse / array-like -> float ndarray (float32 passes
+    through).  `Dataset` sends scipy input to `io/sparse.py` and
+    `Booster.predict` densifies it in row chunks, so a whole sparse
+    matrix is densified here only where the JAX package's
+    `_coerce_matrix` does it too (linear trees, refit, eval)."""
     if hasattr(data, "values"):          # pandas
         data = data.values
+    if is_scipy_sparse(data):            # scipy CSR/CSC/COO
+        data = data.toarray()
     data = np.asarray(data)
     if data.dtype == np.float32:
         return data
@@ -65,9 +77,32 @@ class Dataset:
             cat = [int(c) for c in self.categorical_feature]
         names = (None if self.feature_name == "auto"
                  else list(self.feature_name))
-        data = _coerce_matrix(self.data)
         ref_core = (self.reference._core_or_construct()
                     if self.reference is not None else None)
+        if is_scipy_sparse(self.data) and not cfg.linear_tree:
+            # scipy CSR/CSC/COO go CSC-direct to EFB bundle codes: the
+            # dense [n, F] matrix is never made (io/sparse.py); a valid
+            # set against a sparse reference reuses its plan
+            self._core = construct_from_sparse(
+                self.data, label=self.label, weight=self.weight,
+                init_score=self.init_score, max_bin=cfg.max_bin,
+                min_data_in_bin=cfg.min_data_in_bin,
+                min_data_in_leaf=cfg.min_data_in_leaf,
+                bin_construct_sample_cnt=cfg.bin_construct_sample_cnt,
+                categorical_feature=cat, feature_names=names,
+                use_missing=cfg.use_missing,
+                zero_as_missing=cfg.zero_as_missing,
+                feature_pre_filter=cfg.feature_pre_filter,
+                seed=cfg.data_random_seed,
+                max_conflict_rate=cfg.max_conflict_rate,
+                enable_bundle=cfg.enable_bundle,
+                max_bin_by_feature=cfg.max_bin_by_feature or None,
+                forcedbins_filename=cfg.forcedbins_filename,
+                reference=ref_core, device_type=cfg.device_type)
+            if self.free_raw_data:
+                self.data = None
+            return self
+        data = _coerce_matrix(self.data)
         if ref_core is not None:
             self._core = ref_core.create_valid(
                 data, label=self.label, weight=self.weight,
@@ -318,11 +353,16 @@ class Booster:
                 raw_score: bool = False, pred_leaf: bool = False,
                 pred_contrib: bool = False, pred_early_stop: bool = False,
                 pred_early_stop_freq: int = 10,
-                pred_early_stop_margin: float = 10.0) -> np.ndarray:
+                pred_early_stop_margin: float = 10.0,
+                single_row_fast: bool = False) -> np.ndarray:
         """Predictions, leaf ids (`pred_leaf`) or early-stopped scores.
         On a card booster with `device_predict=auto` (the default) they
         are computed on the card; float32 input passes through unchanged,
-        which is what the device routing needs to be exact."""
+        which is what the device routing needs to be exact.  scipy
+        sparse input is densified in row chunks of about 64 MB, never as
+        a whole.  `single_row_fast` serves one row through the cached
+        native single-row predictor (ref: c_api.h:1350
+        LGBM_BoosterPredictForMatSingleRowFastInit)."""
         if pred_contrib:
             raise NotImplementedError("pred_contrib (TreeSHAP) is not "
                                       "ported yet (ROADMAP Queue 1 item 14)")
@@ -330,12 +370,62 @@ class Booster:
                                      and self.best_iteration > 0):
             num_iteration = (self.best_iteration
                              if self.best_iteration > 0 else -1)
+        es = dict(pred_early_stop=pred_early_stop,
+                  pred_early_stop_freq=pred_early_stop_freq,
+                  pred_early_stop_margin=pred_early_stop_margin)
+        sparse = is_scipy_sparse(data)
+        if single_row_fast and not pred_leaf and not sparse:
+            row = np.asarray(data, np.float64)
+            if row.ndim == 1:
+                row = row[None, :]
+            # the model may read any original feature index: a narrower
+            # row would read past the C buffer, so it takes the batch
+            # path, which checks it
+            if row.shape[0] == 1 and row.shape[1] >= self.num_feature():
+                fast = self._single_row_fast_for(
+                    row.shape[1], start_iteration, num_iteration, raw_score)
+                if fast is not None:
+                    out = fast.predict(row[0])
+                    # the batch path's shapes: [1], or [1, K] multiclass
+                    return out[None, :] if len(out) > 1 else out[:1]
+        if sparse and data.shape[0] > 0:
+            csr = data.tocsr()
+            chunk = max(1, SPARSE_CHUNK_BYTES // max(8 * data.shape[1], 1))
+            return np.concatenate([
+                self._gbdt.predict(
+                    _coerce_matrix(csr[i:i + chunk]), raw_score=raw_score,
+                    start_iteration=start_iteration,
+                    num_iteration=num_iteration, pred_leaf=pred_leaf, **es)
+                for i in range(0, data.shape[0], chunk)], axis=0)
         return self._gbdt.predict(
             _coerce_matrix(data), raw_score=raw_score,
             start_iteration=start_iteration, num_iteration=num_iteration,
-            pred_leaf=pred_leaf, pred_early_stop=pred_early_stop,
-            pred_early_stop_freq=pred_early_stop_freq,
-            pred_early_stop_margin=pred_early_stop_margin)
+            pred_leaf=pred_leaf, **es)
+
+    def num_feature(self) -> int:
+        """Features the model was trained on (ref: basic.py
+        Booster.num_feature)."""
+        g = self._gbdt
+        if g.train_data is not None:
+            return g.train_data.num_total_features
+        return g._loaded_max_feature_idx + 1
+
+    def _single_row_fast_for(self, num_features, start_iteration,
+                             num_iteration, raw_score):
+        """Cached fast single-row predictors by (row width, slice, raw),
+        dropped when the model changes: more trees or an in-place
+        mutation (ref: the FastConfig handle of c_api.h:1350)."""
+        g = self._gbdt
+        model_key = (len(g.models_), g._model_mutations)
+        cache = getattr(self, "_srf_cache", None)
+        if cache is None or cache["model_key"] != model_key:
+            cache = self._srf_cache = {"model_key": model_key}
+        key = (num_features, start_iteration, num_iteration, raw_score)
+        if key not in cache:
+            cache[key] = g.make_single_row_fast(
+                num_features, start_iteration=start_iteration,
+                num_iteration=num_iteration, raw_score=raw_score)
+        return cache[key]
 
     def model_to_string(self, num_iteration: int = None,
                         start_iteration: int = 0,

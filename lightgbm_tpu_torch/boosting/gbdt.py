@@ -43,10 +43,20 @@ to `train_one_iter`.  RF and DART (rf.py, dart.py) subclass this loop;
 `_add_tree_score` adds a host tree's current outputs to the device
 scores through a bin-space traversal.
 
-The port covers dense data with the wave and leaf-wise engines and
-quantized gradients.  Every parameter whose behaviour it does not carry
-raises NotImplementedError naming the ROADMAP item that brings it, so
-the port never quietly trains a different model.
+EFB (`enable_bundle`, on by default): a scipy-sparse dataset arrives
+with bundle codes and their plan (`io/sparse.py`); dense bins are
+planned here and bundled on the host (`io/bundle.py`).  The engines then
+read `[F', n]` bundle codes, and every bin-space traversal of them
+(valid scores, DART's drops, `_add_tree_score`, `continue_from`)
+decodes each node's feature from its bundle column.  Forced splits
+(`forcedsplits_filename`) and interaction constraints are parsed here
+into the engines' static tuples.
+
+The port covers in-memory dense and scipy-sparse data with the wave and
+leaf-wise engines and quantized gradients.  Every parameter whose
+behaviour it does not carry raises NotImplementedError naming the
+ROADMAP item that brings it, so the port never quietly trains a
+different model.
 """
 
 from __future__ import annotations
@@ -60,6 +70,7 @@ import torch
 from ..config import Config
 from ..inference import DevicePredictor
 from ..io.binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO
+from ..io.bundle import decode_bundle_column
 from ..io.dataset import Dataset
 from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
                        grow_tree_wave_impl)
@@ -98,10 +109,6 @@ def check_slice(config: Config) -> None:
             log.fatal(f"Unknown monotone_constraints_method {method!r}")
         if method != "basic":
             refuse(f"monotone_constraints_method={method}", "13")
-    if c.interaction_constraints:
-        refuse("interaction constraints", "5")
-    if c.forcedsplits_filename:
-        refuse("forced splits", "5")
     if c.cegb_penalty_feature_lazy:
         refuse("cegb_penalty_feature_lazy", "13")
     if c.linear_tree:
@@ -209,7 +216,8 @@ def tree_depth(tree: Tree) -> int:
 
 def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
                          missing_type: np.ndarray, num_bin: np.ndarray,
-                         default_bin: np.ndarray) -> torch.Tensor:
+                         default_bin: np.ndarray,
+                         plan=None) -> torch.Tensor:
     """Leaf index of every row of `binned` [F_used, n] (bin codes on the
     device) for a host tree trained on the same bin mappers: the
     bin-space traversal of the JAX package (boosting/gbdt.py:104
@@ -221,7 +229,11 @@ def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
     direction, the bin code that means missing (-1 for none), its
     children, whether it is categorical, and, for a categorical node,
     its bins-left bitset (`cat_threshold_inner`, zero-padded to the
-    widest node's words): a bin goes left when its bit is set.  A step
+    widest node's words): a bin goes left when its bit is set.  With a
+    BundlePlan `plan`, `binned` holds [F', n] EFB bundle codes: the
+    offset is the feature's bundle column's, and the row also carries
+    the feature's code offset, bin count and default bin, which decode
+    its bin (a code outside its range means the default bin).  A step
     gathers one row per data row."""
     n = binned.shape[1]
     dev = binned.device
@@ -234,9 +246,13 @@ def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
     miss = np.where(mt == MISSING_NAN, num_bin[sf] - 1,
                     np.where(mt == MISSING_ZERO, default_bin[sf], -1))
     is_cat = (tree.decision_type[:ni] & K_CATEGORICAL_MASK) > 0
-    cols = [sf * n, tree.threshold_in_bin[:ni],
+    col = sf if plan is None else plan.group_idx[sf].astype(np.int64)
+    cols = [col * n, tree.threshold_in_bin[:ni],
             (tree.decision_type[:ni] & 2) > 0, miss, tree.left_child[:ni],
             tree.right_child[:ni], is_cat]
+    if plan is not None:
+        cols += [plan.offsets[sf], num_bin[sf], plan.zero_bin[sf]]
+    nbase = len(cols)
     W = 0
     if is_cat.any():
         cb = np.asarray(tree.cat_boundaries_inner, np.int64)
@@ -254,13 +270,17 @@ def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(tree_depth(tree)):
         t = table[node.clamp(min=0)]
-        b = flat[t[:, 0] + rows]
+        b = flat[t[:, 0] + rows].to(torch.int64)
+        if plan is not None:
+            local = b - t[:, 7]
+            inside = (local >= 0) & (local < t[:, 8])
+            b = torch.where((t[:, 7] == 0) | inside, local, t[:, 9])
         go_left = torch.where(b == t[:, 3], t[:, 2] > 0, b <= t[:, 1])
         if W:
-            bl = b.to(torch.int64)
-            wi = bl // 32
-            word = torch.gather(t[:, 7:], 1, wi.clamp(max=W - 1)[:, None])
-            cat_left = (wi < W) & (((word[:, 0] >> (bl % 32)) & 1) > 0)
+            wi = b // 32
+            word = torch.gather(t[:, nbase:], 1,
+                                wi.clamp(max=W - 1)[:, None])
+            cat_left = (wi < W) & (((word[:, 0] >> (b % 32)) & 1) > 0)
             go_left = torch.where(t[:, 6] > 0, cat_left, go_left)
         node = torch.where(node >= 0,
                            torch.where(go_left, t[:, 4], t[:, 5]), node)
@@ -334,12 +354,23 @@ class GBDT:
 
         binned = train_data.binned
         on_device = isinstance(binned, torch.Tensor)
-        if config.enable_bundle and train_data.num_features > 1:
-            # EFB is a device-layout optimization the port does not carry
-            # yet: refuse data it would bundle rather than train unbundled.
-            # Device-binned data plans from the host bins of the
-            # construction sample, never from a pull of the whole matrix.
-            from ..io.bundle import plan_bundles
+        if train_data.max_num_bin > 256:
+            raise NotImplementedError(
+                "more than 256 bins per feature (max_bin > 256) is not "
+                "ported yet (ROADMAP Queue 1 item 2): the histogram kernels "
+                "take uint8 bin codes")
+        # EFB (ref: feature_group.h; io/bundle.py): exclusive features
+        # share a device column.  A sparse-ingested dataset holds bundle
+        # codes already (io/sparse.py); dense bins are planned here, a
+        # device-binned dataset from the host bins of its construction
+        # sample, and bundled on the host.  The dataset keeps its own
+        # bins (the host paths read per-feature bins), so only a dataset
+        # whose bins are the device matrix's takes the padded copy over.
+        self.bundle_plan = train_data.pre_bundled_plan
+        own_bins = True
+        if (self.bundle_plan is None and config.enable_bundle
+                and train_data.num_features > 1):
+            from ..io.bundle import build_bundled, plan_bundles
             plan_src = train_data.efb_sample_bins() if on_device else binned
             if plan_src is None:
                 plan_src = train_data.binned_host()
@@ -347,15 +378,11 @@ class GBDT:
                                 train_data.used_features,
                                 max_conflict_rate=config.max_conflict_rate)
             if plan.effective:
-                raise NotImplementedError(
-                    "these features would be bundled (EFB), which is not "
-                    "ported yet (ROADMAP Queue 1 item 5); pass "
-                    "enable_bundle=false to train without bundling")
-        if train_data.max_num_bin > 256:
-            raise NotImplementedError(
-                "more than 256 bins per feature (max_bin > 256) is not "
-                "ported yet (ROADMAP Queue 1 item 2): the histogram kernels "
-                "take uint8 bin codes")
+                self.bundle_plan = plan
+                binned = build_bundled(train_data.binned_host(), plan)
+                on_device = own_bins = False
+                log.info(f"EFB bundled {len(plan.group_idx)} features into "
+                         f"{plan.num_groups} columns")
         if on_device:
             # device bins (io/device_bin.py, or an earlier booster's
             # padded copy) are padded on the device: no host round trip
@@ -366,8 +393,9 @@ class GBDT:
             host = np.zeros((binned.shape[0], self.n_pad), np.uint8)
             host[:, :n] = binned
             self.binned_dev = torch.from_numpy(host).to(dev)
-        # the dataset's device-bins slot now holds the padded device copy
-        train_data.binned = self.binned_dev
+        if own_bins:
+            # the dataset's device-bins slot now holds the padded copy
+            train_data.binned = self.binned_dev
         pad = np.zeros(self.n_pad, np.float32)
         pad[:n] = 1.0
         self.pad_mask = torch.from_numpy(pad).to(dev)
@@ -417,15 +445,24 @@ class GBDT:
         # the features any tree has split on, carried from tree to tree
         self.cegb_used = (torch.zeros(len(nb), dtype=torch.bool, device=dev)
                           if has_cegb else None)
+        bp = self.bundle_plan
+
+        def on_dev(a):
+            return None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a)).to(dev)
         self.meta = FeatureMeta(
-            num_bin=torch.from_numpy(self.f_num_bin).to(dev),
-            missing_type=torch.from_numpy(self.f_missing_type).to(dev),
-            default_bin=torch.from_numpy(self.f_default_bin).to(dev),
-            penalty=torch.from_numpy(penalty).to(dev),
-            is_cat=torch.from_numpy(self.f_is_cat).to(dev),
-            monotone=torch.from_numpy(mono).to(dev),
-            cegb_coupled=torch.from_numpy(coupled).to(dev))
+            num_bin=on_dev(self.f_num_bin),
+            missing_type=on_dev(self.f_missing_type),
+            default_bin=on_dev(self.f_default_bin),
+            penalty=on_dev(penalty), is_cat=on_dev(self.f_is_cat),
+            monotone=on_dev(mono), cegb_coupled=on_dev(coupled),
+            group=on_dev(None if bp is None else bp.group_idx),
+            offset=on_dev(None if bp is None else bp.offsets),
+            zero_bin=on_dev(None if bp is None else bp.zero_bin),
+            in_bundle=on_dev(None if bp is None else bp.in_bundle))
         max_b = int(self.f_num_bin.max()) if len(nb) else 1
+        # the kernels' histogram width: the widest bundle column under EFB
+        hist_b = max_b if bp is None else int(bp.group_num_bin.max())
         # histogram stack memory guard (HistogramPool analogue): the
         # leaf-wise engine's int64 stack against histogram_pool_size MB
         stack_bytes = config.num_leaves * len(nb) * max_b * 2 * 8
@@ -470,13 +507,23 @@ class GBDT:
             use_hist_stack=stack_bytes <= budget,
             quant_bins=quant_bins,
             feature_fraction_bynode=config.feature_fraction_bynode,
-            bynode_seed=config.feature_fraction_seed + 1)
+            bynode_seed=config.feature_fraction_seed + 1,
+            has_bundles=bp is not None,
+            group_max_bin=0 if bp is None else hist_b,
+            forced_splits=self._parse_forced_splits(config, train_data),
+            interaction_sets=self._parse_interaction_sets(config,
+                                                          train_data))
+        if (self.grow_params.forced_splits
+                and not self.grow_params.use_hist_stack):
+            log.fatal("forced splits need the per-leaf histogram stack; "
+                      "raise histogram_pool_size")
         # growth engine (gbdt.py:582-636 of the JAX package): wave when at
         # least 8 leaves and the wave kernels' tile fits, else leaf-wise
         strategy = config.tpu_growth_strategy
         if strategy == "auto":
             strategy = ("wave" if config.num_leaves >= 8
-                        and wave_fits(len(nb), max_b, config.num_leaves)
+                        and wave_fits(self.binned_dev.shape[0], hist_b,
+                                      config.num_leaves)
                         else "leafwise")
         self.growth_strategy = strategy
         # only the leaf-wise engine's K4 reads a row-major copy
@@ -521,6 +568,61 @@ class GBDT:
         for m in self.train_metrics:
             m.init(md, n)
 
+    @staticmethod
+    def _parse_forced_splits(config: Config, train_data: Dataset) -> tuple:
+        """forcedsplits_filename's JSON tree -> BFS (leaf, inner feature,
+        threshold bin) tuples in this package's split numbering: the left
+        child keeps its leaf, the right one takes the next new leaf
+        (ref: serial_tree_learner.cpp:614 ForceSplits; gbdt.py:543-578 of
+        the JAX package)."""
+        if not config.forcedsplits_filename:
+            return ()
+        import json
+        from collections import deque
+        with open(config.forcedsplits_filename) as f:
+            root = json.load(f)
+        inner_of = {f: i for i, f in enumerate(train_data.used_features)}
+        forced = []
+        queue = deque([(root, 0)])
+        while queue and len(forced) < config.num_leaves - 1:
+            node, leaf = queue.popleft()
+            if not node or "feature" not in node:
+                continue
+            real_f = int(node["feature"])
+            if real_f not in inner_of:
+                log.warning(f"forced split feature {real_f} unused; "
+                            "skipping subtree")
+                continue
+            mapper = train_data.bin_mappers[real_f]
+            new_leaf = len(forced) + 1
+            forced.append((leaf, inner_of[real_f],
+                           int(mapper.value_to_bin(float(node["threshold"])))))
+            if node.get("left"):
+                queue.append((node["left"], leaf))
+            if node.get("right"):
+                queue.append((node["right"], new_leaf))
+        return tuple(forced)
+
+    @staticmethod
+    def _parse_interaction_sets(config: Config, train_data: Dataset) -> tuple:
+        """interaction_constraints, as the string "[0,1],[2,3]" or a list
+        of lists, -> sorted tuples of inner feature indices (ref:
+        config.h:585; gbdt.py:586-603 of the JAX package); unused
+        features drop out, as do sets left empty."""
+        if not config.interaction_constraints:
+            return ()
+        import re
+        inner_of = {f: i for i, f in enumerate(train_data.used_features)}
+        sets = []
+        for grp in re.findall(r"\[([^\[\]]*)\]",
+                              str(config.interaction_constraints)):
+            idxs = tuple(sorted(inner_of[int(tok)] for tok in grp.split(",")
+                                if tok.strip() != ""
+                                and int(tok) in inner_of))
+            if idxs:
+                sets.append(idxs)
+        return tuple(sets)
+
     def add_valid_data(self, valid_data: Dataset,
                        metrics: Sequence[Metric]) -> None:
         """A validation set (ref: gbdt.cpp AddValidDataset): float64 host
@@ -547,25 +649,29 @@ class GBDT:
         self.valid_bins.append(vb.contiguous())
 
     # ---------------------------------------------------- continued training
-    def _reconstruct_raw(self, ds: Dataset, bins: torch.Tensor) -> np.ndarray:
+    def _reconstruct_raw(self, ds: Dataset, bins: torch.Tensor,
+                         plan=None) -> np.ndarray:
         """Raw feature matrix of `ds` for prediction: its kept raw data, else
         each bin's representative value (gbdt.py:905 `_raw_or_reconstruct`
         of the JAX package): exact for trees trained on the same bin
         mappers, whose numerical thresholds are bin upper bounds.  `bins`
-        are the set's [F_used, num_data] codes on the device."""
+        are the set's [F_used, num_data] codes on the device, or its
+        [F', num_data] bundle codes under the BundlePlan `plan`."""
         if ds.raw_data is not None:
             return ds.raw_data
         codes = bins[:, :ds.num_data].cpu().numpy()
         X = np.zeros((ds.num_data, ds.num_total_features))
         for i, f in enumerate(ds.used_features):
             m = ds.bin_mappers[f]
+            fb = codes[i] if plan is None else decode_bundle_column(
+                codes[plan.group_idx[i]], plan, i, m.num_bin)
             lut = np.array([m.bin_to_value(b) for b in range(m.num_bin)])
             # missing bins reconstruct to what default_left routes
             if m.missing_type == MISSING_NAN:
                 lut[m.num_bin - 1] = np.nan
             elif m.missing_type == MISSING_ZERO:
                 lut[m.default_bin] = 0.0
-            X[:, f] = lut[np.clip(codes[i], 0, m.num_bin - 1)]
+            X[:, f] = lut[np.clip(fb, 0, m.num_bin - 1)]
         return X
 
     def _reconstruct_bin_space(self, tree: Tree) -> None:
@@ -637,7 +743,8 @@ class GBDT:
         self._bump_model_mutations()
         n = self.num_data
         X = (train_raw if train_raw is not None
-             else self._reconstruct_raw(self.train_data, self.binned_dev))
+             else self._reconstruct_raw(self.train_data, self.binned_dev,
+                                        self.bundle_plan))
         raw = prev.predict_raw(np.asarray(X, np.float64))
         raw = raw[:, None] if raw.ndim == 1 else raw             # [n, K]
         sc = np.zeros((K, self.n_pad), np.float32)
@@ -646,7 +753,8 @@ class GBDT:
         for vi, vds in enumerate(self.valid_sets):
             vX = (valid_raws[vi] if valid_raws is not None
                   and valid_raws[vi] is not None
-                  else self._reconstruct_raw(vds, self.valid_bins[vi]))
+                  else self._reconstruct_raw(vds, self.valid_bins[vi],
+                                             vds.pre_bundled_plan))
             vraw = prev.predict_raw(np.asarray(vX, np.float64))
             vraw = vraw[:, None] if vraw.ndim == 1 else vraw
             self.valid_scores[vi] += vraw.T
@@ -1041,7 +1149,7 @@ class GBDT:
             if train_ids is None:
                 train_ids = leaf_index_bin_space(
                     tree, self.binned_dev, self.f_missing_type,
-                    self.f_num_bin, self.f_default_bin)
+                    self.f_num_bin, self.f_default_bin, self.bundle_plan)
             nl = max(tree.num_leaves, 1)
             vals = torch.from_numpy(
                 tree.leaf_value[:nl].astype(np.float32)).to(self.device)
@@ -1057,7 +1165,8 @@ class GBDT:
         on the booster's device; one transfer of the ids)."""
         ids = leaf_index_bin_space(tree, self.valid_bins[vi],
                                    self.f_missing_type, self.f_num_bin,
-                                   self.f_default_bin)
+                                   self.f_default_bin,
+                                   self.valid_sets[vi].pre_bundled_plan)
         return ids.cpu().numpy()
 
     def _add_valid_tree_score(self, vi: int, tree: Tree,

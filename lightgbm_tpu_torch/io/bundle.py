@@ -142,3 +142,34 @@ def plan_bundles(binned: np.ndarray, mappers, used_features,
     nbins = np.array([mappers[f].num_bin for f in used_features], np.int32)
     return plan_bundles_from_masks(nz, nbins, zb, len(sample),
                                    max_conflict_rate)
+
+
+def build_bundled(binned: np.ndarray, plan: BundlePlan) -> np.ndarray:
+    """[F, n] feature bins -> [F', n] uint8 bundle codes (the kernels'
+    code type; `GBDT.init` refuses any feature of more than 256 bins
+    before it bundles, so every bundle column fits)."""
+    F, n = binned.shape
+    out = np.zeros((plan.num_groups, n), np.uint8)
+    for gi, members in enumerate(plan.groups):
+        if len(members) == 1:
+            out[gi] = binned[members[0]]
+            continue
+        col = np.zeros(n, np.int32)
+        for f in members:                # later members win conflicts
+            nzm = binned[f] != plan.zero_bin[f]
+            col[nzm] = plan.offsets[f] + binned[f][nzm]
+        out[gi] = col
+    return out
+
+
+def decode_bundle_column(codes: np.ndarray, plan: BundlePlan, inner: int,
+                         num_bin: int) -> np.ndarray:
+    """Bins [n] of feature `inner` from its bundle column's codes: the
+    member's range, shifted down by its offset; any code outside it
+    means the feature's default bin."""
+    off = int(plan.offsets[inner])
+    if off == 0:                         # singleton bundle: codes are bins
+        return codes
+    local = codes.astype(np.int32) - off
+    return np.where((local >= 0) & (local < num_bin), local,
+                    int(plan.zero_bin[inner]))

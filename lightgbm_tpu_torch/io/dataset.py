@@ -12,8 +12,11 @@ over, the slot holds its padded device copy `[F_used, n_pad]`, and
 are dropped at construction and restored at model-output time via
 `used_feature_map` (ref: dataset.h:556-647).
 
-This slice of the port covers dense in-memory arrays; file loading and
-streaming (two-round) ingestion come with ROADMAP Queue 1 item 1.
+Dense in-memory arrays are binned here; scipy sparse matrices go
+straight to EFB bundle codes (`io/sparse.py`), and such a dataset holds
+`[F', n]` bundle codes with the `pre_bundled_plan` that decodes them.
+File loading and streaming (two-round) ingestion come with ROADMAP
+Queue 1 item 1.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from ..utils import log
 from ..utils.timer import global_timer
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
+from .bundle import decode_bundle_column
 from .device_bin import bin_matrix_device, device_binnable, pull_host
 
 
@@ -142,6 +146,9 @@ class Dataset:
         # (efb_sample_bins) instead of pulling the whole matrix
         self._efb_sample_raw: Optional[np.ndarray] = None
         self._efb_sample_bins: Optional[np.ndarray] = None
+        # sparse ingestion (io/sparse.py): `binned` holds [F', n] EFB
+        # bundle codes, and this BundlePlan decodes them
+        self.pre_bundled_plan = None
 
     # ------------------------------------------------------------------
     @property
@@ -177,6 +184,18 @@ class Dataset:
                     np.asarray(self._efb_sample_raw[:, i], np.float64))
                 for i, f in enumerate(self.used_features)])
         return self._efb_sample_bins
+
+    def feature_bins(self, inner: int) -> np.ndarray:
+        """Bin codes [n] of used feature `inner`; on a sparse-ingested
+        dataset the member's code range is sliced out of its bundle
+        column and every other code is the default bin (the host mirror
+        of Dataset::FixHistogram's member recovery)."""
+        plan = self.pre_bundled_plan
+        if plan is None:
+            return self.binned_host()[inner]
+        return decode_bundle_column(
+            self.binned_host()[int(plan.group_idx[inner])].astype(np.int32),
+            plan, inner, self.bin_mappers[self.used_features[inner]].num_bin)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -348,6 +367,7 @@ class Dataset:
         sub.max_bin = self.max_bin
         sub.device_type = self.device_type
         sub.binned = self.binned_host()[:, used_indices]
+        sub.pre_bundled_plan = self.pre_bundled_plan
         md = Metadata(sub.num_data)
         src = self.metadata
         md.set_label(src.label[used_indices])

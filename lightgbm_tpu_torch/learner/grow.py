@@ -36,9 +36,18 @@ both children of a monotone split at the midpoint of their outputs
 (monotone_constraints.hpp:489 BasicLeafConstraints::Update); CEGB marks
 each split's feature used before the children's scans and refunds the
 coupled penalty to other leaves' pending splits on that feature
-(cost_effective_gradient_boosting.hpp UpdateLeafBestSplits).  Voting,
-intermediate/advanced monotone modes, lazy CEGB, forced splits and
-interaction constraints are not ported (GBDT.init refuses them).
+(cost_effective_gradient_boosting.hpp UpdateLeafBestSplits).
+
+EFB: with bundles `binned` holds [F', n] bundle codes; histograms are
+built, stacked and subtracted in group space ([F', group_max_bin]) and
+converted to per-feature histograms for the scan
+(`bundle_hist_to_features`); the partition decodes the split feature's
+bin from its bundle column.  Forced splits run first, one split per
+step in the parse-time BFS numbering (the first that cannot apply ends
+the forcing, and best-gain growth takes its place); interaction
+constraints narrow each leaf's column mask to what its branch allows.
+Voting, intermediate/advanced monotone modes and lazy CEGB are not
+ported (GBDT.init refuses them).
 """
 
 from __future__ import annotations
@@ -52,7 +61,8 @@ from ..ops.histogram import (ROW_TILE, build_histogram_rows_fixed,
                              fixed_unit, from_fixed, scale_exps)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO,
                          SplitParams, SplitResult, cat_bitset_words,
-                         find_best_split, monotone_gain_penalty)
+                         find_best_split, leaf_gain, leaf_output,
+                         monotone_gain_penalty)
 from ..utils import random as jrandom
 from ..utils.timer import global_timer
 
@@ -67,6 +77,12 @@ class FeatureMeta(NamedTuple):
     is_cat: torch.Tensor = None  # [F] bool (categorical features)
     monotone: torch.Tensor = None     # [F] int32 -1/0/+1
     cegb_coupled: torch.Tensor = None  # [F] float32 coupled penalties
+    # EFB (ref: feature_group.h): feature -> bundle column, code offset,
+    # default (zero) bin, membership of a bundle of more than one
+    group: torch.Tensor = None      # [F] int32 bundle column
+    offset: torch.Tensor = None     # [F] int32 code offset (0 singleton)
+    zero_bin: torch.Tensor = None   # [F] int32 default bin
+    in_bundle: torch.Tensor = None  # [F] bool
 
 
 class GrowParams(NamedTuple):
@@ -101,6 +117,19 @@ class GrowParams(NamedTuple):
     # each leaf scan draws an exactly-k feature subset of this fraction
     feature_fraction_bynode: float = 1.0
     bynode_seed: int = 2
+    # EFB: binned holds [F', n] bundle codes; histograms are built in
+    # group space (group_max_bin bins) and converted to per-feature
+    # histograms where the scan reads them (bundle_hist_to_features)
+    has_bundles: bool = False
+    group_max_bin: int = 0
+    # forced splits (ref: serial_tree_learner.cpp:614 ForceSplits): BFS
+    # ordered (leaf, inner feature, threshold bin) tuples applied before
+    # best-gain growth; they need use_hist_stack
+    forced_splits: tuple = ()
+    # interaction constraints (ref: col_sampler.hpp:91 GetByNode): tuples
+    # of inner feature indices; a leaf may split on its branch's features
+    # and on the features of every set that holds its whole branch
+    interaction_sets: tuple = ()
 
 
 class TreeArrays(NamedTuple):
@@ -126,13 +155,109 @@ class TreeArrays(NamedTuple):
 
 def bundle_hist_to_features(hist_g, sum_g, sum_h, meta: FeatureMeta,
                             B: int, hist_B: int, has_bundles: bool):
-    """Group-space histogram -> per-feature histogram.  Without bundles
-    (the only case this slice of the port builds; EFB comes later) the
-    histogram is already per feature."""
-    if has_bundles:
-        raise NotImplementedError(
-            "EFB bundles are not ported yet (ROADMAP Queue 1 item 5)")
-    return hist_g
+    """Group-space histogram [..., F', hist_B, C] -> per-feature histogram
+    [..., F, B, C] under EFB (ref: dataset.h:759 FixHistogram): each
+    member's code range is sliced out of its bundle column, and a bundle
+    member's default bin, which no row's code names, is the leaf total
+    less the member's other bins.  With `sum_g` and `sum_h` None (the
+    engines' integer sums) the leaf total is the bundle column's own
+    total, every row of the leaf lying in one of its bins, so the default
+    bin is exact; given the leaf sums, as the JAX function takes them, it
+    is their difference.  No-op without bundles."""
+    if not has_bundles:
+        return hist_g
+    i64 = torch.int64
+    dev = hist_g.device
+    lead = hist_g.shape[:-3]
+    Fg, C = hist_g.shape[-3], hist_g.shape[-1]
+    F = meta.num_bin.shape[0]
+    bins = torch.arange(B, dtype=i64, device=dev)
+    nb, zb = meta.num_bin.to(i64), meta.zero_bin.to(i64)
+    cols = meta.offset.to(i64)[:, None] + bins[None, :]             # [F, B]
+    valid = (bins[None, :] < nb[:, None]) & (cols < hist_B)
+    flat = meta.group.to(i64)[:, None] * hist_B + cols.clamp(max=hist_B - 1)
+    hf = hist_g.reshape(*lead, Fg * hist_B, C).index_select(
+        -2, flat.reshape(-1)).reshape(*lead, F, B, C)
+    hf = torch.where(valid[..., None], hf, torch.zeros((), dtype=hf.dtype,
+                                                       device=dev))
+    is_zb = (bins[None, :] == zb[:, None])[..., None]              # [F, B, 1]
+    at_zb = torch.where(is_zb, hf, torch.zeros((), dtype=hf.dtype,
+                                               device=dev)).sum(-2)
+    rest = hf.sum(-2) - at_zb                               # [..., F, C]
+    if sum_g is None:
+        total = hist_g.sum(-2).index_select(-2, meta.group.to(i64))
+    else:
+        total = torch.stack([sum_g, sum_h], -1)[..., None, :]
+    new_zb = torch.where(meta.in_bundle[:, None], total - rest, at_zb)
+    return torch.where(is_zb, new_zb[..., None, :], hf)
+
+
+def gather_forced_split(hist, ffeat: int, fthr: int, sum_g, sum_h_raw,
+                        nleaf, meta: FeatureMeta, B: int,
+                        sp: SplitParams) -> SplitResult:
+    """SplitResult of a forced (feature, threshold) split of one leaf,
+    gathered from its per-feature histogram [F, B, 2] (ref:
+    feature_histogram GatherInfoForThreshold; serial_tree_learner.cpp:614
+    ForceSplits; the JAX engines' `gather_forced_split`).  Missing values
+    go right (default_left is False, as the partition applies it); its
+    gain is K_MIN_SCORE when a child would be empty.  Both engines use
+    it."""
+    f32 = torch.float32
+    dev = hist.device
+    sum_h = sum_h_raw + 2e-15
+    cnt_factor = nleaf / sum_h
+    bins = torch.arange(B, dtype=torch.int32, device=dev)
+    nb = meta.num_bin[ffeat]
+    is_na = (meta.missing_type[ffeat] == MISSING_NAN) & (bins == nb - 1)
+    # MISSING_ZERO rows (the default bin) go right, as the partition
+    # routes them under default_left=False
+    is_zero = ((meta.missing_type[ffeat] == MISSING_ZERO)
+               & (bins == meta.default_bin[ffeat]))
+    take = (bins <= fthr) & (bins < nb) & ~is_na & ~is_zero
+    hf = hist[ffeat]
+    zero = torch.zeros((), dtype=f32, device=dev)
+    lg = torch.where(take, hf[:, 0], zero).sum()
+    lh_raw = torch.where(take, hf[:, 1], zero).sum()
+    lh = lh_raw + 1e-15
+    lc = torch.round(lh_raw * cnt_factor).to(torch.int32)
+    rg = sum_g - lg
+    rh = sum_h - lh
+    rc = torch.round(nleaf).to(torch.int32) - lc
+    po = zero
+    gain = (leaf_gain(lg, lh, lc.to(f32), po, sp)
+            + leaf_gain(rg, rh, rc.to(f32), po, sp))
+    valid = (lc > 0) & (rc > 0)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+    return SplitResult(
+        gain=torch.where(valid, gain, torch.full_like(gain, K_MIN_SCORE)),
+        feature=i32(ffeat), threshold=i32(fthr),
+        default_left=torch.tensor(False, device=dev),
+        left_sum_gradient=lg, left_sum_hessian=lh - 1e-15, left_count=lc,
+        left_output=leaf_output(lg, lh, lc.to(f32), po, sp),
+        right_sum_gradient=rg, right_sum_hessian=rh - 1e-15, right_count=rc,
+        right_output=leaf_output(rg, rh, rc.to(f32), po, sp),
+        is_cat=torch.tensor(False, device=dev),
+        cat_bitset=torch.zeros(cat_bitset_words(B), dtype=torch.int32,
+                               device=dev))
+
+
+def interaction_masks(sets, num_features: int, device) -> torch.Tensor:
+    """[S, F] bool: the features of each interaction set."""
+    m = torch.zeros((len(sets), num_features), dtype=torch.bool)
+    for i, fs in enumerate(sets):
+        m[i, list(fs)] = True
+    return m.to(device)
+
+
+def allowed_features(branch: torch.Tensor,
+                     set_masks: torch.Tensor) -> torch.Tensor:
+    """[..., F] branch features -> [..., F] the features a leaf may split
+    on (ref: col_sampler.hpp:91 GetByNode): those of its branch and of
+    every interaction set that holds the whole branch."""
+    fits = ~(branch[..., None, :] & ~set_masks).any(-1)       # [..., S]
+    return branch | (fits[..., None] & set_masks).any(-2)
 
 
 class ScanDraws:
@@ -208,10 +333,11 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     """Grow one leaf-wise tree.
 
     Args:
-      binned: [F, n] uint8 feature-major bin codes (n a multiple of 512).
+      binned: [F', n] uint8 feature-major bin codes (n a multiple of 512):
+        one row per feature, or per bundle column under EFB.
       grad, hess, row_mask: [n] float32 (row_mask: bagging x padding).
       col_mask: [F] bool.  meta, params: as the wave engine's.
-      binned_rm: optional [n, F] row-major copy (made here when None).
+      binned_rm: optional [n, F'] row-major copy (made here when None).
       extra_tag: folds the extra-trees and bynode keys (the booster's
         absolute iteration x classes + class).
       cegb_used: [F] bool, the features earlier trees used (CEGB).
@@ -219,14 +345,19 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
     """
-    F, n = binned.shape
+    Fg, n = binned.shape
+    F = meta.num_bin.shape[0]
     dev = binned.device
     L = params.num_leaves
     B = params.max_bin
+    bundles = params.has_bundles
+    hist_B = params.group_max_bin if bundles else B
     sp = params.split
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
     if binned_rm is None:
         binned_rm = binned.t().contiguous()
+    forced = tuple(params.forced_splits)[:max(L - 1, 0)]
+    KF = len(forced)
 
     row_mask = row_mask.to(f32)
     grad = grad.to(f32) * row_mask
@@ -238,6 +369,10 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     nb_h = meta.num_bin.cpu().numpy()
     mt_h = meta.missing_type.cpu().numpy()
     db_h = meta.default_bin.cpu().numpy()
+    if bundles:
+        grp_h = meta.group.cpu().numpy()
+        off_h = meta.offset.cpu().numpy()
+        zb_h = meta.zero_bin.cpu().numpy()
     W = cat_bitset_words(B)
     if sp.has_monotone:
         mono_h = meta.monotone.cpu().numpy()
@@ -248,34 +383,48 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         used_h = (np.zeros(F, bool) if cegb_used is None
                   else cegb_used.cpu().numpy().astype(bool))
         used_dev = torch.from_numpy(used_h.copy()).to(dev)
+    use_interaction = bool(params.interaction_sets)
+    if use_interaction:
+        set_masks = interaction_masks(params.interaction_sets, F, dev)
+        leaf_branch = torch.zeros((L, F), dtype=torch.bool, device=dev)
 
     def hist_of(member_mask):
-        """Histogram of every row under a membership mask (int64)."""
+        """Group-space histogram of every row under a membership mask
+        (int64)."""
         with global_timer.device_scope("Tree::histogram", dev):
             return build_histogram_rows_fixed(binned_rm, gh, member_mask,
-                                              exps, max_bin=B)
+                                              exps, max_bin=hist_B)
 
     def hist_of_rows(rows, gh_sub, member_mask):
-        """Histogram of gathered rows [S, F] (int64)."""
+        """Group-space histogram of gathered rows [S, F'] (int64)."""
         with global_timer.device_scope("Tree::histogram", dev):
             return build_histogram_rows_fixed(rows, gh_sub, member_mask,
-                                              exps, max_bin=B)
+                                              exps, max_bin=hist_B)
 
-    # every scan's draws at once: tag 0 is the root's, 2i+1 and 2i+2 the
-    # children's of split i (the JAX engine's rand_tag)
+    def feature_hists(hists):
+        """int64 group-space histograms -> float32 per-feature ones."""
+        return from_fixed(bundle_hist_to_features(
+            hists, None, None, meta, B, hist_B, bundles), unit)
+
+    # every scan's draws at once: tag 0 is the root's; the children of
+    # forced step k take 2k+1 and 2k+2, those of best-gain split i
+    # 2(i+KF)+1 and 2(i+KF)+2 (the JAX engine's rand_tag)
     draws = ScanDraws(params, meta, (F,), extra_tag, dev)
-    tags = torch.arange(2 * L - 1, dtype=i64, device=dev)
+    tags = torch.arange(2 * (L + KF) - 1, dtype=i64, device=dev)
     rand_all, bym_all = draws.rand_bins(tags), draws.bynode(tags)
     rcu_all = draws.rand_cat_u(tags)
 
     def best_of(hists, sum_g, sum_h, cnt, parent_out, tag0, cmin=None,
-                cmax=None, depth=None) -> SplitResult:
-        """Scan k leaves' int64 histograms [k, F, B, 2]; the leaves' scan
-        tags are tag0, tag0 + 1, ...; cmin/cmax/depth: the leaves' [k]
-        monotone bounds and depths."""
+                cmax=None, depth=None, branch=None) -> SplitResult:
+        """Scan k leaves' int64 group-space histograms [k, F', B', 2]; the
+        leaves' scan tags are tag0, tag0 + 1, ...; cmin/cmax/depth: the
+        leaves' [k] monotone bounds and depths; branch: their [k, F]
+        branch features (interaction constraints)."""
         k = hists.shape[0]
         cm = (col_mask if bym_all is None
               else col_mask[None, :] & bym_all[tag0:tag0 + k])
+        if use_interaction:
+            cm = cm & allowed_features(branch, set_masks)
         kw = {}
         if rand_all is not None:
             kw["rand_bin"] = rand_all[tag0:tag0 + k]
@@ -292,14 +441,21 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             kw.update(cegb_coupled=meta.cegb_coupled, cegb_used=used_dev)
         with global_timer.device_scope("Tree::split_find", dev):
             return find_best_split(
-                from_fixed(hists, unit), meta.num_bin, meta.missing_type,
+                feature_hists(hists), meta.num_bin, meta.missing_type,
                 meta.default_bin, meta.penalty, cm, sum_g, sum_h, cnt,
                 parent_out, sp, **kw)
 
-    def go_left_of(fbins, feat, dleft, thr, isc, bitset):
+    def go_left_of(codes, feat, dleft, thr, isc, bitset):
         """ref: dense_bin.hpp:346-366 SplitInner, in bin space; a
         categorical split sends the bins of its bitset left (tree.h:372
-        CategoricalDecision; bin 0, NaN/other, is never in it)."""
+        CategoricalDecision; bin 0, NaN/other, is never in it).  Under EFB
+        `codes` are the bundle column's: a code outside the feature's
+        range means its default bin."""
+        fbins = codes
+        if bundles and off_h[feat] > 0:
+            local = codes - int(off_h[feat])
+            fbins = torch.where((local >= 0) & (local < int(nb_h[feat])),
+                                local, int(zb_h[feat]))
         if isc:
             word = bitset[torch.clamp(fbins // 32, max=W - 1).to(i64)]
             return ((word >> (fbins % 32)) & 1) > 0
@@ -312,6 +468,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             return fbins <= thr
         return torch.where(missing, bool(dleft), fbins <= thr)
 
+    def col_of(feat):
+        return int(grp_h[feat]) if bundles else feat
+
     # ---- root (ref: serial_tree_learner BeforeTrain) ----
     # leaf totals summed in float64 so CPU and CUDA agree
     sum_g0 = grad.sum(dtype=torch.float64).to(f32)
@@ -321,7 +480,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     inf1 = torch.full((1,), float("inf"), dtype=f32, device=dev)
     root_best = best_of(root_hist[None], sum_g0[None], sum_h0[None],
                         cnt0[None], torch.zeros(1, dtype=f32, device=dev), 0,
-                        -inf1, inf1, torch.zeros(1, dtype=i32, device=dev))
+                        -inf1, inf1, torch.zeros(1, dtype=i32, device=dev),
+                        branch=(leaf_branch[:1] if use_interaction
+                                else None))
 
     ni = max(L - 1, 1)
     # host-side structure (decided by host ints); float fields on device
@@ -342,6 +503,11 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     leaf_f["leaf_weight"][0] = sum_h0
     leaf_f["leaf_count"][0] = cnt0
     depth_dev = torch.zeros(L, dtype=i32, device=dev)
+    # the leaves' gradient and hessian sums, kept up to date only when
+    # forced splits are given (their gather reads them)
+    leaf_sum_g = torch.zeros(L, dtype=f32, device=dev)
+    leaf_sum_h = torch.zeros(L, dtype=f32, device=dev)
+    leaf_sum_g[0], leaf_sum_h[0] = sum_g0, sum_h0
 
     # best pending split per leaf (ref: best_split_per_leaf_)
     pend = {k: torch.zeros((L,) + v.shape[1:], dtype=v.dtype, device=dev)
@@ -353,7 +519,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
 
     use_stack = params.use_hist_stack
     if use_stack:
-        hist_stack = torch.zeros((L, F, B, 2), dtype=i64, device=dev)
+        hist_stack = torch.zeros((L, Fg, hist_B, 2), dtype=i64, device=dev)
         hist_stack[0] = root_hist
     use_partition = 0 < params.compact_min < n and L > 2
     leaf_id = torch.zeros(n + 1, dtype=i64, device=dev)   # [n] is a dump
@@ -373,9 +539,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             if S > seg:
                 idxs = torch.cat([idxs, idxs.new_zeros(S - seg)])
             valid = torch.arange(S, device=dev) < seg
-            rows = binned_rm[idxs]                            # [S, F]
-            gl = go_left_of(rows[:, feat].to(i32), feat, dleft, thr, isc,
-                            bitset)
+            rows = binned_rm[idxs]                            # [S, F']
+            gl = go_left_of(rows[:, col_of(feat)].to(i32), feat, dleft, thr,
+                            isc, bitset)
             lm = gl & valid
             rm = ~gl & valid
             rmask = row_mask[idxs]
@@ -403,8 +569,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     def mask_and_hist(best, new, feat, thr, dleft, isc, bitset):
         """Masked engine: recolor by scanning all rows."""
         with global_timer.device_scope("Tree::partition", dev):
-            gl = go_left_of(binned[feat].to(i32), feat, dleft, thr, isc,
-                            bitset)
+            gl = go_left_of(binned[col_of(feat)].to(i32), feat, dleft, thr,
+                            isc, bitset)
             in_leaf = leaf_id[:n] == best
             leaf_id[:n] = torch.where(in_leaf & ~gl, new, leaf_id[:n])
             lmaskf = (in_leaf & gl).to(f32) * row_mask
@@ -418,16 +584,29 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                                              rmaskf))
         return small_hist, cnt_l, cnt_r, smaller_is_left
 
-    num_leaves = 1
-    for i in range(L - 1):
+    state = {"num_leaves": 1}
+
+    def step(tag_base: int, forced_leaf: int = None) -> bool:
+        """One split: of the leaf of largest pending gain, or of
+        `forced_leaf` whatever its rank (a forced split, which still
+        keeps max_depth, the leaf budget and non-empty children).
+        Returns whether it split."""
+        NL = state["num_leaves"]
+        if NL >= L:
+            return False
         # leaf selection (ref: serial_tree_learner.cpp:219 ArgMax over
         # leaves); max_depth gates the children's depth
         sel = pend["gain"]
         if params.max_depth > 0:
             sel = torch.where(depth_dev < params.max_depth, sel,
                               torch.full_like(sel, K_MIN_SCORE))
-        bl = torch.argmax(sel)
-        head = [bl, (sel[bl] > 0.0).to(i64), pend["feature"][bl].to(i64),
+        if forced_leaf is None:
+            bl = torch.argmax(sel)
+            ok = sel[bl] > 0.0
+        else:
+            bl = torch.tensor(forced_leaf, dtype=i64, device=dev)
+            ok = sel[bl] > K_MIN_SCORE
+        head = [bl, ok.to(i64), pend["feature"][bl].to(i64),
                 pend["threshold"][bl].to(i64),
                 pend["default_left"][bl].to(i64),
                 pend["is_cat"][bl].to(i64)]
@@ -436,8 +615,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         head = torch.stack(head).tolist()                 # the host read
         best, proceed, feat, thr, dleft, isc = head[:6]
         if not proceed:
-            break
-        node, new = i, i + 1
+            return False
+        node, new = NL - 1, NL
         bitset = pend["cat_bitset"][best].clone() if isc else None
         if use_partition:
             small_hist, cnt_l, cnt_r, sil = partition_and_hist(
@@ -477,6 +656,11 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             leaf_f[k][new] = pb[rv]
         leaf_f["leaf_count"][best] = cnt_l
         leaf_f["leaf_count"][new] = cnt_r
+        if forced:
+            leaf_sum_g[best], leaf_sum_g[new] = (pb["left_sum_gradient"],
+                                                 pb["right_sum_gradient"])
+            leaf_sum_h[best], leaf_sum_h[new] = (pb["left_sum_hessian"],
+                                                 pb["right_sum_hessian"])
 
         # child histograms: the smaller fresh, the larger by exact
         # subtraction (ref: serial_tree_learner.cpp histogram subtraction)
@@ -494,7 +678,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         # BasicLeafConstraints::Update): the new leaf clones the parent's
         # bounds; a numerical split on a monotone feature bounds both
         # children at the midpoint of their outputs
-        mono_kw = {}
+        kw = {}
         if sp.has_monotone:
             p_min, p_max = leaf_cmin[best].clone(), leaf_cmax[best].clone()
             l_min, l_max, r_min, r_max = p_min, p_max, p_min, p_max
@@ -509,9 +693,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                     r_max = torch.minimum(p_max, mid)
             leaf_cmin[best], leaf_cmin[new] = l_min, r_min
             leaf_cmax[best], leaf_cmax[new] = l_max, r_max
-            mono_kw = dict(cmin=torch.stack([l_min, r_min]),
-                           cmax=torch.stack([l_max, r_max]),
-                           depth=depth_dev[[best, new]])
+            kw = dict(cmin=torch.stack([l_min, r_min]),
+                      cmax=torch.stack([l_max, r_max]),
+                      depth=depth_dev[[best, new]])
         if sp.has_cegb and not used_h[feat]:
             # the coupled penalty is paid once: other leaves' pending
             # splits on this feature get it back
@@ -521,23 +705,53 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             pend["gain"] = pend["gain"] + torch.where(
                 (pend["feature"] == feat) & (pend["gain"] > K_MIN_SCORE),
                 refund, torch.zeros((), dtype=f32, device=dev))
+        if use_interaction:
+            # the children's branch adds the split feature (ref:
+            # col_sampler.hpp per-branch used features)
+            child = leaf_branch[best].clone()
+            child[feat] = True
+            leaf_branch[best] = child
+            leaf_branch[new] = child
+            kw["branch"] = torch.stack([child, child])
         res = best_of(
             torch.stack([hist_l, hist_r]),
             torch.stack([pb["left_sum_gradient"], pb["right_sum_gradient"]]),
             torch.stack([pb["left_sum_hessian"], pb["right_sum_hessian"]]),
             torch.stack([cnt_l, cnt_r]),
-            torch.stack([pb["left_output"], pb["right_output"]]), 2 * i + 1,
-            **mono_kw)
+            torch.stack([pb["left_output"], pb["right_output"]]),
+            2 * tag_base + 1, **kw)
         idx = torch.tensor([best, new], dtype=i64, device=dev)
         for k, v in res._asdict().items():
             pend[k].index_copy_(0, idx, v)
-        num_leaves += 1
+        state["num_leaves"] = NL + 1
+        return True
+
+    # forced prologue (ref: serial_tree_learner.cpp:614 ForceSplits): one
+    # forced split per step in the parse-time BFS numbering, gathered from
+    # the leaf's histogram; the first that cannot apply ends the forcing
+    # (its leaf numbers would be stale), and a skipped step leaves the
+    # pending splits as they were
+    for k, (fleaf, ffeat, fthr) in enumerate(forced):
+        saved = {key: v.clone() for key, v in pend.items()}
+        res = gather_forced_split(
+            feature_hists(hist_stack[fleaf][None])[0], ffeat, fthr,
+            leaf_sum_g[fleaf], leaf_sum_h[fleaf],
+            leaf_f["leaf_count"][fleaf].to(f32), meta, B, sp)
+        fidx = torch.tensor([fleaf], dtype=i64, device=dev)
+        for key, v in res._asdict().items():
+            pend[key].index_copy_(0, fidx, v[None])
+        if not step(k, forced_leaf=fleaf):
+            pend = saved
+            break
+    for i in range(L - 1):
+        if not step(i + KF):
+            break
 
     def dev_of(a):
         return torch.from_numpy(a).to(dev)
 
     tree = TreeArrays(
-        num_leaves=num_leaves,
+        num_leaves=state["num_leaves"],
         split_feature=dev_of(split_feature),
         threshold_bin=dev_of(threshold_bin),
         default_left=dev_of(default_left),

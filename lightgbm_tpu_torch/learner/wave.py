@@ -44,8 +44,20 @@ wave's split count).  Per-slot arrays keep one extra "dump" row (index
 `Lp`, or `ni` for node arrays) that absorbs the writes the JAX engine
 drops with `mode="drop"`.
 
+EFB: with bundles `binned` holds [F', n] bundle codes; the kernels build
+group-space histograms ([F', group_max_bin]), the cache holds and
+subtracts them, and the scan converts them to per-feature histograms
+(`bundle_hist_to_features`, exact on the integer sums); the recolor
+decodes each row's split feature from (bundle column, code offset,
+default bin) columns of its table.  Interaction constraints narrow
+every leaf's column mask to what its branch allows, so those waves scan
+every leaf.  Forced splits run as a prologue of one-split waves
+(`forced_split`), each gathered from the leaf's cached histogram; the
+ladder's slot bounds then start from KF + 1 leaves.
+
 Overgrow-and-prune (`wave_prune`, the default; off under monotone
-constraints and CEGB, whose gains depend on the order of the splits):
+constraints, CEGB and forced splits, whose gains depend on the order of
+the splits or which the replay could drop):
 the ladder grows to
 Lg = ceil(1.5 L) leaves, then `_prune_to_leafwise` replays the reference's
 strict leaf-wise pop order (serial_tree_learner.cpp:219) over the
@@ -73,7 +85,11 @@ from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
                          monotone_gain_penalty)
 from ..utils.timer import global_timer
 from .grow import (FeatureMeta, GrowParams, ScanDraws, TreeArrays,
-                   bundle_hist_to_features)
+                   allowed_features, bundle_hist_to_features,
+                   gather_forced_split, interaction_masks)
+
+# bytes of int64 per-feature histogram sums one scan call converts
+SCAN_CHUNK_BYTES = 512 << 20
 
 _NODE_FIELDS = ("split_feature", "threshold_bin", "default_left",
                 "split_gain", "left_child", "right_child", "internal_value",
@@ -273,7 +289,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     """Grow one tree by waves.
 
     Args:
-      binned: [F, n] uint8 feature-major bin codes (n a multiple of 512).
+      binned: [F', n] uint8 feature-major bin codes (n a multiple of 512):
+        one row per feature, or per bundle column under EFB.
       grad, hess, row_mask: [n] float32.  col_mask: [F] bool.
       quant_scales: [2] float32 (gradient, hessian) scales of quantized
         gradients; with params.quant_bins > 0 every wave's histograms go
@@ -285,12 +302,17 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
     """
-    F, n = binned.shape
+    Fg, n = binned.shape
+    F = meta.num_bin.shape[0]
     dev = binned.device
     L = params.num_leaves
     B = params.max_bin
+    bundles = params.has_bundles
+    hist_B = params.group_max_bin if bundles else B
     sp = params.split
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    forced = tuple(params.forced_splits)
+    use_interaction = bool(params.interaction_sets)
 
     row_mask = row_mask.to(f32)
     grad = grad.to(f32) * row_mask
@@ -299,12 +321,17 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     gh = torch.stack([grad, hess, row_mask], dim=1).contiguous()
     use_int = params.quant_bins > 0 and quant_scales is not None
     # the tree's fixed-point grid (every histogram of the tree lies on it)
-    # and the conversion the scan applies to the cached integer sums
+    # and the conversion the scan applies to the cached integer sums:
+    # group-space sums become per-feature ones before they are scaled
+    def to_features(acc):
+        return bundle_hist_to_features(acc.reshape(-1, Fg, hist_B, 2), None,
+                                       None, meta, B, hist_B, bundles)
+
     if use_int:
         quant_scales = quant_scales.to(dev, torch.float32)
 
         def deq_h(acc):
-            return dequantize(acc.reshape(-1, F, B, 2), quant_scales)
+            return dequantize(to_features(acc), quant_scales)
 
         def deq_c(cnt):
             return cnt.to(f32)
@@ -313,7 +340,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         unit = fixed_unit(exps)
 
         def deq_h(acc):
-            return from_fixed(acc.reshape(-1, F, B, 2), unit[:2])
+            return from_fixed(to_features(acc), unit[:2])
 
         def deq_c(cnt):
             return from_fixed(cnt[:, None], unit[2:])[:, 0]
@@ -323,8 +350,10 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     sum_h0 = hess.sum(dtype=torch.float64).to(f32)
     cnt0 = row_mask.sum(dtype=torch.float64).to(i32)
 
+    # forced splits turn prune off: the replay ranks by gain and could
+    # drop a forced node, which the reference keeps whatever its gain
     prune = (params.wave_prune and L > 2 and not sp.has_monotone
-             and not sp.has_cegb)
+             and not sp.has_cegb and not forced)
     Lg = (min(max(L, int(math.ceil(L * params.wave_prune_overshoot))),
               4 * L) if prune else L)
     spike_k = int(params.wave_spike_k or 8)
@@ -336,7 +365,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
 
     ni = max(Lg - 1, 1)
     Lp = wave_slot_pad(Lg)
-    Dh = F * B * 2
+    Dh = Fg * hist_B * 2
     W = cat_bitset_words(B)
 
     def zeros(size, dt):
@@ -366,6 +395,10 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     if sp.has_cegb:
         used_vec = (zeros(F, torch.bool) if cegb_used is None
                     else cegb_used.to(dev, torch.bool).clone())
+    if use_interaction:
+        set_masks = interaction_masks(params.interaction_sets, F, dev)
+        # each leaf's branch features (the dump row Lp included)
+        leaf_branch = zeros((Lp + 1, F), torch.bool)
     # per-leaf histogram cache of integer sums, completed by exact sibling
     # subtraction (the HistogramPool analogue, feature_histogram.hpp:1367)
     cache_h = zeros((Lp + 1, Dh), i64)
@@ -389,18 +422,18 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         with global_timer.device_scope("Tree::histogram", dev):
             if use_int:
                 H, cnt = build_histogram_wave_int(
-                    binned, state["kslot"], gh, quant_scales, max_bin=B,
-                    num_slots=Kb)
-            elif (Ks is not None and wave_hl_profitable(B, Ks)
-                    and wave_hl_fits(B, Ks)):
+                    binned, state["kslot"], gh, quant_scales,
+                    max_bin=hist_B, num_slots=Kb)
+            elif (Ks is not None and wave_hl_profitable(hist_B, Ks)
+                    and wave_hl_fits(hist_B, Ks)):
                 # K3 reads the feature-major bins; the JAX signature's
                 # row-major argument is checked for its shape only
                 H, cnt = build_histogram_wave_hl_fixed(
-                    binned, binned.t(), state["kslot"], gh, exps, max_bin=B,
-                    num_slots=Ks, out_slots=Kb)
+                    binned, binned.t(), state["kslot"], gh, exps,
+                    max_bin=hist_B, num_slots=Ks, out_slots=Kb)
             else:
                 H, cnt = build_histogram_wave_fixed(
-                    binned, state["kslot"], gh, exps, max_bin=B,
+                    binned, state["kslot"], gh, exps, max_bin=hist_B,
                     num_slots=Kb)
         Hf = H.reshape(Kb, Dh)
         if first:
@@ -430,9 +463,23 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
 
     draws = ScanDraws(params, meta, (Lp, F), extra_tag, dev)
 
+    # leaves a scan converts to per-feature histograms at once: their int64
+    # sums fill at most SCAN_CHUNK_BYTES (wide EFB data, where F * B is
+    # large, scans in several chunks of leaves; a leaf's result does not
+    # depend on the others)
+    scan_leaves = max(1, SCAN_CHUNK_BYTES // (F * B * 2 * 8))
+
     def scan(idx: torch.Tensor, rb=None, bym=None, rcu=None) -> SplitResult:
         """Scan the leaves `idx`; rb/bym/rcu are the wave's [Lp, F] draws,
-        row l for leaf l."""
+        row l for leaf l (bym: the bynode subsets and what each leaf's
+        branch allows under interaction constraints)."""
+        if idx.shape[0] <= scan_leaves:
+            return scan_chunk(idx, rb, bym, rcu)
+        parts = [scan_chunk(idx[i:i + scan_leaves], rb, bym, rcu)
+                 for i in range(0, idx.shape[0], scan_leaves)]
+        return SplitResult(*(torch.cat(f) for f in zip(*parts)))
+
+    def scan_chunk(idx, rb, bym, rcu) -> SplitResult:
         cm = col_mask if bym is None else col_mask[None, :] & bym[idx]
         kw = {}
         if rb is not None:
@@ -450,19 +497,31 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
             kw.update(cegb_coupled=meta.cegb_coupled, cegb_used=used_vec)
         with global_timer.device_scope("Tree::split_find", dev):
             hists = deq_h(cache_h[idx])
-            hists = bundle_hist_to_features(hists, None, None, meta, B, B,
-                                            False)
             return find_best_split(
                 hists, meta.num_bin, meta.missing_type, meta.default_bin,
                 meta.penalty, cm, leaf_sum_g[idx], leaf_sum_h[idx],
                 torch.round(deq_c(cache_c[idx])).to(i32), leaf_out[idx], sp,
                 **kw)
 
+    def forced_entry(fleaf: int, ffeat: int, fthr: int) -> SplitResult:
+        """The forced split of leaf `fleaf`, gathered from its cached
+        histogram (grow.gather_forced_split, shared with the leaf-wise
+        engine)."""
+        hist = deq_h(cache_h[fleaf:fleaf + 1])[0]
+        return gather_forced_split(hist, ffeat, fthr, leaf_sum_g[fleaf],
+                                   leaf_sum_h[fleaf],
+                                   deq_c(cache_c[fleaf:fleaf + 1])[0], meta,
+                                   B, sp)
+
     def wave_body(NLp: int, Kb: int, first: bool = False, Ks=None,
-                  lg_cap=None, budget_cap=None):
+                  lg_cap=None, budget_cap=None, forced_split=None):
         """One wave with a slot bound NLp >= current num_leaves and a
         computed-slot bound Kb >= splits of the previous wave (Ks: the
-        true, unpadded bound, which routes few-slot waves to K3)."""
+        true, unpadded bound, which routes few-slot waves to K3).  A
+        forced wave (`forced_split` = (leaf, feature, threshold bin))
+        splits that leaf alone, whatever its gain's rank or sign, where
+        both children are non-empty and max_depth and the leaf budget
+        allow it."""
         NL = state["NL"]
         wave_hists(Kb, first, Ks)
         counts = torch.round(deq_c(cache_c[:NLp])).to(i32)
@@ -471,12 +530,17 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         # a leaf's best split changes only when the leaf is created, so
         # the scan may cover just the <= 2*Kb leaves of the previous wave
         # when that bound is a small fraction of NLp; a wave's fresh draws
-        # change every leaf's scan
+        # and the branches' interaction masks change every leaf's scan
+        rb = bym = rcu = None
         if draws.active:
-            best_state.store(ar, scan(ar, draws.rand_bins(NL),
-                                      draws.bynode(NL), draws.rand_cat_u(NL)))
-        elif first or 4 * Kb > NLp or sp.has_monotone or sp.has_cegb:
-            best_state.store(ar, scan(ar))
+            rb, bym, rcu = (draws.rand_bins(NL), draws.bynode(NL),
+                            draws.rand_cat_u(NL))
+        if use_interaction:
+            allow = allowed_features(leaf_branch[:Lp], set_masks)
+            bym = allow if bym is None else bym & allow
+        if (draws.active or use_interaction or first or 4 * Kb > NLp
+                or sp.has_monotone or sp.has_cegb):
+            best_state.store(ar, scan(ar, rb, bym, rcu))
         else:
             order = torch.sort(-pend["sel"].to(i32), stable=True).indices
             psl = order[:Kb]
@@ -487,23 +551,41 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
             best_state.store(changed, scan(changed.clamp(0, Lp - 1)))
         best = best_state.view(NLp)
 
-        # select splitting leaves: positive gain, active, depth ok,
-        # best-gain-first within the remaining leaf budget
-        gain = torch.where(active, best.gain,
-                           torch.full_like(best.gain, K_MIN_SCORE))
-        if params.max_depth > 0:
-            gain = torch.where(leaf["leaf_depth"][:NLp] < params.max_depth,
-                               gain, torch.full_like(gain, K_MIN_SCORE))
-        want = gain > 0.0
-        budget = (Lg if lg_cap is None else lg_cap) - NL
-        if budget_cap is not None:
-            budget = min(budget, budget_cap)
-        if params.wave_tail_halving and budget < NL:
-            budget = max((budget + 1) // 2, 1)
-        order = torch.sort(-gain, stable=True).indices
-        rank_of = torch.empty(NLp, dtype=i64, device=dev).scatter_(
-            0, order, ar)
-        split_sel = want & (rank_of < budget)
+        if forced_split is not None:
+            # forced wave (ref: serial_tree_learner.cpp:614 ForceSplits):
+            # the leaf's entry is the forced split, the stored scan kept
+            fleaf, ffeat, fthr = forced_split
+            fentry = forced_entry(fleaf, ffeat, fthr)
+            best = SplitResult(**{k: v.clone()
+                                  for k, v in best._asdict().items()})
+            for k, v in fentry._asdict().items():
+                getattr(best, k)[fleaf] = v
+            split_sel = (ar == fleaf) & (fentry.gain > K_MIN_SCORE)
+            if not fleaf < NL < L:
+                split_sel = torch.zeros_like(split_sel)
+            if params.max_depth > 0:
+                split_sel = split_sel & (leaf["leaf_depth"][fleaf]
+                                         < params.max_depth)
+            rank_of = torch.zeros(NLp, dtype=i64, device=dev)
+        else:
+            # select splitting leaves: positive gain, active, depth ok,
+            # best-gain-first within the remaining leaf budget
+            gain = torch.where(active, best.gain,
+                               torch.full_like(best.gain, K_MIN_SCORE))
+            if params.max_depth > 0:
+                gain = torch.where(
+                    leaf["leaf_depth"][:NLp] < params.max_depth, gain,
+                    torch.full_like(gain, K_MIN_SCORE))
+            want = gain > 0.0
+            budget = (Lg if lg_cap is None else lg_cap) - NL
+            if budget_cap is not None:
+                budget = min(budget, budget_cap)
+            if params.wave_tail_halving and budget < NL:
+                budget = max((budget + 1) // 2, 1)
+            order = torch.sort(-gain, stable=True).indices
+            rank_of = torch.empty(NLp, dtype=i64, device=dev).scatter_(
+                0, order, ar)
+            split_sel = want & (rank_of < budget)
 
         # node/new-leaf numbering by gain rank (leaf-wise split order)
         node_of = torch.where(split_sel, NL - 1 + rank_of, 0)
@@ -559,6 +641,13 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         lset(leaf_sum_g, best.left_sum_gradient, best.right_sum_gradient)
         lset(leaf_sum_h, best.left_sum_hessian, best.right_sum_hessian)
         lset(leaf_out, best.left_output, best.right_output)
+        if use_interaction:
+            # the children's branch adds the split feature (ref:
+            # col_sampler.hpp per-branch used features)
+            fb = ((torch.arange(F, device=dev)[None, :]
+                   == best.feature.to(i64)[:, None]) & split_sel[:, None])
+            newb = leaf_branch[:NLp] | fb
+            lset(leaf_branch, newb, newb)
         if sp.has_monotone:
             # basic-mode propagation (BasicLeafConstraints::Update):
             # children of a monotone numerical split bounded at the
@@ -578,31 +667,41 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         # wave's computed slot
         small_left = best.left_count <= best.right_count
         feat = best.feature.to(i64)
-        table = torch.stack([
-            split_sel.to(i32), best.feature, best.threshold,
-            best.default_left.to(i32), newleaf_of.to(i32),
-            meta.missing_type[feat], meta.default_bin[feat],
-            meta.num_bin[feat], rank_of.to(i32), small_left.to(i32)], dim=1)
+        cols = [split_sel.to(i32), best.feature, best.threshold,
+                best.default_left.to(i32), newleaf_of.to(i32),
+                meta.missing_type[feat], meta.default_bin[feat],
+                meta.num_bin[feat], rank_of.to(i32), small_left.to(i32)]
+        if bundles:
+            # the split feature's bundle column, code offset, default bin
+            cols += [meta.group[feat], meta.offset[feat], meta.zero_bin[feat]]
+        nbase = len(cols)
+        table = torch.stack(cols, dim=1)
         if sp.has_categorical:
             table = torch.cat([table, best.is_cat.to(i32)[:, None],
                                best.cat_bitset], dim=1)
         with global_timer.device_scope("Tree::partition", dev):
             lid = state["leaf_id"]
-            prow = table[lid]                                # [n, 10]
+            prow = table[lid]                            # [n, columns]
             sel_r = prow[:, 0] > 0
+            col_r = prow[:, 10] if bundles else prow[:, 1]
             fbin = torch.gather(binned, 0,
-                                prow[:, 1].to(i64)[None, :])[0].to(i32)
+                                col_r.to(i64)[None, :])[0].to(i32)
             mt_r, db_r, nb_r = prow[:, 5], prow[:, 6], prow[:, 7]
+            if bundles:
+                # a code outside the feature's range: its default bin
+                local = fbin - prow[:, 11]
+                fbin = torch.where((local >= 0) & (local < nb_r), local,
+                                   prow[:, 12])
             is_missing = (((mt_r == MISSING_NAN) & (fbin == nb_r - 1))
                           | ((mt_r == MISSING_ZERO) & (fbin == db_r)))
             go_left = torch.where(is_missing, prow[:, 3] > 0,
                                   fbin <= prow[:, 2])
             if sp.has_categorical:
                 word = torch.gather(
-                    prow[:, 11:], 1,
+                    prow[:, nbase + 1:], 1,
                     torch.clamp(fbin // 32, max=W - 1).to(i64)[:, None])[:, 0]
                 cat_left = ((word >> (fbin % 32)) & 1) > 0
-                go_left = torch.where(prow[:, 10] > 0, cat_left, go_left)
+                go_left = torch.where(prow[:, nbase] > 0, cat_left, go_left)
             state["leaf_id"] = torch.where(sel_r & ~go_left,
                                            prow[:, 4].to(i64), lid)
             state["kslot"] = torch.where(
@@ -628,15 +727,33 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         state["cont"] = n_split > 0 and state["NL"] < (
             Lg if lg_cap is None else lg_cap)
 
+    # forced prologue (ref: serial_tree_learner.cpp:614 ForceSplits): one
+    # forced split per wave in the parse-time BFS numbering; the first
+    # that cannot apply ends the forcing, and its leaf returns to
+    # best-gain growth
+    KF = min(len(forced), max(L - 1, 0))
+    for k in range(KF):
+        nl_before = state["NL"]
+        wave_body(wave_slot_pad(k + 2), wave_slot_pad(1), first=(k == 0),
+                  Ks=1, forced_split=forced[k])
+        if state["NL"] == nl_before:
+            break
+    if KF:
+        state["cont"] = L > 1 and state["NL"] < Lg_main
     num_waves = max(1, math.ceil(math.log2(Lg_main))) if Lg_main > 1 else 0
     for k in range(num_waves):
-        # entering ladder wave k the tree has at most 2^k leaves; the
-        # computed slots are the previous wave's splits
-        NLp = wave_slot_pad(min(1 << k, Lg_main))
-        Ks = min(1 << max(k - 1, 0), Lg_main)
+        # entering ladder wave k the tree has grown from at most KF + 1
+        # leaves (the forced prologue) through k doubling waves, so
+        # NL <= (KF + 1) 2^k; the computed slots are the previous wave's
+        # splits (the last forced wave's one for the first).  The bounds
+        # must be multiplicative in KF + 1: an additive bound undersizes
+        # Ks, and K3 zero-pads real children past out_slots
+        NLp = wave_slot_pad(min((KF + 1) << k, Lg_main))
+        Ks = (1 if k == 0 and KF
+              else min((KF + 1) << max(k - 1, 0), Lg_main))
         if state["cont"]:
-            wave_body(NLp, wave_slot_pad(Ks), first=(k == 0), Ks=Ks,
-                      lg_cap=Lg_main)
+            wave_body(NLp, wave_slot_pad(Ks), first=(k == 0 and not KF),
+                      Ks=Ks, lg_cap=Lg_main)
     if num_waves > 0:
         # growth slower than doubling needs more rounds than the ladder:
         # keep waving at the full slot bound until nothing splits

@@ -118,20 +118,17 @@ def test_port_model_text_loads_in_jax(boosters):
                  id="extra0-item 14"),
     # the pointwise, multiclass and cross-entropy objectives, RF and DART,
     # row and column sampling, categorical features, basic monotone
-    # constraints, path_smooth and CEGB's split and coupled penalties are
-    # ported: these cases hold options that stay refused
+    # constraints, path_smooth, CEGB's split and coupled penalties, forced
+    # splits and interaction constraints are ported: these cases hold
+    # options that stay refused
     pytest.param({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
                   "monotone_constraints_method": "intermediate"},
                  "monotone_constraints_method=intermediate.*item 13",
                  id="extra1-item 13"),
-    pytest.param({"interaction_constraints": [[0, 1]]}, "item 5",
-                 id="extra2-item 5"),
     pytest.param({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
                   "monotone_constraints_method": "advanced"},
                  "monotone_constraints_method=advanced.*item 13",
                  id="extra3-item 13"),
-    pytest.param({"forcedsplits_filename": "forced_splits.json"},
-                 "forced splits.*item 5", id="extra4-item 5"),
     pytest.param({"cegb_penalty_feature_lazy": [1.0] * 8},
                  "cegb_penalty_feature_lazy.*item 13", id="extra5-item 13"),
     pytest.param({"tree_learner": "voting"}, "item 15", id="extra6-item 15"),
@@ -179,20 +176,3 @@ def test_save_model_round_trip(boosters, tmp_path):
         tlgb.Booster(model_file=str(path),
                      params={"device_type": "cpu"}).predict(X),
         bt.predict(X))
-
-
-def test_efb_refusals_name_item_5():
-    """Data EFB would bundle (mutually exclusive sparse features) is
-    refused naming ROADMAP Queue 1 item 5, by the booster and by the
-    growth engines' bundle hook alike."""
-    from lightgbm_tpu_torch.learner.grow import bundle_hist_to_features
-    rng = np.random.RandomState(4)
-    X = np.zeros((2048, 8), np.float32)
-    col = rng.randint(0, 8, 2048)
-    X[np.arange(2048), col] = rng.rand(2048) + 0.5
-    y = (rng.rand(2048) < 0.5).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tlgb.train({**PARAMS, "device_type": "cpu"},
-                   tlgb.Dataset(X, label=y), num_boost_round=1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        bundle_hist_to_features(None, None, None, None, 63, 63, True)
