@@ -1,9 +1,9 @@
-"""Rehearse chip_smoke.py's split_features, objectives, efb and
-forced_interaction phases on the CPU at 1/8 of their rows, to size their
-gates before a run on the card:
+"""Rehearse chip_smoke.py's split_features, objectives, efb,
+forced_interaction and surface phases on the CPU at 1/8 of their rows,
+to size their gates before a run on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
-                              [forced_interaction]
+                              [forced_interaction] [surface]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -17,7 +17,9 @@ RSS gate (its bound scales with the rows, the process's libraries do
 not); the kernels' launch counts are not read (the kernels count only
 on the card) and no device time or memory is measured.  Prints each
 run's line.  The efb phase scans 778 features a wave on the CPU: about
-10 minutes.
+10 minutes.  The surface phase predicts through the torch traversal on
+the CPU (device_predict=true) and counts its CPU dispatches as the
+card's.
 """
 
 import json
@@ -54,6 +56,8 @@ def main(argv) -> int:
         Booster = CpuBooster
         Dataset = staticmethod(lambda *a, params=None, **kw: lgb.Dataset(
             *a, params=on_cpu(params), **kw))
+        LGBMClassifier = staticmethod(lambda **kw: lgb.LGBMClassifier(
+            device_type="cpu", device_predict="true", **kw))
 
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.reset_peak_memory_stats = lambda *a: None
@@ -73,10 +77,14 @@ def main(argv) -> int:
     cs.RssPeak.stop = rss_not_read
     probe = cs.ScanProbe()
     probe.reset()
-    data = (*cs.make_higgs_like(1_000_000, 28),
-            *cs.make_higgs_like(100_000, 28, seed=1))
+    bench = cs.bench_rows(Rehearsal())
+    data = bench[0]
     r = cs.drive_path(Rehearsal(), H, global_timer, "main_path", {}, 13,
-                      data)
+                      data, train_set=bench[1])
+    booster = r["booster"]
+    if "surface" in phases:
+        # the surface phase runs on the main path's 13 trees
+        booster.rollback_one_iter().rollback_one_iter().rollback_one_iter()
     main = {"s_per_iter": r["s_per_iter"], "ms_per_iter": r["ms_per_iter"],
             "auc": r["auc"],
             "features": cs.distinct_features(r["booster"]._gbdt.models_[:13])}
@@ -86,7 +94,8 @@ def main(argv) -> int:
     for phase in phases:
         if phase == "split_features":
             _, lines = cs.phase_split_features(Rehearsal(), H, global_timer,
-                                               "cpu rehearsal", main, probe)
+                                               "cpu rehearsal", main, probe,
+                                               bench)
         elif phase == "objectives":
             _, lines = cs.phase_objectives(Rehearsal(), H, global_timer,
                                            "cpu rehearsal", main)
@@ -94,9 +103,21 @@ def main(argv) -> int:
             _, line = cs.phase_efb(Rehearsal(), H, global_timer,
                                    "cpu rehearsal")
             lines = {"efb": {**line, "run": "efb"}}
+        elif phase == "surface":
+            from lightgbm_tpu_torch.inference import DevicePredictor
+
+            def cpu_dispatches(fn):
+                before = DevicePredictor.dispatches.get("cpu", 0)
+                out = fn()
+                return out, DevicePredictor.dispatches.get("cpu", 0) - before
+            cs.card_predict = cpu_dispatches
+            booster.__class__ = lgb.Booster     # pickled by its class
+            booster.reset_parameter({"device_predict": "true"})
+            line = cs.phase_surface(Rehearsal(), H, booster, data)
+            lines = {"surface": {**line, "run": "surface"}}
         else:
             _, lines = cs.phase_forced_interaction(
-                Rehearsal(), H, global_timer, "cpu rehearsal", main)
+                Rehearsal(), H, global_timer, "cpu rehearsal", main, bench)
         probe.reset()
         for line in lines.values():
             keep = {k: v for k, v in line.items()

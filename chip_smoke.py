@@ -22,6 +22,24 @@ Phases, each printing one JSON line:
      time (kernels and copies), of the native OpenMP predictor and of
      the Python loop (50,000 rows); the pack's depth, the bucket and
      the peak device memory;
+  3a. surface: on the main path's booster right after `predict` (1.1M
+     rows, every predict on the card advancing the DevicePredictor's
+     card dispatches): a pickle round trip (the card and device_predict
+     kept, the same model text, raw scores bit for bit), dump_model (13
+     tree_info entries, the text's num_leaves), set_leaf_output (1.0 on
+     tree 0's most populated leaf moves its rows by 1.0 within the two
+     scores' float32 bounds, the other rows unchanged bit for bit, and
+     restoring the leaf restores the scores bit for bit), shuffle_models
+     on the restored copy (the text changes, scores within
+     2·T·2^-24·Σ|leaf|), then model_from_string back (bit for bit); then
+     LGBMClassifier(n_estimators=13, num_leaves=255, max_bin=255,
+     learning_rate=0.1).fit on the 1M rows with the launch counts set to
+     0 before and read after (K1 and K3 launched), its model text from
+     `Tree=0` on equal to `train`'s with its parameters (on the main
+     path's Dataset of the same rows), held-out AUC
+     >= 0.72, a pickled estimator's predict_proba bit for bit.  One
+     `surface` line: the phase's seconds, the estimator's s/iter of
+     iterations 4-13 beside the main path's, the card;
   4. path A, quantized training: the same workload with
      use_quantized_grad=true (4 bins, stochastic rounding), 13
      iterations; K2 launched, K1/K3 not; held-out AUC within 0.01 of
@@ -216,8 +234,12 @@ Phases, each printing one JSON line:
      inputs and that no profiler has traced.
 Every path runs with all four launch counts set to 0 just before it and
 reads them just after, then prints the breakdown of three instrumented
-iterations.  Then the kernels line, the card's name and power limit, and
-the result.
+iterations.  The paths that train on the bench rows and labels with
+BENCH_PARAMS' Dataset parameters share one Dataset constructed once
+(`bench_rows`, its `bench_dataset` line; a path whose params would bin
+it otherwise is refused), and each JSON line carries `t_s`, the seconds
+since the script started.  Then the kernels line, the card's name and
+power limit, and the result.
 
 Any failure raises and exits nonzero.  With no CUDA device it exits
 nonzero before printing any result.
@@ -252,8 +274,13 @@ F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 VALID_MIN_DELTA = 0.001        # early_stopping_min_delta of the valid path
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, with `t_s`, the seconds since the script
+    started (where the run's time goes)."""
+    print(json.dumps({**obj, "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def make_higgs_like(n, F, seed=0):
@@ -743,6 +770,52 @@ def phase_kernels_group_space(H, dev, Fg):
     return out
 
 
+# the params of every training path, under its own `extra`
+BENCH_PARAMS = {"objective": "binary", "num_leaves": 255,
+                "learning_rate": 0.1, "max_bin": 255, "min_data_in_leaf": 20,
+                "verbosity": -1, "device_type": "cuda"}
+# the Config fields that Dataset.construct reads, but device_type: it
+# picks where the bins are computed, not what they are (the device_bin
+# phase holds the card's bins equal to the CPU's)
+DATASET_FIELDS = ("max_bin", "min_data_in_bin", "min_data_in_leaf",
+                  "bin_construct_sample_cnt", "use_missing",
+                  "zero_as_missing", "feature_pre_filter", "data_random_seed",
+                  "max_conflict_rate", "enable_bundle", "max_bin_by_feature",
+                  "forcedbins_filename", "linear_tree")
+
+
+def check_dataset_params(what, params, train_set):
+    """Refuse to train with `params` on the constructed `train_set` when
+    they would have binned it otherwise: a constructed Dataset ignores
+    the Dataset parameters a Booster hands it."""
+    from lightgbm_tpu_torch.config import Config
+    quiet = {"verbosity": -1}
+    want, have = (Config({**p, **quiet})
+                  for p in (params, train_set.params))
+    diff = {k: (getattr(want, k), getattr(have, k)) for k in DATASET_FIELDS
+            if getattr(want, k) != getattr(have, k)}
+    if diff:
+        raise AssertionError(f"{what}: params would bin the shared Dataset "
+                             f"otherwise (wanted, built): {diff}")
+
+
+def bench_rows(lgb):
+    """The bench rows, make_higgs_like(1_000_000, 28) and the 100,000
+    held-out rows (seed 1), and one Dataset of the 1M rows constructed
+    with BENCH_PARAMS, which every path on these rows and labels with
+    those Dataset parameters trains on: host binning of 1M x 28 takes
+    7-12 s on the card's machine, once instead of once a path.  Prints
+    the `bench_dataset` line.  Returns ((X, y, Xte, yte), Dataset)."""
+    X, y = make_higgs_like(1_000_000, 28)
+    Xte, yte = make_higgs_like(100_000, 28, seed=1)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, params=dict(BENCH_PARAMS)).construct()
+    torch.cuda.synchronize()
+    emit({"phase": "bench_dataset", "rows": X.shape[0],
+          "features": X.shape[1], "construct_s": time.perf_counter() - t0})
+    return (X, y, Xte, yte), ds
+
+
 def launch_counts(H):
     return {"K1": H.build_histogram_wave.launches,
             "K2": H.build_histogram_wave_int.launches,
@@ -761,7 +834,8 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
                before_training=None, metric=None, train_set=None):
     """Train the bench workload with `extra` params on the card
     (`dataset_kw` to its Dataset, or the Dataset `train_set` already
-    made; `before_training(booster)`, if given,
+    made, refused if `extra` would have binned it otherwise;
+    `before_training(booster)`, if given,
     runs before the counts are set): counts set to 0 just before the
     updates and read just after (`after_update(booster)`, if given, runs
     after each update, outside its time); then `after_training(booster)`,
@@ -771,9 +845,11 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
     (the measure), s_per_iter (iterations 4-13), instrumented wall
     s/iter and the breakdown's ms per iteration."""
     X, y, Xte, yte = data
-    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
-              "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
-              "device_type": "cuda", **extra}
+    params = {**BENCH_PARAMS, **extra}
+    if train_set is not None:
+        if dataset_kw:
+            raise AssertionError(f"{name}: dataset_kw or train_set, not both")
+        check_dataset_params(name, params, train_set)
     t0 = time.perf_counter()
     booster = lgb.Booster(params=params, train_set=train_set or lgb.Dataset(
         X, label=y, **(dataset_kw or {})))
@@ -833,14 +909,22 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
             "booster": booster, "peak_gib": peak}
 
 
-def phase_paths(lgb, H, global_timer, probe):
-    X, y = make_higgs_like(1_000_000, 28)
-    Xte, yte = make_higgs_like(100_000, 28, seed=1)
-    data = (X, y, Xte, yte)
+def phase_paths(lgb, H, global_timer, probe, bench):
+    data, ds = bench
     out = {}
     probe.reset()
+    surface = {}
+
+    def after_main(b):
+        phase_predict(b, data)
+        # the estimator's and train's scans are not the main path's
+        held = probe.calls, probe.last
+        surface.update(phase_surface(lgb, H, b, data))
+        probe.calls, probe.last = held
     r = drive_path(lgb, H, global_timer, "main_path", {}, 13, data,
-                   after_training=lambda b: phase_predict(b, data))
+                   after_training=after_main, train_set=ds)
+    emit({**surface, "main_path_s_per_iter_last10": r["s_per_iter"],
+          "nvidia_smi": card_line()})
     calls = probe.keep("main_path")
     launches, auc_main, main_wall = r["launches"], r["auc"], r["wall"]
     main = {"s_per_iter": r["s_per_iter"], "ms_per_iter": r["ms_per_iter"],
@@ -855,7 +939,7 @@ def phase_paths(lgb, H, global_timer, probe):
                              f"{launches}")
     out["main_path"] = launches
     r = drive_path(lgb, H, global_timer, "path_a_quantized",
-                   {"use_quantized_grad": True}, 13, data)
+                   {"use_quantized_grad": True}, 13, data, train_set=ds)
     launches, auc_q = r["launches"], r["auc"]
     if launches["K2"] <= 0 or launches["K1"] or launches["K3"]:
         raise AssertionError(f"path A: K2 must carry every histogram: "
@@ -865,7 +949,8 @@ def phase_paths(lgb, H, global_timer, probe):
                              f"0.01 from the float path's {auc_main}")
     out["path_a_quantized"] = launches
     r = drive_path(lgb, H, global_timer, "path_b_leafwise",
-                   {"tpu_growth_strategy": "leafwise"}, 13, data)
+                   {"tpu_growth_strategy": "leafwise"}, 13, data,
+                   train_set=ds)
     launches, auc_l = r["launches"], r["auc"]
     if launches["K4"] <= 0:
         raise AssertionError(f"path B: K4 was not launched: {launches}")
@@ -1166,6 +1251,198 @@ def phase_predict(booster, data):
           "python_rows": n_py, "python_rows_per_s": n_py / py_s})
 
 
+SURFACE_DELTA = 1.0    # added to one leaf of tree 0 by the surface phase
+
+
+def card_predict(fn):
+    """fn()'s result and the DevicePredictor dispatches it made on the
+    card (the device route of `Booster.predict`)."""
+    from lightgbm_tpu_torch.inference import DevicePredictor
+    before = DevicePredictor.dispatches.get("cuda", 0)
+    out = fn()
+    return out, DevicePredictor.dispatches.get("cuda", 0) - before
+
+
+def sum_abs_leaves(models, leaf):
+    """Σ_t |leaf value| of each row's leaves (leaf ids `leaf`, [n, T])."""
+    out = np.zeros(leaf.shape[0])
+    for t, tree in enumerate(models):
+        out += np.abs(tree.leaf_value[leaf[:, t]])
+    return out
+
+
+def phase_surface(lgb, H, booster, data):
+    """The user surface on the main path's booster after its 13 trees,
+    right after `predict` (1.1M rows: the training and held-out rows).
+    Every predict here goes through `Booster.predict` on the card and
+    must advance the DevicePredictor's card dispatches.  Gates:
+    pickle: `pickle.loads(pickle.dumps(booster))` keeps the booster's
+    device (the card) and device_predict (auto), gives the same model
+    text, and raw scores equal bit for bit; dump_model: 13 `tree_info`
+    entries with the text's num_leaves; set_leaf_output: SURFACE_DELTA
+    added to tree 0's most populated leaf moves its rows (by pred_leaf)
+    by the delta within the sum of the two scores' float32 bounds
+    (2·T·2^-24·Σ|leaf| each), every other row unchanged bit for bit, and
+    restoring the leaf gives the original scores bit for bit;
+    shuffle_models on the restored copy: the text changes, each raw
+    score within 2·T·2^-24·Σ|leaf| of the unshuffled one;
+    model_from_string of the original text on that copy gives the text
+    and the scores back bit for bit.  Then the estimator:
+    LGBMClassifier(n_estimators=13, num_leaves=255, max_bin=255,
+    learning_rate=0.1).fit on the 1M rows with the launch counts set to 0
+    just before and read just after (K1 and K3 launched); its model text
+    from `Tree=0` on equal to `train`'s with its booster's parameters on
+    the main path's Dataset of the same rows; held-out AUC of
+    predict_proba >= 0.72; a pickled and restored estimator's
+    predict_proba equal bit for bit on the card.  Returns the phase's
+    line (the caller adds the main path's s/iter and prints it)."""
+    import pickle
+    t_phase = time.perf_counter()
+    X, y, Xte, yte = data
+    Xall = np.concatenate([X, Xte])
+    g = booster._gbdt
+    T = booster.num_trees()
+    text = booster.model_to_string()
+
+    def on_card(what, fn):
+        out, n = card_predict(fn)
+        if n != 1:
+            raise AssertionError(f"surface {what}: {n} card dispatches, "
+                                 "expected 1")
+        return out
+
+    raw = on_card("live", lambda: booster.predict(Xall, raw_score=True))
+    leaf = booster.predict(Xall, pred_leaf=True)
+    bound = 2.0 * T * 2.0 ** -24 * sum_abs_leaves(g.models_, leaf)
+    # pickle
+    t0 = time.perf_counter()
+    blob = pickle.dumps(booster)
+    restored = pickle.loads(blob)
+    pickle_s = time.perf_counter() - t0
+    rg = restored._gbdt
+    if (rg.device != g.device
+            or rg.config.device_predict != g.config.device_predict):
+        raise AssertionError(f"surface pickle: restored on {rg.device}, "
+                             f"device_predict {rg.config.device_predict}")
+    if restored.model_to_string() != text:
+        raise AssertionError("surface pickle: the model text changed")
+    if not np.array_equal(on_card("pickle", lambda: restored.predict(
+            Xall, raw_score=True)), raw):
+        raise AssertionError("surface pickle: restored raw scores differ")
+    # dump_model
+    dump = booster.dump_model()
+    text_leaves = [int(v) for v in re.findall(r"^num_leaves=(\d+)$", text,
+                                               re.M)]
+    dump_leaves = [t["num_leaves"] for t in dump["tree_info"]]
+    if len(dump_leaves) != 13 or dump_leaves != text_leaves:
+        raise AssertionError(f"surface dump_model: num_leaves "
+                             f"{dump_leaves} vs the text's {text_leaves}")
+    # set_leaf_output on the live booster, then restored
+    leaf_id = int(np.bincount(leaf[:, 0]).argmax())
+    in_leaf = leaf[:, 0] == leaf_id
+    v = booster.get_leaf_output(0, leaf_id)
+    booster.set_leaf_output(0, leaf_id, v + SURFACE_DELTA)
+    if booster.get_leaf_output(0, leaf_id) != v + SURFACE_DELTA:
+        raise AssertionError("surface set_leaf_output: the leaf was not set")
+    moved = on_card("set_leaf_output",
+                    lambda: booster.predict(Xall, raw_score=True))
+    bound_moved = 2.0 * T * 2.0 ** -24 * sum_abs_leaves(g.models_, leaf)
+    if not np.array_equal(moved[~in_leaf], raw[~in_leaf]):
+        raise AssertionError("surface set_leaf_output: rows outside the "
+                             "leaf moved")
+    delta_err = np.abs(moved[in_leaf].astype(np.float64)
+                       - raw[in_leaf] - SURFACE_DELTA)
+    if (delta_err > bound[in_leaf] + bound_moved[in_leaf]).any():
+        raise AssertionError(f"surface set_leaf_output: the leaf's rows "
+                             f"moved by delta +- {delta_err.max()!r}")
+    booster.set_leaf_output(0, leaf_id, v)
+    if not np.array_equal(on_card("set_leaf_output restored",
+                                  lambda: booster.predict(
+                                      Xall, raw_score=True)), raw):
+        raise AssertionError("surface set_leaf_output: restoring the leaf "
+                             "did not restore the scores")
+    # shuffle_models, then model_from_string, on the restored copy
+    restored.shuffle_models()
+    if restored.model_to_string() == text:
+        raise AssertionError("surface shuffle_models: the text is unchanged")
+    shuffled = on_card("shuffle_models",
+                       lambda: restored.predict(Xall, raw_score=True))
+    shuffle_err = np.abs(shuffled.astype(np.float64) - raw)
+    if (shuffle_err > bound).any():
+        raise AssertionError(f"surface shuffle_models: error "
+                             f"{shuffle_err.max()!r} over the bound")
+    restored.model_from_string(text)
+    if (restored.model_to_string() != text or not np.array_equal(
+            on_card("model_from_string",
+                    lambda: restored.predict(Xall, raw_score=True)), raw)):
+        raise AssertionError("surface model_from_string: not the original")
+    del restored, moved, shuffled, Xall
+    # the estimator
+    stamps = {"estimator": [], "train": []}
+
+    def stamper(key):
+        """A callback that stamps the end of each iteration."""
+        def stamp(env):
+            torch.cuda.synchronize()
+            stamps[key].append(time.perf_counter())
+        return stamp
+    reset_counts(H)
+    t0 = time.perf_counter()
+    clf = lgb.LGBMClassifier(n_estimators=13, num_leaves=255, max_bin=255,
+                             learning_rate=0.1)
+    clf.fit(X, y, callbacks=[stamper("estimator")])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts(H)
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        raise AssertionError(f"surface estimator: K1 and K3 must launch: "
+                             f"{launches}")
+    # `train` on the main path's Dataset of the same rows: binned apart
+    # from the estimator's, and no second binning of 1M rows
+    t0 = time.perf_counter()
+    check_dataset_params("surface train", clf.booster_.params,
+                         booster._train_set)
+    ref = lgb.train(clf.booster_.params, booster._train_set, 13,
+                    callbacks=[stamper("train")])
+    train_s = time.perf_counter() - t0
+    est_text = clf.booster_.model_to_string()
+    ref_text = ref.model_to_string()
+    if est_text[est_text.index("Tree=0"):] != ref_text[ref_text.index(
+            "Tree=0"):]:
+        raise AssertionError("surface estimator: its trees differ from "
+                             "train's")
+    proba = on_card("estimator", lambda: clf.predict_proba(Xte))
+    est_auc = auc(yte, proba[:, 1])
+    if est_auc < 0.72:
+        raise AssertionError(f"surface estimator: held-out AUC {est_auc} "
+                             "< 0.72")
+    clf2 = pickle.loads(pickle.dumps(clf))
+    if not np.array_equal(on_card("estimator pickle",
+                                  lambda: clf2.predict_proba(Xte)), proba):
+        raise AssertionError("surface estimator: the restored estimator's "
+                             "predict_proba differs")
+    iter_s = {k: np.diff(v).tolist() for k, v in stamps.items()}
+    return {"phase": "surface", "trees": T, "rows": int(len(raw)),
+            "pickle_bytes": len(blob), "pickle_round_trip_s": pickle_s,
+            "leaf": [0, leaf_id], "leaf_rows": int(in_leaf.sum()),
+            "delta": SURFACE_DELTA,
+            "delta_max_abs_err": float(delta_err.max()),
+            "shuffle_max_abs_err": float(shuffle_err.max()),
+            "shuffle_max_err_over_bound": float((shuffle_err / bound).max()),
+            "estimator_fit_s": fit_s, "train_s": train_s,
+            "estimator_s_per_iter_last10": float(np.mean(
+                iter_s["estimator"][-10:])),
+            "train_s_per_iter_last10": float(np.mean(iter_s["train"][-10:])),
+            "iter_s_2_to_13": iter_s,
+            "estimator_heldout_auc": est_auc,
+            "estimator_trees_equal_main_path": (
+                est_text[est_text.index("Tree=0"):est_text.index(
+                    "end of trees")]
+                == text[text.index("Tree=0"):text.index("end of trees")]),
+            "estimator_launches": launches,
+            "seconds": time.perf_counter() - t_phase}
+
+
 def phase_device_bin(lgb, global_timer):
     """Device binning at 2^21 x 28 float32 (make_higgs_like): the default
     Dataset (device_type=cuda) bins on the card, a device_type=cpu
@@ -1240,19 +1517,18 @@ SAMPLING_RUNS = (
      ("K2",), 0.72))
 
 
-def phase_sampling(lgb, H, global_timer, card, main_s):
+def phase_sampling(lgb, H, global_timer, card, main_s, bench):
     """Row and column sampling at the main path's width (runs (a)-(d) of
-    the module docstring), each driven like the paths; one `sampling`
-    line per run.  Returns the launches of each run."""
-    X, y = make_higgs_like(1_000_000, 28)
-    Xte, yte = make_higgs_like(100_000, 28, seed=1)
-    data = (X, y, Xte, yte)
-    n = X.shape[0]
+    the module docstring), each driven like the paths on the bench
+    Dataset; one `sampling` line per run.  Returns the launches of each
+    run."""
+    data, ds = bench
+    n = data[0].shape[0]
     out = {}
     for name, extra, kernels, auc_min in SAMPLING_RUNS:
         in_bag = []
         r = drive_path(lgb, H, global_timer, name, extra, 13, data,
-                       after_update=lambda b: in_bag.append(
+                       train_set=ds, after_update=lambda b: in_bag.append(
                            int(b._gbdt._bag_mask_host[:n].sum())))
         launches, g = r["launches"], r["booster"]._gbdt
         if any(launches[k] <= 0 for k in kernels):
@@ -1297,20 +1573,17 @@ def phase_sampling(lgb, H, global_timer, card, main_s):
     return out
 
 
-def phase_continue(lgb, H, global_timer, card):
+def phase_continue(lgb, H, global_timer, card, bench):
     """Continued training and rollback at the main path's width, run (a)'s
     params: 7 rounds, then 6 more from the first booster's model text
     with a valid set, the timer on (the line's `continue_ms_by_scope`:
     `GBDT::continue_from` is the seeding), then one rollback (gates in
     the module docstring)."""
-    X, y = make_higgs_like(1_000_000, 28)
-    Xte, yte = make_higgs_like(100_000, 28, seed=1)
-    params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
-              "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
-              "device_type": "cuda", "metric": "auc",
-              **SAMPLING_RUNS[0][1]}
+    (X, y, Xte, yte), ds = bench
+    params = {**BENCH_PARAMS, "metric": "auc", **SAMPLING_RUNS[0][1]}
+    check_dataset_params("continue", params, ds)
     t0 = time.perf_counter()
-    b1 = lgb.train(params, lgb.Dataset(X, label=y), 7)
+    b1 = lgb.train(params, ds, 7)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     text = b1.model_to_string()
@@ -1321,7 +1594,7 @@ def phase_continue(lgb, H, global_timer, card):
     global_timer.reset()
     global_timer.enabled = True
     t0 = time.perf_counter()
-    b2 = lgb.train(params, lgb.Dataset(X, label=y), 6, init_model=text,
+    b2 = lgb.train(params, ds, 6, init_model=text,
                    keep_training_booster=True,
                    valid_sets=[lgb.Dataset(Xte, label=yte)],
                    callbacks=[lgb.record_evaluation(hist)])
@@ -1474,14 +1747,13 @@ def distinct_features(models):
                    for f in t.split_feature[:t.num_leaves - 1]})
 
 
-def phase_split_features(lgb, H, global_timer, card, main, probe):
+def phase_split_features(lgb, H, global_timer, card, main, probe, bench):
     """The split scan's categorical, monotone and smoothing/CEGB branches
     at the main path's width (runs and gates in the module docstring).
     Returns ({run: launches}, {run: line}); the lines are emitted after
     the scan launches are counted."""
     from lightgbm_tpu_torch.metric import AUCMetric
-    X0, y = make_higgs_like(1_000_000, 28)
-    Xte0, yte = make_higgs_like(100_000, 28, seed=1)
+    (X0, y, Xte0, yte), ds = bench
     n = X0.shape[0]
     Xc, Xtec = categorical_transform(X0, Xte0)
     mc = monotone_signs()
@@ -1506,6 +1778,7 @@ def phase_split_features(lgb, H, global_timer, card, main, probe):
         probe.reset()
         r = drive_path(lgb, H, global_timer, f"split_features_{name}", extra,
                        13, data, dataset_kw=ds_kw,
+                       train_set=None if ds_kw else ds,
                        before_training=(add_valid if name == "categorical"
                                         else None))
         calls = probe.keep(name)
@@ -2065,11 +2338,11 @@ def check_forced(g, forced):
                     f"{f} at {thr!r}")
 
 
-def phase_forced_interaction(lgb, H, global_timer, card, main):
-    """Forced splits and interaction constraints at the main path's width
-    (module docstring, phase 5.2).  Returns (launches, lines)."""
-    X, y = make_higgs_like(1_000_000, 28)
-    Xte, yte = make_higgs_like(100_000, 28, seed=1)
+def phase_forced_interaction(lgb, H, global_timer, card, main, bench):
+    """Forced splits and interaction constraints at the main path's width,
+    on the bench Dataset (module docstring, phase 5.2).  Returns
+    (launches, lines)."""
+    (X, y, Xte, yte), ds = bench
     forced = forced_splits_json(X)
     os.makedirs("build", exist_ok=True)
     path = os.path.join("build", "chip_smoke_forced_splits.json")
@@ -2082,7 +2355,7 @@ def phase_forced_interaction(lgb, H, global_timer, card, main):
             ("interaction", {"interaction_constraints": sets},
              INTERACTION_AUC_MIN)):
         r = drive_path(lgb, H, global_timer, f"forced_interaction_{name}",
-                       extra, 13, (X, y, Xte, yte))
+                       extra, 13, (X, y, Xte, yte), train_set=ds)
         g = r["booster"]._gbdt
         lc = r["launches"]
         if lc["K1"] <= 0 or lc["K3"] <= 0:
@@ -2281,20 +2554,22 @@ def main(argv) -> int:
     probe = ScanProbe()
     # EFB first: its host memory gate reads the process's resident set
     efb_launches, efb_line = phase_efb(lgb, H, global_timer, card)
+    bench = bench_rows(lgb)
     probe.reset()
-    launches, main_wall, main = phase_paths(lgb, H, global_timer, probe)
+    launches, main_wall, main = phase_paths(lgb, H, global_timer, probe,
+                                            bench)
     launches["efb"] = efb_launches
     fi_launches, _ = phase_forced_interaction(lgb, H, global_timer, card,
-                                              main)
+                                              main, bench)
     launches.update(fi_launches)
     probe.reset()
     phase_valid_path(lgb, H, global_timer, card, main_wall)
     phase_device_bin(lgb, global_timer)
     launches.update(phase_sampling(lgb, H, global_timer, card,
-                                   main["s_per_iter"]))
-    launches["continue"] = phase_continue(lgb, H, global_timer, card)
+                                   main["s_per_iter"], bench))
+    launches["continue"] = phase_continue(lgb, H, global_timer, card, bench)
     sf_launches, sf_lines = phase_split_features(lgb, H, global_timer, card,
-                                                 main, probe)
+                                                 main, probe, bench)
     launches.update(sf_launches)
     obj_launches, _ = phase_objectives(lgb, H, global_timer, card, main)
     launches.update(obj_launches)

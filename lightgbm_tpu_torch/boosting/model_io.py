@@ -102,7 +102,13 @@ def save_model_to_string(booster, num_iteration: int = -1,
         if imp[f] > 0 and f < len(feature_names):
             out += f"{feature_names[f]}={imp[f]:g}\n"
     out += "\nparameters:\n"
-    if cfg is not None:
+    loaded = getattr(booster, "_loaded_parameters", None)
+    if ds is None and loaded is not None:
+        # a model loaded from text writes its parameters back as read
+        # (ref: gbdt_model_text.cpp loaded_parameter_), so its text
+        # survives a pickle or a reload unchanged
+        out += loaded
+    elif cfg is not None:
         for key, val in sorted(cfg.changed_params().items()):
             if isinstance(val, list):
                 val = ",".join(str(v) for v in val)
@@ -198,6 +204,10 @@ def load_model_from_string(text: str):
                 blk = "Tree=" + blk
             booster.models_.append(Tree.from_string(blk))
     booster.iter_ = len(booster.models_) // max(K, 1)
+    _, found, params_block = text.partition("\nparameters:\n")
+    if found and "end of parameters\n" in params_block:
+        booster._loaded_parameters = params_block.split(
+            "end of parameters\n", 1)[0]
     return booster
 
 

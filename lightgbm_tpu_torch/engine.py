@@ -179,11 +179,26 @@ def train(params: Dict[str, Any], train_set: Dataset,
 class CVBooster:
     """The per-fold boosters of `cv`; a method call runs on each and
     returns the per-fold results (ref: python-package engine.py
-    CVBooster).  Serializes as JSON of model texts + best_iteration."""
+    CVBooster).  Serializes as JSON of model texts + best_iteration.
+    Loaded boosters predict where `params` say (the card by default),
+    as `Booster(model_str=..., params=...)` does."""
 
-    def __init__(self):
+    def __init__(self, model_file=None, params=None):
         self.boosters: List[Booster] = []
         self.best_iteration = -1
+        self._params = dict(params or {})
+        if model_file is not None:
+            with open(model_file) as f:
+                self._load(json.loads(f.read()))
+
+    def _load(self, payload: Dict[str, Any]) -> None:
+        self.best_iteration = payload["best_iteration"]
+        self.boosters = [Booster(model_str=s, params=self._params)
+                         for s in payload["boosters"]]
+
+    def model_from_string(self, model_str: str) -> "CVBooster":
+        self._load(json.loads(model_str))
+        return self
 
     def model_to_string(self, num_iteration=None, start_iteration=0,
                         importance_type="split") -> str:
@@ -289,7 +304,7 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
         out[f"valid {metric}-mean"] = vals.mean(axis=0).tolist()
         out[f"valid {metric}-stdv"] = vals.std(axis=0).tolist()
     if return_cvbooster:
-        cvb = CVBooster()
+        cvb = CVBooster(params=params)
         cvb.boosters = boosters
         cvb.best_iteration = max((b.best_iteration for b in boosters),
                                  default=-1)

@@ -62,6 +62,39 @@ def test_imports_and_trains_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_import_needs_no_sklearn_pandas_or_matplotlib():
+    """Importing the package pulls in none of them; the estimators and
+    plotting helpers import what they use when they are used, and the
+    estimators keep their API on `object` bases without scikit-learn."""
+    code = (
+        "import sys\n"
+        "import lightgbm_tpu_torch as L\n"
+        "heavy = ('sklearn', 'pandas', 'matplotlib', 'graphviz')\n"
+        "assert not [m for m in sys.modules\n"
+        "            if m.split('.')[0] in heavy], 'imported'\n"
+        "for m in heavy:\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "X = np.random.RandomState(0).randn(512, 3).astype(np.float32)\n"
+        "y = (X[:, 0] > 0).astype(int)\n"
+        "clf = L.LGBMClassifier(n_estimators=2, num_leaves=7,\n"
+        "                       device_type='cpu').fit(X, y)\n"
+        "assert L.LGBMClassifier.__mro__[-2] is L.LGBMModel\n"
+        "assert clf.get_params()['num_leaves'] == 7\n"
+        "assert clf.predict(X).shape == (512,)\n"
+        "try:\n"
+        "    L.plot_importance(clf)\n"
+        "except L.LightGBMError as e:\n"
+        "    assert 'matplotlib' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('plotting ran without matplotlib')\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     X = np.random.RandomState(0).randn(512, 3).astype(np.float32)
