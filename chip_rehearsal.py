@@ -1,9 +1,10 @@
 """Rehearse chip_smoke.py's split_features, objectives, efb,
-forced_interaction and surface phases on the CPU at 1/8 of their rows,
-to size their gates before a run on the card:
+forced_interaction, surface, ranking and file phases on the CPU at 1/8
+of their rows, to size their gates before a run on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
-                              [forced_interaction] [surface]
+                              [forced_interaction] [surface] [ranking]
+                              [file]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -19,7 +20,10 @@ on the card) and no device time or memory is measured.  Prints each
 run's line.  The efb phase scans 778 features a wave on the CPU: about
 10 minutes.  The surface phase predicts through the torch traversal on
 the CPU (device_predict=true) and counts its CPU dispatches as the
-card's.
+card's.  The ranking phase trains lambdarank and rank_xendcg on
+RANK_ROWS / 8 rows (whole queries) with RANK_VALID_ROWS / 8 held-out
+rows, then runs the three ranking card-vs-CPU cases (both sides on the
+CPU); the file phase runs at its full FILE_ROWS of the 1/8 data.
 """
 
 import json
@@ -41,6 +45,8 @@ def main(argv) -> int:
 
     full = cs.make_higgs_like
     cs.make_higgs_like = lambda n, F, seed=0: full(n // SCALE, F, seed)
+    cs.RANK_ROWS //= SCALE
+    cs.RANK_VALID_ROWS //= SCALE
 
     def on_cpu(params):
         return {**(params or {}), "device_type": "cpu"}
@@ -58,10 +64,13 @@ def main(argv) -> int:
             *a, params=on_cpu(params), **kw))
         LGBMClassifier = staticmethod(lambda **kw: lgb.LGBMClassifier(
             device_type="cpu", device_predict="true", **kw))
+        train = staticmethod(lambda params, *a, **kw: lgb.train(
+            on_cpu(params), *a, **kw))
 
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.reset_peak_memory_stats = lambda *a: None
     torch.cuda.max_memory_allocated = lambda *a: 0
+    torch.cuda.memory_allocated = lambda *a: 0
     # launch counts are card-only: every kernel reads as launched
     cs.launch_counts = lambda H: {k: 1 for k in cs.KERNELS}
     # the rehearsal measures the values that the gates are taken from
@@ -70,6 +79,7 @@ def main(argv) -> int:
                           for k, (m, sense, _) in cs.OBJECTIVE_GATES.items()}
     cs.QUANTILE_COVER_BAND = None
     cs.EFB_AUC_MIN = cs.FORCED_AUC_MIN = cs.INTERACTION_AUC_MIN = 0.0
+    cs.RANK_NDCG_MIN = {k: 0.0 for k in cs.RANK_NDCG_MIN}
 
     def rss_not_read(self):
         self.done.set()
@@ -103,6 +113,27 @@ def main(argv) -> int:
             _, line = cs.phase_efb(Rehearsal(), H, global_timer,
                                    "cpu rehearsal")
             lines = {"efb": {**line, "run": "efb"}}
+        elif phase in ("ranking", "file"):
+            rank = cs.ranking_data()
+            if phase == "file":
+                cs.phase_file(Rehearsal(), H, "cpu rehearsal", rank[0])
+                lines = {}
+            else:
+                cs.phase_ranking(Rehearsal(), H, global_timer,
+                                 "cpu rehearsal", rank)
+                for name, extra in (
+                        ("lambdarank_position_bias_wave",
+                         {"objective": "lambdarank",
+                          "lambdarank_position_bias_regularization": 0.1}),
+                        ("rank_xendcg_quantized",
+                         {"objective": "rank_xendcg",
+                          "use_quantized_grad": True}),
+                        ("lambdarank_leafwise",
+                         {"objective": "lambdarank",
+                          "tpu_growth_strategy": "leafwise"})):
+                    cs.phase_card_vs_cpu(Rehearsal(), H, name, extra,
+                                         data="mslr", rank=rank[0])
+                lines = {}
         elif phase == "surface":
             from lightgbm_tpu_torch.inference import DevicePredictor
 

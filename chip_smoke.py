@@ -181,6 +181,33 @@ Phases, each printing one JSON line:
      iterations 4-13 beside the main path's, `GBDT::gradients`
      ms/iter, `GBDT::renew` ms/iter (b), `DART::drop` ms/iter (e),
      trees, launches, peak GiB, the held-out measure, the card;
+  5g. ranking: make_mslr_like, MSLR-WEB30K's published shape (136
+     float32 features, graded labels 0-4 skewed toward 0, queries of 1 to
+     1,251 documents, mean about 120), whole queries up to 2^20 rows
+     (about 8,700 queries, so the float32 matrix bins on the card), and
+     100,000 held-out rows in whole queries (seed 1) as a valid set on the
+     training bin mappers; two runs of 13 iterations, 255 leaves, 255
+     bins, learning rate 0.1, the wave engine: `lambdarank` and
+     `rank_xendcg`, each with metric ndcg, eval_at 1, 3, 5, 10.  Gates in
+     each: K1 and K3 launched; valid NDCG@10 higher after iteration 13
+     than after iteration 1, and at least RANK_NDCG_MIN
+     (chip_rehearsal.py ranking at 1/8 of the rows, less a margin).  One
+     `ranking` line per run: s/iter of iterations 4-13, `GBDT::gradients`,
+     `Tree::split_find` / `Tree::histogram` / `Tree::partition` device
+     and `GBDT::eval` ms/iter (three instrumented iterations after the
+     13), peak device GiB of the 13 and of the gradients step alone,
+     launches, valid NDCG@10 at iterations 1 and 13;
+  5h. file: the ranking rows' first whole queries in 65,536 rows (1/16
+     grid values, so the text holds them exactly) written as a TSV file
+     with a header and as LibSVM, each with `.query` and `.weight` side
+     files, and loaded through `Dataset(path)`, with two_round=true, and
+     through save_binary -> `Dataset(path.bin)`.  Gates: each Dataset's
+     bin codes, labels, weights and query boundaries equal the Dataset
+     built from the arrays; three lambdarank iterations on the TSV's
+     Dataset grow the trees of the arrays' (model text from `Tree=0` on)
+     with K1 and K3 launched; the native parser built and parsed both
+     formats.  One `file` line: load seconds of each route, parse
+     seconds and rows/s of the native and the NumPy parser;
   6. card against CPU: `train` at 65,536 rows, 3 iterations, on "cuda"
      and "cpu", for the main path, paths A and B, sampling runs (a), (b)
      at learning_rate 0.5 (GOSS samples from iteration 2), (c), and (a)
@@ -199,8 +226,11 @@ Phases, each printing one JSON line:
      devices; then forced splits (the rows' medians, held on both
      devices) and interaction constraints on the leaf-wise engine (K4):
      the same split features, thresholds, decision types and category
-     sets in every tree, leaf values within rtol 1e-4; the card run's
-     launch counts in each line;
+     sets in every tree, leaf values within rtol 1e-4; then the ranking
+     objectives on the ranking data's whole queries in its first 32,768
+     rows: lambdarank with position bias on the wave engine (K1, K3),
+     rank_xendcg quantized (K2) and lambdarank on the leaf-wise engine
+     (K4); the card run's launch counts in each line;
   7. kernels at the main path's widths (28 features, 255 bins, 2
      channels), one `kernel` line per shape: K1 at 1/2/4/8/16/128/256
      slots on n = 2^20 rows (half on the sentinel), at 384 slots of
@@ -217,7 +247,8 @@ Phases, each printing one JSON line:
      choice of K2_FEW_SLOTS.  Then one row per kernel at the efb run's
      group space (its F' bundle columns, codes over [0, 256) with half
      of them 0, max_bin 256): K1 and K2 at 256 slots, K3 at 8, K4 at
-     2^20 rows.
+     2^20 rows; and K1 at 256 slots and K3 at 8 at the ranking width
+     (136 features, 255 bins).
      Every kernel's output must equal its plain PyTorch version's bit
      for bit (all four sum exact integers) and repeat bit for bit on a
      second launch, and each call must advance the kernel's launch count
@@ -2397,8 +2428,348 @@ def phase_forced_interaction(lgb, H, global_timer, card, main, bench):
     return launches, lines
 
 
+RANK_F = 136                  # MSLR-WEB30K's features
+RANK_MAX_LEN = 1251           # its longest query
+RANK_ROWS = 1 << 20           # whole queries up to at least this many rows
+RANK_VALID_ROWS = 100_000
+RANK_EVAL_AT = (1, 3, 5, 10)
+RANK_PARAMS = {"num_leaves": 255, "max_bin": 255, "learning_rate": 0.1,
+               "min_data_in_leaf": 20, "tpu_growth_strategy": "wave",
+               "verbosity": -1, "device_type": "cuda"}
+# held-out NDCG@10 after 13 iterations: chip_rehearsal.py ranking at 1/8
+# of the rows, less a margin (PERF.md)
+RANK_NDCG_MIN = {"lambdarank": 0.596, "rank_xendcg": 0.596}
+# the ranking card-vs-CPU cases (their CPU sides took 40-57 s each at
+# 65,536 rows, PERF.md) and the file phase
+CARD_RANK_ROWS = 32_768
+FILE_ROWS = 65_536
+
+
+def make_mslr_like(n_rows, seed=0):
+    """Ranking data of MSLR-WEB30K's published shape (the "MS LTR" set of
+    LightGBM's docs/Experiments.rst): 136 float32 features, query
+    lengths from 1 to 1,251 documents (lognormal, mean about 120), whole
+    queries until at least `n_rows` rows, graded labels 0-4 skewed
+    toward 0 (shares 0.52 / 0.32 / 0.12 / 0.03 / 0.01, from a latent
+    score of 20 features, a per-query effect and noise).  Features sit
+    on a 1/16 grid (as MSLR's counts and scores are mostly short
+    decimals), so a text file of them parses back to the same values.
+    Returns (X [n, 136] float32, y float32, query sizes, position: each
+    document's index in its query)."""
+    rng = np.random.RandomState(seed)
+    lens = np.clip(np.round(rng.lognormal(4.56, 0.7, 4 * n_rows // 100
+                                          + 16)), 1, RANK_MAX_LEN)
+    lens = lens.astype(np.int64)
+    ends = np.cumsum(lens)
+    nq = int(np.searchsorted(ends, n_rows)) + 1
+    lens, n = lens[:nq], int(ends[nq - 1])
+    X = np.empty((n, RANK_F), np.float32)
+    for f in range(RANK_F):
+        kind = f % 4
+        col = (rng.randn(n) if kind == 0
+               else np.abs(rng.randn(n)) ** 1.5 * 4 if kind == 1
+               else rng.rand(n) if kind == 2
+               else rng.poisson(3.0, n).astype(np.float64))
+        X[:, f] = np.round(col * 16) / 16
+    w = np.random.RandomState(4321).randn(20)
+    qeff = np.repeat(rng.randn(nq), lens)
+    latent = X[:, :20] @ w / 8 + 0.5 * qeff + rng.randn(n)
+    cuts = np.quantile(latent, (0.52, 0.84, 0.96, 0.99))
+    y = np.searchsorted(cuts, latent, side="right").astype(np.float32)
+    position = np.arange(n) - np.repeat(ends[:nq] - lens, lens)
+    return X, y, lens, position
+
+
+def head_queries(lens, rows):
+    """(query count, row count) of the whole queries that fit in `rows`."""
+    ends = np.cumsum(lens)
+    nq = int(np.searchsorted(ends, rows, side="right"))
+    return nq, int(ends[nq - 1])
+
+
+def ranking_data():
+    """The ranking phase's rows: make_mslr_like at RANK_ROWS (seed 0) and
+    RANK_VALID_ROWS held-out rows (seed 1)."""
+    return make_mslr_like(RANK_ROWS), make_mslr_like(RANK_VALID_ROWS, 1)
+
+
+def phase_ranking(lgb, H, global_timer, card, data):
+    """lambdarank and rank_xendcg at MSLR-WEB30K's width (gates in the
+    module docstring): one Dataset of the rows, binned once, a valid set
+    on its bin mappers; per run 13 updates with the launch counts set to
+    0 just before and read just after, the valid NDCG after each, then
+    the gradients step alone (its peak device memory) and three
+    instrumented iterations (`GBDT::eval` around the valid evaluation,
+    as `train` has it).  Returns {run: launches}."""
+    (X, y, lens, _), (Xv, yv, lv, _) = data
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, group=lens,
+                     params=dict(RANK_PARAMS)).construct()
+    valid = ds.create_valid(Xv, label=yv, group=lv).construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    out = {}
+    for name in ("lambdarank", "rank_xendcg"):
+        params = {**RANK_PARAMS, "objective": name, "metric": "ndcg",
+                  "eval_at": list(RANK_EVAL_AT)}
+        booster = lgb.Booster(params=params, train_set=ds)
+        booster.add_valid(valid, "valid")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(H)
+        iters, evals, ndcg = [], [], []
+        for _ in range(13):
+            t0 = time.perf_counter()
+            if booster.update():
+                raise AssertionError(f"ranking {name}: training stopped "
+                                     "early")
+            torch.cuda.synchronize()
+            iters.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            res = {m: v for _, m, v, _ in booster.eval_valid()}
+            evals.append(time.perf_counter() - t0)
+            ndcg.append(res)
+        launches = launch_counts(H)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the gradients step alone: its peak over what is held before it
+        g = booster._gbdt
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g._compute_gradients()
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        grad_peak = torch.cuda.max_memory_allocated()
+        global_timer.reset()
+        global_timer.enabled = True
+        for _ in range(3):
+            booster.update()
+            with global_timer.scope("GBDT::eval"):
+                booster.eval_valid()
+        torch.cuda.synchronize()
+        snap = global_timer.snapshot()
+        global_timer.enabled = False
+        ms = {k: v[0] * 1e3 / 3 for k, v in snap.items()}
+        last = iters[3:]
+        line = {
+            "phase": "ranking", "run": name, "rows": X.shape[0],
+            "queries": len(lens), "features": X.shape[1],
+            "max_query_len": int(lens.max()),
+            "mean_query_len": float(lens.mean()),
+            "valid_rows": Xv.shape[0], "valid_queries": len(lv),
+            "num_leaves": 255, "max_bin": 255, "iterations": 13,
+            "construct_s": construct_s, "first_iter_s": iters[0],
+            "s_per_iter_last10": sum(last) / len(last), "iter_s": iters,
+            "valid_eval_s_per_iter": sum(evals) / len(evals),
+            "gradients_ms_per_iter": ms.get("GBDT::gradients"),
+            "gradients_alone_s": grad_s,
+            "split_find_device_ms_per_iter": ms.get(
+                "Tree::split_find::device"),
+            "histogram_device_ms_per_iter": ms.get(
+                "Tree::histogram::device"),
+            "partition_device_ms_per_iter": ms.get(
+                "Tree::partition::device"),
+            "eval_ms_per_iter": ms.get("GBDT::eval"),
+            "breakdown_ms_per_iter": ms,
+            "peak_mem_gib": peak, "gradients_peak_gib": grad_peak / 2**30,
+            "gradients_extra_gib": (grad_peak - held) / 2**30,
+            "launches": launches,
+            "valid_ndcg10_iter1": ndcg[0]["ndcg@10"],
+            "valid_ndcg10_iter13": ndcg[-1]["ndcg@10"],
+            "valid_ndcg_iter13": ndcg[-1],
+            "ndcg10_min": RANK_NDCG_MIN[name],
+            "leaves_per_tree": [t.num_leaves for t in g.models_[:13]],
+            "card": card}
+        emit(line)
+        if launches["K1"] <= 0 or launches["K3"] <= 0:
+            raise AssertionError(f"ranking {name}: K1 and K3 must launch: "
+                                 f"{launches}")
+        if not ndcg[-1]["ndcg@10"] > ndcg[0]["ndcg@10"]:
+            raise AssertionError(f"ranking {name}: valid NDCG@10 did not "
+                                 f"rise: {ndcg[0]['ndcg@10']} -> "
+                                 f"{ndcg[-1]['ndcg@10']}")
+        if ndcg[-1]["ndcg@10"] < RANK_NDCG_MIN[name]:
+            raise AssertionError(f"ranking {name}: valid NDCG@10 "
+                                 f"{ndcg[-1]['ndcg@10']} < "
+                                 f"{RANK_NDCG_MIN[name]}")
+        out[f"ranking_{name}"] = launches
+        del booster, g
+    return out
+
+
+def write_rank_files(X, y, lens, w, folder):
+    """The rows as a TSV file with a header (label first) and as a
+    LibSVM file (every feature written, zeros too), each with `.query`
+    and `.weight` side files.  Returns (tsv path, libsvm path)."""
+    os.makedirs(folder, exist_ok=True)
+    tsv = os.path.join(folder, "rank.tsv")
+    svm = os.path.join(folder, "rank.svm")
+    mat = np.column_stack([y.astype(np.float64), X.astype(np.float64)])
+    head = "\t".join(["label"] + [f"f{i}" for i in range(X.shape[1])])
+    np.savetxt(tsv, mat, fmt="%.8g", delimiter="\t", header=head,
+               comments="")
+    np.savetxt(svm, mat, fmt=["%.8g"] + [f"{j}:%.8g"
+                                         for j in range(X.shape[1])],
+               delimiter=" ")
+    for path in (tsv, svm):
+        np.savetxt(path + ".query", lens, fmt="%d")
+        np.savetxt(path + ".weight", w, fmt="%.8g")
+    return tsv, svm
+
+
+def phase_file(lgb, H, card, data):
+    """The file front end at the ranking width (gates in the module
+    docstring): the first FILE_ROWS rows of the ranking data, in
+    whole queries, written as TSV and LibSVM with side files, loaded
+    whole, with two_round=true, and through save_binary, each held to
+    the Dataset built from the arrays; three lambdarank iterations on
+    the TSV's Dataset and the arrays' grow the same trees."""
+    import lightgbm_tpu_torch.native as native
+    from lightgbm_tpu_torch.io import parser
+    X, y, lens, _ = data
+    nq, n = head_queries(lens, FILE_ROWS)
+    X, y, lens = X[:n], y[:n], lens[:nq]
+    w = (np.round((0.5 + np.random.RandomState(12).rand(n)) * 64)
+         / 64).astype(np.float32)
+    folder = os.path.join("build", "chip_smoke_files")
+    t0 = time.perf_counter()
+    tsv, svm = write_rank_files(X, y, lens, w, folder)
+    write_s = time.perf_counter() - t0
+    if native.parser_lib() is None:
+        raise AssertionError("file: the native parser did not build")
+    calls = {"dense": 0, "libsvm": 0}
+    real = {"dense": native.parse_dense_native,
+            "libsvm": native.parse_libsvm_native}
+
+    def counted(kind):
+        def fn(*a, **kw):
+            calls[kind] += 1
+            return real[kind](*a, **kw)
+        return fn
+    native.parse_dense_native = counted("dense")
+    native.parse_libsvm_native = counted("libsvm")
+    ds_params = {"max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
+                 "device_type": "cuda"}
+    tsv_params = {**ds_params, "header": True, "label_column": "name:label"}
+    t0 = time.perf_counter()
+    arrays = lgb.Dataset(X, label=y, group=lens, weight=w,
+                         params=ds_params).construct()
+    want = arrays._core
+    array_s = time.perf_counter() - t0
+    loads, load_s = {}, {}
+    try:
+        for name, path, params in (
+                ("tsv", tsv, tsv_params),
+                ("tsv_two_round", tsv, {**tsv_params, "two_round": True}),
+                ("libsvm", svm, ds_params),
+                ("libsvm_two_round", svm, {**ds_params,
+                                           "two_round": True})):
+            t0 = time.perf_counter()
+            loads[name] = lgb.Dataset(path, params=params).construct()
+            load_s[name] = time.perf_counter() - t0
+        for name in ("tsv", "libsvm"):
+            binpath = os.path.join(folder, f"{name}.bin")
+            loads[name]._core.save_binary(binpath)
+            t0 = time.perf_counter()
+            loads[f"{name}_binary"] = lgb.Dataset(
+                binpath, params=ds_params).construct()
+            load_s[f"{name}_binary"] = time.perf_counter() - t0
+        native_calls = dict(calls)
+        t0 = time.perf_counter()
+        parser.parse_file(tsv, has_header=True)
+        native_s = time.perf_counter() - t0
+        keep = native.parser_lib
+        native.parser_lib = lambda: None
+        try:
+            t0 = time.perf_counter()
+            parser.parse_file(tsv, has_header=True)
+            numpy_s = time.perf_counter() - t0
+        finally:
+            native.parser_lib = keep
+    finally:
+        native.parse_dense_native = real["dense"]
+        native.parse_libsvm_native = real["libsvm"]
+    if native_calls["dense"] <= 0 or native_calls["libsvm"] <= 0:
+        raise AssertionError(f"file: the native parser was not used: "
+                             f"{native_calls}")
+    for name, d in loads.items():
+        core = d._core
+        if not np.array_equal(core.binned_host(), want.binned_host()):
+            raise AssertionError(f"file {name}: bin codes differ from the "
+                                 "array-built Dataset's")
+        for f in ("label", "weight", "query_boundaries"):
+            if not np.array_equal(getattr(core.metadata, f),
+                                  getattr(want.metadata, f)):
+                raise AssertionError(f"file {name}: {f} differs from the "
+                                     "array-built Dataset's")
+    params = {**ds_params, "objective": "lambdarank", "num_leaves": 255,
+              "learning_rate": 0.1}
+
+    def trees(ds):
+        text = lgb.train(params, ds, 3).model_to_string()
+        return text.split("Tree=0", 1)[1].split("end of trees")[0]
+    # the Datasets compared above, now handed to the boosters
+    reset_counts(H)
+    from_file = trees(loads["tsv"])
+    launches = launch_counts(H)
+    from_arrays = trees(arrays)
+    if from_file != from_arrays:
+        raise AssertionError("file: the TSV's trees differ from the "
+                             "arrays' trees")
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        raise AssertionError(f"file: K1 and K3 must launch: {launches}")
+    emit({"phase": "file", "rows": n, "queries": nq, "features": X.shape[1],
+          "tsv_mb": os.path.getsize(tsv) / 1e6,
+          "libsvm_mb": os.path.getsize(svm) / 1e6, "write_s": write_s,
+          "array_construct_s": array_s, "load_s": load_s,
+          "native_parse_s": native_s, "native_rows_per_s": n / native_s,
+          "numpy_parse_s": numpy_s, "numpy_rows_per_s": n / numpy_s,
+          "native_parser_calls": native_calls,
+          "equal_to_arrays": sorted(loads), "trees_equal": True,
+          "launches": launches, "card": card})
+    return launches
+
+
+def phase_kernels_ranking_width(H, dev):
+    """K1 (256 slots) and K3 (8 slots) at the ranking width, RANK_F
+    features of 255 bins, held bit for bit against their plain versions
+    and on repeat, as the main rows are.  Returns {kernel: row}."""
+    W = (RANK_F, B)
+    out = {}
+    for name, NL in (("K1", 256), ("K3", 8)):
+        binned, binned_rm, slot, gh = kernel_inputs(NL, dev, seed=900 + NL,
+                                                    width=W)
+        if name == "K1":
+            k = functools.partial(H.build_histogram_wave, binned, slot, gh,
+                                  max_bin=B, num_slots=NL)
+            p = functools.partial(H.build_histogram_wave_plain, binned, slot,
+                                  gh, max_bin=B, num_slots=NL)
+            counter, extra = H.build_histogram_wave, {"num_slots": NL}
+            slots = NL
+        else:
+            Kb = H.wave_slot_pad(NL)
+            k = functools.partial(H.build_histogram_wave_hl, binned,
+                                  binned_rm, slot, gh, max_bin=B,
+                                  num_slots=NL, out_slots=Kb)
+            p = functools.partial(H.build_histogram_wave_hl_plain, binned,
+                                  binned_rm, slot, gh, max_bin=B,
+                                  num_slots=NL, out_slots=Kb)
+            counter, extra = H.build_histogram_wave_hl, {"num_slots": NL,
+                                                         "out_slots": Kb}
+            slots = Kb
+        lib, rows_in = wave_yardstick(binned, slot, gh, NL, dev, width=W)
+        bound, by = bound_of(RANK_F * N_KERNEL, N_KERNEL, slots, rows_in,
+                             width=W)
+        out[name] = kernel_row(name, counter, k, p, lib, ranking_width=True,
+                               features=RANK_F, max_bin=B, bound_ms=bound,
+                               bound_by=by, **extra)
+        del lib, binned, binned_rm, slot, gh
+    return out
+
+
 def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
-                      label="binary", data="higgs", forced=False):
+                      label="binary", data="higgs", forced=False,
+                      rank=None):
     """`train` at 65,536 rows, 3 iterations, on the card and the CPU
     (`categorical`: the split_features phase's transform of the data,
     columns 0, 1 and 3 as `categorical_feature`; `label`: "binary", the
@@ -2406,11 +2777,23 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
     ("nonnegative") or its class label cut into 3 classes
     ("multiclass3"); `data`: "higgs", or the efb phase's construction
     with CARD_EFB_LEVELS as CSR ("efb_csr") or as a dense numpy matrix
-    ("efb_dense"), bundled on both devices; `forced`: the forced
-    splits of the rows' medians, held on both devices): the same trees,
-    category sets included.  Returns the card run's launches."""
+    ("efb_dense"), bundled on both devices, or "mslr", the whole queries
+    of the ranking data `rank` = (X, y, query sizes, positions) in its
+    first CARD_RANK_ROWS rows, with their group and, when `extra` sets
+    lambdarank_position_bias_regularization, their positions; `forced`:
+    the forced splits of the rows' medians, held on both devices): the
+    same trees, category sets included.  Returns the card run's
+    launches."""
+    ds_kw = {}
     if data == "higgs":
         X, y = make_higgs_like(65_536, 28, seed=2)
+    elif data == "mslr":
+        X, y, lens, pos = rank
+        nq, n = head_queries(lens, CARD_RANK_ROWS)
+        X, y = X[:n], y[:n]
+        ds_kw = {"group": lens[:nq]}
+        if "lambdarank_position_bias_regularization" in extra:
+            ds_kw["position"] = pos[:n]
     else:
         X, y = make_onehot_csr(65_536, seed=2, levels=CARD_EFB_LEVELS)
         if data == "efb_dense":
@@ -2430,7 +2813,6 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
              "multiclass3": np.searchsorted(
                  np.quantile(latent, (1 / 3, 2 / 3)), latent,
                  side="right").astype(np.float32)}[label]
-    ds_kw = {}
     if categorical:
         X, = categorical_transform(X)
         ds_kw = {"categorical_feature": list(CAT_COLUMNS)}
@@ -2448,8 +2830,9 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
             check_forced(b._gbdt, forced)
         if dev == "cuda":
             launches = launch_counts(H)
-    if data != "higgs" and (plans["cuda"] is None or plans["cpu"] is None
-                            or plans["cuda"].groups != plans["cpu"].groups):
+    if data.startswith("efb") and (
+            plans["cuda"] is None or plans["cpu"] is None
+            or plans["cuda"].groups != plans["cpu"].groups):
         raise AssertionError(f"{name}: the bundle plans differ or are "
                              "missing")
     worst = 0.0
@@ -2488,7 +2871,7 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
     if categorical and cat_nodes == 0:
         raise AssertionError(f"{name}: no categorical split to compare")
     emit({"phase": "card_vs_cpu", "path": name, "params": extra,
-          "rows": 65_536, "trees": 3 * K, "categorical": categorical,
+          "rows": X.shape[0], "trees": 3 * K, "categorical": categorical,
           "label": label, "data": data, "columns": X.shape[1],
           "bundle_columns": (None if plans["cuda"] is None
                              else plans["cuda"].num_groups),
@@ -2573,6 +2956,9 @@ def main(argv) -> int:
     launches.update(sf_launches)
     obj_launches, _ = phase_objectives(lgb, H, global_timer, card, main)
     launches.update(obj_launches)
+    rank = ranking_data()
+    launches.update(phase_ranking(lgb, H, global_timer, card, rank))
+    launches["file"] = phase_file(lgb, H, card, rank[0])
     sampling_a, sampling_b, sampling_c = (r[1] for r in SAMPLING_RUNS[:3])
     for name, extra in (("main_path", {}),
                         ("path_a_quantized", {"use_quantized_grad": True}),
@@ -2656,6 +3042,25 @@ def main(argv) -> int:
             raise AssertionError(f"{name}: {kernels} must launch: "
                                  f"{card_launches}")
         launches[f"card_vs_cpu_{name}"] = card_launches
+    # the ranking objectives on the ranking data's first whole queries
+    for name, extra, kernels in (
+            ("lambdarank_position_bias_wave",
+             {"objective": "lambdarank", "tpu_growth_strategy": "wave",
+              "lambdarank_position_bias_regularization": 0.1},
+             ("K1", "K3")),
+            ("rank_xendcg_quantized",
+             {"objective": "rank_xendcg", "tpu_growth_strategy": "wave",
+              "use_quantized_grad": True}, ("K2",)),
+            ("lambdarank_leafwise",
+             {"objective": "lambdarank",
+              "tpu_growth_strategy": "leafwise"}, ("K4",))):
+        card_launches = phase_card_vs_cpu(lgb, H, name, extra, data="mslr",
+                                          rank=rank[0])
+        if any(card_launches[k] <= 0 for k in kernels):
+            raise AssertionError(f"{name}: {kernels} must launch: "
+                                 f"{card_launches}")
+        launches[f"card_vs_cpu_{name}"] = card_launches
+    del rank
     # the scan's launches, counted after every path has run (a profiler
     # trace of one replayed scan of each run)
     scan_launches = probe.launches()
@@ -2668,6 +3073,7 @@ def main(argv) -> int:
     per_shape.update(phase_kernels_k2_k4(H, dev))
     phase_sweep(H, dev)
     group = phase_kernels_group_space(H, dev, efb_line["bundle_columns"])
+    ranking_width = phase_kernels_ranking_width(H, dev)
 
     csrc = "lightgbm_tpu_torch/ops/csrc/"
     hist_py = "lightgbm_tpu/ops/histogram.py"
@@ -2714,6 +3120,18 @@ def main(argv) -> int:
             "efb_launches": launches["efb"][key[0]]}
         entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"],
                                          gs["max_abs_err"])
+        if key[0] in ranking_width:
+            rw = ranking_width[key[0]]
+            entries[-1]["ranking_width"] = {
+                "features": RANK_F, "B": B, "C": C, **{k: rw[k] for k in (
+                    "num_slots", "max_abs_err", "ms", "kernel_ms",
+                    "loop_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")},
+                "ranking_launches": {
+                    run: launches[f"ranking_{run}"][key[0]]
+                    for run in ("lambdarank", "rank_xendcg")}}
+            entries[-1]["max_abs_err"] = max(entries[-1]["max_abs_err"],
+                                             rw["max_abs_err"])
         if key[0] == "K2":    # the streaming route at 8 slots
             few = per_shape[("K2", 8, False)]
             entries[-1]["few_slot_route"] = {

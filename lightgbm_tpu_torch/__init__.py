@@ -12,7 +12,7 @@ imports torch and numpy, never JAX or the JAX package; scikit-learn,
 pandas, matplotlib and graphviz are imported only where they are used.
 """
 
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, Sequence
 from .callback import (EarlyStopException, checkpoint, early_stopping,
                        log_evaluation, record_evaluation, record_metrics,
                        reset_parameter)
@@ -41,7 +41,7 @@ def __getattr__(name):
 __all__ = ["Booster", "CVBooster", "Config", "Dataset",
            "EarlyStopException", "LGBMClassifier", "LGBMModel",
            "LGBMRanker", "LGBMRegressor", "LightGBMError", "NonFiniteError",
-           "checkpoint", "create_tree_digraph", "cv", "early_stopping",
+           "Sequence", "checkpoint", "create_tree_digraph", "cv", "early_stopping",
            "log_evaluation", "plot_importance", "plot_metric",
            "plot_split_value_histogram", "plot_tree", "record_evaluation",
            "record_metrics", "register_callback", "register_logger",

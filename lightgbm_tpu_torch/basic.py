@@ -1,10 +1,12 @@
-"""User-facing Dataset and Booster (PyTorch port of the slice of
-`lightgbm_tpu/basic.py` the main path uses; ref:
-python-package/lightgbm/basic.py)."""
+"""User-facing Dataset and Booster (PyTorch port of
+`lightgbm_tpu/basic.py`; ref: python-package/lightgbm/basic.py)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import abc
+import os
+from typing import Any, Dict, List, Optional
+from typing import Sequence as _TSeq
 
 import numpy as np
 
@@ -13,7 +15,7 @@ from .boosting.model_io import (load_model_from_file, load_model_from_string,
                                 save_model_to_file, save_model_to_string)
 from .config import Config
 from .io.dataset import Dataset as _CoreDataset
-from .io.dataset import Metadata
+from .io.dataset import Metadata, load_dataset_from_file
 from .io.sparse import construct_from_sparse, is_scipy_sparse
 from .metric import _METRIC_CLASSES, create_metrics
 from .objective import create_objective
@@ -43,11 +45,50 @@ def _coerce_matrix(data) -> np.ndarray:
     return np.asarray(data, dtype=np.float64)
 
 
+class Sequence(abc.ABC):
+    """Batched random-access input for Dataset construction (ref:
+    python-package basic.py Sequence): `len(seq)`, integer and slice
+    indexing, and an optional `batch_size`.  A Dataset takes a Sequence
+    (or a list of them, concatenated by rows) and reads it in batches;
+    under `two_round` it reads them twice and the whole float matrix
+    never exists."""
+
+    batch_size = 4096
+
+    @abc.abstractmethod
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    @abc.abstractmethod
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+
+def _sequence_batches(seqs):
+    """(rows [c, F] float64, None) batches of Sequences, in order."""
+    for seq in seqs:
+        n = len(seq)
+        bs = max(1, int(getattr(seq, "batch_size", 4096) or 4096))
+        for lo in range(0, n, bs):
+            chunk = np.asarray(seq[lo:min(lo + bs, n)], dtype=np.float64)
+            yield chunk.reshape(chunk.shape[0], -1), None
+
+
+def _as_sequences(data):
+    """The Sequences `data` is (one, or a non-empty list), else None."""
+    if isinstance(data, Sequence):
+        return [data]
+    if (isinstance(data, list) and data
+            and all(isinstance(s, Sequence) for s in data)):
+        return data
+    return None
+
+
 class Dataset:
-    """Lazily-constructed training dataset (ref: basic.py:1555 Dataset).
-    `group` (query sizes) and `position` are metadata: they reach the
-    core Dataset, its subsets and `cv`'s folds, and no ported objective
-    reads them yet (ranking is ROADMAP Queue 1 item 14)."""
+    """Lazily-constructed training dataset (ref: basic.py:1555 Dataset):
+    from an array, a pandas frame, a scipy sparse matrix, a Sequence (or
+    a list of them), or the path of a text or binary file.  `group`
+    (query sizes) and `position` reach the ranking objectives."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
@@ -71,29 +112,44 @@ class Dataset:
     def construct(self) -> "Dataset":
         if self._core is not None:
             return self
-        if isinstance(self.data, (str, bytes)):
-            raise NotImplementedError("loading a Dataset from a file is not "
-                                      "ported yet (ROADMAP Queue 1 item 1)")
         cfg = Config(self.params)
-        if self.feature_name == "auto" and hasattr(self.data, "columns"):
-            self.feature_name = list(map(str, self.data.columns))
-        cat = []
-        if self.categorical_feature not in ("auto", None):
-            for c in self.categorical_feature:
-                if isinstance(c, str) and self.feature_name != "auto":
-                    cat.append(list(self.feature_name).index(c))
-                else:
-                    cat.append(int(c))
-        names = (None if self.feature_name == "auto"
-                 else list(self.feature_name))
         ref_core = (self.reference._core_or_construct()
                     if self.reference is not None else None)
-        if is_scipy_sparse(self.data) and not cfg.linear_tree:
+        if isinstance(self.data, (str, bytes, os.PathLike)):
+            # a text file with its side files, or a binary file (the
+            # path is kept: there is no raw matrix to free)
+            self._core = load_dataset_from_file(os.fsdecode(self.data), cfg,
+                                                reference=ref_core)
+            md = self._core.metadata
+            for value, setter in ((self.label, md.set_label),
+                                  (self.weight, md.set_weight),
+                                  (self.group, md.set_group),
+                                  (self.init_score, md.set_init_score),
+                                  (self.position, md.set_position)):
+                if value is not None:
+                    setter(value)
+            return self
+        data = self.data
+        seqs = _as_sequences(data)
+        if seqs is not None and cfg.two_round:
+            return self._construct_from_sequences(seqs, cfg, ref_core)
+        if seqs is not None:
+            parts = [rows for rows, _ in _sequence_batches(seqs)]
+            if not parts:
+                log.fatal("Cannot construct a Dataset from empty Sequence "
+                          "input")
+            data = np.concatenate(parts, axis=0)
+        if self.feature_name == "auto" and hasattr(data, "columns"):
+            self.feature_name = list(map(str, data.columns))
+        cat = self._categorical_indices()
+        names = (None if self.feature_name == "auto"
+                 else list(self.feature_name))
+        if is_scipy_sparse(data) and not cfg.linear_tree:
             # scipy CSR/CSC/COO go CSC-direct to EFB bundle codes: the
             # dense [n, F] matrix is never made (io/sparse.py); a valid
             # set against a sparse reference reuses its plan
             self._core = construct_from_sparse(
-                self.data, label=self.label, weight=self.weight,
+                data, label=self.label, weight=self.weight,
                 group=self.group, init_score=self.init_score,
                 max_bin=cfg.max_bin,
                 min_data_in_bin=cfg.min_data_in_bin,
@@ -110,7 +166,7 @@ class Dataset:
                 forcedbins_filename=cfg.forcedbins_filename,
                 reference=ref_core, device_type=cfg.device_type)
         else:
-            data = _coerce_matrix(self.data)
+            data = _coerce_matrix(data)
             if ref_core is not None:
                 self._core = ref_core.create_valid(
                     data, label=self.label, weight=self.weight,
@@ -137,6 +193,51 @@ class Dataset:
             self.data = None
         return self
 
+    def _categorical_indices(self) -> List[int]:
+        """categorical_feature as column indices (names resolve against
+        feature_name)."""
+        cat = []
+        if self.categorical_feature not in ("auto", None):
+            for c in self.categorical_feature:
+                if isinstance(c, str) and self.feature_name != "auto":
+                    cat.append(list(self.feature_name).index(c))
+                else:
+                    cat.append(int(c))
+        return cat
+
+    def _construct_from_sequences(self, seqs, cfg, ref_core) -> "Dataset":
+        """Two-round Sequence ingestion: the batches are read twice and
+        binned straight into codes (`construct_from_stream`; ref: the
+        streaming push of c_api.h:177-323 LGBM_DatasetPushRows)."""
+        if cfg.linear_tree:
+            # linear leaves need the raw values two_round does not hold
+            log.fatal("Cannot use two_round loading with linear tree")
+        names = (None if self.feature_name == "auto"
+                 else list(self.feature_name))
+        self._core = _CoreDataset.construct_from_stream(
+            lambda: _sequence_batches(seqs), weight=self.weight,
+            group=self.group, max_bin=cfg.max_bin,
+            min_data_in_bin=cfg.min_data_in_bin,
+            min_data_in_leaf=cfg.min_data_in_leaf,
+            bin_construct_sample_cnt=cfg.bin_construct_sample_cnt,
+            categorical_feature=self._categorical_indices(),
+            feature_names=names, use_missing=cfg.use_missing,
+            zero_as_missing=cfg.zero_as_missing,
+            feature_pre_filter=cfg.feature_pre_filter,
+            seed=cfg.data_random_seed,
+            max_bin_by_feature=cfg.max_bin_by_feature or None,
+            forcedbins_filename=cfg.forcedbins_filename,
+            reference=ref_core, device_type=cfg.device_type)
+        md = self._core.metadata
+        for value, setter in ((self.label, md.set_label),
+                              (self.init_score, md.set_init_score),
+                              (self.position, md.set_position)):
+            if value is not None:
+                setter(value)
+        if self.free_raw_data:
+            self.data = None
+        return self
+
     def _core_or_construct(self) -> _CoreDataset:
         self.construct()
         return self._core
@@ -147,7 +248,7 @@ class Dataset:
                        group=group, init_score=init_score,
                        params=params or self.params)
 
-    def subset(self, used_indices: Sequence[int], params=None) -> "Dataset":
+    def subset(self, used_indices: _TSeq[int], params=None) -> "Dataset":
         """The rows `used_indices` of this Dataset, on its bin mappers
         (ref: basic.py Dataset.subset; `cv` builds its folds with it)."""
         idx = np.asarray(used_indices, dtype=np.int64)
@@ -160,8 +261,11 @@ class Dataset:
         return out
 
     def save_binary(self, filename: str) -> "Dataset":
-        raise NotImplementedError("Dataset.save_binary is not ported yet "
-                                  "(ROADMAP Queue 1 item 1)")
+        """The binned Dataset as a binary file that `Dataset(filename)`
+        loads (ref: basic.py save_binary; the JAX package's `.npz`
+        layout: NumPy appends `.npz` to the name)."""
+        self._core_or_construct().save_binary(os.fsdecode(filename))
+        return self
 
     # ------------------------------------------------------------------
     def set_label(self, label) -> "Dataset":

@@ -77,7 +77,7 @@ from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
 from ..metric import Metric
 from ..models.tree import K_CATEGORICAL_MASK, Tree, _to_bitset
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
-from ..objective import UNPORTED, ObjectiveFunction
+from ..objective import ObjectiveFunction
 from ..ops.histogram import wave_part_plan, wave_slot_pad
 from ..ops.split import SplitParams, cat_bitset_words, leaf_output
 from ..utils import log
@@ -96,11 +96,10 @@ def check_slice(config: Config) -> None:
     def refuse(what: str, item: str) -> None:
         raise NotImplementedError(
             f"{what} is not ported yet (ROADMAP Queue 1 item {item}); "
-            "the PyTorch port trains the pointwise, multiclass and "
-            "cross-entropy objectives on the wave and leaf-wise engines")
+            "the PyTorch port trains the pointwise, multiclass, "
+            "cross-entropy and ranking objectives on the wave and "
+            "leaf-wise engines")
 
-    if c.objective in UNPORTED:
-        refuse(f"objective={c.objective!r}", "14")
     if c.boosting not in ("gbdt", "rf", "dart"):
         log.fatal(f"Unknown boosting type: {c.boosting}")
     if any(int(m) != 0 for m in (c.monotone_constraints or [])):

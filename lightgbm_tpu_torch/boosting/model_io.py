@@ -122,7 +122,7 @@ def load_model_from_string(text: str):
     """ref: gbdt_model_text.cpp GBDT::LoadModelFromString.  Returns a GBDT in
     predictor mode (no train data)."""
     from ..config import Config
-    from ..objective import UNPORTED, create_objective
+    from ..objective import RANKING, create_objective
     from .gbdt import GBDT
 
     booster = GBDT()
@@ -171,9 +171,9 @@ def load_model_from_string(text: str):
     # serving daemon loads models mid-flight and must keep its logs)
     log.set_verbosity(prev_verbosity)
     booster.config = cfg
-    if obj_tokens[0] in UNPORTED:
-        # ranking is not ported yet; its conversion is the identity, so
-        # the model predicts raw scores as its objective would
+    if obj_tokens[0] in RANKING:
+        # a ranking model predicts raw scores (its conversion is the
+        # identity) and carries no query data to build its objective on
         obj = None
     else:
         # custom/none give None; any other objective that fails to build

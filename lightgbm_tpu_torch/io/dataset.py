@@ -15,14 +15,18 @@ are dropped at construction and restored at model-output time via
 Dense in-memory arrays are binned here; scipy sparse matrices go
 straight to EFB bundle codes (`io/sparse.py`), and such a dataset holds
 `[F', n]` bundle codes with the `pre_bundled_plan` that decodes them.
-File loading and streaming (two-round) ingestion come with ROADMAP
-Queue 1 item 1.
+Text files (CSV, TSV, LibSVM; `io/parser.py`) load through
+`load_dataset_from_file` with their `.weight` and `.query` side files,
+whole or streamed twice (`two_round`, `construct_from_stream`: the raw
+float matrix never exists); `save_binary` / `load_binary` write and read
+the JAX package's `.npz` layout, so either package loads the other's
+file.
 """
 
 from __future__ import annotations
 
 import json
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -353,6 +357,137 @@ class Dataset:
                 self.used_feature_map.append(len(self.used_features))
                 self.used_features.append(f)
 
+    @classmethod
+    def construct_from_stream(
+            cls, stream_factory, weight=None, group=None,
+            max_bin: int = 255, min_data_in_bin: int = 3,
+            min_data_in_leaf: int = 20,
+            bin_construct_sample_cnt: int = 200000,
+            categorical_feature=None, feature_names=None,
+            use_missing: bool = True, zero_as_missing: bool = False,
+            feature_pre_filter: bool = True, seed: int = 1,
+            max_bin_by_feature=None,
+            forcedbins_filename: str = "",
+            reference: Optional["Dataset"] = None,
+            device_type: str = "cuda") -> "Dataset":
+        """Two-round construction (ref: config.h `two_round`;
+        dataset_loader.cpp:1022 SampleTextDataFromFile + :1100
+        ExtractFeaturesFromFile): the JAX package's streaming loader.
+
+        `stream_factory()` returns a fresh iterator of (feats [c, F],
+        labels [c] or None) chunks each time it is called; a chunk may be
+        narrower than later ones (LibSVM reveals its widest feature
+        late) and is zero-padded.  Pass 1 counts the rows and draws the
+        bin-finding sample by reservoir sampling from
+        `RandomState(seed)`, the JAX package's draws, so the bins are
+        its bins; pass 2 streams again and bins each chunk into the
+        [F_used, n] code matrix on the host.  Peak memory is one chunk,
+        the sample and the codes.
+        """
+        rng = np.random.RandomState(seed)
+        # with a reference the mappers are reused: pass 1 only counts
+        # rows and collects labels
+        cap = (1 if reference is not None
+               else max(1, int(bin_construct_sample_cnt)))
+        sample_buf = None
+        filled = 0
+        n = 0
+        labels_parts = []
+        for feats, labels in stream_factory():
+            feats = np.asarray(feats, np.float64)
+            c = feats.shape[0]
+            if labels is not None:
+                labels_parts.append(np.asarray(labels, np.float32))
+            if sample_buf is None:
+                sample_buf = np.zeros((cap, feats.shape[1]), np.float64)
+            elif feats.shape[1] > sample_buf.shape[1]:
+                sample_buf = np.pad(
+                    sample_buf,
+                    ((0, 0), (0, feats.shape[1] - sample_buf.shape[1])))
+            elif feats.shape[1] < sample_buf.shape[1]:
+                feats = np.pad(
+                    feats,
+                    ((0, 0), (0, sample_buf.shape[1] - feats.shape[1])))
+            take = min(cap - filled, c)
+            if take > 0:
+                sample_buf[filled:filled + take] = feats[:take]
+                filled += take
+            if take < c:
+                # Vitter's algorithm R, the draws batched per chunk
+                seen = n + take + np.arange(1, c - take + 1)
+                js = (rng.random_sample(c - take) * seen).astype(np.int64)
+                for i in np.nonzero(js < cap)[0]:
+                    sample_buf[js[i]] = feats[take + i]
+            n += c
+        if n == 0:
+            log.fatal("Empty data stream")
+        sample = sample_buf[:filled]
+        if reference is not None:
+            # narrower than the training data is legal for LibSVM
+            # (trailing all-zero features) and zero-pads below
+            if sample.shape[1] > reference.num_total_features:
+                log.fatal("Validation data feature count mismatch with "
+                          "reference Dataset")
+            num_features = reference.num_total_features
+        else:
+            num_features = sample.shape[1]
+
+        ds = cls()
+        ds.num_data = n
+        ds.num_total_features = num_features
+        ds.max_bin = max_bin
+        ds.device_type = device_type
+        ds.feature_names = ([str(s) for s in feature_names]
+                            if feature_names is not None else
+                            [f"Column_{i}" for i in range(num_features)])
+        if reference is not None:
+            ds.bin_mappers = reference.bin_mappers
+            ds.used_feature_map = reference.used_feature_map
+            ds.used_features = reference.used_features
+            ds.feature_names = reference.feature_names
+            ds.max_bin = reference.max_bin
+        else:
+            ds._build_mappers(
+                sample, len(sample), max_bin=max_bin,
+                min_data_in_bin=min_data_in_bin,
+                min_data_in_leaf=min_data_in_leaf,
+                categorical_feature=categorical_feature,
+                use_missing=use_missing, zero_as_missing=zero_as_missing,
+                feature_pre_filter=feature_pre_filter,
+                max_bin_by_feature=max_bin_by_feature,
+                forcedbins_filename=forcedbins_filename)
+        del sample
+
+        narrow = all(m.num_bin <= 256 for m in ds.bin_mappers)
+        binned = np.empty((len(ds.used_features), n),
+                          dtype=np.uint8 if narrow else np.int32)
+        off = 0
+        with global_timer.scope("Dataset::binning"):
+            for feats, _ in stream_factory():
+                feats = np.asarray(feats, np.float64)
+                c = feats.shape[0]
+                if off + c > n:
+                    log.fatal("Stream yielded more rows on pass 2 than "
+                              "pass 1")
+                if feats.shape[1] < num_features:   # LibSVM implicit zeros
+                    feats = np.pad(
+                        feats, ((0, 0), (0, num_features - feats.shape[1])))
+                for inner, f in enumerate(ds.used_features):
+                    binned[inner, off:off + c] = \
+                        ds.bin_mappers[f].values_to_bins(feats[:, f])
+                off += c
+        if off != n:
+            log.fatal(f"Stream yielded {off} rows on pass 2, {n} on pass 1")
+        ds.binned = binned
+
+        md = Metadata(n)
+        if labels_parts:
+            md.set_label(np.concatenate(labels_parts))
+        md.set_weight(weight)
+        md.set_group(group)
+        ds.metadata = md
+        return ds
+
     def copy_subrow(self, used_indices: np.ndarray) -> "Dataset":
         """Row-subset copy on the same bin mappers (ref: dataset.h:660
         CopySubrow; `cv`'s folds)."""
@@ -406,3 +541,190 @@ class Dataset:
     # ------------------------------------------------------------------
     def feature_infos(self) -> List[str]:
         return [m.feature_info_str() for m in self.bin_mappers]
+
+    def save_binary(self, path: str) -> None:
+        """Binary dataset file (ref: dataset.h:691 SaveBinaryFile): the
+        JAX package's compressed `.npz` layout (NumPy appends `.npz` to a
+        path without it)."""
+        md = self.metadata
+        plan = self.pre_bundled_plan
+        np.savez_compressed(
+            path,
+            binned=self.binned_host(),
+            label=md.label,
+            weight=md.weight if md.weight is not None else np.array([]),
+            init_score=(md.init_score if md.init_score is not None
+                        else np.array([])),
+            query_boundaries=(md.query_boundaries
+                              if md.query_boundaries is not None
+                              else np.array([], dtype=np.int32)),
+            meta_json=np.frombuffer(json.dumps({
+                "num_data": self.num_data,
+                "num_total_features": self.num_total_features,
+                "feature_names": self.feature_names,
+                "used_features": self.used_features,
+                "used_feature_map": self.used_feature_map,
+                "max_bin": self.max_bin,
+                "bin_mappers": [m.to_dict() for m in self.bin_mappers],
+                "bundle_plan": (None if plan is None else {
+                    "groups": [list(map(int, g)) for g in plan.groups],
+                    "group_idx": plan.group_idx.tolist(),
+                    "offsets": plan.offsets.tolist(),
+                    "zero_bin": plan.zero_bin.tolist(),
+                    "in_bundle": plan.in_bundle.astype(int).tolist(),
+                    "group_num_bin": plan.group_num_bin.tolist(),
+                }),
+            }).encode(), dtype=np.uint8))
+
+    @classmethod
+    def load_binary(cls, path: str, device_type: str = "cuda") -> "Dataset":
+        """(ref: dataset_loader.cpp:417 LoadFromBinFile)."""
+        if not path.endswith(".npz"):
+            path = path + ".npz"
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["meta_json"]).decode())
+            ds = cls()
+            ds.num_data = meta["num_data"]
+            ds.num_total_features = meta["num_total_features"]
+            ds.feature_names = meta["feature_names"]
+            ds.used_features = meta["used_features"]
+            ds.used_feature_map = meta["used_feature_map"]
+            ds.max_bin = meta["max_bin"]
+            ds.device_type = device_type
+            ds.bin_mappers = [BinMapper.from_dict(d)
+                              for d in meta["bin_mappers"]]
+            ds.binned = z["binned"]
+            bp = meta.get("bundle_plan")
+            if bp is not None:
+                from .bundle import BundlePlan
+                ds.pre_bundled_plan = BundlePlan(
+                    [list(g) for g in bp["groups"]],
+                    np.asarray(bp["group_idx"], np.int32),
+                    np.asarray(bp["offsets"], np.int32),
+                    np.asarray(bp["zero_bin"], np.int32),
+                    np.asarray(bp["in_bundle"], bool),
+                    np.asarray(bp["group_num_bin"], np.int32))
+            md = Metadata(ds.num_data)
+            md.set_label(z["label"])
+            if len(z["weight"]):
+                md.set_weight(z["weight"])
+            if len(z["init_score"]):
+                md.set_init_score(z["init_score"])
+            if len(z["query_boundaries"]):
+                md.query_boundaries = z["query_boundaries"].astype(np.int32)
+        ds.metadata = md
+        return ds
+
+
+def _read_side_files(path: str):
+    """.weight / .query side files (ref: metadata.cpp LoadWeights /
+    LoadQueryBoundaries)."""
+    weight = group = None
+    try:
+        with open(path + ".weight") as f:
+            weight = np.array([float(x) for x in f.read().split()],
+                              dtype=np.float32)
+    except FileNotFoundError:
+        pass
+    try:
+        with open(path + ".query") as f:
+            group = np.array([int(x) for x in f.read().split()],
+                             dtype=np.int64)
+    except FileNotFoundError:
+        pass
+    return weight, group
+
+
+def _parse_categorical(cfg, names) -> List[int]:
+    """categorical_feature tokens -> column indices; `name:` tokens
+    resolve against the header's names (ref: dataset_loader.cpp:35
+    SetHeader)."""
+    cat_features: List[int] = []
+    if cfg.categorical_feature:
+        for tok in str(cfg.categorical_feature).split(","):
+            tok = tok.strip()
+            if tok.startswith("name:"):
+                if names and tok[5:] in names:
+                    cat_features.append(names.index(tok[5:]))
+                else:
+                    log.warning(f"categorical_feature {tok!r} not found "
+                                "in header names; ignored")
+            elif tok:
+                cat_features.append(int(tok))
+    return cat_features
+
+
+def _load_two_round(path: str, cfg, reference: Optional[Dataset] = None
+                    ) -> Dataset:
+    """two_round=true file loading (ref: config.h two_round;
+    dataset_loader.cpp:1022 SampleTextDataFromFile + :1100
+    ExtractFeaturesFromFile): the file is streamed twice and the raw
+    float matrix never exists."""
+    from .parser import _header_names_of, _label_index, parse_file_stream
+    if cfg.linear_tree:
+        # the reference rejects the combination (config.cpp: "Cannot use
+        # two_round loading with linear tree")
+        log.fatal("Cannot use two_round loading with linear tree")
+    names = None
+    if cfg.header:
+        with open(path) as f:
+            header_names = _header_names_of(f.readline().rstrip("\n\r"))
+        li = _label_index(cfg.label_column, header_names)
+        names = [h for i, h in enumerate(header_names) if i != li]
+
+    def stream():
+        return parse_file_stream(path, has_header=cfg.header,
+                                 label_column=cfg.label_column,
+                                 chunk_rows=16384)
+
+    weight, group = _read_side_files(path)
+    return Dataset.construct_from_stream(
+        stream, weight=weight, group=group,
+        max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
+        min_data_in_leaf=cfg.min_data_in_leaf,
+        bin_construct_sample_cnt=cfg.bin_construct_sample_cnt,
+        categorical_feature=_parse_categorical(cfg, names),
+        feature_names=names, use_missing=cfg.use_missing,
+        zero_as_missing=cfg.zero_as_missing,
+        feature_pre_filter=cfg.feature_pre_filter,
+        seed=cfg.data_random_seed,
+        max_bin_by_feature=cfg.max_bin_by_feature or None,
+        forcedbins_filename=cfg.forcedbins_filename,
+        reference=reference, device_type=cfg.device_type)
+
+
+def load_dataset_from_file(path: str,
+                           config_params: Optional[Dict[str, Any]] = None,
+                           reference: Optional[Dataset] = None) -> Dataset:
+    """File -> Dataset (ref: dataset_loader.cpp LoadFromFile): a binary
+    file (`.bin` / `.bin.npz`), else a text file parsed whole or, under
+    `two_round`, streamed twice, with its side files."""
+    from ..config import Config
+    from .parser import parse_file
+    cfg = (config_params if isinstance(config_params, Config)
+           else Config(config_params or {}))
+    if path.endswith(".bin.npz") or path.endswith(".bin"):
+        try:
+            return Dataset.load_binary(path, device_type=cfg.device_type)
+        except (FileNotFoundError, OSError, KeyError, ValueError):
+            pass
+    if cfg.two_round:
+        return _load_two_round(path, cfg, reference=reference)
+    feats, labels, names = parse_file(path, has_header=cfg.header,
+                                      label_column=cfg.label_column)
+    weight, group = _read_side_files(path)
+    if reference is not None:
+        return reference.create_valid(feats, label=labels, weight=weight,
+                                      group=group)
+    return Dataset.construct_from_arrays(
+        feats, label=labels, weight=weight, group=group,
+        max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,
+        min_data_in_leaf=cfg.min_data_in_leaf,
+        forcedbins_filename=cfg.forcedbins_filename,
+        bin_construct_sample_cnt=cfg.bin_construct_sample_cnt,
+        categorical_feature=_parse_categorical(cfg, names),
+        feature_names=names, use_missing=cfg.use_missing,
+        zero_as_missing=cfg.zero_as_missing,
+        feature_pre_filter=cfg.feature_pre_filter,
+        seed=cfg.data_random_seed, keep_raw_data=cfg.linear_tree,
+        device_type=cfg.device_type)

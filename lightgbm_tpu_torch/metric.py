@@ -8,9 +8,11 @@ they evaluate host-resident scores (validation sets, the host fallback of
 the training metrics) and give the JAX package's numbers bit for bit on
 the same arrays.  `device_pointwise_loss` is the torch form of the
 pointwise losses that `ops/metrics.py` evaluates on the booster's device.
-The binned AUC / average-precision / AUC-mu forms serve only the sharded
-evaluation and come with multi-GPU (ROADMAP Queue 1 item 15); the NDCG
-and MAP device plans need the ranking objectives (item 14).
+`bucket_queries` groups queries by padded length for the ranking
+objectives' device programs (`ranking.py`).  The binned AUC /
+average-precision / AUC-mu forms and the NDCG and MAP device plans serve
+only the sharded evaluation and come with multi-GPU (ROADMAP Queue 1
+item 15): ranking metrics are evaluated by the host classes.
 """
 
 from __future__ import annotations
@@ -381,6 +383,32 @@ class AucMuMetric(Metric):
 
 # --------------------------------------------------------------------- ranking
 DEFAULT_LABEL_GAIN_SIZE = 31
+
+
+def bucket_queries(query_boundaries, n_pad: int):
+    """Group queries by pow2-padded length (at least 8) for the
+    per-query tensor programs of the ranking objectives: a list of
+    dicts {qs: [query ids], m: padded length, idx: [Qb, m] int32 global
+    row indices (padding -> n_pad - 1), val: [Qb, m] bool}, the JAX
+    package's buckets (`lightgbm_tpu/metric.py` bucket_queries), in
+    ascending m."""
+    qb = np.asarray(query_boundaries)
+    lens = np.diff(qb).astype(np.int64)
+    groups = {}
+    for q, ln in enumerate(lens):
+        m = max(8, 1 << int(ln - 1).bit_length())
+        groups.setdefault(m, []).append(q)
+    out = []
+    for m, qs in sorted(groups.items()):
+        Qb = len(qs)
+        idx = np.full((Qb, m), n_pad - 1, np.int32)
+        val = np.zeros((Qb, m), bool)
+        for r, q in enumerate(qs):
+            a, b = int(qb[q]), int(qb[q + 1])
+            idx[r, :b - a] = np.arange(a, b)
+            val[r, :b - a] = True
+        out.append({"qs": qs, "m": m, "idx": idx, "val": val})
+    return out
 
 
 def default_label_gain() -> List[float]:

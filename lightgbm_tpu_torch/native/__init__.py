@@ -1,13 +1,16 @@
-"""Native host predictor (C, ctypes-loaded, compiled on demand): the
-predictor half of `lightgbm_tpu/native/`.
+"""Native host code (C, ctypes-loaded, compiled on demand): the host
+predictor and the text parser of `lightgbm_tpu/native/`.
 
 The reference keeps its host predictor in C++ (src/application/
 predictor.hpp, OpenMP over rows); `predict.c` is the same traversal over
 flat tree arrays.  It is what host prediction runs, and the yardstick the
-card's traversal is timed against.  The source is compiled with the
-toolchain's `cc` at first use into `build/native/` at the root of the
-checkout (named by a hash of the source and flags, so an edited source
-rebuilds) and loaded with ctypes.  Nothing is built at import time.
+card's traversal is timed against.  `parser.c` holds the dense and
+LibSVM tokenizing loops of file loading (ref: src/io/parser.cpp;
+`io/parser.py` falls back to NumPy when it does not build).  Each source
+is compiled with the toolchain's `cc` at first use into `build/native/`
+at the root of the checkout (named by a hash of the source and flags, so
+an edited source rebuilds) and loaded with ctypes.  Nothing is built at
+import time.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 
 _pred_lib = None
 _pred_tried = False
+_parser_lib = None
+_parser_tried = False
 
 
 def _compile(src_path: Path, tag: str,
@@ -238,3 +243,66 @@ def predict_batch_native(trees, X: np.ndarray, K: int,
         return None
     packed = PackedPredictor(trees)
     return packed.predict(X, K, average) if packed.ok else None
+
+
+def parser_lib():
+    """The compiled text parser, or None when no compiler works (ref:
+    src/io/parser.cpp: the reference's parsers are C++ too)."""
+    global _parser_lib, _parser_tried
+    if _parser_tried:
+        return _parser_lib
+    _parser_tried = True
+    path = _compile(_SRC_DIR / "parser.c", "parser")
+    if path is None:
+        return None
+    lib = ctypes.CDLL(path)
+    c_dbl = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    lib.lgbt_parse_dense.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_char, ctypes.c_long,
+        ctypes.c_long, c_dbl]
+    lib.lgbt_parse_dense.restype = ctypes.c_long
+    lib.lgbt_libsvm_scan.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.POINTER(ctypes.c_long)]
+    lib.lgbt_libsvm_scan.restype = ctypes.c_long
+    lib.lgbt_parse_libsvm.argtypes = [
+        ctypes.c_char_p, ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        c_dbl, c_dbl]
+    lib.lgbt_parse_libsvm.restype = ctypes.c_long
+    _parser_lib = lib
+    return lib
+
+
+def parse_dense_native(data: bytes, delim: str, n_rows: int,
+                       n_cols: int) -> Optional[np.ndarray]:
+    """Dense text -> [n_rows, n_cols] float64 (NaN missing), or None when
+    the native parser is unavailable; raises ValueError on a bad token or
+    a ragged row."""
+    lib = parser_lib()
+    if lib is None:
+        return None
+    out = np.empty((n_rows, n_cols), np.float64)
+    got = lib.lgbt_parse_dense(data, len(data), delim.encode()[:1],
+                               n_rows, n_cols, out)
+    if got < 0:
+        raise ValueError("bad token or inconsistent column count on data "
+                         f"line {-got}")
+    return out[:got]
+
+
+def parse_libsvm_native(data: bytes, line_offset: int = 0):
+    """LibSVM text -> (features [n, max_idx+1] float64, labels [n]), or
+    None when the native parser is unavailable.  line_offset shifts
+    error line numbers for chunked (streamed) inputs."""
+    lib = parser_lib()
+    if lib is None:
+        return None
+    max_idx = ctypes.c_long(-1)
+    n = lib.lgbt_libsvm_scan(data, len(data), ctypes.byref(max_idx))
+    n_cols = max(int(max_idx.value) + 1, 1)
+    feats = np.zeros((n, n_cols), np.float64)
+    labels = np.empty(n, np.float64)
+    got = lib.lgbt_parse_libsvm(data, len(data), n, n_cols, labels, feats)
+    if got < 0:
+        raise ValueError("malformed libsvm pair on data line "
+                         f"{line_offset - got}")
+    return feats[:got], labels[:got]

@@ -11,7 +11,7 @@ the CPU and CUDA exp differ in the last float32 bit, float64 hides that,
 so both devices grow the same trees.  Multiclass scores are [K, n] and
 softmax runs over the class axis.
 
-Ranking (lambdarank, rank_xendcg) comes with ROADMAP Queue 1 item 14.
+The ranking objectives (lambdarank, rank_xendcg) are in `ranking.py`.
 """
 
 from __future__ import annotations
@@ -673,8 +673,7 @@ _REGISTRY = {
     "cross_entropy_lambda": CrossEntropyLambda,
 }
 
-# objectives the port does not carry yet; their conversion is the identity
-UNPORTED = ("lambdarank", "rank_xendcg")
+RANKING = ("lambdarank", "rank_xendcg")
 
 
 def create_objective(config: Config) -> Optional[ObjectiveFunction]:
@@ -682,10 +681,9 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     name = config.objective
     if name in ("custom", "", "none"):
         return None
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"objective={name!r} (ranking) is not ported yet (ROADMAP "
-            "Queue 1 item 14)")
+    if name in RANKING:
+        from .ranking import create_ranking_objective
+        return create_ranking_objective(name, config)
     if name not in _REGISTRY:
         log.fatal(f"Unknown objective type name: {name}")
     return _REGISTRY[name](config)

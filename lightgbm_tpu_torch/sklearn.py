@@ -5,9 +5,7 @@ LGBMModel/LGBMRegressor/LGBMClassifier/LGBMRanker).
 The estimators train and predict through the port's `train` and
 `Booster`, so they run on the card unless `device_type="cpu"` is passed
 (as an estimator keyword, like any LightGBM parameter).  Without
-scikit-learn they keep their API on `object` bases.  `LGBMRanker.fit`
-reaches the port's refusal of the ranking objectives (ROADMAP Queue 1
-item 14).
+scikit-learn they keep their API on `object` bases.
 """
 
 from __future__ import annotations
@@ -370,8 +368,8 @@ class LGBMClassifier(_SKClassifier, LGBMModel):
 
 
 class LGBMRanker(LGBMModel):
-    """ref: sklearn.py LGBMRanker (lambdarank; its training raises until
-    the ranking objectives are ported, ROADMAP Queue 1 item 14)."""
+    """ref: sklearn.py LGBMRanker (lambdarank by default; `group` and
+    `eval_group` are query sizes)."""
 
     def fit(self, X, y, group, sample_weight=None, init_score=None,
             eval_set=None, eval_names=None, eval_sample_weight=None,

@@ -15,8 +15,7 @@ from the exact ones), probabilities within that bound too (the sigmoid's
 and softmax's slopes are at most 1); split importances equal exactly;
 the regressor's recorded valid l2 within 1e-4 relative (each row's
 score within that bound moves its squared error by far less).
-`LGBMRanker.fit` reaches the port's refusal of the ranking objectives
-(ROADMAP Queue 1 item 14).
+`LGBMRanker` is held in tests/test_torch_ranking.py.
 """
 
 import copy
@@ -200,16 +199,6 @@ def test_feature_importances():
     assert imp[:3].sum() > imp[3:].sum()
     np.testing.assert_array_equal(imp,
                                   clf.booster_.feature_importance("split"))
-
-
-def test_ranker_refused_with_item_14():
-    rng = np.random.RandomState(3)
-    X = rng.rand(1200, 4)
-    rel = (3 * X[:, 0] + rng.rand(1200) > 2).astype(int)
-    rk = tlgb.LGBMRanker(n_estimators=10, num_leaves=7,
-                         min_child_samples=5, **CPU)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        rk.fit(X, rel, group=np.full(60, 20))
 
 
 def test_pickle_and_copy_round_trip():

@@ -2,8 +2,8 @@
 plotting helpers, against the JAX package's, on the CPU.
 
 The cases of `tests/test_api_surface.py` and `tests/test_plotting_api.py`
-rewritten against the port (`Sequence` input stays with ROADMAP Queue 1
-item 1).  Tolerances:
+rewritten against the port (`Sequence` input and files:
+tests/test_torch_file_io.py).  Tolerances:
 - a model loaded from the same model text in both packages holds the
   same trees, so everything read from them (dumps, data frames, C++
   source, bounds, histograms, shuffled text, digraphs) is equal exactly;
@@ -52,8 +52,7 @@ LEAF_ATOL = 1e-5
 # bring, each with the item its refusal names
 LEFT_TO_ITEMS = {("Booster", "refit"): "item 14",
                  ("Booster", "set_network"): "item 15",
-                 ("Booster", "free_network"): "item 15",
-                 ("Dataset", "save_binary"): "item 1"}
+                 ("Booster", "free_network"): "item 15"}
 
 
 def _data(n=N, seed=0):
@@ -227,18 +226,17 @@ def test_cv_folds_equal_jax(grouped, monkeypatch):
 
 # ------------------------------------------------------------- exports
 def test_reference_exports_present():
-    """Everything the reference exports (minus the Dask estimators and
-    `Sequence`, item 1) exists in the port."""
+    """Everything the reference exports (minus the Dask estimators)
+    exists in the port."""
     for name in ["Dataset", "Booster", "CVBooster", "register_logger",
                  "register_callback", "train", "cv", "LGBMModel",
                  "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
                  "log_evaluation", "record_evaluation", "reset_parameter",
                  "early_stopping", "EarlyStopException", "plot_importance",
                  "plot_split_value_histogram", "plot_metric", "plot_tree",
-                 "create_tree_digraph"]:
+                 "create_tree_digraph", "Sequence"]:
         assert hasattr(tlgb, name), name
         assert name in tlgb.__all__, name
-    assert not hasattr(tlgb, "Sequence")
 
 
 @pytest.mark.parametrize("cls", ["Booster", "Dataset"])
@@ -254,8 +252,7 @@ def test_every_jax_method_exists(cls):
     X, y = _small(n=200)
     obj = (tlgb.train(SMALL, tlgb.Dataset(X, label=y), 1)
            if cls == "Booster" else tlgb.Dataset(X, label=y))
-    args = {"refit": (X, y), "set_network": (["host:1"],),
-            "save_binary": ("unused.bin",)}
+    args = {"refit": (X, y), "set_network": (["host:1"],)}
     for (c, name), item in LEFT_TO_ITEMS.items():
         if c == cls:
             with pytest.raises(NotImplementedError, match=item):
@@ -438,13 +435,6 @@ def test_subset_mutators_rejected():
         sub.set_categorical_feature([0])
     with pytest.raises(tlgb.LightGBMError, match="subset"):
         sub.add_features_from(tlgb.Dataset(X[:3], free_raw_data=False))
-
-
-def test_ranking_objective_refused_with_group():
-    X, y = _small(n=200)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tlgb.train({"objective": "lambdarank", **CPU},
-                   tlgb.Dataset(X, label=y, group=[100, 100]), 1)
 
 
 # ------------------------------------- Booster: text-loaded, exact vs JAX

@@ -418,9 +418,10 @@ def test_booster_eval_train_and_feval(runs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # continued training, DART and custom objectives are ported: these
-    # cases hold options that stay refused
-    ({"params": {"objective": "lambdarank"}}, "item 14"),
+    # continued training, DART, custom and ranking objectives are
+    # ported: these cases hold options that stay refused
+    ({"params": {"objective": "lambdarank", "linear_tree": True}},
+     "item 14"),
     ({"params": {"tree_learner": "voting"}}, "item 15"),
     ({"params": {"linear_tree": True}}, "item 14"),
     ({"checkpoint_dir": "ck"}, "item 16"),
