@@ -1,10 +1,11 @@
 """Rehearse chip_smoke.py's split_features, objectives, efb,
-forced_interaction, surface, ranking and file phases on the CPU at 1/8
-of their rows, to size their gates before a run on the card:
+forced_interaction, surface, ranking, file, linear, refit_contrib and cli
+phases on the CPU at 1/8 of their rows, to size their gates before a run
+on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
                               [forced_interaction] [surface] [ranking]
-                              [file]
+                              [file] [linear] [refit_contrib] [cli]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -23,7 +24,14 @@ the CPU (device_predict=true) and counts its CPU dispatches as the
 card's.  The ranking phase trains lambdarank and rank_xendcg on
 RANK_ROWS / 8 rows (whole queries) with RANK_VALID_ROWS / 8 held-out
 rows, then runs the three ranking card-vs-CPU cases (both sides on the
-CPU); the file phase runs at its full FILE_ROWS of the 1/8 data.
+CPU); the file phase runs at its full FILE_ROWS of the 1/8 data.  The
+linear phase trains the main path's workload with linear_tree=true and
+holds its fits of LINEAR_FIT_TREES to the plain version (its line gives
+the AUC that LINEAR_AUC_MIN is taken from and each fit's largest error
+over LINEAR_FIT_REL's bound), then runs the two linear card-vs-CPU cases
+(both sides on the CPU); refit_contrib runs on the main path's booster
+(its CPU dispatches counted as the card's); the command line runs with
+`device_type=cpu` added to its arguments.
 """
 
 import json
@@ -80,6 +88,10 @@ def main(argv) -> int:
     cs.QUANTILE_COVER_BAND = None
     cs.EFB_AUC_MIN = cs.FORCED_AUC_MIN = cs.INTERACTION_AUC_MIN = 0.0
     cs.RANK_NDCG_MIN = {k: 0.0 for k in cs.RANK_NDCG_MIN}
+    cs.LINEAR_AUC_MIN = 0.0
+    from lightgbm_tpu_torch import cli
+    cli_main = cli.main
+    cli.main = lambda argv: cli_main(list(argv) + ["device_type=cpu"])
 
     def rss_not_read(self):
         self.done.set()
@@ -92,8 +104,9 @@ def main(argv) -> int:
     r = cs.drive_path(Rehearsal(), H, global_timer, "main_path", {}, 13,
                       data, train_set=bench[1])
     booster = r["booster"]
-    if "surface" in phases:
-        # the surface phase runs on the main path's 13 trees
+    if "surface" in phases or "refit_contrib" in phases:
+        # the surface and refit_contrib phases run on the main path's 13
+        # trees
         booster.rollback_one_iter().rollback_one_iter().rollback_one_iter()
     main = {"s_per_iter": r["s_per_iter"], "ms_per_iter": r["ms_per_iter"],
             "auc": r["auc"],
@@ -131,10 +144,10 @@ def main(argv) -> int:
                         ("lambdarank_leafwise",
                          {"objective": "lambdarank",
                           "tpu_growth_strategy": "leafwise"})):
-                    cs.phase_card_vs_cpu(Rehearsal(), H, name, extra,
-                                         data="mslr", rank=rank[0])
+                    cs.phase_card_vs_cpu(Rehearsal(), H, cs.case_inputs(
+                        name, extra, data="mslr", rank=rank[0]))
                 lines = {}
-        elif phase == "surface":
+        elif phase in ("surface", "refit_contrib"):
             from lightgbm_tpu_torch.inference import DevicePredictor
 
             def cpu_dispatches(fn):
@@ -144,8 +157,29 @@ def main(argv) -> int:
             cs.card_predict = cpu_dispatches
             booster.__class__ = lgb.Booster     # pickled by its class
             booster.reset_parameter({"device_predict": "true"})
-            line = cs.phase_surface(Rehearsal(), H, booster, data)
-            lines = {"surface": {**line, "run": "surface"}}
+            if phase == "surface":
+                line = cs.phase_surface(Rehearsal(), H, booster, data)
+                lines = {"surface": {**line, "run": "surface"}}
+            else:
+                cs.phase_refit_contrib(Rehearsal(), booster, data,
+                                       "cpu rehearsal")
+                lines = {}
+        elif phase == "linear":
+            cs.phase_linear(Rehearsal(), H, global_timer, "cpu rehearsal",
+                            main, data)
+            for name, extra in (
+                    ("linear_quantized", {"linear_tree": True,
+                                          "tpu_growth_strategy": "wave",
+                                          "use_quantized_grad": True}),
+                    ("linear_leafwise", {"linear_tree": True,
+                                         "tpu_growth_strategy":
+                                         "leafwise"})):
+                cs.phase_card_vs_cpu(Rehearsal(), H, cs.case_inputs(
+                    name, extra, rows=cs.CARD_LINEAR_ROWS))
+            lines = {}
+        elif phase == "cli":
+            cs.phase_cli(Rehearsal(), H, "cpu rehearsal", data)
+            lines = {}
         else:
             _, lines = cs.phase_forced_interaction(
                 Rehearsal(), H, global_timer, "cpu rehearsal", main, bench)

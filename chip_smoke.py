@@ -40,6 +40,19 @@ Phases, each printing one JSON line:
      >= 0.72, a pickled estimator's predict_proba bit for bit.  One
      `surface` line: the phase's seconds, the estimator's s/iter of
      iterations 4-13 beside the main path's, the card;
+  3b. refit_contrib: on the main path's booster right after `surface`:
+     the SHAP contributions of CONTRIB_ROWS held-out rows: the native
+     TreeSHAP library explains every tree, each row sums to its float64
+     host raw score within 1e-9 of its Σ|phi|, the native result on 16
+     rows of tree 0 equals the Python fallback's within 1e-12, and the
+     first 256 rows as CSR give CSR of the same values.  Then
+     `Booster.refit` on the 100k held-out rows, which must advance the
+     DevicePredictor's card dispatches (the rows' leaves) and move no
+     split; each leaf value within REFIT_SLACK float32 roundings of each
+     gradient and hessian (the bound (1 - decay)·shrinkage·REFIT_SLACK·
+     2^-24·(Σ|g| + |out|·Σh) / Σh) of the plain refit from the native
+     predictor's leaf ids and float64 host gradients.  One
+     `refit_contrib` line: refit seconds, contributions rows/s, the card;
   4. path A, quantized training: the same workload with
      use_quantized_grad=true (4 bins, stochastic rounding), 13
      iterations; K2 launched, K1/K3 not; held-out AUC within 0.01 of
@@ -81,6 +94,22 @@ Phases, each printing one JSON line:
      of the median); (b) every root-to-leaf path uses the features of
      one set; held-out AUC >= FORCED_AUC_MIN, INTERACTION_AUC_MIN
      (chip_rehearsal.py forced_interaction, less a margin);
+  5.3 linear: the main path's workload with linear_tree=true (its own
+     Dataset, which keeps the raw values), 13 iterations, the wave
+     engine.  Gates: K1 and K3 launched; every tree linear; the device
+     fits of trees LINEAR_FIT_TREES (0 and 12), captured as they ran,
+     against calculate_linear_plain on the same leaf ids, gradients and
+     hessians, pulled: each row's leaf output within LINEAR_FIT_REL ·
+     max(1, |output|) (sized by chip_rehearsal.py linear); tree 0's fit
+     rerun on the card gives the same bits; the training scores within
+     2·T·2^-24·Σ_t|output| of Σ_t host float64 Tree.predict of the raw
+     rows; held-out AUC >= LINEAR_AUC_MIN (chip_rehearsal.py linear at 1/8
+     of the rows, less a margin); the model text reloads to the same bits
+     on the held-out rows.  One `linear_line`: s/iter of iterations 4-13
+     beside the main path's, `GBDT::linear_fit`, `Tree::histogram`,
+     `Tree::split_find` and `Tree::partition` device ms/iter, the raw
+     matrix's device bytes, peak GiB, leaves fitted, degenerate and
+     solved by pseudo-inverse, mean k, held-out AUC;
   5a. valid path: `train` on the main path's workload with
      valid_sets=[train, valid] (valid = make_higgs_like(100_000, 28,
      seed=1)), metric=["auc", "binary_logloss"], early_stopping_round=5,
@@ -208,7 +237,18 @@ Phases, each printing one JSON line:
      with K1 and K3 launched; the native parser built and parsed both
      formats.  One `file` line: load seconds of each route, parse
      seconds and rows/s of the native and the NumPy parser;
-  6. card against CPU: `train` at 65,536 rows, 3 iterations, on "cuda"
+  5i. cli: the main data's first CLI_ROWS rows written as a TSV (label
+     first) and `lightgbm_tpu_torch.cli.main` run in-process on the card
+     with the main path's parameters: `train`, 13 iterations, with K1 and
+     K3 launched and the model text from `Tree=0` on equal to `train`'s
+     on `Dataset(path)`; `predict`, whose file equals Booster.predict in
+     %.18g; `refit`, whose model equals Booster.refit's on the parsed
+     file; `convert_model`, C++ source with the trees.  One `cli` line:
+     the tasks' seconds, launches;
+  6. card against CPU (the CPU sides train in CARD_CPU_WORKERS spawned
+     worker processes of CARD_CPU_THREADS torch threads while the main
+     process runs the card sides in turn): `train` at CARD_ROWS (65,536)
+     rows, 3 iterations, on "cuda"
      and "cpu", for the main path, paths A and B, sampling runs (a), (b)
      at learning_rate 0.5 (GOSS samples from iteration 2), (c), and (a)
      with use_quantized_grad=true (K2 on a sampling path, gated); then on
@@ -230,7 +270,11 @@ Phases, each printing one JSON line:
      objectives on the ranking data's whole queries in its first 32,768
      rows: lambdarank with position bias on the wave engine (K1, K3),
      rank_xendcg quantized (K2) and lambdarank on the leaf-wise engine
-     (K4); the card run's launch counts in each line;
+     (K4); then linear trees at CARD_LINEAR_ROWS (32,768) rows, quantized
+     on the wave engine (K2) and on the leaf-wise engine (K4), each tree's
+     per-row linear outputs held too (tree 0 within LINEAR_FIT_REL, later
+     trees within LINEAR_LATER_ATOL, of max(1, |output|)); the card run's
+     launch counts in each line;
   7. kernels at the main path's widths (28 features, 255 bins, 2
      channels), one `kernel` line per shape: K1 at 1/2/4/8/16/128/256
      slots on n = 2^20 rows (half on the sentinel), at 384 slots of
@@ -303,6 +347,11 @@ GROUP_BINS = 256               # EFB bundle codes: MAX_BUNDLE_BINS
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 VALID_MIN_DELTA = 0.001        # early_stopping_min_delta of the valid path
+CARD_ROWS = 65_536             # rows of the higgs and EFB card-vs-CPU cases
+CARD_LINEAR_ROWS = 32_768      # rows of the linear card-vs-CPU cases
+# the card-vs-CPU cases' CPU sides train in worker processes meanwhile
+CARD_CPU_WORKERS = 4
+CARD_CPU_THREADS = 2
 
 
 T0 = time.perf_counter()
@@ -952,6 +1001,7 @@ def phase_paths(lgb, H, global_timer, probe, bench):
         held = probe.calls, probe.last
         surface.update(phase_surface(lgb, H, b, data))
         probe.calls, probe.last = held
+        phase_refit_contrib(lgb, b, data, card_line())
     r = drive_path(lgb, H, global_timer, "main_path", {}, 13, data,
                    after_training=after_main, train_set=ds)
     emit({**surface, "main_path_s_per_iter_last10": r["s_per_iter"],
@@ -2767,26 +2817,24 @@ def phase_kernels_ranking_width(H, dev):
     return out
 
 
-def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
-                      label="binary", data="higgs", forced=False,
-                      rank=None):
-    """`train` at 65,536 rows, 3 iterations, on the card and the CPU
-    (`categorical`: the split_features phase's transform of the data,
-    columns 0, 1 and 3 as `categorical_feature`; `label`: "binary", the
-    objectives phase's "regression" label, its non-negative part
-    ("nonnegative") or its class label cut into 3 classes
-    ("multiclass3"); `data`: "higgs", or the efb phase's construction
-    with CARD_EFB_LEVELS as CSR ("efb_csr") or as a dense numpy matrix
-    ("efb_dense"), bundled on both devices, or "mslr", the whole queries
-    of the ranking data `rank` = (X, y, query sizes, positions) in its
-    first CARD_RANK_ROWS rows, with their group and, when `extra` sets
-    lambdarank_position_bias_regularization, their positions; `forced`:
-    the forced splits of the rows' medians, held on both devices): the
-    same trees, category sets included.  Returns the card run's
-    launches."""
+def case_inputs(name, extra, categorical=False, label="binary",
+                data="higgs", forced=False, rank=None, rows=CARD_ROWS):
+    """The inputs of one card-vs-CPU case: `train` at `rows` rows, 3
+    iterations (`categorical`: the split_features phase's transform of
+    the data, columns 0, 1 and 3 as `categorical_feature`; `label`:
+    "binary", the objectives phase's "regression" label, its
+    non-negative part ("nonnegative") or its class label cut into 3
+    classes ("multiclass3"); `data`: "higgs", or the efb phase's
+    construction with CARD_EFB_LEVELS as CSR ("efb_csr") or as a dense
+    numpy matrix ("efb_dense"), bundled on both devices, or "mslr", the
+    whole queries of the ranking data `rank` = (X, y, query sizes,
+    positions) in its first CARD_RANK_ROWS rows, with their group and,
+    when `extra` sets lambdarank_position_bias_regularization, their
+    positions; `forced`: the forced splits of the rows' medians, written
+    to a JSON file that both devices read)."""
     ds_kw = {}
     if data == "higgs":
-        X, y = make_higgs_like(65_536, 28, seed=2)
+        X, y = make_higgs_like(rows, 28, seed=2)
     elif data == "mslr":
         X, y, lens, pos = rank
         nq, n = head_queries(lens, CARD_RANK_ROWS)
@@ -2795,12 +2843,12 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
         if "lambdarank_position_bias_regularization" in extra:
             ds_kw["position"] = pos[:n]
     else:
-        X, y = make_onehot_csr(65_536, seed=2, levels=CARD_EFB_LEVELS)
+        X, y = make_onehot_csr(rows, seed=2, levels=CARD_EFB_LEVELS)
         if data == "efb_dense":
             X = X.toarray()
     if forced:
         os.makedirs("build", exist_ok=True)
-        path = os.path.join("build", "chip_smoke_forced_card.json")
+        path = os.path.join("build", f"chip_smoke_forced_{name}.json")
         forced = forced_splits_json(X)
         with open(path, "w") as f:
             json.dump(forced, f)
@@ -2819,23 +2867,54 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
     params = {"objective": "binary", "num_leaves": 255, "learning_rate": 0.1,
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
               **extra}
+    return {"name": name, "X": X, "y": y, "ds_kw": ds_kw, "params": params,
+            "forced": forced, "extra": extra, "categorical": categorical,
+            "label": label, "data": data}
+
+
+def train_case(lgb, inputs, dev):
+    """A case's 3 iterations on `dev`: (trees, bundle groups or None);
+    forced splits are held on the way."""
+    b = lgb.train({**inputs["params"], "device_type": dev},
+                  lgb.Dataset(inputs["X"], label=inputs["y"],
+                              **inputs["ds_kw"]), num_boost_round=3)
+    if inputs["forced"]:
+        check_forced(b._gbdt, inputs["forced"])
+    plan = b._gbdt.bundle_plan
+    return b._gbdt.models_, None if plan is None else plan.groups
+
+
+def cpu_case(inputs):
+    """A case's CPU side, in a worker process (CARD_CPU_WORKERS of them
+    train while the card sides run in the main process)."""
+    torch.set_num_threads(CARD_CPU_THREADS)
+    import lightgbm_tpu_torch as lgb
+    return train_case(lgb, inputs, "cpu")
+
+
+def phase_card_vs_cpu(lgb, H, inputs, cpu_side=None):
+    """One case (`case_inputs`) on the card and on the CPU (`cpu_side()`,
+    the worker's result, or trained here): the same trees, category sets
+    included; linear trees' per-row outputs on the rows, the first
+    tree's within LINEAR_FIT_REL · max(1, |output|) (the same
+    gradients), later ones' within LINEAR_LATER_ATOL · max(1, |output|)
+    (gradients at scores that differ by float32 roundings).  Returns the
+    card run's launches."""
+    name, X, extra = inputs["name"], inputs["X"], inputs["extra"]
+    categorical, data = inputs["categorical"], inputs["data"]
+    reset_counts(H)
     models, plans = {}, {}
-    for dev in ("cuda", "cpu"):
-        reset_counts(H)
-        b = lgb.train({**params, "device_type": dev},
-                      lgb.Dataset(X, label=y, **ds_kw), num_boost_round=3)
-        models[dev] = b._gbdt.models_
-        plans[dev] = b._gbdt.bundle_plan
-        if forced:
-            check_forced(b._gbdt, forced)
-        if dev == "cuda":
-            launches = launch_counts(H)
+    models["cuda"], plans["cuda"] = train_case(lgb, inputs, "cuda")
+    launches = launch_counts(H)
+    models["cpu"], plans["cpu"] = (cpu_side() if cpu_side is not None
+                                   else train_case(lgb, inputs, "cpu"))
     if data.startswith("efb") and (
             plans["cuda"] is None or plans["cpu"] is None
-            or plans["cuda"].groups != plans["cpu"].groups):
+            or plans["cuda"] != plans["cpu"]):
         raise AssertionError(f"{name}: the bundle plans differ or are "
                              "missing")
     worst = 0.0
+    linear_worst = {}
     cat_nodes = 0
     for i, (a, b) in enumerate(zip(models["cuda"], models["cpu"])):
         ni = a.num_leaves - 1
@@ -2864,6 +2943,15 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
             raise AssertionError(f"{name} tree {i}: leaf values differ")
         worst = max(worst, float(np.max(np.abs(lv_a - lv_b)
                                         / np.maximum(np.abs(lv_b), 1e-30))))
+        if a.is_linear or b.is_linear:
+            X64 = np.asarray(X, np.float64)
+            pa, pb = a.predict(X64), b.predict(X64)
+            tol = LINEAR_FIT_REL if i == 0 else LINEAR_LATER_ATOL
+            ratio = np.abs(pa - pb) / (tol * np.maximum(1.0, np.abs(pb)))
+            if not (a.is_linear and b.is_linear) or (ratio > 1).any():
+                raise AssertionError(f"{name} tree {i}: linear outputs "
+                                     "differ")
+            linear_worst[i] = float(ratio.max())
     K = extra.get("num_class", 1)
     if len(models["cuda"]) != 3 * K or len(models["cpu"]) != 3 * K:
         raise AssertionError(f"{name}: card/CPU tree counts differ from "
@@ -2872,13 +2960,430 @@ def phase_card_vs_cpu(lgb, H, name, extra, categorical=False,
         raise AssertionError(f"{name}: no categorical split to compare")
     emit({"phase": "card_vs_cpu", "path": name, "params": extra,
           "rows": X.shape[0], "trees": 3 * K, "categorical": categorical,
-          "label": label, "data": data, "columns": X.shape[1],
+          "label": inputs["label"], "data": data, "columns": X.shape[1],
           "bundle_columns": (None if plans["cuda"] is None
-                             else plans["cuda"].num_groups),
+                             else len(plans["cuda"])),
           "categorical_nodes": cat_nodes,
           "leaves": [t.num_leaves for t in models["cuda"]],
-          "max_rel_leaf_diff": worst, "card_launches": launches})
+          "max_rel_leaf_diff": worst,
+          "linear_output_err_over_bound": linear_worst or None,
+          "card_launches": launches})
     return launches
+
+
+# held-out AUC of the linear run: chip_rehearsal.py linear at 1/8 of the
+# rows gave 0.73092 (PERF.md), less 0.01
+LINEAR_AUC_MIN = 0.720
+LINEAR_FIT_REL = 1e-9          # device fit against the plain one, per row
+LINEAR_LATER_ATOL = 1e-4       # card against CPU, trees after the first
+LINEAR_FIT_TREES = (0, 12)     # the trees whose fit is held to the plain
+REFIT_SLACK = 4.0              # float32 roundings the refit bound allows
+CONTRIB_ROWS = 2048
+CLI_ROWS = 65_536
+
+
+def hold_linear_fit(g, what, pre, fitted, raw, ids, grad, hess):
+    """The device fit `fitted` of the tree `pre` against
+    calculate_linear_plain on the same leaf ids and gradients (pulled):
+    each row's leaf output within LINEAR_FIT_REL · max(1, |output|).
+    Returns the largest error over its bound."""
+    import copy
+    from lightgbm_tpu_torch.learner.linear import (calculate_linear_plain,
+                                                   linear_outputs,
+                                                   raw_to_device)
+    ds = g.train_data
+    plain = copy.deepcopy(pre)
+    calculate_linear_plain(
+        plain, raw, ids, grad, hess, g.config.linear_lambda,
+        lambda f: ds.bin_mappers[f].bin_type == 0, ds.inner_feature_index)
+    raw_cpu = raw_to_device(raw, torch.device("cpu"))
+    ids_cpu = torch.from_numpy(ids)
+    a, b = (linear_outputs(t, raw_cpu, ids_cpu).numpy()
+            for t in (plain, fitted))
+    ratio = np.abs(a - b) / (LINEAR_FIT_REL * np.maximum(1.0, np.abs(a)))
+    if (ratio > 1).any():
+        i = int(np.argmax(ratio))
+        raise AssertionError(f"{what}: row {i}'s leaf output {b[i]!r} of "
+                             f"the device fit vs {a[i]!r} of the plain")
+    return float(ratio.max())
+
+
+def phase_linear(lgb, H, global_timer, card, main, data):
+    """Linear trees at the main path's width (gates in the module
+    docstring): its own Dataset (linear_tree keeps the raw values), the
+    fits of LINEAR_FIT_TREES captured as they run (the tree before and
+    after the device fit, the leaf ids and gradients cloned on the card)
+    and held to the plain version after the 13 updates."""
+    import copy
+    from lightgbm_tpu_torch.learner.linear import fit_linear
+    X = data[0]
+    raw = X.astype(np.float64)
+    cap = {}
+
+    def capture(b):
+        g = b._gbdt
+        fit = g._calculate_linear
+
+        def capturing(tree, ids, grad, hess):
+            t = len(g.models_)
+            if t not in LINEAR_FIT_TREES:
+                return fit(tree, ids, grad, hess)
+            pre = copy.deepcopy(tree)
+            stats = fit(tree, ids, grad, hess)
+            cap[t] = (pre, copy.deepcopy(tree), ids.clone(), grad.clone(),
+                      hess.clone())
+            return stats
+        g._calculate_linear = capturing
+
+    check = {}
+
+    def after(b):
+        g = b._gbdt
+        if not all(t.is_linear for t in g.models_):
+            raise AssertionError("linear: a tree is not linear")
+        ds = g.train_data
+        worst = {}
+        for t, (pre, fitted, ids, grad, hess) in sorted(cap.items()):
+            worst[t] = hold_linear_fit(
+                g, f"linear tree {t}", pre, fitted, raw,
+                ids.cpu().numpy(), grad.cpu().numpy(), hess.cpu().numpy())
+        pre, fitted, ids, grad, hess = cap[0]
+        again = copy.deepcopy(pre)
+        fit_linear(again, g.raw_dev, ids, grad, hess,
+                   g.config.linear_lambda,
+                   lambda f: ds.bin_mappers[f].bin_type == 0,
+                   ds.inner_feature_index)
+        nl = again.num_leaves
+        if (list(again.leaf_const[:nl]) != list(fitted.leaf_const[:nl])
+                or again.leaf_coeff[:nl] != fitted.leaf_coeff[:nl]):
+            raise AssertionError("linear: tree 0's fit changed bits on a "
+                                 "second run")
+        # the training scores against the host float64 predictions
+        outs = [t.predict(raw) for t in g.models_]
+        host = np.sum(outs, axis=0)
+        bound = 2 * len(outs) * 2.0 ** -24 * np.sum(np.abs(outs), axis=0)
+        sc = g.scores[0, :len(raw)].cpu().numpy().astype(np.float64)
+        err = np.abs(sc - host)
+        if (err > bound).any():
+            i = int(np.argmax(err - bound))
+            raise AssertionError(f"linear: row {i} training score {sc[i]!r} "
+                                 f"vs host {host[i]!r}, bound {bound[i]!r}")
+        text = b.model_to_string()
+        Xte = data[2]
+        if not np.array_equal(
+                lgb.Booster(model_str=text).predict(Xte, raw_score=True),
+                b.predict(Xte, raw_score=True)):
+            raise AssertionError("linear: the model text predicts other "
+                                 "bits")
+        st = g.linear_fit_stats[:13]
+        check.update({
+            "fit_err_over_bound": worst,
+            "score_err_over_bound": float((err / bound).max()),
+            "raw_device_bytes": g.raw_dev.nbytes,
+            "raw_device_dtype": str(g.raw_dev.dtype),
+            "leaves_fitted": sum(x.fitted for x in st),
+            "leaves_degenerate": sum(x.degenerate for x in st),
+            "leaves_pinv": sum(x.pinv for x in st),
+            "mean_k": (sum(x.mean_k * x.fitted for x in st)
+                       / max(sum(x.fitted for x in st), 1))})
+    r = drive_path(lgb, H, global_timer, "linear", {"linear_tree": True},
+                   13, data, before_training=capture, after_training=after)
+    launches, auc_l = r["launches"], r["auc"]
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        raise AssertionError(f"linear: K1 and K3 must launch: {launches}")
+    if auc_l < LINEAR_AUC_MIN:
+        raise AssertionError(f"linear: held-out AUC {auc_l} < "
+                             f"{LINEAR_AUC_MIN}")
+    ms = r["ms_per_iter"]
+    emit({"phase": "linear_line", "run": "linear",
+          "s_per_iter_last10": r["s_per_iter"],
+          "main_path_s_per_iter_last10": main["s_per_iter"],
+          **{f"{k}_device_ms_per_iter": ms.get(f"{k}::device")
+             for k in ("GBDT::linear_fit", "Tree::histogram",
+                       "Tree::split_find", "Tree::partition")},
+          "main_path_linear_free": {
+              f"{k}_device_ms_per_iter": main["ms_per_iter"].get(
+                  f"{k}::device") for k in ("Tree::histogram",
+                                            "Tree::split_find",
+                                            "Tree::partition")},
+          **check, "peak_mem_gib": r["peak_gib"], "heldout_auc": auc_l,
+          "launches": launches, "card": card})
+    return launches
+
+
+def host_binary_gradients(score, y):
+    """Binary logloss gradients in float64 on the host (sigmoid 1)."""
+    lv = np.where(y > 0, 1.0, -1.0)
+    resp = -lv / (1.0 + np.exp(lv * score))
+    a = np.abs(resp)
+    return resp, a * (1.0 - a)
+
+
+def phase_refit_contrib(lgb, booster, data, card):
+    """SHAP contributions and refit on the main path's booster after
+    `surface` (gates in the module docstring).  The contributions come
+    first: a refit rewrites leaf counts, and a leaf its rows leave empty
+    gives TreeSHAP a zero path fraction (NaN, in both packages)."""
+    import scipy.sparse as sps
+    from lightgbm_tpu_torch import native
+    _, _, Xte, yte = data
+    g = booster._gbdt
+    T = len(g.models_)
+    cfg = g.config
+    X64 = Xte.astype(np.float64)
+    # SHAP contributions of the held-out rows
+    Xc = X64[:CONTRIB_ROWS]
+    calls = dict(native.TREESHAP_CALLS)
+    t0 = time.perf_counter()
+    phi = booster.predict(Xc, pred_contrib=True)
+    contrib_s = time.perf_counter() - t0
+    if (native.TREESHAP_CALLS["native"] - calls["native"] != T
+            or native.TREESHAP_CALLS["python"] != calls["python"]):
+        raise AssertionError("refit_contrib: the native TreeSHAP library "
+                             "did not explain every tree")
+    raw = g._predict_raw_impl(Xc, 0, -1, False, 10, 10.0)
+    scale = np.abs(phi).sum(1)
+    sum_err = np.abs(phi.sum(1) - raw)
+    if not (sum_err <= 1e-9 * scale).all():
+        raise AssertionError("refit_contrib: contributions do not sum to "
+                             "the raw score")
+    a = np.zeros((16, phi.shape[1]))
+    b = np.zeros((16, phi.shape[1]))
+    native.tree_shap(g.models_[0], Xc[:16], a)
+    native._tree_shap_py(g.models_[0], Xc[:16], b)
+    if not np.allclose(a, b, rtol=1e-12, atol=1e-15):
+        raise AssertionError("refit_contrib: native TreeSHAP differs from "
+                             "the Python fallback")
+    csr = booster.predict(sps.csr_matrix(Xc[:256]), pred_contrib=True)
+    if not (sps.isspmatrix_csr(csr)
+            and np.array_equal(csr.toarray(), phi[:256])):
+        raise AssertionError("refit_contrib: CSR contributions differ")
+    # refit on the held-out rows
+    keys = ("split_feature", "threshold", "decision_type", "left_child",
+            "right_child")
+    before = [{k: getattr(t, k).copy() for k in keys} for t in g.models_]
+    old = [t.leaf_value[:t.num_leaves].copy() for t in g.models_]
+    lids = g._packed_for(0, T, 1).predict_leaf(X64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, dispatches = card_predict(lambda: booster.refit(Xte, yte))
+    refit_s = time.perf_counter() - t0
+    if dispatches <= 0:
+        raise AssertionError("refit_contrib: refit made no card dispatch")
+    for i, (t, b) in enumerate(zip(g.models_, before)):
+        if any(not np.array_equal(getattr(t, k), b[k]) for k in keys):
+            raise AssertionError(f"refit_contrib: tree {i}'s splits moved")
+    # the plain refit: native leaf ids, float64 host gradients at the
+    # float32-rounded running scores, sums in float64; the bound allows
+    # each float32 gradient and hessian REFIT_SLACK roundings
+    score = np.zeros(len(yte))
+    worst = 0.0
+    for m, t in enumerate(g.models_):
+        nl = t.num_leaves
+        lp = lids[:, m]
+        gr, he = host_binary_gradients(
+            score.astype(np.float32).astype(np.float64), yte)
+        sg = np.bincount(lp, weights=gr, minlength=nl)[:nl]
+        sh = np.bincount(lp, weights=he, minlength=nl)[:nl] + 1e-15
+        sa = np.bincount(lp, weights=np.abs(gr), minlength=nl)[:nl]
+        out = -sg / (sh + cfg.lambda_l2)
+        plain = (cfg.refit_decay_rate * old[m]
+                 + (1 - cfg.refit_decay_rate) * out * t.shrinkage)
+        bound = ((1 - cfg.refit_decay_rate) * t.shrinkage * REFIT_SLACK
+                 * 2.0 ** -24 * (sa + np.abs(out) * sh) / sh + 1e-15)
+        err = np.abs(t.leaf_value[:nl] - plain)
+        if not (err <= bound).all():
+            j = int(np.argmax(err - bound))
+            raise AssertionError(f"refit_contrib: tree {m} leaf {j} refit "
+                                 f"{t.leaf_value[j]!r} vs plain "
+                                 f"{plain[j]!r}")
+        worst = max(worst, float((err / bound).max()))
+        score += plain[lp]
+    emit({"phase": "refit_contrib", "refit_rows": len(yte),
+          "refit_s": refit_s, "refit_card_dispatches": dispatches,
+          "refit_err_over_bound": worst, "contrib_rows": CONTRIB_ROWS,
+          "contrib_s": contrib_s, "contrib_rows_per_s": CONTRIB_ROWS
+          / contrib_s, "contrib_sum_err_over_scale": float(
+              (sum_err / scale).max()), "card": card})
+
+
+def model_trees(text):
+    """Model text from `Tree=0` to `end of trees`."""
+    return text[text.index("Tree=0"):text.index("end of trees")]
+
+
+def phase_cli(lgb, H, card, data):
+    """The command line in-process on the card (gates in the module
+    docstring) on the first CLI_ROWS rows of the main data as a TSV."""
+    from lightgbm_tpu_torch import cli
+    from lightgbm_tpu_torch.io.parser import parse_file
+    X, y = data[0][:CLI_ROWS], data[1][:CLI_ROWS]
+    folder = os.path.join("build", "chip_smoke_cli")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, "train.tsv")
+    model = os.path.join(folder, "model.txt")
+    t0 = time.perf_counter()
+    np.savetxt(path, np.column_stack([y, X]).astype(np.float64),
+               delimiter="\t", fmt="%.9g")
+    times = {"write_s": time.perf_counter() - t0}
+    params = {k: v for k, v in BENCH_PARAMS.items() if k != "device_type"}
+    args = [f"{k}={v}" for k, v in params.items()]
+    reset_counts(H)
+    t0 = time.perf_counter()
+    if cli.main([f"data={path}", "num_iterations=13", *args,
+                 f"output_model={model}"]) != 0:
+        raise AssertionError("cli: train failed")
+    torch.cuda.synchronize()
+    times["train_s"] = time.perf_counter() - t0
+    launches = launch_counts(H)
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        raise AssertionError(f"cli: K1 and K3 must launch: {launches}")
+    want = lgb.train(dict(BENCH_PARAMS), lgb.Dataset(path), 13)
+    text = open(model).read()
+    if model_trees(text) != model_trees(want.model_to_string()):
+        raise AssertionError("cli: the trees differ from train on "
+                             "Dataset(path)'s")
+    feats, labels, _ = parse_file(path)
+    pred = os.path.join(folder, "pred.txt")
+    t0 = time.perf_counter()
+    cli.main(["task=predict", f"data={path}", f"input_model={model}",
+              f"output_result={pred}", "verbosity=-1"])
+    times["predict_s"] = time.perf_counter() - t0
+    expect = "".join(f"{v:.18g}\n" for v in
+                     lgb.Booster(model_file=model).predict(feats))
+    if open(pred).read() != expect:
+        raise AssertionError("cli: predict's file differs from "
+                             "Booster.predict")
+    refit = os.path.join(folder, "refit.txt")
+    t0 = time.perf_counter()
+    cli.main(["task=refit", f"data={path}", f"input_model={model}",
+              f"output_model={refit}", "verbosity=-1"])
+    times["refit_s"] = time.perf_counter() - t0
+    again = lgb.Booster(model_file=model).refit(feats, labels)
+    if open(refit).read() != again.model_to_string():
+        raise AssertionError("cli: refit differs from Booster.refit")
+    cpp = os.path.join(folder, "model.cpp")
+    cli.main(["task=convert_model", f"input_model={model}",
+              f"convert_model={cpp}", "verbosity=-1"])
+    src = open(cpp).read()
+    if "PredictTree0" not in src:
+        raise AssertionError("cli: convert_model wrote no tree")
+    emit({"phase": "cli", "rows": CLI_ROWS, **times,
+          "convert_bytes": len(src), "launches": launches, "card": card})
+    return launches
+
+
+def card_cases(rank):
+    """Every card-vs-CPU case: (inputs, kernels that must launch)."""
+    sampling_a, sampling_b, sampling_c = (r[1] for r in SAMPLING_RUNS[:3])
+    out = [(case_inputs(name, extra), kernels) for name, extra, kernels in (
+        ("main_path", {}, ()),
+        ("path_a_quantized", {"use_quantized_grad": True}, ()),
+        ("path_b_leafwise", {"tpu_growth_strategy": "leafwise"}, ()),
+        ("sampling_a_bagging", sampling_a, ()),
+        ("sampling_b_goss_lr0.5", {**sampling_b, "learning_rate": 0.5}, ()),
+        ("sampling_c_extra_trees", sampling_c, ()),
+        # K2 on a sampling path
+        ("sampling_a_quantized", {**sampling_a, "use_quantized_grad": True},
+         ("K2",)))]
+    # the split_features phase's data: categorical columns 0, 1 and 3
+    out += [(case_inputs(name, extra, categorical=True), kernels)
+            for name, extra, kernels in (
+        ("categorical_wave", {}, ("K1", "K3")),
+        ("categorical_extra_trees_leafwise",
+         {"extra_trees": True, "tpu_growth_strategy": "leafwise"}, ("K4",)),
+        ("categorical_quantized", {"use_quantized_grad": True}, ("K2",)),
+        ("monotone_smooth_cegb_leafwise",
+         {"monotone_constraints": monotone_signs(), "path_smooth": 1.0,
+          "cegb_penalty_split": CEGB_PENALTY_SPLIT,
+          "cegb_penalty_feature_coupled": [
+              CEGB_COUPLED_PER_ROW * CARD_ROWS] * F,
+          "tpu_growth_strategy": "leafwise"}, ("K4",)))]
+    # the objectives phase's six cases
+    out += [(case_inputs(name, extra, label=lab), kernels)
+            for name, extra, lab, kernels in (
+        ("regression_l1_wave", {"objective": "regression_l1"},
+         "regression", ("K1", "K3")),
+        ("multiclass3_wave", {"objective": "multiclass", "num_class": 3},
+         "multiclass3", ("K1", "K3")),
+        ("multiclass3_quantized", {"objective": "multiclass",
+                                   "num_class": 3,
+                                   "use_quantized_grad": True},
+         "multiclass3", ("K2",)),
+        ("tweedie_leafwise", {"objective": "tweedie",
+                              "tpu_growth_strategy": "leafwise"},
+         "nonnegative", ("K4",)),
+        ("dart_wave", DART, "binary", ("K1", "K3")),
+        ("rf_leafwise", {**RF, "tpu_growth_strategy": "leafwise"},
+         "binary", ("K4",)))]
+    # EFB's bundle codes, forced splits and interaction constraints
+    out += [(case_inputs(name, extra, data=data,
+                         forced=name.startswith("forced")), kernels)
+            for name, extra, data, kernels in (
+        ("efb_dense_onehot_wave", {"tpu_growth_strategy": "wave"},
+         "efb_dense", ("K1", "K3")),
+        ("efb_csr_wave", {"tpu_growth_strategy": "wave"}, "efb_csr",
+         ("K1", "K3")),
+        ("efb_csr_leafwise", {"tpu_growth_strategy": "leafwise"},
+         "efb_csr", ("K4",)),
+        ("efb_csr_quantized", {"tpu_growth_strategy": "wave",
+                               "use_quantized_grad": True}, "efb_csr",
+         ("K2",)),
+        ("forced_leafwise", {"tpu_growth_strategy": "leafwise"},
+         "higgs", ("K4",)),
+        ("interaction_leafwise", {
+            "tpu_growth_strategy": "leafwise",
+            "interaction_constraints": [list(s)
+                                        for s in INTERACTION_SETS]},
+         "higgs", ("K4",)))]
+    # the ranking objectives on the ranking data's first whole queries
+    out += [(case_inputs(name, extra, data="mslr", rank=rank), kernels)
+            for name, extra, kernels in (
+        ("lambdarank_position_bias_wave",
+         {"objective": "lambdarank", "tpu_growth_strategy": "wave",
+          "lambdarank_position_bias_regularization": 0.1}, ("K1", "K3")),
+        ("rank_xendcg_quantized",
+         {"objective": "rank_xendcg", "tpu_growth_strategy": "wave",
+          "use_quantized_grad": True}, ("K2",)),
+        ("lambdarank_leafwise",
+         {"objective": "lambdarank", "tpu_growth_strategy": "leafwise"},
+         ("K4",)))]
+    # linear trees, quantized (K2) and on the leaf-wise engine (K4)
+    out += [(case_inputs(name, extra, rows=CARD_LINEAR_ROWS), kernels)
+            for name, extra, kernels in (
+        ("linear_quantized", {"linear_tree": True,
+                              "tpu_growth_strategy": "wave",
+                              "use_quantized_grad": True}, ("K2",)),
+        ("linear_leafwise", {"linear_tree": True,
+                             "tpu_growth_strategy": "leafwise"}, ("K4",)))]
+    return out
+
+
+def run_card_vs_cpu(lgb, H, rank):
+    """Every case's CPU side in CARD_CPU_WORKERS worker processes (spawned,
+    so they hold no CUDA context), while the main process runs the card
+    sides in turn and compares each with its CPU side's trees.  Returns
+    the gated cases' card launches; the pool is shut down, its queued
+    cases cancelled, whatever happens."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    cases = card_cases(rank)
+    out = {}
+    pool = ProcessPoolExecutor(
+        max_workers=CARD_CPU_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        futures = [pool.submit(cpu_case, inputs) for inputs, _ in cases]
+        for (inputs, kernels), fut in zip(cases, futures):
+            card_launches = phase_card_vs_cpu(lgb, H, inputs, fut.result)
+            if any(card_launches[k] <= 0 for k in kernels):
+                raise AssertionError(f"{inputs['name']}: {kernels} must "
+                                     f"launch: {card_launches}")
+            if kernels:
+                out[f"card_vs_cpu_{inputs['name']}"] = card_launches
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    return out
 
 
 def main(argv) -> int:
@@ -2945,6 +3450,8 @@ def main(argv) -> int:
     fi_launches, _ = phase_forced_interaction(lgb, H, global_timer, card,
                                               main, bench)
     launches.update(fi_launches)
+    launches["linear"] = phase_linear(lgb, H, global_timer, card, main,
+                                      bench[0])
     probe.reset()
     phase_valid_path(lgb, H, global_timer, card, main_wall)
     phase_device_bin(lgb, global_timer)
@@ -2959,107 +3466,8 @@ def main(argv) -> int:
     rank = ranking_data()
     launches.update(phase_ranking(lgb, H, global_timer, card, rank))
     launches["file"] = phase_file(lgb, H, card, rank[0])
-    sampling_a, sampling_b, sampling_c = (r[1] for r in SAMPLING_RUNS[:3])
-    for name, extra in (("main_path", {}),
-                        ("path_a_quantized", {"use_quantized_grad": True}),
-                        ("path_b_leafwise",
-                         {"tpu_growth_strategy": "leafwise"}),
-                        ("sampling_a_bagging", sampling_a),
-                        ("sampling_b_goss_lr0.5",
-                         {**sampling_b, "learning_rate": 0.5}),
-                        ("sampling_c_extra_trees", sampling_c),
-                        ("sampling_a_quantized",
-                         {**sampling_a, "use_quantized_grad": True})):
-        card_launches = phase_card_vs_cpu(lgb, H, name, extra)
-        if name == "sampling_a_quantized":
-            # K2 on a sampling path
-            if card_launches["K2"] <= 0:
-                raise AssertionError(f"{name}: K2 was not launched: "
-                                     f"{card_launches}")
-            launches[f"card_vs_cpu_{name}"] = card_launches
-    # the split_features phase's data: categorical columns 0, 1 and 3
-    for name, extra, kernels in (
-            ("categorical_wave", {}, ("K1", "K3")),
-            ("categorical_extra_trees_leafwise",
-             {"extra_trees": True, "tpu_growth_strategy": "leafwise"},
-             ("K4",)),
-            ("categorical_quantized", {"use_quantized_grad": True}, ("K2",)),
-            ("monotone_smooth_cegb_leafwise",
-             {"monotone_constraints": monotone_signs(), "path_smooth": 1.0,
-              "cegb_penalty_split": CEGB_PENALTY_SPLIT,
-              "cegb_penalty_feature_coupled": [
-                  CEGB_COUPLED_PER_ROW * 65_536] * F,
-              "tpu_growth_strategy": "leafwise"}, ("K4",))):
-        card_launches = phase_card_vs_cpu(lgb, H, name, extra,
-                                          categorical=True)
-        if any(card_launches[k] <= 0 for k in kernels):
-            raise AssertionError(f"{name}: {kernels} must launch: "
-                                 f"{card_launches}")
-        launches[f"card_vs_cpu_{name}"] = card_launches
-    # the objectives phase's six cases
-    for name, extra, lab, kernels in (
-            ("regression_l1_wave", {"objective": "regression_l1"},
-             "regression", ("K1", "K3")),
-            ("multiclass3_wave", {"objective": "multiclass",
-                                  "num_class": 3}, "multiclass3",
-             ("K1", "K3")),
-            ("multiclass3_quantized", {"objective": "multiclass",
-                                       "num_class": 3,
-                                       "use_quantized_grad": True},
-             "multiclass3", ("K2",)),
-            ("tweedie_leafwise", {"objective": "tweedie",
-                                  "tpu_growth_strategy": "leafwise"},
-             "nonnegative", ("K4",)),
-            ("dart_wave", DART, "binary", ("K1", "K3")),
-            ("rf_leafwise", {**RF, "tpu_growth_strategy": "leafwise"},
-             "binary", ("K4",))):
-        card_launches = phase_card_vs_cpu(lgb, H, name, extra, label=lab)
-        if any(card_launches[k] <= 0 for k in kernels):
-            raise AssertionError(f"{name}: {kernels} must launch: "
-                                 f"{card_launches}")
-        launches[f"card_vs_cpu_{name}"] = card_launches
-    # EFB's bundle codes, forced splits and interaction constraints
-    for name, extra, data, kernels in (
-            ("efb_dense_onehot_wave", {"tpu_growth_strategy": "wave"},
-             "efb_dense", ("K1", "K3")),
-            ("efb_csr_wave", {"tpu_growth_strategy": "wave"}, "efb_csr",
-             ("K1", "K3")),
-            ("efb_csr_leafwise", {"tpu_growth_strategy": "leafwise"},
-             "efb_csr", ("K4",)),
-            ("efb_csr_quantized", {"tpu_growth_strategy": "wave",
-                                   "use_quantized_grad": True}, "efb_csr",
-             ("K2",)),
-            ("forced_leafwise", {"tpu_growth_strategy": "leafwise"},
-             "higgs", ("K4",)),
-            ("interaction_leafwise", {
-                "tpu_growth_strategy": "leafwise",
-                "interaction_constraints": [list(s)
-                                            for s in INTERACTION_SETS]},
-             "higgs", ("K4",))):
-        card_launches = phase_card_vs_cpu(lgb, H, name, extra, data=data,
-                                          forced=name.startswith("forced"))
-        if any(card_launches[k] <= 0 for k in kernels):
-            raise AssertionError(f"{name}: {kernels} must launch: "
-                                 f"{card_launches}")
-        launches[f"card_vs_cpu_{name}"] = card_launches
-    # the ranking objectives on the ranking data's first whole queries
-    for name, extra, kernels in (
-            ("lambdarank_position_bias_wave",
-             {"objective": "lambdarank", "tpu_growth_strategy": "wave",
-              "lambdarank_position_bias_regularization": 0.1},
-             ("K1", "K3")),
-            ("rank_xendcg_quantized",
-             {"objective": "rank_xendcg", "tpu_growth_strategy": "wave",
-              "use_quantized_grad": True}, ("K2",)),
-            ("lambdarank_leafwise",
-             {"objective": "lambdarank",
-              "tpu_growth_strategy": "leafwise"}, ("K4",))):
-        card_launches = phase_card_vs_cpu(lgb, H, name, extra, data="mslr",
-                                          rank=rank[0])
-        if any(card_launches[k] <= 0 for k in kernels):
-            raise AssertionError(f"{name}: {kernels} must launch: "
-                                 f"{card_launches}")
-        launches[f"card_vs_cpu_{name}"] = card_launches
+    launches["cli"] = phase_cli(lgb, H, card, bench[0])
+    launches.update(run_card_vs_cpu(lgb, H, rank[0]))
     del rank
     # the scan's launches, counted after every path has run (a profiler
     # trace of one replayed scan of each run)

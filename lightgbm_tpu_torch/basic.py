@@ -170,7 +170,8 @@ class Dataset:
             if ref_core is not None:
                 self._core = ref_core.create_valid(
                     data, label=self.label, weight=self.weight,
-                    group=self.group, init_score=self.init_score)
+                    group=self.group, init_score=self.init_score,
+                    keep_raw_data=cfg.linear_tree)
             else:
                 self._core = _CoreDataset.construct_from_arrays(
                     data, label=self.label, weight=self.weight,
@@ -184,6 +185,7 @@ class Dataset:
                     zero_as_missing=cfg.zero_as_missing,
                     feature_pre_filter=cfg.feature_pre_filter,
                     seed=cfg.data_random_seed,
+                    keep_raw_data=cfg.linear_tree,
                     max_bin_by_feature=cfg.max_bin_by_feature or None,
                     forcedbins_filename=cfg.forcedbins_filename,
                     device_type=cfg.device_type)
@@ -717,7 +719,8 @@ class Booster:
                 pred_early_stop_freq: int = 10,
                 pred_early_stop_margin: float = 10.0,
                 single_row_fast: bool = False) -> np.ndarray:
-        """Predictions, leaf ids (`pred_leaf`) or early-stopped scores.
+        """Predictions, leaf ids (`pred_leaf`), early-stopped scores or
+        SHAP contributions (`pred_contrib`, on the host).
         On a card booster with `device_predict=auto` (the default) they
         are computed on the card; float32 input passes through unchanged,
         which is what the device routing needs to be exact.  scipy
@@ -725,9 +728,6 @@ class Booster:
         a whole.  `single_row_fast` serves one row through the cached
         native single-row predictor (ref: c_api.h:1350
         LGBM_BoosterPredictForMatSingleRowFastInit)."""
-        if pred_contrib:
-            raise NotImplementedError("pred_contrib (TreeSHAP) is not "
-                                      "ported yet (ROADMAP Queue 1 item 14)")
         if num_iteration is None or (num_iteration == -1
                                      and self.best_iteration > 0):
             num_iteration = (self.best_iteration
@@ -736,6 +736,9 @@ class Booster:
                   pred_early_stop_freq=pred_early_stop_freq,
                   pred_early_stop_margin=pred_early_stop_margin)
         sparse = is_scipy_sparse(data)
+        if pred_contrib:
+            return self._predict_contrib(data, sparse, start_iteration,
+                                         num_iteration)
         if single_row_fast and not pred_leaf and not sparse:
             row = np.asarray(data, np.float64)
             if row.ndim == 1:
@@ -763,6 +766,28 @@ class Booster:
             _coerce_matrix(data), raw_score=raw_score,
             start_iteration=start_iteration, num_iteration=num_iteration,
             pred_leaf=pred_leaf, **es)
+
+    def _predict_contrib(self, data, sparse: bool, start_iteration: int,
+                         num_iteration: int):
+        """SHAP contributions on the host (TreeSHAP): dense input gives
+        [n, K·(F + 1)]; scipy sparse input gives CSR, made in row chunks
+        of about 64 MB of dense features (ref: the Python package returns
+        sparse contributions for sparse input; basic.py:903-936 of the JAX
+        package)."""
+        g = self._gbdt
+        if not sparse:
+            return g.predict_contrib(_coerce_matrix(data), start_iteration,
+                                     num_iteration)
+        from scipy import sparse as sps
+        if data.shape[0] == 0:
+            return sps.csr_matrix(
+                (0, (data.shape[1] + 1) * g.num_tree_per_iteration))
+        csr = data.tocsr()
+        chunk = max(1, SPARSE_CHUNK_BYTES // max(8 * data.shape[1], 1))
+        return sps.vstack([sps.csr_matrix(g.predict_contrib(
+            _coerce_matrix(csr[i:i + chunk]), start_iteration,
+            num_iteration)) for i in range(0, data.shape[0], chunk)],
+            format="csr")
 
     def num_feature(self) -> int:
         """Features the model was trained on (ref: basic.py
@@ -1029,8 +1054,12 @@ class Booster:
         return self
 
     def refit(self, data, label, weight=None, **kwargs) -> "Booster":
-        raise NotImplementedError("Booster.refit is not ported yet (ROADMAP "
-                                  "Queue 1 item 14)")
+        """Refit the leaf values of the existing trees to new data, in
+        place, and return this booster (ref: basic.py Booster.refit ->
+        LGBM_BoosterRefit; gbdt.cpp:252 RefitTree)."""
+        self._gbdt.refit(_coerce_matrix(data),
+                         np.asarray(label, np.float64), weight=weight)
+        return self
 
     def set_network(self, machines, local_listen_port: int = 12400,
                     listen_time_out: int = 120,

@@ -52,6 +52,13 @@ decodes each node's feature from its bundle column.  Forced splits
 (`forcedsplits_filename`) and interaction constraints are parsed here
 into the engines' static tuples.
 
+Linear trees (`linear_tree`): after a tree is grown, its leaves' ridge
+models are fitted on the device (learner/linear.py) from the raw matrix,
+put on the device once at `init`, and the scores advance by each row's
+linear output; valid sets predict them on the host.  `refit` rewrites
+the leaf values of the existing trees from new rows; `predict_contrib`
+gives SHAP contributions on the host (native TreeSHAP).
+
 The port covers in-memory dense and scipy-sparse data with the wave and
 leaf-wise engines and quantized gradients.  Every parameter whose
 behaviour it does not carry raises NotImplementedError naming the
@@ -69,11 +76,13 @@ import torch
 
 from ..config import Config
 from ..inference import DevicePredictor
-from ..io.binning import BIN_CATEGORICAL, MISSING_NAN, MISSING_ZERO
+from ..io.binning import (BIN_CATEGORICAL, BIN_NUMERICAL, MISSING_NAN,
+                          MISSING_ZERO)
 from ..io.bundle import decode_bundle_column
 from ..io.dataset import Dataset
 from ..learner import (FeatureMeta, GrowParams, grow_tree_impl,
                        grow_tree_wave_impl)
+from ..learner.linear import fit_linear, linear_outputs, raw_to_device
 from ..metric import Metric
 from ..models.tree import K_CATEGORICAL_MASK, Tree, _to_bitset
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
@@ -110,8 +119,6 @@ def check_slice(config: Config) -> None:
             refuse(f"monotone_constraints_method={method}", "13")
     if c.cegb_penalty_feature_lazy:
         refuse("cegb_penalty_feature_lazy", "13")
-    if c.linear_tree:
-        refuse("linear trees", "14")
     if c.tpu_growth_strategy not in ("auto", "wave", "leafwise"):
         raise ValueError(f"Unknown tpu_growth_strategy "
                          f"{c.tpu_growth_strategy!r}; expected auto, wave, "
@@ -332,6 +339,11 @@ class GBDT:
         self._device_eval = None    # ops.metrics.DeviceEval, built lazily
         self._grad_ok = None        # device flag: every gradient finite
         self._finite_cache = None   # (grads_finite, scores_finite) of iter
+        # linear trees: the raw matrix on the device, the fits' stats and
+        # each valid set's raw matrix on the host
+        self.raw_dev: Optional[torch.Tensor] = None
+        self.linear_fit_stats = []
+        self._valid_raw = {}
 
     # ------------------------------------------------------------------ init
     def init(self, config: Config, train_data: Dataset,
@@ -529,6 +541,24 @@ class GBDT:
         self.binned_rm_dev = (self.binned_dev.t().contiguous()
                               if strategy == "leafwise" else None)
         self.col_mask = torch.ones(len(nb), dtype=torch.bool, device=dev)
+
+        # linear leaves (learner/linear.py): the raw matrix on the device
+        # once, beside a zero column that pads the feature tables
+        if config.linear_tree:
+            if objective is not None and objective.need_renew_tree_output:
+                # ref: config.cpp "Cannot use regression_l1 objective for
+                # linear tree" (renewal would overwrite the leaf models)
+                log.fatal(f"Cannot use objective {config.objective!r} "
+                          "with linear_tree")
+            if train_data.raw_data is None:
+                # the bins' representative values are no substitute: the
+                # last bin of a feature reconstructs to +inf
+                log.fatal("linear_tree needs the training rows' raw values: "
+                          "construct the Dataset with linear_tree=true (a "
+                          "binary or two-round Dataset holds none)")
+            self.raw_dev = raw_to_device(train_data.raw_data, dev)
+            log.info(f"Linear trees: raw matrix of {self.raw_dev.nbytes} "
+                     f"bytes ({self.raw_dev.dtype}) on {dev}")
 
         self.use_quant = config.use_quantized_grad
         if self.use_quant:
@@ -911,7 +941,9 @@ class GBDT:
                     quant_scales=(qscales if self.grow_params.quant_bins > 0
                                   else None),
                     extra_tag=extra_tag)
-                if self.use_quant and self.config.quant_train_renew_leaf:
+                linear = self.config.linear_tree
+                if (self.use_quant and self.config.quant_train_renew_leaf
+                        and not linear):
                     # leaf outputs from the float gradients (gbdt.py:1494),
                     # summed over the bagging mask (the whole data under
                     # GOSS, whose rescaled gradients they are)
@@ -919,8 +951,15 @@ class GBDT:
                         arrays.leaf_value, leaf_id, grad[k], hess[k],
                         self.bag_mask, self._renew_params))
                 with global_timer.scope("GBDT::finalize_tree"):
-                    tree = self._finalize_tree(arrays, leaf_id, k,
-                                               init_scores[k])
+                    if linear:
+                        # fitted on the float gradients, quantized training
+                        # included (gbdt.py:1228-1238 of the JAX package)
+                        tree = self._finalize_linear(arrays, leaf_id, k,
+                                                     init_scores[k], grad[k],
+                                                     hess[k])
+                    else:
+                        tree = self._finalize_tree(arrays, leaf_id, k,
+                                                   init_scores[k])
             if tree is None:
                 # no split: this class keeps a stump, a constant one in
                 # the first iteration (ref: gbdt.cpp:372-391)
@@ -1101,6 +1140,46 @@ class GBDT:
         grew no split)."""
         return self._packed_to_tree(self._pack_tree(arrays).cpu().numpy())
 
+    def _calculate_linear(self, tree: Tree, leaf_id: torch.Tensor,
+                          grad: torch.Tensor, hess: torch.Tensor):
+        """Fit the tree's linear leaf models on the device (learner/
+        linear.py; the JAX booster's `_calculate_linear`, gbdt.py:2119):
+        `leaf_id`, `grad`, `hess` [num_data], the gradients multiplied by
+        the bag mask."""
+        ds = self.train_data
+        stats = fit_linear(
+            tree, self.raw_dev, leaf_id, grad, hess,
+            self.config.linear_lambda,
+            lambda f: ds.bin_mappers[f].bin_type == BIN_NUMERICAL,
+            ds.inner_feature_index)
+        self.linear_fit_stats.append(stats)
+        return stats
+
+    def _finalize_linear(self, arrays, leaf_id, class_id: int,
+                         init_score: float, grad: torch.Tensor,
+                         hess: torch.Tensor) -> Optional[Tree]:
+        """A linear tree (gbdt.py:1470-1490 of the JAX package): fit the
+        leaf models on the float gradients, shrink, then add each row's
+        linear output on the device (float64, rounded once to float32)
+        at the leaf the growth gave it."""
+        tree = self._pull_tree(arrays)
+        if tree is None:
+            return None
+        n = self.num_data
+        ids = leaf_id[:n]
+        bag = self.bag_mask[:n]
+        with global_timer.scope("GBDT::linear_fit"):
+            self._calculate_linear(tree, ids, grad[:n] * bag, hess[:n] * bag)
+            tree.apply_shrinkage(self.shrinkage_rate)
+            delta = linear_outputs(tree, self.raw_dev, ids)
+            self.scores[class_id, :n] += delta.to(torch.float32)
+            global_timer.block(self.scores)
+        for vi in range(len(self.valid_sets)):
+            self._add_valid_tree_score(vi, tree, class_id)
+        if abs(init_score) > K_EPSILON:
+            tree.add_bias(init_score)
+        return tree
+
     def _finalize_tree(self, arrays, leaf_id, class_id: int,
                        init_score: float) -> Optional[Tree]:
         """Renew the leaf outputs (L1, quantile, MAPE), shrink, update the
@@ -1171,7 +1250,19 @@ class GBDT:
     def _add_valid_tree_score(self, vi: int, tree: Tree,
                               class_id: int) -> None:
         """valid score += the tree's leaf outputs, in float64 on the host
-        (gbdt.py:1673-1681 of the JAX package)."""
+        (gbdt.py:1673-1681 of the JAX package); a linear tree predicts the
+        set's raw matrix, kept when it was constructed under linear_tree
+        (the JAX package predicts the matrix its bins reconstruct, +inf in
+        a feature's last bin), else the reconstructed one."""
+        if tree.is_linear:
+            if vi not in self._valid_raw:
+                vds = self.valid_sets[vi]
+                self._valid_raw[vi] = np.asarray(self._reconstruct_raw(
+                    vds, self.valid_bins[vi], vds.pre_bundled_plan),
+                    np.float64)
+            self.valid_scores[vi][class_id] += tree.predict(
+                self._valid_raw[vi])
+            return
         vids = self._tree_leaf_ids(tree, vi)
         self.valid_scores[vi][class_id] += tree.leaf_value[vids]
 
@@ -1233,7 +1324,7 @@ class GBDT:
         """Invalidate the packed/device predictor caches after a change of
         the trees that `len(models_)` cannot see: a rollback followed by
         new trees, adopted trees, and later in-place mutations (DART
-        re-weighting, refit, set_leaf_output: ROADMAP item 14).  Serving
+        re-weighting, refit, set_leaf_output).  Serving
         a model mid-mutation must repack, never reuse stale leaf
         values."""
         self._model_mutations += 1
@@ -1480,6 +1571,107 @@ class GBDT:
                 cols.append(self.models_[it * K + k].get_leaf_index(X))
         return (np.stack(cols, axis=1) if cols
                 else np.zeros((X.shape[0], 0), np.int32))
+
+    def predict_contrib(self, X: np.ndarray, start_iteration: int = 0,
+                        num_iteration: int = -1) -> np.ndarray:
+        """SHAP feature contributions [n, K·(F + 1)]: per class, F
+        per-feature columns and the expected value, summing to the raw
+        score of constant-leaf trees (ref: gbdt.h:314 PredictContrib;
+        TreeSHAP of src/io/tree.cpp; gbdt.py:2244 of the JAX package).
+        A linear tree's contributions explain its constant leaf values,
+        as the JAX package's do."""
+        from ..native import tree_shap
+        # the recursive path-weight algorithm has no device form
+        self._host_fallback("pred-contrib")
+        X = np.asarray(X, dtype=np.float64)
+        if X.ndim == 1:
+            X = X[None, :]
+        n = X.shape[0]
+        K = self.num_tree_per_iteration
+        F = (self.train_data.num_total_features
+             if self.train_data is not None
+             else self._loaded_max_feature_idx + 1)
+        start = start_iteration
+        end = self._slice_end(start, num_iteration)
+        phi = np.zeros((K, n, F + 1))
+        for it in range(start, end):
+            for k in range(K):
+                tree_shap(self.models_[it * K + k], X, phi[k])
+        if self.average_output_ and end > start:
+            phi /= end - start
+        if K == 1:
+            return phi[0]
+        return phi.transpose(1, 0, 2).reshape(n, K * (F + 1))
+
+    # --------------------------------------------------------------- refit
+    def refit(self, X: np.ndarray, label: np.ndarray,
+              weight: Optional[np.ndarray] = None) -> None:
+        """Refit the leaf values of the existing tree structures to new
+        data (ref: gbdt.cpp:252 RefitTree; serial_tree_learner.cpp:241
+        FitByExistingTree; gbdt.py:2181 of the JAX package): new leaf =
+        decay·old + (1 − decay)·output·shrinkage.  The rows' leaves come
+        from `predict_leaf_index` (the card for float32-exact input), the
+        gradients from the objective on the booster's device.  A linear
+        tree keeps its leaf models, as in the JAX package."""
+        from ..io.dataset import Metadata
+        from ..objective import create_objective
+        X = np.asarray(X, np.float64)
+        n = X.shape[0]
+        leaf_preds = self.predict_leaf_index(X)             # [n, trees]
+        md = Metadata(n)
+        md.set_label(np.asarray(label, np.float64))
+        if weight is not None:
+            md.set_weight(weight)
+        obj = self.objective or create_objective(self.config)
+        obj.init(md, n)
+        dev = (self.device if self.device is not None
+               else resolve_device(self.config.device_type))
+        lab = torch.from_numpy(np.asarray(obj.label, np.float32)).to(dev)
+        w = (None if md.weight is None else torch.from_numpy(
+            np.asarray(md.weight, np.float32)).to(dev))
+        score = np.zeros((self.num_tree_per_iteration, n), np.float64)
+        try:
+            self._refit_trees(obj, lab, w, score, leaf_preds)
+        finally:
+            # after the mutations (not before predict_leaf_index, which
+            # would cache the old trees under the new count), and also
+            # when an iteration raises midway
+            self._bump_model_mutations()
+
+    def _refit_trees(self, obj, lab, w, score, leaf_preds) -> None:
+        """Iteration by iteration: gradients at the running float64 scores
+        rounded to float32, pulled in one transfer; per-leaf sums in
+        float64 by `np.bincount` on the host, as the JAX package sums
+        them (gbdt.py:2213-2242)."""
+        cfg = self.config
+        K = self.num_tree_per_iteration
+        decay = cfg.refit_decay_rate
+        l1, l2 = cfg.lambda_l1, cfg.lambda_l2
+        n = score.shape[1]
+        dev = lab.device
+        for it in range(len(self.models_) // K):
+            sc = torch.from_numpy(score.astype(np.float32)).to(dev)
+            g, h = obj.get_gradients(sc if K > 1 else sc[0], lab, w)
+            gh = torch.stack([g.reshape(K, n), h.reshape(K, n)]).cpu()
+            g, h = gh.numpy()
+            for k in range(K):
+                m = it * K + k
+                tree = self.models_[m]
+                nl = tree.num_leaves
+                lp = np.clip(leaf_preds[:, m], 0, nl - 1)
+                sg = np.bincount(lp, weights=g[k], minlength=nl)[:nl]
+                sh = (np.bincount(lp, weights=h[k], minlength=nl)[:nl]
+                      + K_EPSILON)
+                sg_l1 = np.sign(sg) * np.maximum(np.abs(sg) - l1, 0.0)
+                out = -sg_l1 / (sh + l2)
+                if cfg.max_delta_step > 0:
+                    out = np.clip(out, -cfg.max_delta_step,
+                                  cfg.max_delta_step)
+                new = (decay * tree.leaf_value[:nl]
+                       + (1.0 - decay) * out * tree.shrinkage)
+                tree.leaf_value[:nl] = new
+                tree.leaf_count[:nl] = np.bincount(lp, minlength=nl)[:nl]
+                score[k] += new[lp]
 
     # --------------------------------------------------------------- model
     @property

@@ -533,10 +533,11 @@ class Dataset:
 
     # ------------------------------------------------------------------
     def create_valid(self, data: np.ndarray, label=None, weight=None, group=None,
-                     init_score=None) -> "Dataset":
+                     init_score=None, keep_raw_data: bool = False) -> "Dataset":
         return Dataset.construct_from_arrays(
             data, label=label, weight=weight, group=group, init_score=init_score,
-            reference=self, device_type=self.device_type)
+            reference=self, keep_raw_data=keep_raw_data,
+            device_type=self.device_type)
 
     # ------------------------------------------------------------------
     def feature_infos(self) -> List[str]:
@@ -715,7 +716,8 @@ def load_dataset_from_file(path: str,
     weight, group = _read_side_files(path)
     if reference is not None:
         return reference.create_valid(feats, label=labels, weight=weight,
-                                      group=group)
+                                      group=group,
+                                      keep_raw_data=cfg.linear_tree)
     return Dataset.construct_from_arrays(
         feats, label=labels, weight=weight, group=group,
         max_bin=cfg.max_bin, min_data_in_bin=cfg.min_data_in_bin,

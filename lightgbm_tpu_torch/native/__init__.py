@@ -1,12 +1,14 @@
 """Native host code (C, ctypes-loaded, compiled on demand): the host
-predictor and the text parser of `lightgbm_tpu/native/`.
+predictor, the text parser and TreeSHAP of `lightgbm_tpu/native/`.
 
 The reference keeps its host predictor in C++ (src/application/
 predictor.hpp, OpenMP over rows); `predict.c` is the same traversal over
 flat tree arrays.  It is what host prediction runs, and the yardstick the
 card's traversal is timed against.  `parser.c` holds the dense and
 LibSVM tokenizing loops of file loading (ref: src/io/parser.cpp;
-`io/parser.py` falls back to NumPy when it does not build).  Each source
+`io/parser.py` falls back to NumPy when it does not build).
+`treeshap.c` computes SHAP contributions (`pred_contrib`); the Python
+`_tree_shap_py` is its fallback.  Each source
 is compiled with the toolchain's `cc` at first use into `build/native/`
 at the root of the checkout (named by a hash of the source and flags, so
 an edited source rebuilds) and loaded with ctypes.  Nothing is built at
@@ -32,6 +34,10 @@ _pred_lib = None
 _pred_tried = False
 _parser_lib = None
 _parser_tried = False
+_shap_lib = None
+_shap_tried = False
+# trees explained by each TreeSHAP route since import
+TREESHAP_CALLS = {"native": 0, "python": 0}
 
 
 def _compile(src_path: Path, tag: str,
@@ -306,3 +312,159 @@ def parse_libsvm_native(data: bytes, line_offset: int = 0):
         raise ValueError("malformed libsvm pair on data line "
                          f"{line_offset - got}")
     return feats[:got], labels[:got]
+
+
+def treeshap_lib():
+    """The compiled TreeSHAP library, or None when no compiler works."""
+    global _shap_lib, _shap_tried
+    if _shap_tried:
+        return _shap_lib
+    _shap_tried = True
+    path = _compile(_SRC_DIR / "treeshap.c", "treeshap")
+    if path is None:
+        return None
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:
+        return None
+    c_int_p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    c_dbl_p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    c_i8_p = np.ctypeslib.ndpointer(np.int8, flags="C_CONTIGUOUS")
+    c_u32_p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    lib.treeshap_batch.argtypes = [
+        c_int_p, c_dbl_p, c_i8_p, c_int_p, c_int_p,      # split/thr/dt/lc/rc
+        c_dbl_p, c_dbl_p, c_dbl_p,                       # leaf_value/ic/lc
+        c_u32_p, c_int_p, ctypes.c_int, ctypes.c_int,    # cat, num_cat, nl
+        c_dbl_p, ctypes.c_long, ctypes.c_int,            # X, rows, xcols
+        c_dbl_p, ctypes.c_int, c_dbl_p]                  # phi, ncol, scratch
+    lib.treeshap_batch.restype = ctypes.c_int
+    _shap_lib = lib
+    return lib
+
+
+def tree_shap(tree, X: np.ndarray, phi: np.ndarray) -> None:
+    """Add one tree's SHAP values to phi [n, ncol] (the last column is the
+    expected value): native when a compiler is available, else the
+    Python fallback (ref: tree.h:139 PredictContrib)."""
+    n = X.shape[0]
+    ncol = phi.shape[1]
+    nl = tree.num_leaves
+    if nl <= 1:
+        phi[:, -1] += tree.leaf_value[0]
+        return
+    ni = nl - 1
+    # from the child arrays: a tree read from model text has no leaf_depth
+    depth, stack = 0, [(0, 0)]
+    while stack:
+        node, d = stack.pop()
+        for child in (tree.left_child[node], tree.right_child[node]):
+            if child >= 0:
+                stack.append((int(child), d + 1))
+            else:
+                depth = max(depth, d + 1)
+    lib = treeshap_lib()
+    X = np.ascontiguousarray(X, np.float64)
+    if lib is not None:
+        scratch = np.zeros(((depth + 2) * (depth + 3) // 2) * 4, np.float64)
+        if tree.num_cat:
+            cat_thr = np.ascontiguousarray(tree.cat_threshold, np.uint32)
+            cat_b = np.ascontiguousarray(tree.cat_boundaries, np.int32)
+        else:
+            cat_thr = np.zeros(1, np.uint32)
+            cat_b = np.zeros(2, np.int32)
+        rc = lib.treeshap_batch(
+            np.ascontiguousarray(tree.split_feature[:ni], np.int32),
+            np.ascontiguousarray(tree.threshold[:ni], np.float64),
+            np.ascontiguousarray(tree.decision_type[:ni], np.int8),
+            np.ascontiguousarray(tree.left_child[:ni], np.int32),
+            np.ascontiguousarray(tree.right_child[:ni], np.int32),
+            np.ascontiguousarray(tree.leaf_value[:nl], np.float64),
+            np.ascontiguousarray(tree.internal_count[:ni], np.float64),
+            np.ascontiguousarray(tree.leaf_count[:nl], np.float64),
+            cat_thr, cat_b, int(tree.num_cat), int(nl),
+            X, n, X.shape[1], phi, ncol, scratch)
+        if rc == 0:
+            TREESHAP_CALLS["native"] += 1
+            return
+    TREESHAP_CALLS["python"] += 1
+    _tree_shap_py(tree, X, phi)
+
+
+def _tree_shap_py(tree, X, phi):
+    """TreeSHAP in Python (Lundberg et al. 2018, Algorithm 2): slow, the
+    fallback when no C compiler is available."""
+    nl = tree.num_leaves
+
+    def node_count(nd):
+        return (tree.leaf_count[~nd] if nd < 0
+                else tree.internal_count[nd])
+
+    expected = float(np.dot(tree.leaf_value[:nl], tree.leaf_count[:nl])
+                     / max(tree.internal_count[0], 1))
+
+    def extend(path, zf, of, fi):
+        path = path + [[fi, zf, of, 1.0 if not path else 0.0]]
+        d = len(path) - 1
+        for i in range(d - 1, -1, -1):
+            path[i + 1][3] += of * path[i][3] * (i + 1) / (d + 1)
+            path[i][3] = zf * path[i][3] * (d - i) / (d + 1)
+        return path
+
+    def unwound_sum(path, pi):
+        d = len(path) - 1
+        of, zf = path[pi][2], path[pi][1]
+        nop = path[d][3]
+        total = 0.0
+        for i in range(d - 1, -1, -1):
+            if of != 0:
+                tmp = nop * (d + 1) / ((i + 1) * of)
+                total += tmp
+                nop = path[i][3] - tmp * zf * (d - i) / (d + 1)
+            else:
+                total += path[i][3] / (zf * (d - i) / (d + 1))
+        return total
+
+    def unwind(path, pi):
+        d = len(path) - 1
+        of, zf = path[pi][2], path[pi][1]
+        nop = path[d][3]
+        path = [list(e) for e in path]
+        for i in range(d - 1, -1, -1):
+            if of != 0:
+                tmp = path[i][3]
+                path[i][3] = nop * (d + 1) / ((i + 1) * of)
+                nop = tmp - path[i][3] * zf * (d - i) / (d + 1)
+            else:
+                path[i][3] = path[i][3] * (d + 1) / (zf * (d - i))
+        for i in range(pi, d):
+            path[i][:3] = path[i + 1][:3]
+        return path[:d]
+
+    def recurse(r, node, path, zf, of, fi, ph):
+        path = extend([list(e) for e in path], zf, of, fi)
+        if node < 0:
+            v = tree.leaf_value[~node]
+            for i in range(1, len(path)):
+                w = unwound_sum(path, i)
+                ph[path[i][0]] += w * (path[i][2] - path[i][1]) * v
+            return
+        feat = tree.split_feature[node]
+        go_left = bool(tree._decision(
+            np.asarray([X[r, feat]]), np.asarray([node]))[0])
+        hot = tree.left_child[node] if go_left else tree.right_child[node]
+        cold = (tree.right_child[node] if go_left
+                else tree.left_child[node])
+        w = node_count(node)
+        hzf = node_count(hot) / w
+        czf = node_count(cold) / w
+        izf = iof = 1.0
+        pi = next((i for i, e in enumerate(path) if e[0] == feat), None)
+        if pi is not None:
+            izf, iof = path[pi][1], path[pi][2]
+            path = unwind(path, pi)
+        recurse(r, hot, path, hzf * izf, iof, feat, ph)
+        recurse(r, cold, path, czf * izf, 0.0, feat, ph)
+
+    for r in range(X.shape[0]):
+        recurse(r, 0, [], 1.0, 1.0, -1, phi[r])
+        phi[r, -1] += expected

@@ -1,0 +1,225 @@
+"""PyTorch port: the command line (`python -m lightgbm_tpu_torch`) against
+the JAX package's, on the CPU (`device_type=cpu`).
+
+Data: 2,000 x 6 rows of a binary label written as a TSV file (label in
+column 0), and a 500-row file for prediction; the cases of
+tests/test_cli.py that need no reference examples.  Each task runs in
+both packages' command lines on the same config file and arguments:
+`train` grows the same trees (split features, thresholds, children;
+leaf values within 1e-4 relative, the float32 stray of ROADMAP's
+divergences) on the leaf-wise engine (`tpu_growth_strategy` passed to
+both), `predict` writes the same numbers within 1e-5, `refit` the same
+leaf values, `convert_model` C++ source; valid files, snapshots,
+`input_model`, `save_binary`, streamed prediction in chunks, SHAP
+contributions.  Then the port's own: `python -m lightgbm_tpu_torch` in a
+subprocess with JAX blocked, the tasks and options that stay refused
+(items 15 and 16), and the default device, which refuses without a card.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+# the suite runs several test processes at once: keep each one's torch
+# on one thread so they do not oversubscribe the cores
+torch.set_num_threads(1)
+
+import lightgbm_tpu as jlgb
+import lightgbm_tpu_torch as tlgb
+import lightgbm_tpu_torch.cli as tcli
+from lightgbm_tpu.cli import main as jmain
+from lightgbm_tpu_torch.cli import main, parse_args
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COMMON = ["objective=binary", "num_leaves=7", "verbosity=-1",
+          "tpu_growth_strategy=leafwise", "min_data_in_leaf=10"]
+CPU = ["device_type=cpu"]
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("cli")
+    rng = np.random.RandomState(0)
+    for name, n in (("train.tsv", 2000), ("test.tsv", 500)):
+        X = rng.randn(n, 6)
+        y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + rng.logistic(size=n) > 0)
+        np.savetxt(d / name, np.column_stack([y, X]), delimiter="\t",
+                   fmt="%.9g")
+    conf = d / "train.conf"
+    conf.write_text("task = train\nobjective = binary\nnum_leaves = 31\n"
+                    "learning_rate = 0.2\n# a comment\n"
+                    f"data = {d / 'train.tsv'}\n")
+    return d
+
+
+def _both(d, tag, args):
+    """The same arguments through both command lines; model paths and
+    outputs take the package's tag.  Returns (port rc, JAX rc)."""
+    rcs = []
+    for pkg, run, extra in (("t", main, CPU), ("j", jmain, [])):
+        rcs.append(run([a.replace("{p}", f"{d}/{pkg}_{tag}") for a in args]
+                       + extra))
+    return rcs
+
+
+def _same_models(path_t, path_j):
+    bt = tlgb.Booster(model_file=path_t, params={"device_type": "cpu"})
+    bj = jlgb.Booster(model_file=path_j)
+    ta, tb = bj._gbdt.models_, bt._gbdt.models_
+    assert len(ta) == len(tb) > 0
+    for a, b in zip(ta, tb):
+        ni = a.num_leaves - 1
+        assert a.num_leaves == b.num_leaves
+        for k in ("split_feature", "threshold", "left_child", "right_child"):
+            np.testing.assert_array_equal(getattr(a, k)[:ni],
+                                          getattr(b, k)[:ni], err_msg=k)
+        np.testing.assert_allclose(b.leaf_value[:ni + 1],
+                                   a.leaf_value[:ni + 1], rtol=1e-4,
+                                   atol=1e-9)
+    return bt, bj
+
+
+def test_parse_args_precedence(tmp_path):
+    conf = tmp_path / "c.conf"
+    conf.write_text("num_leaves = 31\nlearning_rate = 0.05\n# comment\n")
+    params = parse_args([f"config={conf}", "num_leaves=7", "data=x.txt"])
+    assert params == {"num_leaves": "7", "learning_rate": "0.05",
+                      "data": "x.txt"}
+
+
+def test_train_predict_refit_convert_equal_jax(files):
+    d = files
+    assert _both(d, "m", [f"config={d}/train.conf", "num_iterations=5",
+                          "num_leaves=7", *COMMON[1:],
+                          "output_model={p}.txt"]) == [0, 0]
+    bt, _ = _same_models(f"{d}/t_m.txt", f"{d}/j_m.txt")
+    assert bt.num_trees() == 5
+    # config file values under the command line's: 7 leaves, lr 0.2
+    assert max(t.num_leaves for t in bt._gbdt.models_) <= 7
+    assert _both(d, "m", ["task=predict", f"data={d}/test.tsv",
+                          "input_model={p}.txt",
+                          "output_result={p}.pred"]) == [0, 0]
+    pt, pj = np.loadtxt(f"{d}/t_m.pred"), np.loadtxt(f"{d}/j_m.pred")
+    assert pt.shape == (500,)
+    np.testing.assert_allclose(pt, pj, rtol=1e-5)
+    # the port's file equals its Booster.predict in %.18g
+    X = np.loadtxt(f"{d}/test.tsv")[:, 1:]
+    want = "".join(f"{v:.18g}\n" for v in bt.predict(X))
+    assert open(f"{d}/t_m.pred").read() == want
+    assert _both(d, "m", ["task=refit", f"data={d}/train.tsv",
+                          "input_model={p}.txt",
+                          "output_model={p}_refit.txt"]) == [0, 0]
+    rt, rj = _same_models(f"{d}/t_m_refit.txt", f"{d}/j_m_refit.txt")
+    assert open(f"{d}/t_m_refit.txt").read() != open(f"{d}/t_m.txt").read()
+    # the port's refit equals Booster.refit on the parsed file
+    tr = np.loadtxt(f"{d}/train.tsv")
+    again = tlgb.Booster(model_file=f"{d}/t_m.txt",
+                         params={"device_type": "cpu"}).refit(tr[:, 1:],
+                                                              tr[:, 0])
+    for a, b in zip(again._gbdt.models_, rt._gbdt.models_):
+        np.testing.assert_array_equal(a.leaf_value[:a.num_leaves],
+                                      b.leaf_value[:b.num_leaves])
+    assert _both(d, "m", ["task=convert_model", "input_model={p}.txt",
+                          "convert_model={p}.cpp"]) == [0, 0]
+    src = open(f"{d}/t_m.cpp").read()
+    assert "double Predict(const double* row)" in src
+    assert "PredictTree0" in src
+
+
+def test_valid_snapshot_and_input_model_equal_jax(files):
+    d = files
+    assert _both(d, "s", [f"data={d}/train.tsv", f"valid={d}/test.tsv",
+                          "num_iterations=6", "snapshot_freq=2", *COMMON,
+                          "output_model={p}.txt"]) == [0, 0]
+    for pkg in ("t", "j"):
+        snaps = sorted(os.listdir(d))
+        assert [s for s in snaps if s.startswith(f"{pkg}_s.txt.snapshot")] \
+            == [f"{pkg}_s.txt.snapshot_iter_{i}" for i in (2, 4, 6)]
+    _same_models(f"{d}/t_s.txt", f"{d}/j_s.txt")
+    # continued from the 2-iteration snapshot, 2 more iterations
+    for pkg, run, extra in (("t", main, CPU), ("j", jmain, [])):
+        assert run([f"data={d}/train.tsv", "num_iterations=2", *COMMON,
+                    f"input_model={d}/{pkg}_s.txt.snapshot_iter_2",
+                    f"output_model={d}/{pkg}_cont.txt", *extra]) == 0
+    bt, _ = _same_models(f"{d}/t_cont.txt", f"{d}/j_cont.txt")
+    assert bt.num_trees() == 4
+
+
+def test_predict_streams_in_chunks_and_contrib(files, monkeypatch):
+    d = files
+    assert main([f"data={d}/train.tsv", "num_iterations=3", *COMMON,
+                 f"output_model={d}/t_p.txt", *CPU]) == 0
+    args = ["task=predict", f"data={d}/test.tsv",
+            f"input_model={d}/t_p.txt", *CPU]
+    assert main(args + [f"output_result={d}/full.txt"]) == 0
+    monkeypatch.setattr(tcli, "_PREDICT_CHUNK_BUDGET", 8 * 6 * 100)
+    assert main(args + [f"output_result={d}/chunked.txt"]) == 0
+    full = open(f"{d}/full.txt").read()
+    assert full == open(f"{d}/chunked.txt").read()
+    assert len(full.splitlines()) == 500
+    assert main(args + ["predict_contrib=true",
+                        f"output_result={d}/contrib.txt"]) == 0
+    contrib = np.loadtxt(f"{d}/contrib.txt")
+    raw = tlgb.Booster(model_file=f"{d}/t_p.txt",
+                       params={"device_type": "cpu"}).predict(
+        np.loadtxt(f"{d}/test.tsv")[:, 1:], raw_score=True)
+    assert contrib.shape == (500, 7)
+    np.testing.assert_allclose(contrib.sum(1), raw, rtol=1e-9, atol=1e-12)
+
+
+def test_save_binary_equals_jax(files):
+    d = files
+    for run, extra in ((main, CPU), (jmain, [])):
+        assert run(["task=save_binary", f"data={d}/train.tsv",
+                    "verbosity=-1", *extra]) == 0
+        os.replace(f"{d}/train.tsv.bin.npz",
+                   f"{d}/{'t' if run is main else 'j'}.bin.npz")
+    a, b = (tlgb.Dataset(f"{d}/{p}.bin.npz",
+                         params={"device_type": "cpu"}).construct()._core
+            for p in ("t", "j"))
+    np.testing.assert_array_equal(a.binned_host(), b.binned_host())
+    np.testing.assert_array_equal(a.metadata.label, b.metadata.label)
+
+
+def test_python_dash_m_with_jax_blocked(files, tmp_path):
+    d = files
+    code = ("import sys, runpy\n"
+            "for m in ('jax', 'jaxlib', 'lightgbm_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['lightgbm_tpu_torch'] + sys.argv[1:]\n"
+            "runpy.run_module('lightgbm_tpu_torch', run_name='__main__')\n")
+    model = tmp_path / "model.txt"
+    r = subprocess.run(
+        [sys.executable, "-c", code, f"data={d}/train.tsv",
+         "num_iterations=2", *COMMON, f"output_model={model}", *CPU],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert model.read_text().startswith("tree\n")
+
+
+@pytest.mark.parametrize("args,item", [
+    (["serve", "serve_models=m=model.txt"], "item 16"),
+    (["serve-fleet", "serve_models=m=model.txt"], "item 16"),
+    (["task=train-and-serve", "online_chunk_dir=x"], "item 16"),
+    (["num_machines=2", "machines=a:1,b:2"], "item 15"),
+    (["checkpoint_dir={d}/ck"], "item 16"),
+    (["metrics_dir={d}/m"], "item 16"),
+    (["profile_dir={d}/p"], "item 16")])
+def test_unported_refuse(files, args, item):
+    d = files
+    with pytest.raises(NotImplementedError, match=item):
+        main([a.replace("{d}", str(d)) for a in args]
+             + [f"data={d}/train.tsv", "num_iterations=1", *COMMON,
+                f"output_model={d}/refused.txt", *CPU])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+def test_default_device_refuses_without_a_card(files):
+    d = files
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([f"data={d}/train.tsv", "num_iterations=1", *COMMON,
+              f"output_model={d}/nocard.txt"])

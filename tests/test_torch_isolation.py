@@ -62,6 +62,36 @@ def test_imports_and_trains_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_cli_linear_refit_and_contrib_run_with_jax_blocked():
+    """The command line, the linear fit, refit and TreeSHAP stand apart
+    too (their files are among the ones checked above)."""
+    for rel in ("cli.py", "__main__.py", "learner/linear.py",
+                "native/treeshap.c"):
+        assert (PORT / rel).is_file(), rel
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'lightgbm_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "import lightgbm_tpu_torch as L\n"
+        "import lightgbm_tpu_torch.cli, lightgbm_tpu_torch.learner.linear\n"
+        "rng = np.random.RandomState(0)\n"
+        "X = rng.rand(1024, 4)\n"
+        "y = np.where(X[:, 0] > 0.5, 2 * X[:, 1], -X[:, 2])\n"
+        "b = L.train({'objective': 'regression', 'num_leaves': 7,\n"
+        "             'linear_tree': True, 'verbosity': -1,\n"
+        "             'device_type': 'cpu'}, L.Dataset(X, label=y), 2)\n"
+        "assert all(t.is_linear for t in b._gbdt.models_)\n"
+        "c = b.predict(X[:8], pred_contrib=True)\n"
+        "assert c.shape == (8, 5)\n"
+        "b.refit(X, y)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_import_needs_no_sklearn_pandas_or_matplotlib():
     """Importing the package pulls in none of them; the estimators and
     plotting helpers import what they use when they are used, and the

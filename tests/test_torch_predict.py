@@ -339,8 +339,22 @@ def test_device_predictor_defaults_to_the_card(binary_cat, monkeypatch):
 
 
 def test_pred_contrib_names_its_item(binary_cat):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        binary_cat.port.predict(binary_cat.X[:4], pred_contrib=True)
+    """Contributions are ported (this test named their refusal before):
+    the port's equal the JAX package's TreeSHAP of the same trees (its
+    native library, its scratch sized for the leaf depths a loaded tree
+    lacks), and each row sums to the float64 host raw score."""
+    from lightgbm_tpu.native import tree_shap
+    X = binary_cat.X[:64]
+    got = binary_cat.port.predict(X, pred_contrib=True)
+    want = np.zeros((64, X.shape[1] + 1))
+    Xd = np.asarray(X, np.float64)
+    for t in binary_cat.jtrees:
+        t.leaf_depth[:t.num_leaves] = t.num_leaves    # its scratch's size
+        tree_shap(t, Xd, want)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-15)
+    host = binary_cat.port._gbdt._predict_raw_impl(Xd, 0, -1, False, 10,
+                                                   10.0)
+    np.testing.assert_allclose(got.sum(1), host, rtol=1e-9, atol=1e-12)
 
 
 @pytest.mark.parametrize("min_bucket", [256, 4096, 5])

@@ -50,8 +50,7 @@ LEAF_ATOL = 1e-5
 
 # methods of the JAX package's Booster and Dataset that later items
 # bring, each with the item its refusal names
-LEFT_TO_ITEMS = {("Booster", "refit"): "item 14",
-                 ("Booster", "set_network"): "item 15",
+LEFT_TO_ITEMS = {("Booster", "set_network"): "item 15",
                  ("Booster", "free_network"): "item 15"}
 
 
@@ -252,7 +251,7 @@ def test_every_jax_method_exists(cls):
     X, y = _small(n=200)
     obj = (tlgb.train(SMALL, tlgb.Dataset(X, label=y), 1)
            if cls == "Booster" else tlgb.Dataset(X, label=y))
-    args = {"refit": (X, y), "set_network": (["host:1"],)}
+    args = {"set_network": (["host:1"],)}
     for (c, name), item in LEFT_TO_ITEMS.items():
         if c == cls:
             with pytest.raises(NotImplementedError, match=item):

@@ -112,13 +112,13 @@ def test_port_model_text_loads_in_jax(boosters):
         bt.predict(X), rtol=0, atol=0)
 
 
-# the ids keep the positions of the cases they replaced
+# the ids keep the positions of the cases they replaced, and the names of
+# extra0, extra7 and extra8 (linear trees, ported since): they hold other
+# refusals that still stand
 @pytest.mark.parametrize("extra,item", [
-    # linear trees stay refused with the ranking objectives too
-    pytest.param({"objective": "lambdarank", "linear_tree": True},
-                 "linear trees.*item 14", id="extra0-item 14"),
+    pytest.param({"max_bin": 511}, "item 2", id="extra0-item 14"),
     # the pointwise, multiclass, cross-entropy and ranking objectives, RF
-    # and DART,
+    # and DART, linear trees,
     # row and column sampling, categorical features, basic monotone
     # constraints, path_smooth, CEGB's split and coupled penalties, forced
     # splits and interaction constraints are ported: these cases hold
@@ -134,9 +134,9 @@ def test_port_model_text_loads_in_jax(boosters):
     pytest.param({"cegb_penalty_feature_lazy": [1.0] * 8},
                  "cegb_penalty_feature_lazy.*item 13", id="extra5-item 13"),
     pytest.param({"tree_learner": "voting"}, "item 15", id="extra6-item 15"),
-    pytest.param({"objective": "rank_xendcg", "linear_tree": True},
-                 "linear trees.*item 14", id="extra7-item 14"),
-    pytest.param({"linear_tree": True}, "item 14", id="extra8-item 14"),
+    pytest.param({"tree_learner": "data"}, "item 15", id="extra7-item 14"),
+    pytest.param({"linear_tree": True, "tree_learner": "feature"},
+                 "tree_learner='feature'.*item 15", id="extra8-item 14"),
     pytest.param({"max_bin": 300}, "item 2", id="extra9-item 2")])
 def test_unported_options_refuse(extra, item):
     X, y = _data()

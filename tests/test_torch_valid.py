@@ -418,12 +418,14 @@ def test_booster_eval_train_and_feval(runs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # continued training, DART, custom and ranking objectives are
-    # ported: these cases hold options that stay refused
-    ({"params": {"objective": "lambdarank", "linear_tree": True}},
-     "item 14"),
+    # continued training, DART, custom and ranking objectives and linear
+    # trees are ported: these cases hold options that stay refused (kw0
+    # and kw2 keep the names of the linear-tree cases they replaced)
+    pytest.param({"params": {"max_bin": 511}}, "item 2", id="kw0-item 14"),
     ({"params": {"tree_learner": "voting"}}, "item 15"),
-    ({"params": {"linear_tree": True}}, "item 14"),
+    pytest.param({"params": {"linear_tree": True,
+                             "cegb_penalty_feature_lazy": [1.0]}},
+                 "item 13", id="kw2-item 14"),
     ({"checkpoint_dir": "ck"}, "item 16"),
     ({"metrics_dir": "m"}, "item 16"),
     ({"params": {"profile_dir": "p"}}, "item 16"),
