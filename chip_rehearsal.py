@@ -1,11 +1,12 @@
 """Rehearse chip_smoke.py's split_features, objectives, efb,
-forced_interaction, surface, ranking, file, linear, refit_contrib and cli
-phases on the CPU at 1/8 of their rows, to size their gates before a run
-on the card:
+forced_interaction, surface, ranking, file, linear, refit_contrib, cli,
+wide_bins and monotone_modes phases on the CPU at 1/8 of their rows, to
+size their gates before a run on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
                               [forced_interaction] [surface] [ranking]
                               [file] [linear] [refit_contrib] [cli]
+                              [wide_bins] [monotone_modes]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -31,7 +32,12 @@ the AUC that LINEAR_AUC_MIN is taken from and each fit's largest error
 over LINEAR_FIT_REL's bound), then runs the two linear card-vs-CPU cases
 (both sides on the CPU); refit_contrib runs on the main path's booster
 (its CPU dispatches counted as the card's); the command line runs with
-`device_type=cpu` added to its arguments.
+`device_type=cpu` added to its arguments.  wide_bins trains at
+max_bin=1023 on 16-bit codes and monotone_modes on the leaf-wise engine
+(each of its runs rescans every leaf after every split on the CPU: a few
+minutes); their lines give the held-out AUCs WIDE_LEAFWISE_AUC_MIN and
+MONO_MODE_AUC_MIN are taken from (the path B numbers they stand beside
+are the card's, not rehearsed).
 """
 
 import json
@@ -81,6 +87,7 @@ def main(argv) -> int:
     torch.cuda.memory_allocated = lambda *a: 0
     # launch counts are card-only: every kernel reads as launched
     cs.launch_counts = lambda H: {k: 1 for k in cs.KERNELS}
+    cs.check_kernels = lambda *a: None
     # the rehearsal measures the values that the gates are taken from
     cs.CAT_AUC_MIN = 0.0
     cs.OBJECTIVE_GATES = {k: (m, sense, None)
@@ -89,6 +96,8 @@ def main(argv) -> int:
     cs.EFB_AUC_MIN = cs.FORCED_AUC_MIN = cs.INTERACTION_AUC_MIN = 0.0
     cs.RANK_NDCG_MIN = {k: 0.0 for k in cs.RANK_NDCG_MIN}
     cs.LINEAR_AUC_MIN = 0.0
+    cs.WIDE_LEAFWISE_AUC_MIN = 0.0
+    cs.MONO_MODE_AUC_MIN = {k: 0.0 for k in cs.MONO_MODE_AUC_MIN}
     from lightgbm_tpu_torch import cli
     cli_main = cli.main
     cli.main = lambda argv: cli_main(list(argv) + ["device_type=cpu"])
@@ -110,7 +119,8 @@ def main(argv) -> int:
         booster.rollback_one_iter().rollback_one_iter().rollback_one_iter()
     main = {"s_per_iter": r["s_per_iter"], "ms_per_iter": r["ms_per_iter"],
             "auc": r["auc"],
-            "features": cs.distinct_features(r["booster"]._gbdt.models_[:13])}
+            "features": cs.distinct_features(r["booster"]._gbdt.models_[:13]),
+            "path_b": {"s_per_iter": None, "ms_per_iter": {}}}
     print(json.dumps({"rehearsal": "main_path", "heldout_auc": r["auc"],
                       "distinct_features": len(main["features"])}))
     del r
@@ -179,6 +189,14 @@ def main(argv) -> int:
             lines = {}
         elif phase == "cli":
             cs.phase_cli(Rehearsal(), H, "cpu rehearsal", data)
+            lines = {}
+        elif phase == "wide_bins":
+            cs.phase_wide_bins(Rehearsal(), H, global_timer,
+                               "cpu rehearsal", main, data)
+            lines = {}
+        elif phase == "monotone_modes":
+            cs.phase_monotone_modes(Rehearsal(), H, global_timer,
+                                    "cpu rehearsal", main, bench)
             lines = {}
         else:
             _, lines = cs.phase_forced_interaction(

@@ -110,6 +110,33 @@ Phases, each printing one JSON line:
      `Tree::split_find` and `Tree::partition` device ms/iter, the raw
      matrix's device bytes, peak GiB, leaves fitted, degenerate and
      solved by pseudo-inverse, mean k, held-out AUC;
+  5.4 wide_bins: the main path's workload at max_bin=WIDE_MAX_BIN (1023)
+     on its own Dataset, binned on the host (its construction seconds in
+     the line), on 16-bit device codes: the wave engine, 13 iterations
+     (K3 on the waves of up to 7 computed slots, K1 on those of 8 and
+     more, whose histograms exceed K3's tile at 1023 bins), quantized, 13
+     iterations (K2), and the leaf-wise engine, 3 iterations (K4).
+     Gates: the device codes int16; exactly the run's kernels launched;
+     held-out AUC >= 0.72 (wave), within 0.01 of the wave run's
+     (quantized), >= WIDE_LEAFWISE_AUC_MIN (leaf-wise, chip_rehearsal.py
+     wide_bins less a margin).  One `wide_bins` line per run: s/iter
+     beside the same engine's at 255 bins (the main path, path B),
+     `Tree::histogram`/`split_find`/`partition` device ms/iter, peak
+     GiB, launches, AUC;
+  5.5 monotone_modes: the main path's workload on the leaf-wise engine,
+     5 iterations each, with monotone_signs() on MODE_MONOTONE_FEATURES
+     (the logit's three strongest features) under
+     monotone_constraints_method=intermediate and =advanced, and with
+     lazy CEGB (LAZY_PER_ROW on every feature).  Gates: K4 launched and
+     the mode's flags set; the monotone sweep of the split_features phase
+     over the constrained features, of which one at least must move the
+     predictions (intermediate, advanced); every feature's fetched rows marked
+     exactly for the features the trees split on (lazy); held-out AUC >=
+     MONO_MODE_AUC_MIN (chip_rehearsal.py monotone_modes less a margin).
+     One `monotone_modes` line per run: s/iter beside path B's, the
+     `Tree::monotone_rescan` device ms/iter (the bounds and the rescan of
+     every alive leaf after each split), `Tree::split_find` beside path
+     B's, peak GiB, launches, AUC;
   5a. valid path: `train` on the main path's workload with
      valid_sets=[train, valid] (valid = make_higgs_like(100_000, 28,
      seed=1)), metric=["auc", "binary_logloss"], early_stopping_round=5,
@@ -273,8 +300,13 @@ Phases, each printing one JSON line:
      (K4); then linear trees at CARD_LINEAR_ROWS (32,768) rows, quantized
      on the wave engine (K2) and on the leaf-wise engine (K4), each tree's
      per-row linear outputs held too (tree 0 within LINEAR_FIT_REL, later
-     trees within LINEAR_LATER_ATOL, of max(1, |output|)); the card run's
-     launch counts in each line;
+     trees within LINEAR_LATER_ATOL, of max(1, |output|)); then max_bin
+     1023 on 16-bit codes at CARD_ROWS rows: the wave engine (K1, K3),
+     quantized (K2), the leaf-wise engine (K4), and the EFB CSR data
+     with CARD_WIDE_EFB_LEVELS on the wave engine (K1, K3); then at
+     CARD_LINEAR_ROWS rows (their CPU sides queued first) on the
+     leaf-wise engine (K4) the intermediate and advanced monotone modes
+     and lazy CEGB; the card run's launch counts in each line;
   7. kernels at the main path's widths (28 features, 255 bins, 2
      channels), one `kernel` line per shape: K1 at 1/2/4/8/16/128/256
      slots on n = 2^20 rows (half on the sentinel), at 384 slots of
@@ -292,7 +324,14 @@ Phases, each printing one JSON line:
      group space (its F' bundle columns, codes over [0, 256) with half
      of them 0, max_bin 256): K1 and K2 at 256 slots, K3 at 8, K4 at
      2^20 rows; and K1 at 256 slots and K3 at 8 at the ranking width
-     (136 features, 255 bins).
+     (136 features, 255 bins).  Then the four kernels on 16-bit codes
+     (int16 storage, the kernels' uint16_t instantiations) at 28 features
+     of WIDE_B (1023) bins: K1 and K2 at 256 slots, K3 at the most slots
+     wave_hl_fits lets it take there (7), K4 at 2^20 rows; and in bin
+     windows, WINDOW_F (4) features of WINDOW_B (32,768) bins, n = 2^20:
+     K1 at 16 slots, K2 at 16 (partition) and 4 (streaming), K3 at 1,
+     K4 at 2^20 rows.  The kernels line lists these as four more rows,
+     each with its windowed shapes.
      Every kernel's output must equal its plain PyTorch version's bit
      for bit (all four sum exact integers) and repeat bit for bit on a
      second launch, and each call must advance the kernel's launch count
@@ -309,7 +348,8 @@ Phases, each printing one JSON line:
      inputs and that no profiler has traced.
 Every path runs with all four launch counts set to 0 just before it and
 reads them just after, then prints the breakdown of three instrumented
-iterations.  The paths that train on the bench rows and labels with
+iterations.  A `total` line gives the run's seconds before the kernels
+line.  The paths that train on the bench rows and labels with
 BENCH_PARAMS' Dataset parameters share one Dataset constructed once
 (`bench_rows`, its `bench_dataset` line; a path whose params would bin
 it otherwise is refused), and each JSON line carries `t_s`, the seconds
@@ -630,12 +670,12 @@ def quantized_gh(n, gen, qbins=4):
     return gh.to(torch.float32).contiguous(), scales
 
 
-def bound_rows(S, rows_in_mask, width=(F, B)):
-    """K4's (bound_ms, bound_by): rows, gh and mask read once and the
-    float32 histograms written once, against one add per masked row,
-    feature and channel."""
+def bound_rows(S, rows_in_mask, width=(F, B), code_bytes=1):
+    """K4's (bound_ms, bound_by): rows (codes of `code_bytes` bytes), gh
+    and mask read once and the float32 histograms written once, against
+    one add per masked row, feature and channel."""
     Fw, Bw = width
-    nbytes = S * Fw + 4 * C * S + 4 * S + Fw * Bw * C * 4
+    nbytes = S * Fw * code_bytes + 4 * C * S + 4 * S + Fw * Bw * C * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = rows_in_mask * Fw * C / F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -703,7 +743,8 @@ def phase_kernels_k2_k4(H, dev):
             rows, gh, mask, max_bin=B, exps=e, fixed=True))
         total, per = device_ms(kf)
         # nothing but its kernel (and the memset of its result)
-        helpers = [n for n in per if n not in ("rows_hist_kernel", "Memset")]
+        helpers = [n for n in per
+                   if n != "Memset" and "rows_hist_kernel" not in n]
         if helpers:
             raise AssertionError(f"K4 fixed S={S}: launched {helpers}")
         emit({"phase": "kernel_fixed", "kernel": "K4", "rows": S,
@@ -712,6 +753,119 @@ def phase_kernels_k2_k4(H, dev):
               "kernel_ms_by_name": per})
         del ids, vals, lib_out
     return results
+
+
+# 16-bit codes: the wide_bins phase's width, and one shape whose feature
+# does not fit a block (the kernels cut its bins into windows)
+WIDE_B = 1023
+WINDOW_F, WINDOW_B = 4, 32768
+
+
+def wide_inputs(num_slots, dev, seed, width):
+    """kernel_inputs on 16-bit codes (int16 storage, codes over [0, B)):
+    (binned, its codes as int64 for the yardstick, slot, gh)."""
+    Fw, Bw = width
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    codes = torch.randint(0, Bw, (Fw, N_KERNEL), generator=g)
+    slot = torch.randint(0, num_slots, (N_KERNEL,), generator=g,
+                         dtype=torch.int32)
+    off = torch.rand(N_KERNEL, generator=g) < 0.5
+    slot = torch.where(off, torch.full_like(slot, 1 << 20), slot)
+    gh = torch.stack([torch.randn(N_KERNEL, generator=g),
+                      torch.rand(N_KERNEL, generator=g) * 0.25,
+                      torch.ones(N_KERNEL)], 1)
+    from lightgbm_tpu_torch.ops.histogram import codes_to_device
+    binned = codes_to_device(codes.numpy(), dev, num_bin=max(Bw, 257))
+    return binned, codes.to(dev), slot.to(dev), gh.contiguous().to(dev)
+
+
+def phase_kernels_wide(H, dev):
+    """K1-K4 on 16-bit codes at the wide_bins phase's width (28 features,
+    WIDE_B bins; K1 and K2 at 256 slots, K3 at the most slots
+    `wave_hl_fits` lets it take there, K4 at 2^20 rows) and in bin
+    windows (WINDOW_F features of WINDOW_B bins: K1 and K2's partition
+    at 16 slots, K2's streaming route at 4, K3 at 1, K4 at 2^20 rows),
+    each bit for bit its plain version and itself on a repeat, each call
+    one launch.  Returns {(kernel, "wide" | "window"): row}."""
+    K3_SLOTS = max(s for s in range(1, 64) if H.wave_hl_fits(WIDE_B, s))
+    out = {}
+    for tag, width, shapes in (
+            ("wide", (F, WIDE_B), (("K1", 256), ("K2", 256),
+                                   ("K3", K3_SLOTS), ("K4", 0))),
+            ("window", (WINDOW_F, WINDOW_B),
+             (("K1", 16), ("K2", 16), ("K2", 4), ("K3", 1), ("K4", 0)))):
+        Fw, Bw = width
+        for kern, NL in shapes:
+            binned, codes, slot, gh = wide_inputs(max(NL, 1), dev,
+                                                  seed=900 + NL, width=width)
+            extra = {"codes": "uint16 (int16 storage)", "features": Fw,
+                     "max_bin": Bw, "windowed": tag == "window"}
+            if kern == "K4":
+                rows = binned.t().contiguous()
+                mask = (slot < (1 << 20)).to(torch.float32)
+                g2 = gh[:, :C].contiguous()
+                k = functools.partial(H.build_histogram_rows_pallas, rows,
+                                      g2, mask, max_bin=Bw)
+                p = functools.partial(H.build_histogram_rows_plain, rows, g2,
+                                      mask, max_bin=Bw)
+                ids = (torch.arange(Fw, device=dev)[None, :] * Bw
+                       + codes.t()).reshape(-1)
+                vals = (g2 * mask[:, None]).repeat_interleave(Fw, dim=0)
+                lib_out = torch.zeros(Fw * Bw, C, device=dev)
+                lib = lambda: lib_out.index_add_(0, ids, vals)
+                bnd = bound_rows(N_KERNEL, int(mask.sum()), width=width,
+                                 code_bytes=2)
+                row = kernel_row(kern, H.build_histogram_rows_pallas, k, p,
+                                 lib, rows=N_KERNEL, bound_ms=bnd[0],
+                                 bound_by=bnd[1], **extra)
+                out[(kern, tag)] = row
+                del ids, vals, lib_out
+                continue
+            if kern == "K2":
+                gh, scales = quantized_gh(N_KERNEL,
+                                          torch.Generator().manual_seed(NL))
+                gh, scales = gh.to(dev), scales.to(dev)
+                k = functools.partial(H.build_histogram_wave, binned, slot,
+                                      gh, max_bin=Bw, num_slots=NL,
+                                      quant_bins=4, quant_scales=scales)
+                p = functools.partial(H.build_histogram_wave_int_plain,
+                                      binned, slot, gh, scales, max_bin=Bw,
+                                      num_slots=NL)
+                counter = H.build_histogram_wave_int
+                vals_of = (lambda v: torch.round(v[:, :C] / scales)
+                           .to(torch.int64))
+                slots_out = NL
+                extra["route"] = ("streaming" if NL <= H.K2_FEW_SLOTS
+                                  else "partition")
+            elif kern == "K1":
+                k = functools.partial(H.build_histogram_wave, binned, slot,
+                                      gh, max_bin=Bw, num_slots=NL)
+                p = functools.partial(H.build_histogram_wave_plain, binned,
+                                      slot, gh, max_bin=Bw, num_slots=NL)
+                counter, vals_of, slots_out = H.build_histogram_wave, None, NL
+            else:
+                Kb = H.wave_slot_pad(NL)
+                k = functools.partial(H.build_histogram_wave_hl, binned,
+                                      binned.t(), slot, gh, max_bin=Bw,
+                                      num_slots=NL, out_slots=Kb)
+                p = functools.partial(H.build_histogram_wave_hl_plain,
+                                      binned, binned.t(), slot, gh,
+                                      max_bin=Bw, num_slots=NL,
+                                      out_slots=Kb)
+                counter, vals_of, slots_out = (H.build_histogram_wave_hl,
+                                               None, Kb)
+                extra["out_slots"] = Kb
+            lib, rows_in = wave_yardstick(codes, slot, gh, NL, dev,
+                                          vals_of=vals_of, width=width)
+            bound, by = bound_of(2 * Fw * N_KERNEL, N_KERNEL, slots_out,
+                                 rows_in, width=width)
+            row = kernel_row(kern, counter, k, p, lib, num_slots=NL,
+                             bound_ms=bound, bound_by=by, **extra)
+            out[(kern, tag) if (kern, tag) not in out
+                else (kern, tag, NL)] = row
+            del lib
+        del binned, codes, slot, gh
+    return out
 
 
 SWEEP_BUDGETS = (64 * 1024, None, 200 * 1024)   # None: the default
@@ -956,7 +1110,8 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
     score = metric_fn(booster, Xte, yte)
     last = iters[-10:]
     emit({"phase": name, "rows": X.shape[0], "features": X.shape[1],
-          "num_leaves": 255, "max_bin": 255, "params": extra,
+          "num_leaves": params["num_leaves"], "max_bin": params["max_bin"],
+          "params": extra,
           "iterations": iterations,
           "growth_strategy": booster._gbdt.growth_strategy,
           "setup_s": setup_s, "first_iter_s": iters[0],
@@ -1038,6 +1193,8 @@ def phase_paths(lgb, H, global_timer, probe, bench):
     if auc_l < 0.72:
         raise AssertionError(f"path B: held-out AUC {auc_l} < 0.72")
     out["path_b_leafwise"] = launches
+    main["path_b"] = {"s_per_iter": r["s_per_iter"],
+                      "ms_per_iter": r["ms_per_iter"]}
     return out, main_wall, main
 
 
@@ -1760,11 +1917,11 @@ def categorical_transform(*mats):
     return out
 
 
-def monotone_signs():
-    """sign(w) on MONOTONE_FEATURES, w make_higgs_like's weights."""
+def monotone_signs(features=MONOTONE_FEATURES):
+    """sign(w) on `features`, w make_higgs_like's weights."""
     w = np.random.RandomState(1234).randn(F) / np.sqrt(F)
     mc = [0] * F
-    for f in MONOTONE_FEATURES:
+    for f in features:
         mc[f] = int(np.sign(w[f]))
     return mc
 
@@ -1821,6 +1978,27 @@ class ScanProbe:
                 best = max(best, n)
             out[run] = best or None
         return out
+
+
+def monotone_sweep(what, b, X, Xte, mc):
+    """Each constrained feature swept over 64 values in 1,000 held-out
+    rows: predictions monotone exactly, else the run fails.  Returns
+    {feature: mean |change| over the sweep}."""
+    rows = Xte[:1000]
+    worst = {}
+    for f in np.flatnonzero(mc).tolist():
+        grid = np.linspace(X[:, f].min(), X[:, f].max(), 64,
+                           dtype=np.float32)
+        Xs = np.repeat(rows, 64, axis=0)
+        Xs[:, f] = np.tile(grid, len(rows))
+        pred = b.predict(Xs, raw_score=True).reshape(len(rows), 64)
+        steps = np.diff(pred.astype(np.float64), axis=1) * mc[f]
+        bad = int((steps < 0).sum())
+        if bad:
+            raise AssertionError(f"{what}: {bad} steps against the "
+                                 f"constraint of feature {f}")
+        worst[f] = float(np.abs(pred[:, -1] - pred[:, 0]).mean())
+    return worst
 
 
 def distinct_features(models):
@@ -1919,23 +2097,8 @@ def phase_split_features(lgb, H, global_timer, card, main, probe, bench):
                         valid_auc_predict=want, auc_min=CAT_AUC_MIN,
                         reload_bit_equal=True)
         elif name == "monotone":
-            # each constrained feature swept over 64 values in 1,000
-            # held-out rows: predictions monotone exactly
-            rows = Xte[:1000]
-            worst = {}
-            for f in MONOTONE_FEATURES:
-                grid = np.linspace(X[:, f].min(), X[:, f].max(), 64,
-                                   dtype=np.float32)
-                Xs = np.repeat(rows, 64, axis=0)
-                Xs[:, f] = np.tile(grid, len(rows))
-                pred = b.predict(Xs, raw_score=True).reshape(len(rows), 64)
-                steps = np.diff(pred.astype(np.float64), axis=1) * mc[f]
-                bad = int((steps < 0).sum())
-                if bad:
-                    raise AssertionError(f"monotone: {bad} steps against "
-                                         f"the constraint of feature {f}")
-                worst[f] = float(np.abs(pred[:, -1] - pred[:, 0]).mean())
-            line.update(monotone_constraints=mc, sweep_rows=len(rows),
+            worst = monotone_sweep("monotone", b, X, Xte, mc)
+            line.update(monotone_constraints=mc, sweep_rows=1000,
                         sweep_values=64, mean_abs_sweep_change=worst)
         else:
             used = distinct_features(g.models_[:13])
@@ -2197,6 +2360,9 @@ EFB_EFFECT_SD = 0.5
 # card_vs_cpu's one-hot cases: narrower categoricals, so that the CPU's scan
 # over every feature stays short
 CARD_EFB_LEVELS = (10, 20, 40, 80)
+# the wide EFB case: one-hot blocks of its first two (a scan over 1023
+# bins a feature costs the CPU side per column)
+CARD_WIDE_EFB_LEVELS = CARD_EFB_LEVELS[:2]
 # held-out AUC gates: the CPU rehearsal at 1/8 of the rows
 # (chip_rehearsal.py: efb 0.69987, forced 0.71676, interaction 0.71753)
 # less 0.01 for the noise of the smaller sets
@@ -2817,6 +2983,165 @@ def phase_kernels_ranking_width(H, dev):
     return out
 
 
+def check_kernels(what, launches, want):
+    """The kernels `want` launched and no other one: they carried every
+    histogram of the run."""
+    if any(launches[k] <= 0 for k in want) or any(
+            launches[k] for k in KERNELS if k not in want):
+        raise AssertionError(f"{what}: {want} must carry every histogram: "
+                             f"{launches}")
+
+
+# the wide_bins phase: the main path's workload at this many bins
+WIDE_MAX_BIN = 1023
+WIDE_RUNS = (("wave", {}, 13), ("quantized", {"use_quantized_grad": True}, 13),
+             ("leafwise", {"tpu_growth_strategy": "leafwise"}, 3))
+# held-out AUC of the 3 leaf-wise iterations: 0.70242 in
+# chip_rehearsal.py wide_bins at 1/8 of the rows, less 0.01
+WIDE_LEAFWISE_AUC_MIN = 0.692
+
+
+def phase_wide_bins(lgb, H, global_timer, card, main, data):
+    """The main path's workload at max_bin=WIDE_MAX_BIN on its own
+    Dataset, binned on the host: the wave engine (K3 on the first
+    waves, K1 where 8 and more slots exceed K3's tile), quantized (K2)
+    and the leaf-wise engine (K4), on 16-bit device codes.  Returns
+    {run: launches}."""
+    X, y, Xte, yte = data
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, params={**BENCH_PARAMS,
+                                         "max_bin": WIDE_MAX_BIN}).construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    out, wave_auc = {}, None
+    for name, extra, iters in WIDE_RUNS:
+        r = drive_path(lgb, H, global_timer, f"wide_bins_{name}",
+                       {"max_bin": WIDE_MAX_BIN, **extra}, iters, data,
+                       train_set=ds)
+        g, lc = r["booster"]._gbdt, r["launches"]
+        if g.binned_dev.dtype != torch.int16:
+            raise AssertionError(f"wide_bins {name}: device codes "
+                                 f"{g.binned_dev.dtype}, not 16-bit")
+        check_kernels(f"wide_bins {name}", lc,
+                      {"wave": ("K1", "K3"), "quantized": ("K2",),
+                       "leafwise": ("K4",)}[name])
+        if name == "wave":
+            wave_auc = r["auc"]
+            if r["auc"] < 0.72:
+                raise AssertionError(f"wide_bins wave: held-out AUC "
+                                     f"{r['auc']} < 0.72")
+        elif name == "quantized" and abs(r["auc"] - wave_auc) > 0.01:
+            raise AssertionError(f"wide_bins quantized: held-out AUC "
+                                 f"{r['auc']} is more than 0.01 from the "
+                                 f"float run's {wave_auc}")
+        elif name == "leafwise" and r["auc"] < WIDE_LEAFWISE_AUC_MIN:
+            raise AssertionError(f"wide_bins leafwise: held-out AUC "
+                                 f"{r['auc']} < {WIDE_LEAFWISE_AUC_MIN}")
+        ms = r["ms_per_iter"]
+        ref = main["path_b"] if name == "leafwise" else main
+        emit({"phase": "wide_bins", "run": name, "max_bin": WIDE_MAX_BIN,
+              "rows": X.shape[0], "iterations": iters,
+              "construct_s": construct_s,
+              "s_per_iter": r["s_per_iter"],
+              "same_engine_255_bins_s_per_iter": ref["s_per_iter"],
+              **{f"{k.split('::')[1]}_device_ms_per_iter": ms.get(k)
+                 for k in ("Tree::histogram::device",
+                           "Tree::split_find::device",
+                           "Tree::partition::device")},
+              "same_engine_255_bins_histogram_device_ms_per_iter": ref[
+                  "ms_per_iter"].get("Tree::histogram::device"),
+              "peak_mem_gib": r["peak_gib"], "launches": lc,
+              "heldout_auc": r["auc"], "card": card})
+        out[f"wide_bins_{name}"] = lc
+        del r, g
+    del ds
+    return out
+
+
+# the monotone_modes phase: the monotone signs of the three strongest
+# features of make_higgs_like's logit (all N(0, 1) columns; the
+# split_features phase's uniform MONOTONE_FEATURES go unsplit in 5
+# leaf-wise trees of 1M rows, where a sweep would gate nothing), and lazy
+# CEGB's per-row penalty of every feature
+MODE_MONOTONE_FEATURES = (9, 18, 27)
+LAZY_PER_ROW = 2e-4
+# held-out AUC after 5 iterations: chip_rehearsal.py monotone_modes at
+# 1/8 of the rows gave 0.69432 (intermediate), 0.70092 (advanced) and
+# 0.70948 (lazy), less 0.01
+MONO_MODE_AUC_MIN = {"intermediate": 0.684, "advanced": 0.690,
+                     "lazy": 0.699}
+
+
+def phase_monotone_modes(lgb, H, global_timer, card, main, bench):
+    """The main path's workload on the leaf-wise engine with the monotone
+    signs of MODE_MONOTONE_FEATURES under the intermediate and the
+    advanced method, and with lazy CEGB (LAZY_PER_ROW on every feature):
+    5 iterations each.  Returns {run: launches}."""
+    data, ds = bench
+    X, _, Xte, _ = data
+    mc = monotone_signs(MODE_MONOTONE_FEATURES)
+    runs = (("intermediate", {"monotone_constraints": mc,
+                              "monotone_constraints_method":
+                                  "intermediate"}),
+            ("advanced", {"monotone_constraints": mc,
+                          "monotone_constraints_method": "advanced"}),
+            ("lazy", {"cegb_penalty_feature_lazy": [LAZY_PER_ROW] * F}))
+    out = {}
+    for name, extra in runs:
+        r = drive_path(lgb, H, global_timer, f"monotone_modes_{name}",
+                       {"tpu_growth_strategy": "leafwise", **extra}, 5,
+                       data, train_set=ds)
+        b, g, lc = r["booster"], r["booster"]._gbdt, r["launches"]
+        gp = g.grow_params
+        check_kernels(f"monotone_modes {name}", lc, ("K4",))
+        if (g.growth_strategy != "leafwise"
+                or gp.monotone_intermediate != (name != "lazy")
+                or gp.monotone_advanced != (name == "advanced")
+                or gp.split.has_cegb_lazy != (name == "lazy")):
+            raise AssertionError(f"monotone_modes {name}: the mode's flags "
+                                 f"or engine differ: {gp}")
+        if r["auc"] < MONO_MODE_AUC_MIN[name]:
+            raise AssertionError(f"monotone_modes {name}: held-out AUC "
+                                 f"{r['auc']} < {MONO_MODE_AUC_MIN[name]}")
+        line = {}
+        if name == "lazy":
+            # rows are fetched for the features the trees split on only
+            used = set(distinct_features(g.models_))
+            fetched = g.lazy_used[:, :g.num_data].sum(1).cpu().numpy()
+            if any(bool(fetched[f]) != (f in used) for f in range(F)):
+                raise AssertionError("monotone_modes lazy: fetched rows "
+                                     f"{fetched.tolist()}, split features "
+                                     f"{sorted(used)}")
+            line.update(distinct_features=len(used),
+                        fetched_rows=fetched.tolist())
+        else:
+            sweep = monotone_sweep(f"monotone_modes {name}", b, X, Xte, mc)
+            if not any(sweep.values()):
+                raise AssertionError(f"monotone_modes {name}: no constrained "
+                                     "feature moves a prediction")
+            line.update(monotone_constraints=mc,
+                        mean_abs_sweep_change=sweep)
+        ms = r["ms_per_iter"]
+        emit({"phase": "monotone_modes", "run": name, "rows": X.shape[0],
+              "iterations": 5, "s_per_iter": r["s_per_iter"],
+              "path_b_s_per_iter": main["path_b"]["s_per_iter"],
+              "monotone_rescan_device_ms_per_iter": ms.get(
+                  "Tree::monotone_rescan::device"),
+              "split_find_device_ms_per_iter": ms.get(
+                  "Tree::split_find::device"),
+              "path_b_split_find_device_ms_per_iter": main["path_b"][
+                  "ms_per_iter"].get("Tree::split_find::device"),
+              "histogram_device_ms_per_iter": ms.get(
+                  "Tree::histogram::device"),
+              "peak_mem_gib": r["peak_gib"], "launches": lc,
+              "heldout_auc": r["auc"], "auc_min": MONO_MODE_AUC_MIN[name],
+              "leaves_per_tree": [t.num_leaves for t in g.models_],
+              **line, "card": card})
+        out[f"monotone_modes_{name}"] = lc
+        del r, b, g
+    return out
+
+
 def case_inputs(name, extra, categorical=False, label="binary",
                 data="higgs", forced=False, rank=None, rows=CARD_ROWS):
     """The inputs of one card-vs-CPU case: `train` at `rows` rows, 3
@@ -2825,7 +3150,8 @@ def case_inputs(name, extra, categorical=False, label="binary",
     "binary", the objectives phase's "regression" label, its
     non-negative part ("nonnegative") or its class label cut into 3
     classes ("multiclass3"); `data`: "higgs", or the efb phase's
-    construction with CARD_EFB_LEVELS as CSR ("efb_csr") or as a dense
+    construction with CARD_EFB_LEVELS (CARD_WIDE_EFB_LEVELS when `extra`
+    sets max_bin) as CSR ("efb_csr") or as a dense
     numpy matrix ("efb_dense"), bundled on both devices, or "mslr", the
     whole queries of the ranking data `rank` = (X, y, query sizes,
     positions) in its first CARD_RANK_ROWS rows, with their group and,
@@ -2843,7 +3169,8 @@ def case_inputs(name, extra, categorical=False, label="binary",
         if "lambdarank_position_bias_regularization" in extra:
             ds_kw["position"] = pos[:n]
     else:
-        X, y = make_onehot_csr(rows, seed=2, levels=CARD_EFB_LEVELS)
+        X, y = make_onehot_csr(rows, seed=2, levels=(
+            CARD_WIDE_EFB_LEVELS if "max_bin" in extra else CARD_EFB_LEVELS))
         if data == "efb_dense":
             X = X.toarray()
     if forced:
@@ -3356,7 +3683,39 @@ def card_cases(rank):
                               "use_quantized_grad": True}, ("K2",)),
         ("linear_leafwise", {"linear_tree": True,
                              "tpu_growth_strategy": "leafwise"}, ("K4",)))]
+    # more than 256 bins: 16-bit codes through every kernel, and with EFB
+    # (one-hot columns bundled beside wide columns of their own)
+    wide = {"max_bin": WIDE_MAX_BIN}
+    out += [(case_inputs(name, extra, data=data), kernels)
+            for name, extra, data, kernels in (
+        ("wide_wave", {**wide, "tpu_growth_strategy": "wave"}, "higgs",
+         ("K1", "K3")),
+        ("wide_quantized", {**wide, "tpu_growth_strategy": "wave",
+                            "use_quantized_grad": True}, "higgs", ("K2",)),
+        ("wide_leafwise", {**wide, "tpu_growth_strategy": "leafwise"},
+         "higgs", ("K4",)),
+        ("wide_efb_csr_wave", {**wide, "tpu_growth_strategy": "wave"},
+         "efb_csr", ("K1", "K3")))]
+    # the leaf-wise engine's intermediate/advanced monotone modes and
+    # lazy CEGB (their CPU sides rescan leaves after every split)
+    mc = monotone_signs(MODE_MONOTONE_FEATURES)
+    out += [(case_inputs(name, {"tpu_growth_strategy": "leafwise", **extra},
+                         rows=CARD_LINEAR_ROWS), ("K4",))
+            for name, extra in (
+        ("intermediate_leafwise", {"monotone_constraints": mc,
+                                   "monotone_constraints_method":
+                                       "intermediate"}),
+        ("advanced_leafwise", {"monotone_constraints": mc,
+                               "monotone_constraints_method": "advanced"}),
+        ("lazy_leafwise", {"cegb_penalty_feature_lazy":
+                           [LAZY_PER_ROW] * F}))]
     return out
+
+
+# card-vs-CPU cases whose CPU sides take longest (the rescans of the
+# monotone modes, the wide scan over EFB's columns)
+CPU_FIRST = ("advanced_leafwise", "intermediate_leafwise",
+             "wide_efb_csr_wave")
 
 
 def run_card_vs_cpu(lgb, H, rank):
@@ -3373,7 +3732,12 @@ def run_card_vs_cpu(lgb, H, rank):
         max_workers=CARD_CPU_WORKERS,
         mp_context=multiprocessing.get_context("spawn"))
     try:
-        futures = [pool.submit(cpu_case, inputs) for inputs, _ in cases]
+        # the slowest CPU sides are queued first, so that they train while
+        # the card sides before them run
+        futures = [None] * len(cases)
+        for i in sorted(range(len(cases)),
+                        key=lambda i: cases[i][0]["name"] not in CPU_FIRST):
+            futures[i] = pool.submit(cpu_case, cases[i][0])
         for (inputs, kernels), fut in zip(cases, futures):
             card_launches = phase_card_vs_cpu(lgb, H, inputs, fut.result)
             if any(card_launches[k] <= 0 for k in kernels):
@@ -3452,6 +3816,10 @@ def main(argv) -> int:
     launches.update(fi_launches)
     launches["linear"] = phase_linear(lgb, H, global_timer, card, main,
                                       bench[0])
+    launches.update(phase_wide_bins(lgb, H, global_timer, card, main,
+                                    bench[0]))
+    launches.update(phase_monotone_modes(lgb, H, global_timer, card, main,
+                                         bench))
     probe.reset()
     phase_valid_path(lgb, H, global_timer, card, main_wall)
     phase_device_bin(lgb, global_timer)
@@ -3482,6 +3850,7 @@ def main(argv) -> int:
     phase_sweep(H, dev)
     group = phase_kernels_group_space(H, dev, efb_line["bundle_columns"])
     ranking_width = phase_kernels_ranking_width(H, dev)
+    wide = phase_kernels_wide(H, dev)
 
     csrc = "lightgbm_tpu_torch/ops/csrc/"
     hist_py = "lightgbm_tpu/ops/histogram.py"
@@ -3545,6 +3914,35 @@ def main(argv) -> int:
             entries[-1]["few_slot_route"] = {
                 k: few[k] for k in ("num_slots", "ms", "kernel_ms",
                                     "plain_ms", "library_ms", "bound_ms")}
+    # the same kernels on 16-bit codes (their uint16_t instantiations):
+    # at the wide_bins phase's width, and in bin windows
+    row_keys = ("max_abs_err", "ms", "kernel_ms", "loop_ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+    for e16, (kern, path) in zip(list(entries), (
+            ("K1", "wide_bins_wave"), ("K2", "wide_bins_quantized"),
+            ("K3", "wide_bins_wave"), ("K4", "wide_bins_leafwise"))):
+        r = wide[(kern, "wide")]
+        windows = {k: v for k, v in wide.items()
+                   if k[0] == kern and k[1] == "window"}
+        entries.append({
+            "name": f"{e16['name']} on 16-bit codes", "route": "cuda",
+            "source": e16["source"], "replaces": e16["replaces"],
+            "launches": launches[path][kern], "launches_path": path,
+            "max_abs_err": max(v["max_abs_err"] for v in
+                               [r, *windows.values()]),
+            **{k: r[k] for k in row_keys if k != "max_abs_err"},
+            "status": "ported",
+            "shape": {"n": N_KERNEL, "F": F, "B": WIDE_B, "C": C,
+                      "codes": "uint16", **({"num_slots": r["num_slots"]}
+                                            if kern != "K4" else
+                                            {"S": N_KERNEL})},
+            "windowed": [{"F": WINDOW_F, "B": WINDOW_B,
+                          "num_slots": v.get("num_slots"),
+                          "route": v.get("route"),
+                          **{k: v[k] for k in row_keys}}
+                         for v in windows.values()]})
+    emit({"phase": "total", "seconds": time.perf_counter() - T0,
+          "card": card})
     emit({"kernels": entries, "launches_by_path": launches})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

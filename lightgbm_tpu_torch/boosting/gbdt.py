@@ -30,10 +30,17 @@ float64 scores on the host, advanced per finished tree by the leaf ids of
 a bin-space traversal of their bin codes, which are put on the device
 once (`leaf_index_bin_space`); the host `Metric` classes evaluate them.
 
-The split scan carries categorical features, basic monotone constraints,
-path smoothing and CEGB's split and coupled penalties; a booster-level
-vector of the features earlier trees used carries CEGB's coupled
-penalty from tree to tree.
+The split scan carries categorical features, monotone constraints (basic
+on both engines; intermediate and advanced on the leaf-wise engine, which
+these modes force, as in the JAX package), path smoothing and CEGB's
+split, coupled and lazy penalties; a booster-level vector of the features
+earlier trees used carries CEGB's coupled penalty from tree to tree, and
+an [F, n] bitset of the rows each feature has been fetched for carries
+the lazy one.
+
+More than 256 bins: the device codes are 16-bit where a column has more
+than 256 bins (ops/histogram.py `code_dtype`; above 65,536 bins the port
+refuses), binned on the host as in the JAX package.
 
 The objectives' gradients are [K, n_pad] (softmax over the classes for
 multiclass); L1, quantile and MAPE renew each tree's leaf outputs on the
@@ -87,7 +94,8 @@ from ..metric import Metric
 from ..models.tree import K_CATEGORICAL_MASK, Tree, _to_bitset
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
 from ..objective import ObjectiveFunction
-from ..ops.histogram import wave_part_plan, wave_slot_pad
+from ..ops.histogram import (code_dtype, codes_to_device, codes_to_int,
+                             wave_part_plan, wave_slot_pad)
 from ..ops.split import SplitParams, cat_bitset_words, leaf_output
 from ..utils import log
 from ..utils import random as jrandom
@@ -111,14 +119,6 @@ def check_slice(config: Config) -> None:
 
     if c.boosting not in ("gbdt", "rf", "dart"):
         log.fatal(f"Unknown boosting type: {c.boosting}")
-    if any(int(m) != 0 for m in (c.monotone_constraints or [])):
-        method = c.monotone_constraints_method
-        if method not in ("basic", "intermediate", "advanced"):
-            log.fatal(f"Unknown monotone_constraints_method {method!r}")
-        if method != "basic":
-            refuse(f"monotone_constraints_method={method}", "13")
-    if c.cegb_penalty_feature_lazy:
-        refuse("cegb_penalty_feature_lazy", "13")
     if c.tpu_growth_strategy not in ("auto", "wave", "leafwise"):
         raise ValueError(f"Unknown tpu_growth_strategy "
                          f"{c.tpu_growth_strategy!r}; expected auto, wave, "
@@ -276,7 +276,7 @@ def leaf_index_bin_space(tree: Tree, binned: torch.Tensor,
     node = torch.zeros(n, dtype=torch.int64, device=dev)
     for _ in range(tree_depth(tree)):
         t = table[node.clamp(min=0)]
-        b = flat[t[:, 0] + rows].to(torch.int64)
+        b = codes_to_int(flat[t[:, 0] + rows])
         if plan is not None:
             local = b - t[:, 7]
             inside = (local >= 0) & (local < t[:, 8])
@@ -365,11 +365,6 @@ class GBDT:
 
         binned = train_data.binned
         on_device = isinstance(binned, torch.Tensor)
-        if train_data.max_num_bin > 256:
-            raise NotImplementedError(
-                "more than 256 bins per feature (max_bin > 256) is not "
-                "ported yet (ROADMAP Queue 1 item 2): the histogram kernels "
-                "take uint8 bin codes")
         # EFB (ref: feature_group.h; io/bundle.py): exclusive features
         # share a device column.  A sparse-ingested dataset holds bundle
         # codes already (io/sparse.py); dense bins are planned here, a
@@ -394,16 +389,23 @@ class GBDT:
                 on_device = own_bins = False
                 log.info(f"EFB bundled {len(plan.group_idx)} features into "
                          f"{plan.num_groups} columns")
+        # device codes: uint8 while every column has at most 256 bins,
+        # else 16-bit codes (int16 storage, ops/histogram.py code_dtype;
+        # more than 65,536 bins is refused there)
+        col_bins = (train_data.max_num_bin if self.bundle_plan is None
+                    else int(self.bundle_plan.group_num_bin.max(initial=1)))
+        codes = code_dtype(col_bins)
         if on_device:
             # device bins (io/device_bin.py, or an earlier booster's
             # padded copy) are padded on the device: no host round trip
             self.binned_dev = torch.zeros((binned.shape[0], self.n_pad),
-                                          dtype=torch.uint8, device=dev)
+                                          dtype=binned.dtype, device=dev)
             self.binned_dev[:, :n] = binned[:, :n]
         else:
-            host = np.zeros((binned.shape[0], self.n_pad), np.uint8)
+            host = np.zeros((binned.shape[0], self.n_pad),
+                            np.uint8 if codes == torch.uint8 else np.uint16)
             host[:, :n] = binned
-            self.binned_dev = torch.from_numpy(host).to(dev)
+            self.binned_dev = codes_to_device(host, dev, col_bins)
         if own_bins:
             # the dataset's device-bins slot now holds the padded copy
             train_data.binned = self.binned_dev
@@ -441,6 +443,31 @@ class GBDT:
             if f < len(mc_list):
                 mono[i] = int(mc_list[f])
         has_mono = bool(np.any(mono != 0))
+        if has_mono and config.monotone_constraints_method not in (
+                "basic", "intermediate", "advanced"):
+            log.fatal("Unknown monotone_constraints_method "
+                      f"{config.monotone_constraints_method!r}")
+        # intermediate/advanced modes (gbdt.py:387-396 of the JAX package)
+        mono_inter = mono_adv = False
+        if has_mono and config.monotone_constraints_method != "basic":
+            if config.extra_trees or config.feature_fraction_bynode < 1.0:
+                log.warning("monotone_constraints_method="
+                            f"{config.monotone_constraints_method} "
+                            "falls back to basic with extra_trees / "
+                            "feature_fraction_bynode (the full-tree "
+                            "pending rescan has no per-leaf random state)")
+            else:
+                mono_inter = True
+                mono_adv = config.monotone_constraints_method == "advanced"
+        has_lazy = bool(config.cegb_penalty_feature_lazy)
+        lazy = np.zeros(len(nb), np.float32)
+        if has_lazy:
+            lz = list(config.cegb_penalty_feature_lazy)
+            if len(lz) != train_data.num_total_features:
+                log.fatal("cegb_penalty_feature_lazy should be the same "
+                          "size as feature number.")
+            for i, f in enumerate(train_data.used_features):
+                lazy[i] = lz[f]
         coupled = np.zeros(len(nb), np.float32)
         if config.cegb_penalty_feature_coupled:
             cp = list(config.cegb_penalty_feature_coupled)
@@ -452,10 +479,20 @@ class GBDT:
         # ref: cost_effective_gradient_boosting.hpp IsEnable
         has_cegb = (config.cegb_tradeoff < 1.0
                     or config.cegb_penalty_split > 0.0
-                    or bool(config.cegb_penalty_feature_coupled))
+                    or bool(config.cegb_penalty_feature_coupled)
+                    or has_lazy)
         # the features any tree has split on, carried from tree to tree
         self.cegb_used = (torch.zeros(len(nb), dtype=torch.bool, device=dev)
                           if has_cegb else None)
+        if has_lazy and mono_inter:
+            log.warning("monotone intermediate mode falls back to basic "
+                        "with cegb_penalty_feature_lazy")
+            mono_inter = False
+        # the rows each feature has been fetched for, carried from tree to
+        # tree (ref: cost_effective_gradient_boosting.hpp:63
+        # feature_used_in_data_)
+        self.lazy_used = (torch.zeros((len(nb), self.n_pad), dtype=torch.bool,
+                                      device=dev) if has_lazy else None)
         bp = self.bundle_plan
 
         def on_dev(a):
@@ -467,6 +504,7 @@ class GBDT:
             default_bin=on_dev(self.f_default_bin),
             penalty=on_dev(penalty), is_cat=on_dev(self.f_is_cat),
             monotone=on_dev(mono), cegb_coupled=on_dev(coupled),
+            cegb_lazy=on_dev(lazy),
             group=on_dev(None if bp is None else bp.group_idx),
             offset=on_dev(None if bp is None else bp.offsets),
             zero_bin=on_dev(None if bp is None else bp.zero_bin),
@@ -509,7 +547,10 @@ class GBDT:
                 extra_seed=config.extra_seed,
                 has_cegb=has_cegb,
                 cegb_tradeoff=config.cegb_tradeoff,
-                cegb_penalty_split=config.cegb_penalty_split),
+                cegb_penalty_split=config.cegb_penalty_split,
+                has_cegb_lazy=has_lazy),
+            monotone_intermediate=mono_inter,
+            monotone_advanced=mono_adv,
             wave_tail_halving=config.wave_tail_halving,
             wave_prune=config.wave_prune,
             wave_prune_overshoot=config.wave_prune_overshoot,
@@ -528,9 +569,24 @@ class GBDT:
                 and not self.grow_params.use_hist_stack):
             log.fatal("forced splits need the per-leaf histogram stack; "
                       "raise histogram_pool_size")
+        if (self.grow_params.monotone_intermediate
+                and not self.grow_params.use_hist_stack):
+            log.warning("monotone intermediate mode needs the per-leaf "
+                        "histogram stack (histogram_pool_size); falling "
+                        "back to basic")
+            self.grow_params = self.grow_params._replace(
+                monotone_intermediate=False)
         # growth engine (gbdt.py:582-636 of the JAX package): wave when at
-        # least 8 leaves and the wave kernels' tile fits, else leaf-wise
+        # least 8 leaves and the wave kernels' tile fits, else leaf-wise;
+        # intermediate/advanced monotone and lazy CEGB recompute state
+        # after every split and keep the leaf-wise engine
         strategy = config.tpu_growth_strategy
+        if (self.grow_params.monotone_intermediate
+                or self.grow_params.split.has_cegb_lazy):
+            if strategy == "wave":
+                log.warning("voting / intermediate monotone / lazy CEGB "
+                            "use the leaf-wise engine")
+            strategy = "leafwise"
         if strategy == "auto":
             strategy = ("wave" if config.num_leaves >= 8
                         and wave_fits(self.binned_dev.shape[0], hist_b,
@@ -673,8 +729,7 @@ class GBDT:
         if isinstance(binned, torch.Tensor):
             vb = binned[:, :valid_data.num_data].to(self.device)
         else:
-            vb = torch.from_numpy(np.asarray(binned, np.uint8)).to(
-                self.device)
+            vb = codes_to_device(binned, self.device)
         self.valid_bins.append(vb.contiguous())
 
     # ---------------------------------------------------- continued training
@@ -688,7 +743,7 @@ class GBDT:
         [F', num_data] bundle codes under the BundlePlan `plan`."""
         if ds.raw_data is not None:
             return ds.raw_data
-        codes = bins[:, :ds.num_data].cpu().numpy()
+        codes = codes_to_int(bins[:, :ds.num_data], torch.int32).cpu().numpy()
         X = np.zeros((ds.num_data, ds.num_total_features))
         for i, f in enumerate(ds.used_features):
             m = ds.bin_mappers[f]
@@ -992,11 +1047,16 @@ class GBDT:
                     self.meta, self.grow_params, quant_scales=quant_scales,
                     extra_tag=extra_tag, cegb_used=self.cegb_used)
             else:
-                arrays, leaf_id = grow_tree_impl(
+                out = grow_tree_impl(
                     self.binned_dev, g_k, h_k, bag_mask, col_mask,
                     self.meta, self.grow_params,
                     binned_rm=self.binned_rm_dev, extra_tag=extra_tag,
-                    cegb_used=self.cegb_used)
+                    cegb_used=self.cegb_used, lazy_used=self.lazy_used)
+                # lazy CEGB's fetched rows ride from tree to tree
+                # (gbdt.py:1249-1267 of the JAX package; RF's loop too)
+                arrays, leaf_id = out[:2]
+                if self.lazy_used is not None:
+                    self.lazy_used = out[2]
             global_timer.block(leaf_id)
         if self.cegb_used is not None:
             # the tree's split features become used (gbdt.py:1270 of the

@@ -145,11 +145,14 @@ def plan_bundles(binned: np.ndarray, mappers, used_features,
 
 
 def build_bundled(binned: np.ndarray, plan: BundlePlan) -> np.ndarray:
-    """[F, n] feature bins -> [F', n] uint8 bundle codes (the kernels'
-    code type; `GBDT.init` refuses any feature of more than 256 bins
-    before it bundles, so every bundle column fits)."""
+    """[F, n] feature bins -> [F', n] bundle codes: uint8 while every
+    bundle column has at most 256 bins, else int32 (a feature of more
+    than MAX_BUNDLE_BINS bins keeps a column of its own; `GBDT.init` puts
+    such codes on the device as 16-bit codes), as the JAX package's
+    `build_bundled` does."""
     F, n = binned.shape
-    out = np.zeros((plan.num_groups, n), np.uint8)
+    wide = int(plan.group_num_bin.max(initial=1)) > 256
+    out = np.zeros((plan.num_groups, n), np.int32 if wide else np.uint8)
     for gi, members in enumerate(plan.groups):
         if len(members) == 1:
             out[gi] = binned[members[0]]

@@ -105,5 +105,7 @@ def bin_matrix_device(data: np.ndarray, mappers, used_features,
 
 
 def pull_host(binned: torch.Tensor) -> np.ndarray:
-    """Device [F, n] -> host np.ndarray."""
-    return binned.cpu().numpy()
+    """Device [F, n] -> host np.ndarray (16-bit codes, stored as int16,
+    come back as their uint16 values)."""
+    out = binned.cpu().numpy()
+    return out.view(np.uint16) if out.dtype == np.int16 else out

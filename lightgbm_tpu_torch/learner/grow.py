@@ -46,8 +46,22 @@ bin from its bundle column.  Forced splits run first, one split per
 step in the parse-time BFS numbering (the first that cannot apply ends
 the forcing, and best-gain growth takes its place); interaction
 constraints narrow each leaf's column mask to what its branch allows.
-Voting, intermediate/advanced monotone modes and lazy CEGB are not
-ported (GBDT.init refuses them).
+
+Intermediate monotone mode (`monotone_intermediate`; ref:
+monotone_constraints.hpp:516 IntermediateLeafConstraints), the JAX
+engine's redesign of the reference's recursive crawl: each leaf keeps its
+bin-space rectangle, every leaf's [cmin, cmax] comes from the [L, L, F]
+contiguity relation of the rectangles in one pass after every split, and
+every alive leaf's pending split is rescanned from the histogram stack
+in one batched scan.  The advanced mode (`monotone_advanced`;
+monotone_constraints.hpp:858 AdvancedLeafConstraints) gives that scan
+per-child, per-threshold [L, F, B] bounds instead of the leaf's scalars,
+made with scatter-min/max and cumulative min/max along the bins.  Lazy
+CEGB (cost_effective_gradient_boosting.hpp:139) charges each scan the
+lazy penalties of its leaf's bagged-in rows not yet fetched for a
+feature; a split marks the split leaf's rows fetched for its feature
+before the children's scans, in an [F, n] state the booster carries from
+tree to tree.  Voting is not ported (GBDT.init refuses it).
 """
 
 from __future__ import annotations
@@ -58,7 +72,8 @@ import numpy as np
 import torch
 
 from ..ops.histogram import (ROW_TILE, build_histogram_rows_fixed,
-                             fixed_unit, from_fixed, scale_exps)
+                             codes_to_int, fixed_unit, from_fixed,
+                             scale_exps)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO,
                          SplitParams, SplitResult, cat_bitset_words,
                          find_best_split, leaf_gain, leaf_output,
@@ -77,6 +92,7 @@ class FeatureMeta(NamedTuple):
     is_cat: torch.Tensor = None  # [F] bool (categorical features)
     monotone: torch.Tensor = None     # [F] int32 -1/0/+1
     cegb_coupled: torch.Tensor = None  # [F] float32 coupled penalties
+    cegb_lazy: torch.Tensor = None     # [F] float32 lazy per-row penalties
     # EFB (ref: feature_group.h): feature -> bundle column, code offset,
     # default (zero) bin, membership of a bundle of more than one
     group: torch.Tensor = None      # [F] int32 bundle column
@@ -130,6 +146,13 @@ class GrowParams(NamedTuple):
     # of inner feature indices; a leaf may split on its branch's features
     # and on the features of every set that holds its whole branch
     interaction_sets: tuple = ()
+    # leaf-wise engine: monotone_constraints_method=intermediate (leaf
+    # rectangles, every leaf's bounds recomputed and every pending split
+    # rescanned after each split; needs use_hist_stack, no extra-trees or
+    # bynode draws) and advanced (per-threshold bounds; needs
+    # monotone_intermediate)
+    monotone_intermediate: bool = False
+    monotone_advanced: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -260,6 +283,114 @@ def allowed_features(branch: torch.Tensor,
     return branch | (fits[..., None] & set_masks).any(-2)
 
 
+def monotone_bounds(leaf_lo: torch.Tensor, leaf_hi: torch.Tensor,
+                    out: torch.Tensor, monotone: torch.Tensor,
+                    max_bin: int = None):
+    """Every leaf's monotone bounds from the bin-space rectangles of the A
+    alive leaves (the JAX engine's intermediate and advanced modes,
+    grow.py:895-1062; ref: monotone_constraints.hpp:516
+    IntermediateLeafConstraints, :858 AdvancedLeafConstraints).
+
+    leaf_lo, leaf_hi: [A, F] int32 rectangle bounds (hi exclusive); out:
+    [A] leaf outputs; monotone: [F] -1/0/+1.  Leaf j bounds leaf i when
+    their rectangles overlap along every feature but one monotone feature
+    f, along which j lies on i's increasing side (an upper bound) or its
+    decreasing side (a lower bound).  Returns (cmin [A], cmax [A]), and
+    with `max_bin` B also the advanced mode's bounds (lL, uL, lR, uR)
+    [A, F, B] of the left and right child of a split of leaf i on
+    feature f at each threshold bin: a child's rectangle differs from
+    i's only along f, so each neighbour's bound holds on a prefix or a
+    suffix of thresholds, gathered by scatter-min/max at the interval's
+    end and completed by a cumulative min/max along the bins."""
+    A, F = leaf_lo.shape
+    dev = leaf_lo.device
+    f32, i32 = torch.float32, torch.int32
+    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    ov = ((leaf_lo[:, None, :] < leaf_hi[None, :, :])
+          & (leaf_lo[None, :, :] < leaf_hi[:, None, :]))        # [A, A, F]
+    nov = (~ov).to(i32)
+    n_false = nov.sum(2, dtype=i32)
+    contig0 = (n_false[:, :, None] - nov) == 0   # overlap but along f
+    below = leaf_hi[:, None, :] <= leaf_lo[None, :, :]          # i below j
+    below_t = below.transpose(0, 1)
+    inc = (monotone > 0)[None, None, :]
+    dec = (monotone < 0)[None, None, :]
+    other = ~torch.eye(A, dtype=torch.bool, device=dev)[:, :, None]
+    valid = other & contig0
+    outj = out.to(f32)[None, :, None].expand(A, A, F)
+    upper = valid & ((below & inc) | (below_t & dec))
+    lower = valid & ((below_t & inc) | (below & dec))
+    cmax = torch.where(upper, outj, inf).amin(dim=(1, 2))
+    cmin = torch.where(lower, outj, -inf).amax(dim=(1, 2))
+    if max_bin is None:
+        return cmin, cmax
+    B = max_bin
+    sA = (below & inc) | (below_t & dec)     # j bounds i above via f'
+    sB = (below_t & inc) | (below & dec)     # ... below
+    contig1 = (n_false[:, :, None] - nov) == 1
+    qual_a = contig1 & ((sA.sum(2, dtype=i32)[:, :, None] - sA.to(i32)) >= 1)
+    qual_b = contig1 & ((sB.sum(2, dtype=i32)[:, :, None] - sB.to(i32)) >= 1)
+    lo_j, hi_j = leaf_lo[None, :, :], leaf_hi[None, :, :]
+    ovf = leaf_lo[:, None, :] < hi_j          # the left child overlaps j
+    ovf_r = lo_j < leaf_hi[:, None, :]        # the right child overlaps j
+    base = ((torch.arange(A, device=dev)[:, None, None] * F
+             + torch.arange(F, device=dev)[None, None, :]) * (B + 1))
+
+    def scatter(gate, pos, fill, how):
+        """[A, F, B] min (or max) of out_j at bin pos over the j with gate
+        (the JAX `.at[i, f, pos].min`; pos B is a dump column)."""
+        pos = pos.expand(A, A, F)
+        p = torch.where(gate & (pos >= 0), pos.to(torch.int64), B)
+        vals = torch.where(gate, outj, fill)
+        res = torch.full((A * F * (B + 1),), float(fill), dtype=f32,
+                         device=dev).scatter_reduce_(
+            0, (base + p).reshape(-1), vals.reshape(-1), how)
+        return res.view(A, F, B + 1)[:, :, :B]
+
+    def smin(gate, pos):
+        return scatter(gate, pos, inf, "amin")
+
+    def smax(gate, pos):
+        return scatter(gate, pos, -inf, "amax")
+
+    def cummin_f(a):
+        return torch.cummin(a, 2).values
+
+    def cummax_f(a):
+        return torch.cummax(a, 2).values
+
+    def cummin_r(a):
+        return torch.flip(torch.cummin(torch.flip(a, [2]), 2).values, [2])
+
+    def cummax_r(a):
+        return torch.flip(torch.cummax(torch.flip(a, [2]), 2).values, [2])
+
+    def cst(gate):
+        return torch.where(gate, outj, inf).amin(1)[:, :, None]
+
+    def cst_max(gate):
+        return torch.where(gate, outj, -inf).amax(1)[:, :, None]
+
+    # upper bounds of the left child [lo_i, t + 1) along f: f' = f
+    # increasing, t < lo_j (a suffix min); f' = f decreasing, j below i
+    # (every t); f' != f, the child overlaps j along f: t >= lo_j (a
+    # prefix min).  The right child [t + 1, hi_i) and the lower bounds
+    # mirror them.
+    uL = torch.minimum(cummin_r(smin(valid & inc, lo_j - 1)),
+                       cst(valid & dec & below_t))
+    uL = torch.minimum(uL, cummin_f(smin(other & qual_a & ovf, lo_j)))
+    uR = torch.minimum(cst(valid & inc & below),
+                       cummin_f(smin(valid & dec, hi_j - 1)))
+    uR = torch.minimum(uR, cummin_r(smin(other & qual_a & ovf_r, hi_j - 2)))
+    lL = torch.maximum(cummax_r(smax(valid & dec, lo_j - 1)),
+                       cst_max(valid & inc & below_t))
+    lL = torch.maximum(lL, cummax_f(smax(other & qual_b & ovf, lo_j)))
+    lR = torch.maximum(cst_max(valid & dec & below),
+                       cummax_f(smax(valid & inc, hi_j - 1)))
+    lR = torch.maximum(lR, cummax_r(smax(other & qual_b & ovf_r, hi_j - 2)))
+    return cmin, cmax, (lL, uL, lR, uR)
+
+
 class ScanDraws:
     """The JAX engines' per-scan random draws (ref:
     feature_histogram.hpp:204 USE_RAND thresholds; col_sampler.hpp
@@ -329,21 +460,25 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                    hess: torch.Tensor, row_mask: torch.Tensor,
                    col_mask: torch.Tensor, meta: FeatureMeta,
                    params: GrowParams, binned_rm: torch.Tensor = None,
-                   extra_tag: int = None, cegb_used: torch.Tensor = None):
+                   extra_tag: int = None, cegb_used: torch.Tensor = None,
+                   lazy_used: torch.Tensor = None):
     """Grow one leaf-wise tree.
 
     Args:
-      binned: [F', n] uint8 feature-major bin codes (n a multiple of 512):
-        one row per feature, or per bundle column under EFB.
+      binned: [F', n] feature-major bin codes (n a multiple of 512), uint8
+        or 16-bit (int16 storage, ops/histogram.py code_dtype): one row
+        per feature, or per bundle column under EFB.
       grad, hess, row_mask: [n] float32 (row_mask: bagging x padding).
       col_mask: [F] bool.  meta, params: as the wave engine's.
       binned_rm: optional [n, F'] row-major copy (made here when None).
       extra_tag: folds the extra-trees and bynode keys (the booster's
         absolute iteration x classes + class).
       cegb_used: [F] bool, the features earlier trees used (CEGB).
+      lazy_used: [F, n] bool, the rows whose value of each feature earlier
+        splits fetched (lazy CEGB; zeros when None); updated in place.
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
-    [L], leaf_id [n] int32).
+    [L], leaf_id [n] int32), and lazy_used after them under lazy CEGB.
     """
     Fg, n = binned.shape
     F = meta.num_bin.shape[0]
@@ -378,6 +513,26 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         mono_h = meta.monotone.cpu().numpy()
         leaf_cmin = torch.full((L,), float("-inf"), dtype=f32, device=dev)
         leaf_cmax = torch.full((L,), float("inf"), dtype=f32, device=dev)
+    use_inter = params.monotone_intermediate and sp.has_monotone
+    use_adv = use_inter and params.monotone_advanced
+    if use_inter and (not params.use_hist_stack or sp.extra_trees
+                      or params.feature_fraction_bynode < 1.0):
+        raise ValueError("the intermediate monotone mode needs the "
+                         "histogram stack and fixed per-leaf scans (no "
+                         "extra_trees or bynode sampling)")
+    if use_inter:
+        # leaf rectangles in bin space (the root covers every bin), and
+        # the bounds of the last rescan
+        leaf_lo = torch.zeros((L, F), dtype=i32, device=dev)
+        leaf_hi = meta.num_bin.to(i32)[None, :].repeat(L, 1)
+        inter_prev = []
+    use_lazy = sp.has_cegb_lazy
+    if use_lazy:
+        if use_inter:
+            raise ValueError("cegb_penalty_feature_lazy does not compose "
+                             "with the intermediate monotone mode")
+        if lazy_used is None:
+            lazy_used = torch.zeros((F, n), dtype=torch.bool, device=dev)
     if sp.has_cegb:
         # features used so far (the booster's, then this tree's splits)
         used_h = (np.zeros(F, bool) if cegb_used is None
@@ -415,11 +570,14 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     rcu_all = draws.rand_cat_u(tags)
 
     def best_of(hists, sum_g, sum_h, cnt, parent_out, tag0, cmin=None,
-                cmax=None, depth=None, branch=None) -> SplitResult:
+                cmax=None, depth=None, branch=None, lazy_masks=None,
+                adv=None) -> SplitResult:
         """Scan k leaves' int64 group-space histograms [k, F', B', 2]; the
         leaves' scan tags are tag0, tag0 + 1, ...; cmin/cmax/depth: the
         leaves' [k] monotone bounds and depths; branch: their [k, F]
-        branch features (interaction constraints)."""
+        branch features (interaction constraints); lazy_masks: their
+        [k, n] bagged-in rows (lazy CEGB); adv: the advanced mode's
+        (lL, uL, lR, uR) [k, F, B] bounds."""
         k = hists.shape[0]
         cm = (col_mask if bym_all is None
               else col_mask[None, :] & bym_all[tag0:tag0 + k])
@@ -437,8 +595,18 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                       constraint_max=cmax,
                       mono_penalty=monotone_gain_penalty(
                           depth, sp.monotone_penalty))
+        if adv is not None:
+            kw.update(constraint_min_left=adv[0], constraint_max_left=adv[1],
+                      constraint_min_right=adv[2],
+                      constraint_max_right=adv[3])
         if sp.has_cegb:
             kw.update(cegb_coupled=meta.cegb_coupled, cegb_used=used_dev)
+        if use_lazy:
+            # each feature's lazy penalty times the leaf's rows not yet
+            # fetched for it: 0/1 counts below 2^24, exact in float32
+            # whatever the order of the sums
+            unused = ((~lazy_used).to(f32) @ lazy_masks.t()).t()     # [k, F]
+            kw["cegb_lazy_cost"] = meta.cegb_lazy[None, :] * unused
         with global_timer.device_scope("Tree::split_find", dev):
             return find_best_split(
                 feature_hists(hists), meta.num_bin, meta.missing_type,
@@ -482,7 +650,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                         cnt0[None], torch.zeros(1, dtype=f32, device=dev), 0,
                         -inf1, inf1, torch.zeros(1, dtype=i32, device=dev),
                         branch=(leaf_branch[:1] if use_interaction
-                                else None))
+                                else None),
+                        lazy_masks=row_mask[None] if use_lazy else None)
 
     ni = max(L - 1, 1)
     # host-side structure (decided by host ints); float fields on device
@@ -504,7 +673,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     leaf_f["leaf_count"][0] = cnt0
     depth_dev = torch.zeros(L, dtype=i32, device=dev)
     # the leaves' gradient and hessian sums, kept up to date only when
-    # forced splits are given (their gather reads them)
+    # forced splits are given (their gather reads them) or the
+    # intermediate mode rescans every leaf
     leaf_sum_g = torch.zeros(L, dtype=f32, device=dev)
     leaf_sum_h = torch.zeros(L, dtype=f32, device=dev)
     leaf_sum_g[0], leaf_sum_h[0] = sum_g0, sum_h0
@@ -540,8 +710,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                 idxs = torch.cat([idxs, idxs.new_zeros(S - seg)])
             valid = torch.arange(S, device=dev) < seg
             rows = binned_rm[idxs]                            # [S, F']
-            gl = go_left_of(rows[:, col_of(feat)].to(i32), feat, dleft, thr,
-                            isc, bitset)
+            gl = go_left_of(codes_to_int(rows[:, col_of(feat)], i32), feat,
+                            dleft, thr, isc, bitset)
             lm = gl & valid
             rm = ~gl & valid
             rmask = row_mask[idxs]
@@ -569,8 +739,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     def mask_and_hist(best, new, feat, thr, dleft, isc, bitset):
         """Masked engine: recolor by scanning all rows."""
         with global_timer.device_scope("Tree::partition", dev):
-            gl = go_left_of(binned[col_of(feat)].to(i32), feat, dleft, thr,
-                            isc, bitset)
+            gl = go_left_of(codes_to_int(binned[col_of(feat)], i32), feat,
+                            dleft, thr, isc, bitset)
             in_leaf = leaf_id[:n] == best
             leaf_id[:n] = torch.where(in_leaf & ~gl, new, leaf_id[:n])
             lmaskf = (in_leaf & gl).to(f32) * row_mask
@@ -656,7 +826,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             leaf_f[k][new] = pb[rv]
         leaf_f["leaf_count"][best] = cnt_l
         leaf_f["leaf_count"][new] = cnt_r
-        if forced:
+        if forced or use_inter:
             leaf_sum_g[best], leaf_sum_g[new] = (pb["left_sum_gradient"],
                                                  pb["right_sum_gradient"])
             leaf_sum_h[best], leaf_sum_h[new] = (pb["left_sum_hessian"],
@@ -679,7 +849,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         # bounds; a numerical split on a monotone feature bounds both
         # children at the midpoint of their outputs
         kw = {}
-        if sp.has_monotone:
+        if sp.has_monotone and not use_inter:
             p_min, p_max = leaf_cmin[best].clone(), leaf_cmax[best].clone()
             l_min, l_max, r_min, r_max = p_min, p_max, p_min, p_max
             mc = int(mono_h[feat])
@@ -696,7 +866,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             kw = dict(cmin=torch.stack([l_min, r_min]),
                       cmax=torch.stack([l_max, r_max]),
                       depth=depth_dev[[best, new]])
-        if sp.has_cegb and not used_h[feat]:
+        newly_used = sp.has_cegb and not used_h[feat]
+        if newly_used:
             # the coupled penalty is paid once: other leaves' pending
             # splits on this feature get it back
             used_h[feat] = True
@@ -713,6 +884,57 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             leaf_branch[best] = child
             leaf_branch[new] = child
             kw["branch"] = torch.stack([child, child])
+        if use_lazy:
+            # the split leaf's bagged-in rows are fetched for its feature
+            # before the children's scans (ref: cost_effective_gradient_
+            # boosting.hpp:125-135 UpdateLeafBestSplits)
+            lid = leaf_id[:n]
+            kw["lazy_masks"] = torch.stack([(lid == best).to(f32) * row_mask,
+                                            (lid == new).to(f32) * row_mask])
+            lazy_used[feat] |= kw["lazy_masks"].sum(0) > 0
+        state["num_leaves"] = NL + 1
+        if use_inter:
+            # the children split the parent's rectangle at the threshold
+            # (a categorical split narrows nothing); then every alive
+            # leaf's bounds are recomputed, and its pending split with
+            # them (the JAX engine rescans every leaf; a leaf whose scan
+            # inputs did not change gives the same split, so only the
+            # children and the leaves whose bounds moved are rescanned,
+            # or every leaf when CEGB's used features changed)
+            leaf_lo[new] = leaf_lo[best]
+            leaf_hi[new] = leaf_hi[best]
+            if not isc:
+                leaf_lo[new, feat] = thr + 1
+                leaf_hi[best, feat] = thr + 1
+            A = NL + 1
+            with global_timer.device_scope("Tree::monotone_rescan", dev):
+                bounds = monotone_bounds(leaf_lo[:A], leaf_hi[:A],
+                                         leaf_f["leaf_value"][:A],
+                                         meta.monotone,
+                                         B if use_adv else None)
+                cur = (bounds[0], bounds[1], *(bounds[2] if use_adv
+                                               else ()))
+                moved = torch.zeros(A, dtype=torch.bool, device=dev)
+                if newly_used or not inter_prev:
+                    moved.fill_(True)
+                else:
+                    for c, p in zip(cur, inter_prev):
+                        moved[:A - 1] |= (c[:A - 1] != p).reshape(
+                            A - 1, -1).any(1)
+                    moved[best] = moved[new] = True
+                inter_prev[:] = cur
+                idx = moved.nonzero()[:, 0]
+                res = best_of(
+                    hist_stack[idx], leaf_sum_g[idx], leaf_sum_h[idx],
+                    leaf_f["leaf_count"][idx], leaf_f["leaf_value"][idx], 0,
+                    cmin=bounds[0][idx], cmax=bounds[1][idx],
+                    depth=depth_dev[idx],
+                    branch=leaf_branch[idx] if use_interaction else None,
+                    adv=(tuple(b[idx] for b in bounds[2]) if use_adv
+                         else None))
+            for k, v in res._asdict().items():
+                pend[k].index_copy_(0, idx, v)
+            return True
         res = best_of(
             torch.stack([hist_l, hist_r]),
             torch.stack([pb["left_sum_gradient"], pb["right_sum_gradient"]]),
@@ -723,7 +945,6 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         idx = torch.tensor([best, new], dtype=i64, device=dev)
         for k, v in res._asdict().items():
             pend[k].index_copy_(0, idx, v)
-        state["num_leaves"] = NL + 1
         return True
 
     # forced prologue (ref: serial_tree_learner.cpp:614 ForceSplits): one
@@ -759,4 +980,6 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         leaf_parent=dev_of(leaf_parent), leaf_depth=dev_of(leaf_depth),
         split_is_cat=dev_of(split_is_cat), cat_bitset=cat_bitset,
         **node_f, **leaf_f)
+    if use_lazy:
+        return tree, leaf_id[:n].to(i32), lazy_used
     return tree, leaf_id[:n].to(i32)

@@ -76,7 +76,8 @@ import torch
 
 from ..ops.histogram import (build_histogram_wave_fixed,
                              build_histogram_wave_hl_fixed,
-                             build_histogram_wave_int, dequantize,
+                             build_histogram_wave_int, codes_to_int,
+                             dequantize,
                              fixed_unit, from_fixed, scale_exps,
                              wave_hl_fits,
                              wave_hl_profitable, wave_slot_pad)
@@ -289,8 +290,9 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     """Grow one tree by waves.
 
     Args:
-      binned: [F', n] uint8 feature-major bin codes (n a multiple of 512):
-        one row per feature, or per bundle column under EFB.
+      binned: [F', n] feature-major bin codes (n a multiple of 512), uint8
+        or 16-bit (int16 storage, ops/histogram.py code_dtype): one row
+        per feature, or per bundle column under EFB.
       grad, hess, row_mask: [n] float32.  col_mask: [F] bool.
       quant_scales: [2] float32 (gradient, hessian) scales of quantized
         gradients; with params.quant_bins > 0 every wave's histograms go
@@ -684,8 +686,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
             prow = table[lid]                            # [n, columns]
             sel_r = prow[:, 0] > 0
             col_r = prow[:, 10] if bundles else prow[:, 1]
-            fbin = torch.gather(binned, 0,
-                                col_r.to(i64)[None, :])[0].to(i32)
+            fbin = codes_to_int(torch.gather(binned, 0,
+                                             col_r.to(i64)[None, :])[0], i32)
             mt_r, db_r, nb_r = prow[:, 5], prow[:, 6], prow[:, 7]
             if bundles:
                 # a code outside the feature's range: its default bin

@@ -30,6 +30,19 @@
 //   B a row, mostly from L2) and redoes the row's setup, each KB of tile
 //   costs resident warps; two 512-thread blocks of half an SM each.
 //
+// Codes.  Every kernel is templated on the bin code type: uint8_t while
+// every column has at most 256 bins, uint16_t up to 65,536 (the wrapper
+// stores them as int16 bits).  A streaming warp loads 4 rows of one
+// feature as one word (4 bytes of uint8 codes, 8 of uint16); the
+// partition packs rows at Fp codes.  Bin windows: where one feature's
+// (slots x B x C) cells exceed a block's shared memory, the wrapper's
+// planner cuts the bin axis into windows of Bw bins (bin_window in
+// ops/histogram.py); a work item or block then covers one window of one
+// feature group and skips the codes outside it, which replaces the JAX
+// kernel's Bg grid axis.  With one window (Bw = B, every width up to
+// 14,500 bins in K1) the launches and the work are those of the narrow
+// kernels.
+//
 // Cells.  FixedCells (K1, K3): 64-bit fixed point, channel c scaled by
 // 2^(62 - E_c) with 2^E_c >= max|gh[:, c]| * n from the caller (one set
 // per tree in the engines, so sibling subtraction is exact; no partial sum
@@ -45,9 +58,10 @@
 // scatter ranks rows by __match_any_sync, so results repeat run to run and
 // equal the plain versions' (int64 index_add_) bit for bit.
 //
-// Bound on this card.  A call must read binned (F*n bytes), slot (4n) and
-// gh (4(C+1)n) once and write the float32 histograms: 44 MB at n = 2^20,
-// F = 28, about 13 us at 3.35 TB/s.  The kernels are bound instead by
+// Bound on this card.  A call must read binned (F*n bytes, twice that for
+// 16-bit codes), slot (4n) and gh (4(C+1)n) once and write the float32
+// histograms: 44 MB at n = 2^20, F = 28, 255 bins, about 13 us at 3.35
+// TB/s.  The kernels are bound instead by
 // shared-memory atomics and latency and, at many slots, by the scatter.
 
 #include <cuda_runtime.h>
@@ -102,6 +116,43 @@ struct IntCells {  // quantized integers rint(v / scale[c]), count mask > 0
     const int v = (int)t[i];
     if (v != 0) t[i] = 0u;
     return v;
+  }
+};
+
+// Bin codes: one Word holds 4 consecutive rows of one feature.
+template <typename T>
+struct Codes;
+template <>
+struct Codes<uint8_t> {
+  using Word = unsigned;
+  static DEV int bin(Word w, int j) { return (w >> (8 * j)) & 255; }
+  // row j's codes of the 16 features of words b[0..15], packed 16 bytes
+  static DEV void pack16(const Word* b, int j, uint4* dst) {
+    const unsigned sel = (unsigned)j | ((4u + j) << 4);
+    unsigned wd[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      wd[k] = __byte_perm(__byte_perm(b[4 * k], b[4 * k + 1], sel),
+                          __byte_perm(b[4 * k + 2], b[4 * k + 3], sel),
+                          0x5410);
+    dst[0] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+  }
+};
+template <>
+struct Codes<uint16_t> {
+  using Word = uint2;  // rows 0, 1 in x; rows 2, 3 in y
+  static DEV int bin(Word w, int j) {
+    return ((j < 2 ? w.x : w.y) >> (16 * (j & 1))) & 0xFFFF;
+  }
+  static DEV void pack16(const Word* b, int j, uint4* dst) {
+    const unsigned sel = (j & 1) ? 0x7632u : 0x5410u;  // high or low halves
+    unsigned wd[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      wd[k] = __byte_perm(j < 2 ? b[2 * k].x : b[2 * k].y,
+                          j < 2 ? b[2 * k + 1].x : b[2 * k + 1].y, sel);
+    dst[0] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    dst[1] = make_uint4(wd[4], wd[5], wd[6], wd[7]);
   }
 };
 
@@ -271,17 +322,19 @@ __global__ void slot_plan_kernel(const int* __restrict__ tot, int NL, int R,
 // with byte permutes) and its values q_p[pos, :QS] (Cells::value of each
 // channel, then Cells::count of the mask, zero-padded to QS = q_stride),
 // each written as whole 16-byte stores.
-template <int kC, typename Cells>
-__global__ void slot_scatter_kernel(const uint8_t* __restrict__ binned_fm,
+template <int kC, typename Cells, typename T>
+__global__ void slot_scatter_kernel(const T* __restrict__ binned_fm,
                                     const int* __restrict__ slot,
                                     const float* __restrict__ gh,
                                     const void* __restrict__ param, int n,
                                     int F, int Fp, int NL, int U, int UR,
                                     const int* __restrict__ cnt,
                                     const int* __restrict__ plan,
-                                    uint8_t* __restrict__ rows_p,
+                                    T* __restrict__ rows_p,
                                     typename Cells::Q* __restrict__ q_p) {
   using Q = typename Cells::Q;
+  using Word = typename Codes<T>::Word;
+  constexpr int kChunkVecs = 16 * sizeof(T) / 16;  // uint4s of 16 codes
   constexpr int kQS = q_stride<Cells>(kC);
   extern __shared__ int sc[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -314,28 +367,22 @@ __global__ void slot_scatter_kernel(const uint8_t* __restrict__ binned_fm,
     }
     if (!(ok[0] || ok[1] || ok[2] || ok[3])) continue;
     // bins: word k of a 16-feature chunk holds feature 16v + k of rows
-    // r..r+3; row j's word q gathers byte j of words 4q..4q+3
-    const unsigned* col = reinterpret_cast<const unsigned*>(binned_fm + r);
+    // r..r+3; row j's codes gather code j of each word (Codes::pack16)
+    const Word* col = reinterpret_cast<const Word*>(binned_fm) + (r >> 2);
     const long long fstride = n >> 2;
     for (int v = 0; v < Fp / 16; ++v) {
-      unsigned b[16];
+      Word b[16];
 #pragma unroll
       for (int k = 0; k < 16; ++k) {
         const int f = 16 * v + k;
-        b[k] = f < F ? col[f * fstride] : 0u;
+        b[k] = f < F ? col[f * fstride] : Word{};
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         if (!ok[j]) continue;
-        const unsigned sel = (unsigned)j | ((4u + j) << 4);
-        unsigned wd[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          wd[k] = __byte_perm(__byte_perm(b[4 * k], b[4 * k + 1], sel),
-                              __byte_perm(b[4 * k + 2], b[4 * k + 3], sel),
-                              0x5410);
-        reinterpret_cast<uint4*>(rows_p + pos[j] * Fp)[v] =
-            make_uint4(wd[0], wd[1], wd[2], wd[3]);
+        Codes<T>::pack16(
+            b, j, reinterpret_cast<uint4*>(rows_p + pos[j] * Fp) +
+                      kChunkVecs * v);
       }
     }
     alignas(16) float gv[4 * (kC + 1)];
@@ -362,31 +409,34 @@ __global__ void slot_scatter_kernel(const uint8_t* __restrict__ binned_fm,
   }
 }
 
-// Pass 4: a persistent grid over the work items it = k * G + g (chunk k of
-// the slot-grouped rows, feature group g).  Each block adds its item's
-// rows into a (FG x B x C) tile plus the count cell, then flushes the
-// non-zero cells: plain stores when the slot has one chunk (the block owns
-// those cells alone), else 64-bit global atomics.  acc and cnt_acc start
-// zeroed.
-template <typename Cells>
+// Pass 4: a persistent grid over the work items it = k * GW + g * Wn + w
+// (chunk k of the slot-grouped rows, feature group g, bin window w of Bw
+// bins).  Each block adds its item's rows into an (fg x bw x C) tile plus
+// the count cell, then flushes the non-zero cells: plain stores when the
+// slot has one chunk (the block owns those cells alone), else 64-bit
+// global atomics.  acc and cnt_acc start zeroed.
+template <typename Cells, typename T>
 __global__ void __launch_bounds__(kHistThreads)
-wave_part_hist_kernel(const uint8_t* __restrict__ rows_p,
+wave_part_hist_kernel(const T* __restrict__ rows_p,
                       const typename Cells::Q* __restrict__ q_p,
                       const int* __restrict__ plan, int NL, int F, int Fp,
-                      int B, int C, int QS, int FG, int R,
+                      int B, int Bw, int C, int QS, int FG, int R,
                       long long* __restrict__ acc,
                       long long* __restrict__ cnt_acc) {
   using Q = typename Cells::Q;
   extern __shared__ __align__(16) unsigned tile[];
   const int G = (F + FG - 1) / FG;
+  const int Wn = (B + Bw - 1) / Bw;
+  const int GW = G * Wn;
   const int* seg = plan;
   const int* chunk = plan + NL + 1;
-  const long long items = (long long)chunk[NL] * G;
-  const int full = FG * B * C;  // the count cell follows the histogram
+  const long long items = (long long)chunk[NL] * GW;
+  const int full = FG * Bw * C;  // the count cell follows the histogram
   for (int i = threadIdx.x; i < (full + 1) * Cells::kWords; i += blockDim.x)
     tile[i] = 0u;
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
-    const int k = (int)(it / G), g = (int)(it % G);
+    const int k = (int)(it / GW), gw = (int)(it % GW);
+    const int g = gw / Wn, w = gw - g * Wn;
     int lo = 0, hi = NL;  // the slot s with chunk[s] <= k < chunk[s + 1]
     while (hi - lo > 1) {
       int mid = (lo + hi) >> 1;
@@ -397,21 +447,22 @@ wave_part_hist_kernel(const uint8_t* __restrict__ rows_p,
     const long long b = min((long long)seg[s + 1], a + R);
     const bool owner = chunk[s + 1] - chunk[s] == 1;
     const int f0 = g * FG, fg = min(FG, F - f0);
-    const int len = fg * B * C;
+    const int b0 = w * Bw, bw = min(Bw, B - b0), bwc = bw * C;
+    const int len = fg * bwc;
     __syncthreads();
     for (long long i = a + threadIdx.x; i < b; i += blockDim.x) {
       Q q[kMaxC];
       const Q* qi = q_p + i * QS;
 #pragma unroll
       for (int c = 0; c < kMaxC; ++c) q[c] = c < C ? qi[c] : 0;
-      const Q qc = g == 0 ? qi[C] : 0;  // the count column
-      const uint8_t* row = rows_p + i * Fp + f0;
+      const Q qc = gw == 0 ? qi[C] : 0;  // the count column
+      const T* row = rows_p + i * Fp + f0;
 #pragma unroll
       for (int fl = 0; fl < Cells::kMaxFG; ++fl) {
         if (fl >= fg) break;
-        const int bin = row[fl];
-        if (bin >= B) continue;
-        const int cell = (fl * B + bin) * C;
+        const int bin = (int)row[fl] - b0;
+        if ((unsigned)bin >= (unsigned)bw) continue;
+        const int cell = (fl * bw + bin) * C;
 #pragma unroll
         for (int c = 0; c < kMaxC; ++c)
           if (c < C && q[c] != 0) Cells::add(tile, cell + c, q[c]);
@@ -419,14 +470,16 @@ wave_part_hist_kernel(const uint8_t* __restrict__ rows_p,
       if (qc != 0) Cells::add(tile, full, qc);
     }
     __syncthreads();
-    long long* out = acc + ((long long)s * F + f0) * B * C;
     for (int i = threadIdx.x; i < len; i += blockDim.x) {
       const long long v = Cells::take(tile, i);
       if (v == 0) continue;
-      if (owner) out[i] = v;
-      else add_global(out + i, v);
+      const int fl = i / bwc;
+      long long* out = acc + ((long long)(s * F + f0 + fl) * B + b0) * C +
+                       (i - fl * bwc);
+      if (owner) *out = v;
+      else add_global(out, v);
     }
-    if (g == 0 && threadIdx.x == 0) {
+    if (gw == 0 && threadIdx.x == 0) {
       const long long v = Cells::take(tile, full);
       if (v != 0 && owner) cnt_acc[s] = v;
       else if (v != 0) add_global(cnt_acc + s, v);
@@ -435,23 +488,29 @@ wave_part_hist_kernel(const uint8_t* __restrict__ rows_p,
 }
 
 // ------------------------------------------------------------- streaming
-// Grid (row chunks, feature groups).  The tile holds [S slots][fg features]
-// [B bins][kC] cells, then S count cells (in the first feature group
-// only).  Warp w walks the steps base = row0 + 128 (w + k * warps); lane
-// l takes rows base + 4l .. base + 4l + 3.  rows_per_block is a multiple
-// of 128 and n of 4, so a lane's 4 rows lie inside the chunk or outside.
-template <int kC, typename Cells>
+// Grid (row chunks, feature groups x bin windows).  The tile holds [S
+// slots][fg features][bw bins][kC] cells, then S count cells (in the first
+// feature group's first window only).  Warp w walks the steps base = row0
+// + 128 (w + k * warps); lane l takes rows base + 4l .. base + 4l + 3.
+// rows_per_block is a multiple of 128 and n of 4, so a lane's 4 rows lie
+// inside the chunk or outside.
+template <int kC, typename Cells, typename T>
 __global__ void __launch_bounds__(kFewThreads, 2)
-wave_few_kernel(const uint8_t* __restrict__ binned_fm,
+wave_few_kernel(const T* __restrict__ binned_fm,
                 const int* __restrict__ slot, const float* __restrict__ gh,
-                const void* __restrict__ param, int n, int F, int B, int S,
-                int FG, int rows_per_block, long long* __restrict__ acc,
+                const void* __restrict__ param, int n, int F, int B, int Bw,
+                int S, int FG, int rows_per_block,
+                long long* __restrict__ acc,
                 long long* __restrict__ cnt_acc) {
   using Q = typename Cells::Q;
+  using Word = typename Codes<T>::Word;
   extern __shared__ __align__(16) unsigned tile[];
-  const int f0 = blockIdx.y * FG, fg = min(FG, F - f0);
+  const int Wn = (B + Bw - 1) / Bw;
+  const int g = blockIdx.y / Wn, win = blockIdx.y - g * Wn;
+  const int f0 = g * FG, fg = min(FG, F - f0);
+  const int b0 = win * Bw, bw = min(Bw, B - b0), bwc = bw * kC;
   const bool counts = blockIdx.y == 0;
-  const int per_slot = fg * B * kC, len = S * per_slot;
+  const int per_slot = fg * bwc, len = S * per_slot;
   for (int i = threadIdx.x; i < (len + S) * Cells::kWords; i += blockDim.x)
     tile[i] = 0u;
   __syncthreads();
@@ -460,8 +519,7 @@ wave_few_kernel(const uint8_t* __restrict__ binned_fm,
   const long long row0 = (long long)blockIdx.x * rows_per_block;
   const long long row1 = min((long long)n, row0 + rows_per_block);
   const long long fstride = n >> 2;
-  const unsigned* col =
-      reinterpret_cast<const unsigned*>(binned_fm) + f0 * fstride;
+  const Word* col = reinterpret_cast<const Word*>(binned_fm) + f0 * fstride;
   for (long long base = row0 + 128 * w; base < row1;
        base += 128 * (blockDim.x >> 5)) {
     const long long r = base + 4 * lane, q4 = r >> 2;
@@ -484,7 +542,7 @@ wave_few_kernel(const uint8_t* __restrict__ binned_fm,
       base_cell[j] = ok[j] ? sj[j] * per_slot : 0;
     }
     for (int f8 = 0; f8 < fg; f8 += 8) {
-      unsigned wv[8];
+      Word wv[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         if (Cells::kHoist && f8 + k < fg) wv[k] = col[(f8 + k) * fstride + q4];
@@ -492,13 +550,12 @@ wave_few_kernel(const uint8_t* __restrict__ binned_fm,
       for (int k = 0; k < 8; ++k) {
         const int fl = f8 + k;
         if (fl >= fg) break;
-        const unsigned word =
-            Cells::kHoist ? wv[k] : col[fl * fstride + q4];
+        const Word word = Cells::kHoist ? wv[k] : col[fl * fstride + q4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int bin = (word >> (8 * j)) & 255;
-          if (!ok[j] || bin >= B) continue;
-          const int cell = base_cell[j] + (fl * B + bin) * kC;
+          const int bin = Codes<T>::bin(word, j) - b0;
+          if (!ok[j] || (unsigned)bin >= (unsigned)bw) continue;
+          const int cell = base_cell[j] + (fl * bw + bin) * kC;
 #pragma unroll
           for (int c = 0; c < kC; ++c)
             if (q[j][c] != 0) Cells::add(tile, cell + c, q[j][c]);
@@ -515,9 +572,9 @@ wave_few_kernel(const uint8_t* __restrict__ binned_fm,
   for (int i = threadIdx.x; i < len; i += blockDim.x) {
     const long long v = Cells::take(tile, i);
     if (v == 0) continue;
-    const int s = i / per_slot, rem = i - s * per_slot;  // (fl*B + b)*kC + c
-    const int fl = rem / (B * kC), bc = rem - fl * (B * kC);
-    add_global(acc + (((long long)s * F + f0 + fl) * B) * kC + bc, v);
+    const int s = i / per_slot, rem = i - s * per_slot;  // (fl*bw + b)*kC + c
+    const int fl = rem / bwc, bc = rem - fl * bwc;
+    add_global(acc + (((long long)s * F + f0 + fl) * B + b0) * kC + bc, v);
   }
   for (int s = threadIdx.x; counts && s < S; s += blockDim.x) {
     const long long v = Cells::take(tile, len + s);
@@ -561,49 +618,51 @@ int grid_for(long long work) {
   return (int)std::min(std::max(g, 1LL), 132LL * 16);
 }
 
-template <int kC, typename Cells>
+template <int kC, typename Cells, typename T>
 cudaError_t launch_scatter(const void* binned_fm, const void* slot,
                            const void* gh, const void* param, int n, int F,
                            int Fp, int NL, int U, int UR, int PW, size_t smem,
-                           const int* cnt, const int* plan, uint8_t* rows_p,
+                           const int* cnt, const int* plan, T* rows_p,
                            void* q_p, cudaStream_t stream) {
   static int smem_set = 0;
-  cudaError_t err = ensure_smem(slot_scatter_kernel<kC, Cells>, smem,
+  cudaError_t err = ensure_smem(slot_scatter_kernel<kC, Cells, T>, smem,
                                 &smem_set);
   if (err != cudaSuccess) return err;
-  slot_scatter_kernel<kC, Cells><<<(U + PW - 1) / PW, 32 * PW, smem,
-                                   stream>>>(
-      (const uint8_t*)binned_fm, (const int*)slot, (const float*)gh, param,
-      n, F, Fp, NL, U, UR, cnt, plan, rows_p, (typename Cells::Q*)q_p);
+  slot_scatter_kernel<kC, Cells, T><<<(U + PW - 1) / PW, 32 * PW, smem,
+                                      stream>>>(
+      (const T*)binned_fm, (const int*)slot, (const float*)gh, param, n, F,
+      Fp, NL, U, UR, cnt, plan, rows_p, (typename Cells::Q*)q_p);
   return cudaGetLastError();
 }
 
 // Bytes of the partition's scratch: the unit counts, slot totals and
 // plan, then the packed rows and their values on 256-byte boundaries (the
 // layout run_partition carves; wave_part_plan in ops/histogram.py).
-template <typename Cells>
+template <typename Cells, typename T>
 long long part_scratch(int n, int F, int C, int NL, int UR) {
   const long long U = (n + UR - 1) / UR, Fp = (F + 15) / 16 * 16;
   const long long ints = (long long)NL * U + NL + 2 * (NL + 1);
-  return (ints * 4 + 255) / 256 * 256 + ((long long)n * Fp + 255) / 256 * 256 +
+  return (ints * 4 + 255) / 256 * 256 +
+         ((long long)n * Fp * sizeof(T) + 255) / 256 * 256 +
          (long long)n * q_stride<Cells>(C) * sizeof(typename Cells::Q);
 }
 
 // The slot-partitioned pipeline into zeroed acc [NL*F*B*C] and cnt_acc
 // [NL]: UR rows per partition warp, PW warps per partition block, FG
-// features and at most R rows per work item (the wrapper's planner).
-template <typename Cells>
+// features, Bw bins and at most R rows per work item (the wrapper's
+// planner).
+template <typename Cells, typename T>
 cudaError_t run_partition(const void* binned_fm, const void* slot,
                           const void* gh, const void* param, int n, int F,
-                          int B, int C, int NL, int UR, int PW, int FG,
-                          int R, void* scratch, long long scratch_bytes,
-                          long long* acc, long long* cnt_acc,
-                          cudaStream_t stream) {
+                          int B, int Bw, int C, int NL, int UR, int PW,
+                          int FG, int R, void* scratch,
+                          long long scratch_bytes, long long* acc,
+                          long long* cnt_acc, cudaStream_t stream) {
   static int smem_count = 0, smem_hist = 0, occ_blocks = 0;
   static size_t occ_smem = 0;
   if (UR < 128 || UR % 128 || PW < 1 || PW > 32 || FG < 1 ||
-      FG > Cells::kMaxFG || R < 1 ||
-      scratch_bytes < part_scratch<Cells>(n, F, C, NL, UR))
+      FG > Cells::kMaxFG || R < 1 || Bw < 1 || Bw > B ||
+      scratch_bytes < part_scratch<Cells, T>(n, F, C, NL, UR))
     return cudaErrorInvalidValue;
   const int U = (n + UR - 1) / UR;
   const int Fp = (F + 15) / 16 * 16, QS = q_stride<Cells>(C);
@@ -613,8 +672,9 @@ cudaError_t run_partition(const void* binned_fm, const void* slot,
   const long long ints = (long long)NL * U + NL + 2 * (NL + 1);
   // rows_p and q_p start on 256-byte boundaries, so each packed row (and
   // each row's values, Fp and QS * sizeof(Q) bytes) fills whole sectors
-  uint8_t* rows_p = (uint8_t*)scratch + (ints * 4 + 255) / 256 * 256;
-  void* q_p = rows_p + ((long long)n * Fp + 255) / 256 * 256;
+  uint8_t* rows_b = (uint8_t*)scratch + (ints * 4 + 255) / 256 * 256;
+  T* rows_p = (T*)rows_b;
+  void* q_p = rows_b + ((long long)n * Fp * sizeof(T) + 255) / 256 * 256;
 
   const size_t part_smem = sizeof(int) * (size_t)PW * NL;
   cudaError_t err = ensure_smem(slot_count_kernel, part_smem, &smem_count);
@@ -623,91 +683,128 @@ cudaError_t run_partition(const void* binned_fm, const void* slot,
       (const int*)slot, n, NL, U, UR, cnt);
   slot_scan_kernel<<<NL, kHistThreads, 0, stream>>>(cnt, U, tot);
   slot_plan_kernel<<<1, kHistThreads, 0, stream>>>(tot, NL, R, plan);
-  decltype(&launch_scatter<1, Cells>) const scatter[kMaxC] = {
-      launch_scatter<1, Cells>, launch_scatter<2, Cells>,
-      launch_scatter<3, Cells>, launch_scatter<4, Cells>};
+  decltype(&launch_scatter<1, Cells, T>) const scatter[kMaxC] = {
+      launch_scatter<1, Cells, T>, launch_scatter<2, Cells, T>,
+      launch_scatter<3, Cells, T>, launch_scatter<4, Cells, T>};
   err = scatter[C - 1](binned_fm, slot, gh, param, n, F, Fp, NL, U, UR, PW,
                        part_smem, cnt, plan, rows_p, q_p, stream);
   if (err != cudaSuccess) return err;
 
-  const size_t hist_smem = 4 * Cells::kWords * ((size_t)FG * B * C + 1);
-  err = ensure_smem(wave_part_hist_kernel<Cells>, hist_smem, &smem_hist);
+  const size_t hist_smem = 4 * Cells::kWords * ((size_t)FG * Bw * C + 1);
+  err = ensure_smem(wave_part_hist_kernel<Cells, T>, hist_smem, &smem_hist);
   if (err == cudaSuccess)
-    err = resident_blocks(wave_part_hist_kernel<Cells>, hist_smem, &occ_smem,
-                          &occ_blocks);
+    err = resident_blocks(wave_part_hist_kernel<Cells, T>, hist_smem,
+                          &occ_smem, &occ_blocks);
   if (err != cudaSuccess) return err;
-  const long long G = (F + FG - 1) / FG;
-  const long long max_items = ((n + R - 1) / R + (long long)NL) * G;
+  const long long GW = (long long)((F + FG - 1) / FG) * ((B + Bw - 1) / Bw);
+  const long long max_items = ((n + R - 1) / R + (long long)NL) * GW;
   const int grid = (int)std::max(1LL, std::min(
       max_items, (long long)std::max(occ_blocks, 1) * sm_count()));
-  wave_part_hist_kernel<Cells><<<grid, kHistThreads, hist_smem, stream>>>(
-      rows_p, (const typename Cells::Q*)q_p, plan, NL, F, Fp, B, C, QS, FG,
-      R, acc, cnt_acc);
+  wave_part_hist_kernel<Cells, T><<<grid, kHistThreads, hist_smem, stream>>>(
+      rows_p, (const typename Cells::Q*)q_p, plan, NL, F, Fp, B, Bw, C, QS,
+      FG, R, acc, cnt_acc);
   return cudaGetLastError();
 }
 
 // The streaming kernel into zeroed acc and cnt_acc (slots [0, S)): one
 // wave of two blocks an SM (the launch bounds and a tile of at most half
-// an SM), each feature group cut into row chunks of a multiple of 128.
-template <int kC, typename Cells>
+// an SM), each feature group's bin window cut into row chunks of a
+// multiple of 128.
+template <int kC, typename Cells, typename T>
 cudaError_t launch_few(const void* binned_fm, const void* slot,
                        const void* gh, const void* param, int n, int F,
-                       int B, int S, int FG, long long* acc,
+                       int B, int Bw, int S, int FG, long long* acc,
                        long long* cnt_acc, cudaStream_t stream) {
   static int smem_set = 0;
-  const size_t smem = 4 * Cells::kWords * ((size_t)S * FG * B * kC + S);
-  cudaError_t err = ensure_smem(wave_few_kernel<kC, Cells>, smem, &smem_set);
+  const size_t smem = 4 * Cells::kWords * ((size_t)S * FG * Bw * kC + S);
+  cudaError_t err = ensure_smem(wave_few_kernel<kC, Cells, T>, smem,
+                                &smem_set);
   if (err != cudaSuccess) return err;
-  const long long G = (F + FG - 1) / FG;
-  long long chunks = (2LL * sm_count() + G - 1) / G;  // two blocks an SM
+  const long long GW = (long long)((F + FG - 1) / FG) * ((B + Bw - 1) / Bw);
+  long long chunks = (2LL * sm_count() + GW - 1) / GW;  // two blocks an SM
   chunks = std::max(1LL, std::min(chunks, (n + 1023LL) / 1024));
   const long long rows = ((n + chunks - 1) / chunks + 127) / 128 * 128;
   chunks = (n + rows - 1) / rows;
-  wave_few_kernel<kC, Cells><<<dim3((unsigned)chunks, (unsigned)G),
-                               kFewThreads, smem, stream>>>(
-      (const uint8_t*)binned_fm, (const int*)slot, (const float*)gh, param,
-      n, F, B, S, FG, (int)rows, acc, cnt_acc);
+  wave_few_kernel<kC, Cells, T><<<dim3((unsigned)chunks, (unsigned)GW),
+                                  kFewThreads, smem, stream>>>(
+      (const T*)binned_fm, (const int*)slot, (const float*)gh, param, n, F,
+      B, Bw, S, FG, (int)rows, acc, cnt_acc);
   return cudaGetLastError();
 }
 
-template <typename Cells>
+template <typename Cells, typename T>
 cudaError_t run_few(const void* binned_fm, const void* slot, const void* gh,
-                    const void* param, int n, int F, int B, int C, int S,
-                    int FG, long long* acc, long long* cnt_acc,
+                    const void* param, int n, int F, int B, int Bw, int C,
+                    int S, int FG, long long* acc, long long* cnt_acc,
                     cudaStream_t stream) {
-  if (FG < 1 || FG > F || S < 1) return cudaErrorInvalidValue;
-  decltype(&launch_few<1, Cells>) const few[kMaxC] = {
-      launch_few<1, Cells>, launch_few<2, Cells>, launch_few<3, Cells>,
-      launch_few<4, Cells>};
-  return few[C - 1](binned_fm, slot, gh, param, n, F, B, S, FG, acc, cnt_acc,
-                    stream);
+  if (FG < 1 || FG > F || S < 1 || Bw < 1 || Bw > B)
+    return cudaErrorInvalidValue;
+  decltype(&launch_few<1, Cells, T>) const few[kMaxC] = {
+      launch_few<1, Cells, T>, launch_few<2, Cells, T>,
+      launch_few<3, Cells, T>, launch_few<4, Cells, T>};
+  return few[C - 1](binned_fm, slot, gh, param, n, F, B, Bw, S, FG, acc,
+                    cnt_acc, stream);
 }
 
-bool bad_shape(int n, int F, int B, int C, int NL) {
-  return C < 1 || C > kMaxC || n < 1 || n % 4 || F < 1 || B < 1 || NL < 1;
+bool bad_shape(int n, int F, int B, int C, int NL, int code_bytes) {
+  return C < 1 || C > kMaxC || n < 1 || n % 4 || F < 1 || B < 1 ||
+         B > 65536 || NL < 1 || (code_bytes != 1 && code_bytes != 2);
+}
+
+// The pipelines on the caller's code type (1: uint8_t, 2: uint16_t).
+template <typename Cells>
+cudaError_t run_partition_codes(int code_bytes, const void* binned_fm,
+                                const void* slot, const void* gh,
+                                const void* param, int n, int F, int B,
+                                int Bw, int C, int NL, int UR, int PW, int FG,
+                                int R, void* scratch, long long scratch_bytes,
+                                long long* acc, long long* cnt_acc,
+                                cudaStream_t stream) {
+  return code_bytes == 2
+             ? run_partition<Cells, uint16_t>(
+                   binned_fm, slot, gh, param, n, F, B, Bw, C, NL, UR, PW,
+                   FG, R, scratch, scratch_bytes, acc, cnt_acc, stream)
+             : run_partition<Cells, uint8_t>(
+                   binned_fm, slot, gh, param, n, F, B, Bw, C, NL, UR, PW,
+                   FG, R, scratch, scratch_bytes, acc, cnt_acc, stream);
+}
+
+template <typename Cells>
+cudaError_t run_few_codes(int code_bytes, const void* binned_fm,
+                          const void* slot, const void* gh, const void* param,
+                          int n, int F, int B, int Bw, int C, int S, int FG,
+                          long long* acc, long long* cnt_acc,
+                          cudaStream_t stream) {
+  return code_bytes == 2
+             ? run_few<Cells, uint16_t>(binned_fm, slot, gh, param, n, F, B,
+                                        Bw, C, S, FG, acc, cnt_acc, stream)
+             : run_few<Cells, uint8_t>(binned_fm, slot, gh, param, n, F, B,
+                                       Bw, C, S, FG, acc, cnt_acc, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1.  exps: int32 [C+1] (device); acc: int64 [NL*F*B*C]; cnt_acc: int64
-// [NL]; UR, PW, FG (<= 8), R and scratch (at least part_scratch bytes)
+// K1.  binned_fm: [F, n] codes of code_bytes bytes; exps: int32 [C+1]
+// (device); acc: int64 [NL*F*B*C]; cnt_acc: int64 [NL]; Bw bins per
+// window, UR, PW, FG (<= 8), R and scratch (at least part_scratch bytes)
 // from the wrapper's planner, wave_part_plan.  With hist == NULL the
 // int64 sums are the result.
 int wave_hist_f32(const void* binned_fm, const void* slot, const void* gh,
                   const void* exps, int n, int F, int B, int C, int NL,
-                  int UR, int PW, int FG, int R, void* scratch,
-                  long long scratch_bytes, void* acc, void* cnt_acc,
-                  void* hist, void* counts, void* stream_ptr) {
+                  int code_bytes, int Bw, int UR, int PW, int FG, int R,
+                  void* scratch, long long scratch_bytes, void* acc,
+                  void* cnt_acc, void* hist, void* counts, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (bad_shape(n, F, B, C, NL)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n, F, B, C, NL, code_bytes)) return (int)cudaErrorInvalidValue;
   const long long acc_len = (long long)NL * F * B * C;
   cudaMemsetAsync(acc, 0, sizeof(long long) * acc_len, stream);
   cudaMemsetAsync(cnt_acc, 0, sizeof(long long) * NL, stream);
-  cudaError_t err = run_partition<FixedCells>(
-      binned_fm, slot, gh, exps, n, F, B, C, NL, UR, PW, FG, R, scratch,
-      scratch_bytes, (long long*)acc, (long long*)cnt_acc, stream);
+  cudaError_t err = run_partition_codes<FixedCells>(
+      code_bytes, binned_fm, slot, gh, exps, n, F, B, Bw, C, NL, UR, PW, FG,
+      R, scratch, scratch_bytes, (long long*)acc, (long long*)cnt_acc,
+      stream);
   if (err != cudaSuccess || hist == nullptr) return (int)err;
   finish_fixed_kernel<<<grid_for(acc_len + NL), kThreads, 0, stream>>>(
       (const long long*)acc, (const long long*)cnt_acc, (const int*)exps, F,
@@ -716,29 +813,29 @@ int wave_hist_f32(const void* binned_fm, const void* slot, const void* gh,
 }
 
 // K2.  scales: float32 [C] (device); acc: int64 [NL*F*B*C]; cnt_acc: int64
-// [NL].  few != 0 takes the streaming kernel (FG features per block, the
-// wrapper's wave_few_plan with 4-byte cells; UR, PW, R and scratch unused),
-// else the slot-partitioned pipeline (FG <= 16, the wrapper's
-// wave_part_plan with 4-byte cells).  With hist == NULL the int64 sums are
-// the result.
+// [NL].  few != 0 takes the streaming kernel (FG features and Bw bins per
+// block, the wrapper's wave_few_plan with 4-byte cells; UR, PW, R and
+// scratch unused), else the slot-partitioned pipeline (FG <= 16, the
+// wrapper's wave_part_plan with 4-byte cells).  With hist == NULL the
+// int64 sums are the result.
 int wave_hist_i32(const void* binned_fm, const void* slot, const void* gh,
                   const void* scales, int n, int F, int B, int C, int NL,
-                  int few, int UR, int PW, int FG, int R, void* scratch,
-                  long long scratch_bytes, void* acc, void* cnt_acc,
-                  void* hist, void* counts, void* stream_ptr) {
+                  int code_bytes, int Bw, int few, int UR, int PW, int FG,
+                  int R, void* scratch, long long scratch_bytes, void* acc,
+                  void* cnt_acc, void* hist, void* counts, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (bad_shape(n, F, B, C, NL)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(n, F, B, C, NL, code_bytes)) return (int)cudaErrorInvalidValue;
   const long long acc_len = (long long)NL * F * B * C;
   cudaMemsetAsync(acc, 0, sizeof(long long) * acc_len, stream);
   cudaMemsetAsync(cnt_acc, 0, sizeof(long long) * NL, stream);
   cudaError_t err =
-      few ? run_few<IntCells>(binned_fm, slot, gh, scales, n, F, B, C, NL,
-                              FG, (long long*)acc, (long long*)cnt_acc,
-                              stream)
-          : run_partition<IntCells>(binned_fm, slot, gh, scales, n, F, B, C,
-                                    NL, UR, PW, FG, R, scratch,
-                                    scratch_bytes, (long long*)acc,
-                                    (long long*)cnt_acc, stream);
+      few ? run_few_codes<IntCells>(code_bytes, binned_fm, slot, gh, scales,
+                                    n, F, B, Bw, C, NL, FG, (long long*)acc,
+                                    (long long*)cnt_acc, stream)
+          : run_partition_codes<IntCells>(
+                code_bytes, binned_fm, slot, gh, scales, n, F, B, Bw, C, NL,
+                UR, PW, FG, R, scratch, scratch_bytes, (long long*)acc,
+                (long long*)cnt_acc, stream);
   if (err != cudaSuccess || hist == nullptr) return (int)err;
   finish_quant_kernel<<<grid_for(acc_len + NL), kThreads, 0, stream>>>(
       (const long long*)acc, (const long long*)cnt_acc, (const float*)scales,
@@ -747,22 +844,23 @@ int wave_hist_i32(const void* binned_fm, const void* slot, const void* gh,
 }
 
 // K3.  Feature-major bins; acc: int64 [out_slots*F*B*C], cnt_acc: int64
-// [out_slots]; FG features per block (the wrapper's wave_few_plan).  Slots
-// past S stay 0 (the zero padding).  With hist == NULL the int64 sums are
-// the result.
+// [out_slots]; FG features and Bw bins per block (the wrapper's
+// wave_few_plan).  Slots past S stay 0 (the zero padding).  With hist ==
+// NULL the int64 sums are the result.
 int wave_hist_hl_f32(const void* binned_fm, const void* slot, const void* gh,
                      const void* exps, int n, int F, int B, int C, int S,
-                     int out_slots, int FG, void* acc, void* cnt_acc,
-                     void* hist, void* counts, void* stream_ptr) {
+                     int code_bytes, int Bw, int out_slots, int FG, void* acc,
+                     void* cnt_acc, void* hist, void* counts,
+                     void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (bad_shape(n, F, B, C, S) || out_slots < S)
+  if (bad_shape(n, F, B, C, S, code_bytes) || out_slots < S)
     return (int)cudaErrorInvalidValue;
   const long long out_len = (long long)out_slots * F * B * C;
   cudaMemsetAsync(acc, 0, sizeof(long long) * out_len, stream);
   cudaMemsetAsync(cnt_acc, 0, sizeof(long long) * out_slots, stream);
-  cudaError_t err = run_few<FixedCells>(binned_fm, slot, gh, exps, n, F, B,
-                                        C, S, FG, (long long*)acc,
-                                        (long long*)cnt_acc, stream);
+  cudaError_t err = run_few_codes<FixedCells>(
+      code_bytes, binned_fm, slot, gh, exps, n, F, B, Bw, C, S, FG,
+      (long long*)acc, (long long*)cnt_acc, stream);
   if (err != cudaSuccess || hist == nullptr) return (int)err;
   finish_fixed_kernel<<<grid_for(out_len + out_slots), kThreads, 0, stream>>>(
       (const long long*)acc, (const long long*)cnt_acc, (const int*)exps, F,

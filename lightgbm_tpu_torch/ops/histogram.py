@@ -45,12 +45,24 @@ that hold every computed slot of a feature group.  The wave kernels read
 the feature-major bins only; `build_histogram_wave_hl` keeps the JAX
 signature's row-major `binned_rm` (its plain version reads it), and only
 K4 reads a row-major copy.
+
+Bin codes.  The device holds `uint8` codes while every column has at most
+256 bins, and 16-bit codes above that, up to `MAX_CODE_BINS` bins (the
+JAX package keeps int32 codes there).  Torch's `uint16` has few CPU ops,
+so 16-bit codes are stored as `int16` holding the code's bits: the
+kernels read them as `uint16_t` (each is templated on the code type) and
+the plain versions as `codes_to_int`, which masks the sign extension
+away.  Where one feature's bins do not fit a block's shared memory the
+planners cut the bin axis into windows (`bin_window`): a block covers one
+window of one feature group and skips codes outside it, the redesign of
+the JAX kernel's `Bg` grid axis.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _kernels
@@ -63,6 +75,47 @@ SM_SMEM = 233472
 BLOCK_RESERVED_SMEM = 1024
 FEW_THREADS = 512    # threads of a streaming block (kFewThreads)
 ROW_TILE = 512
+
+
+# --------------------------------------------------------------- bin codes
+MAX_CODE_BINS = 1 << 16    # bins a 16-bit code holds
+CODE_DTYPES = (torch.uint8, torch.int16)
+
+
+def code_dtype(num_bin: int) -> torch.dtype:
+    """The device code type for columns of at most `num_bin` bins: uint8
+    up to 256, else int16 storage of uint16 codes.  Above MAX_CODE_BINS
+    no 16-bit code holds the bin."""
+    if num_bin <= 256:
+        return torch.uint8
+    if num_bin <= MAX_CODE_BINS:
+        return torch.int16
+    raise NotImplementedError(
+        f"{num_bin} bins in one column is more than a 16-bit bin code "
+        f"holds ({MAX_CODE_BINS}): not ported yet (ROADMAP Queue 1 item "
+        "18)")
+
+
+def codes_to_device(codes, device, num_bin: int = None) -> torch.Tensor:
+    """Host bin codes (any integer numpy array) -> the device code type
+    of `num_bin` bins (default: the codes' largest + 1)."""
+    codes = np.asarray(codes)
+    if num_bin is None:
+        num_bin = int(codes.max(initial=0)) + 1
+    dt = code_dtype(num_bin)
+    if dt == torch.uint8:
+        host = np.ascontiguousarray(codes, np.uint8)
+    else:
+        host = np.ascontiguousarray(codes.astype(np.uint16).view(np.int16))
+    return torch.from_numpy(host).to(device)
+
+
+def codes_to_int(codes: torch.Tensor,
+                 dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """Device bin codes as integers: uint8 as they are, int16 storage as
+    its uint16 value (the sign extension masked off)."""
+    out = codes.to(dtype)
+    return out & 0xFFFF if codes.dtype == torch.int16 else out
 
 
 def hl_split_of(max_bin: int, num_slots: int, C: int):
@@ -87,11 +140,13 @@ def wave_hl_profitable(max_bin: int, num_slots: int, C: int = 2) -> bool:
 
 
 def wave_hl_fits(max_bin: int, num_slots: int, C: int = 2) -> bool:
-    """Shared-memory rule of K3 (replaces the TPU VMEM rule `_hl_fits` of
-    learner/wave.py): every computed slot's histograms of one feature,
-    plus the slot counts, fit the streaming kernel's tile budget
-    (`wave_few_plan`).  At max_bin <= 256 it holds for every wave that
-    `wave_hl_profitable` marks (at most 11 slots)."""
+    """The wave engine's rule for K3 (replaces the TPU VMEM rule
+    `_hl_fits` of learner/wave.py): every computed slot's histograms of
+    one whole feature, plus the slot counts, fit the streaming kernel's
+    tile budget in one bin window (`wave_few_plan`).  At max_bin <= 256
+    it holds for every wave that `wave_hl_profitable` marks (at most 11
+    slots); at 1023 bins for up to 7 slots, so the profitable waves of
+    8 slots and more take K1 (a plan: K1's launch count shows them)."""
     return num_slots * (max_bin * C * 8 + 8) <= FEW_TILE_BYTES
 
 
@@ -119,20 +174,36 @@ FEW_TILE_BYTES = SM_SMEM // 2 - BLOCK_RESERVED_SMEM
 K2_FEW_SLOTS = 8
 
 
+def bin_window(max_bin: int, C: int, cell_bytes: int = 8,
+               budget: int = SMEM_LIMIT, slots: int = 1) -> int:
+    """Bins of one window of a K1/K2/K4 tile (`slots` = 1) or of a
+    streaming tile of `slots` slots: max_bin when one feature's
+    (slots x B x C) cells and the count cells fit `budget`, else the
+    fewest equal windows whose cells fit (a block covers one window and
+    skips the codes outside it)."""
+    room = budget - cell_bytes * slots
+    per_bin = slots * C * cell_bytes
+    if room < per_bin:
+        raise ValueError(f"{slots} slots with {C} channels exceed the "
+                         "kernel's shared memory even one bin at a time")
+    if max_bin * per_bin <= room:
+        return max_bin
+    windows = -(-max_bin // (room // per_bin))
+    return -(-max_bin // windows)
+
+
 def tile_feature_group(num_features: int, max_bin: int, C: int,
                        cell_bytes: int = 8) -> int:
     """Features per K1/K2 work item and per K4 block: the fewest equal
     groups of at most TILE_FEATURES (twice as many with K2's 4-byte
     cells) whose (FG x B x C) tile and count cell fit TILE_BYTES (one
-    feature per group, up to SMEM_LIMIT, where not even one fits)."""
+    feature per group, up to SMEM_LIMIT, where not even one fits; above
+    that one feature's bins are cut into windows, `bin_window`)."""
     per = max_bin * C * cell_bytes
     fg_max = min(TILE_FEATURES * 8 // cell_bytes,
                  (TILE_BYTES - cell_bytes) // per)
     if fg_max < 1:
-        fg_max = 1 if per + cell_bytes <= SMEM_LIMIT else 0
-    if fg_max < 1:
-        raise ValueError(f"max_bin={max_bin} with {C} channels does not fit "
-                         "the kernel's shared-memory tile")
+        return 1
     groups = -(-num_features // fg_max)
     return -(-num_features // groups)
 
@@ -141,9 +212,10 @@ class WavePlan(NamedTuple):
     """The partition's launch plan (K1; K2 at many slots): PW warps per
     partition block (each keeps NL int32 counters in shared memory); FG
     features and at most R rows per work item; U warp units of UR rows
-    in the partition; rows packed at Fp bytes and their values at QS
+    in the partition; rows packed at Fp codes and their values at QS
     cells per row; bytes of scratch, of a histogram tile and of a
-    partition block's counters."""
+    partition block's counters; Bw bins per window (max_bin but for
+    the widest features)."""
     PW: int
     FG: int
     R: int
@@ -154,36 +226,42 @@ class WavePlan(NamedTuple):
     scratch_bytes: int
     tile_bytes: int
     part_smem: int
+    Bw: int
 
 
 def wave_part_plan(n: int, num_features: int, max_bin: int, C: int,
-                   num_slots: int, cell_bytes: int = 8) -> WavePlan:
+                   num_slots: int, cell_bytes: int = 8,
+                   code_bytes: int = 1) -> WavePlan:
     """The partition's plan, for K1's 8-byte fixed-point cells or K2's
-    4-byte ints (`wave_hist.cu` run_partition and part_scratch use the
-    same layout)."""
+    4-byte ints, on codes of `code_bytes` bytes (`wave_hist.cu`
+    run_partition and part_scratch use the same layout)."""
     FG = tile_feature_group(num_features, max_bin, C, cell_bytes)
+    Bw = bin_window(max_bin, C, cell_bytes)
     R = min(4096, max(256, n // 1024))
     U = -(-n // UNIT_ROWS)
     Fp = -(-num_features // 16) * 16
     QS = -(-(C + 1) * cell_bytes // 16) * 16 // cell_bytes
     ints = num_slots * U + num_slots + 2 * (num_slots + 1)
-    scratch = (-(-ints * 4 // 256) * 256 + -(-n * Fp // 256) * 256
+    scratch = (-(-ints * 4 // 256) * 256
+               + -(-n * Fp * code_bytes // 256) * 256
                + n * QS * cell_bytes)
     PW = min(PART_WARPS, SMEM_LIMIT // (4 * num_slots))
     if PW < 1:
         raise ValueError(f"{num_slots} slots exceed the partition's shared "
                          "memory")
     return WavePlan(PW, FG, R, UNIT_ROWS, U, Fp, QS, scratch,
-                    cell_bytes * (FG * max_bin * C + 1), 4 * PW * num_slots)
+                    cell_bytes * (FG * Bw * C + 1), 4 * PW * num_slots, Bw)
 
 
 class FewPlan(NamedTuple):
     """The streaming kernel's plan (K3; K2 at few slots): FG features
-    per block, its tile's bytes, and the blocks one SM holds by shared
-    memory and threads."""
+    per block, its tile's bytes, the blocks one SM holds by shared
+    memory and threads, and Bw bins per window (max_bin unless one
+    feature's bins of every slot exceed the budget)."""
     FG: int
     tile_bytes: int
     blocks_per_sm: int
+    Bw: int
 
 
 def wave_few_plan(num_features: int, max_bin: int, C: int, num_slots: int,
@@ -191,25 +269,27 @@ def wave_few_plan(num_features: int, max_bin: int, C: int, num_slots: int,
                   tile_budget: int = FEW_TILE_BYTES) -> FewPlan:
     """Feature groups of the streaming kernel: the fewest equal groups
     whose tile (num_slots x FG x B x C cells plus num_slots counts) fits
-    `tile_budget` (`wave_hist.cu` launch_few sizes it the same way)."""
-    per = num_slots * max_bin * C * cell_bytes
-    fg_max = min(num_features, (tile_budget - cell_bytes * num_slots) // per)
-    if fg_max < 1:
-        raise ValueError(f"{num_slots} slots at max_bin={max_bin} exceed the "
-                         "few-slot kernel's shared memory")
+    `tile_budget`, one feature cut into bin windows where not even one
+    fits (`wave_hist.cu` launch_few sizes it the same way)."""
+    Bw = bin_window(max_bin, C, cell_bytes, tile_budget, num_slots)
+    per = num_slots * Bw * C * cell_bytes
+    fg_max = max(1, min(num_features,
+                        (tile_budget - cell_bytes * num_slots) // per))
     FG = -(-num_features // -(-num_features // fg_max))
-    tile = cell_bytes * num_slots * (FG * max_bin * C + 1)
+    tile = cell_bytes * num_slots * (FG * Bw * C + 1)
     blocks = min(SM_SMEM // (tile + BLOCK_RESERVED_SMEM),
                  2048 // FEW_THREADS)
-    return FewPlan(FG, tile, blocks)
+    return FewPlan(FG, tile, blocks, Bw)
 
 
 def rows_plan(S: int, num_features: int, max_bin: int, C: int):
     """K4's launch plan (FG, rows_per_block): feature groups from the
     tile budget, and row chunks of at least K4_MIN_ROWS rows (a multiple
-    of 512) sized so that about K4_BLOCKS blocks cover a large segment."""
+    of 512) sized so that about K4_BLOCKS blocks cover a large segment.
+    Its bin windows are `bin_window(max_bin, C)`."""
     FG = tile_feature_group(num_features, max_bin, C)
-    groups = -(-num_features // FG)
+    groups = (-(-num_features // FG)
+              * -(-max_bin // bin_window(max_bin, C)))
     per = -(-S // max(1, K4_BLOCKS // groups))
     R = max(K4_MIN_ROWS, -(-per // 512) * 512)
     return FG, R
@@ -263,10 +343,15 @@ def _quant_ints(gh: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return torch.cat([k, (gh[:, C:] > 0).to(torch.int64)], dim=1)
 
 
+def _check_codes(name: str, codes: torch.Tensor) -> None:
+    if codes.dtype not in CODE_DTYPES:
+        raise TypeError(f"{name} must be uint8 or int16 (16-bit) codes, got "
+                        f"{codes.dtype}")
+
+
 def _check_wave_inputs(binned: torch.Tensor, slot: torch.Tensor,
                        gh: torch.Tensor, max_bin: int):
-    if binned.dtype != torch.uint8:
-        raise TypeError(f"binned must be uint8, got {binned.dtype}")
+    _check_codes("binned", binned)
     if slot.dtype != torch.int32:
         raise TypeError(f"slot must be int32, got {slot.dtype}")
     if gh.dtype != torch.float32:
@@ -289,8 +374,9 @@ def _check_wave_inputs(binned: torch.Tensor, slot: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if gh.shape[1] - 1 > 4:
         raise ValueError("at most 4 accumulated gh channels")
-    if max_bin < 1:
-        raise ValueError(f"max_bin must be positive, got {max_bin}")
+    if not 1 <= max_bin <= MAX_CODE_BINS:
+        raise ValueError(f"max_bin must be in [1, {MAX_CODE_BINS}], got "
+                         f"{max_bin}")
 
 
 def _check_exps(exps: torch.Tensor, k: int, device) -> None:
@@ -316,11 +402,14 @@ def _check_cuda(dev) -> None:
 
 
 def _check_aligned(binned_fm, slot, gh) -> None:
-    """The wave kernels load 4 rows of one feature's bins as one 4-byte
-    word, and 4 rows' slots and gh as 16-byte vectors."""
-    if binned_fm.data_ptr() % 4 or slot.data_ptr() % 16 or gh.data_ptr() % 16:
-        raise ValueError("the wave kernels need binned_fm 4-byte aligned "
-                         "and slot and gh 16-byte aligned")
+    """The wave kernels load 4 rows of one feature's bins as one word (4
+    bytes of uint8 codes, 8 of 16-bit ones), and 4 rows' slots and gh as
+    16-byte vectors."""
+    word = 4 * binned_fm.element_size()
+    if (binned_fm.data_ptr() % word or slot.data_ptr() % 16
+            or gh.data_ptr() % 16):
+        raise ValueError(f"the wave kernels need binned_fm {word}-byte "
+                         "aligned and slot and gh 16-byte aligned")
 
 
 def _ptr(t):
@@ -342,7 +431,7 @@ def _wave_sums_plain(binned_fm: torch.Tensor, slot: torch.Tensor,
     hist = torch.zeros((F, NL * B + 1, C), dtype=torch.int64,
                        device=q.device)
     for f in range(F):
-        b = binned_fm[f].to(torch.int64)
+        b = codes_to_int(binned_fm[f])
         ids = torch.where(in_slot & (b < B), s * B + b, dump)
         hist[f].index_add_(0, ids, q[:, :C])
     acc = hist[:, :NL * B].reshape(F, NL, B, C).permute(1, 0, 2, 3)
@@ -422,7 +511,7 @@ def build_histogram_rows_plain(rows: torch.Tensor, gh: torch.Tensor,
     acc = torch.zeros((F * B + 1, C), dtype=torch.int64, device=gh.device)
     dump = F * B
     for f in range(F):
-        b = rows[:, f].to(torch.int64)
+        b = codes_to_int(rows[:, f])
         acc.index_add_(0, torch.where(b < B, f * B + b, dump), q)
     acc = acc[:F * B].reshape(F, B, C)
     return acc if fixed else from_fixed(acc, fixed_unit(e))
@@ -445,7 +534,8 @@ def _launch_wave(binned_fm, slot, gh, exps, max_bin, num_slots, finish):
     _check_aligned(binned_fm, slot, gh)
     F, n = binned_fm.shape
     C = gh.shape[1] - 1
-    plan = wave_part_plan(n, F, max_bin, C, num_slots)
+    cb = binned_fm.element_size()
+    plan = wave_part_plan(n, F, max_bin, C, num_slots, code_bytes=cb)
     dev = gh.device
     acc = torch.empty((num_slots, F, max_bin, C), dtype=torch.int64,
                       device=dev)
@@ -455,7 +545,8 @@ def _launch_wave(binned_fm, slot, gh, exps, max_bin, num_slots, finish):
     err = _launch(
         dev, _kernels.lib().wave_hist_f32, binned_fm.data_ptr(),
         slot.data_ptr(), gh.data_ptr(), exps.data_ptr(), n, F, max_bin, C,
-        num_slots, plan.UR, plan.PW, plan.FG, plan.R, scratch.data_ptr(),
+        num_slots, cb, plan.Bw, plan.UR, plan.PW, plan.FG, plan.R,
+        scratch.data_ptr(),
         plan.scratch_bytes, acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist),
         _ptr(counts))
     _kernels.check(err, "wave_hist_f32")
@@ -484,13 +575,16 @@ def _launch_wave_int(binned_fm, slot, gh, scales, max_bin, num_slots,
     if few is None:
         few = num_slots <= K2_FEW_SLOTS
     dev = gh.device
+    cb = binned_fm.element_size()
     if few:
-        FG = wave_few_plan(F, max_bin, C, num_slots, 4, tile_budget).FG
+        FG, _, _, Bw = wave_few_plan(F, max_bin, C, num_slots, 4,
+                                     tile_budget)
         UR = PW = R = nbytes = 0
         scratch = None
     else:
-        plan = wave_part_plan(n, F, max_bin, C, num_slots, cell_bytes=4)
-        FG, UR, PW, R = plan.FG, plan.UR, plan.PW, plan.R
+        plan = wave_part_plan(n, F, max_bin, C, num_slots, cell_bytes=4,
+                              code_bytes=cb)
+        FG, UR, PW, R, Bw = plan.FG, plan.UR, plan.PW, plan.R, plan.Bw
         nbytes = plan.scratch_bytes
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     acc = torch.empty((num_slots, F, max_bin, C), dtype=torch.int64,
@@ -500,7 +594,7 @@ def _launch_wave_int(binned_fm, slot, gh, scales, max_bin, num_slots,
     err = _launch(
         dev, _kernels.lib().wave_hist_i32, binned_fm.data_ptr(),
         slot.data_ptr(), gh.data_ptr(), scales.data_ptr(), n, F, max_bin, C,
-        num_slots, int(few), UR, PW, FG, R, _ptr(scratch), nbytes,
+        num_slots, cb, Bw, int(few), UR, PW, FG, R, _ptr(scratch), nbytes,
         acc.data_ptr(), cnt_acc.data_ptr(), _ptr(hist), _ptr(counts))
     _kernels.check(err, "wave_hist_i32")
     build_histogram_wave_int.launches += 1
@@ -514,7 +608,7 @@ def _launch_wave_hl(binned_fm, slot, gh, exps, max_bin, num_slots,
     _check_aligned(binned_fm, slot, gh)
     F, n = binned_fm.shape
     C = gh.shape[1] - 1
-    FG = wave_few_plan(F, max_bin, C, num_slots, 8, tile_budget).FG
+    FG, _, _, Bw = wave_few_plan(F, max_bin, C, num_slots, 8, tile_budget)
     dev = gh.device
     acc = torch.empty((out_slots, F, max_bin, C), dtype=torch.int64,
                       device=dev)
@@ -523,7 +617,8 @@ def _launch_wave_hl(binned_fm, slot, gh, exps, max_bin, num_slots,
     err = _launch(
         dev, _kernels.lib().wave_hist_hl_f32, binned_fm.data_ptr(),
         slot.data_ptr(), gh.data_ptr(), exps.data_ptr(), n, F, max_bin, C,
-        num_slots, out_slots, FG, acc.data_ptr(), cnt_acc.data_ptr(),
+        num_slots, binned_fm.element_size(), Bw, out_slots, FG,
+        acc.data_ptr(), cnt_acc.data_ptr(),
         _ptr(hist), _ptr(counts))
     _kernels.check(err, "wave_hist_hl_f32")
     build_histogram_wave_hl.launches += 1
@@ -535,6 +630,7 @@ def _launch_rows(rows, gh, mask, exps, max_bin, finish):
     S, F = rows.shape
     C = gh.shape[1]
     FG, R = rows_plan(S, F, max_bin, C)
+    Bw = bin_window(max_bin, C)
     dev = gh.device
     acc = torch.empty((F, max_bin, C), dtype=torch.int64, device=dev)
     hist = (torch.empty((F, max_bin, C), dtype=torch.float32, device=dev)
@@ -542,7 +638,7 @@ def _launch_rows(rows, gh, mask, exps, max_bin, finish):
     err = _launch(
         dev, _kernels.lib("rows_hist.cu").rows_hist_f32, rows.data_ptr(),
         gh.data_ptr(), mask.data_ptr(), exps.data_ptr(), S, F, max_bin, C,
-        FG, R, acc.data_ptr(), _ptr(hist))
+        rows.element_size(), Bw, FG, R, acc.data_ptr(), _ptr(hist))
     _kernels.check(err, "rows_hist_f32")
     build_histogram_rows_pallas.launches += 1
     return hist if finish else acc
@@ -557,7 +653,8 @@ def build_histogram_wave(binned_fm: torch.Tensor, slot: torch.Tensor,
     when `quant_scales` is given).
 
     Args:
-      binned_fm: [F, n] uint8 feature-major bin codes.
+      binned_fm: [F, n] feature-major bin codes, uint8 or int16 storage
+        of 16-bit codes (`code_dtype`).
       slot: [n] int32 leaf slot per row; slots outside [0, num_slots)
         are a sentinel that matches nothing.
       gh: [n, C+1] float32 accumulands (gradient, hessian, ...); the LAST
@@ -641,17 +738,17 @@ def _check_hl(binned_fm, binned_rm, slot, gh, max_bin, num_slots,
     if row_tile != ROW_TILE:
         raise ValueError(f"row_tile must be {ROW_TILE}")
     _check_wave_inputs(binned_fm, slot, gh, max_bin)
-    if (binned_rm.dtype != torch.uint8
+    if (binned_rm.dtype != binned_fm.dtype
             or binned_rm.shape != binned_fm.shape[::-1]
             or binned_rm.device != gh.device):
-        raise ValueError("binned_rm must be the uint8 transpose of binned_fm "
-                         "on the data's device")
+        raise ValueError("binned_rm must be the transpose of binned_fm, of "
+                         "its code type, on the data's device")
     if not 1 <= num_slots <= out_slots:
         raise ValueError(f"need 1 <= num_slots ({num_slots}) <= out_slots "
                          f"({out_slots})")
-    if not wave_hl_fits(max_bin, num_slots, gh.shape[1] - 1):
-        raise ValueError(f"{num_slots} slots at max_bin={max_bin} exceed "
-                         "the few-slot kernel's shared memory")
+    # the kernel windows the bin axis where a feature does not fit; the
+    # plan refuses only slot counts no window can hold
+    wave_few_plan(binned_fm.shape[0], max_bin, gh.shape[1] - 1, num_slots)
 
 
 def build_histogram_wave_hl(binned_fm: torch.Tensor, binned_rm: torch.Tensor,
@@ -701,8 +798,7 @@ def build_histogram_wave_hl_fixed(binned_fm: torch.Tensor,
 def _check_rows_inputs(rows, gh, mask, max_bin, row_tile):
     if row_tile != ROW_TILE:
         raise ValueError(f"row_tile must be {ROW_TILE}")
-    if rows.dtype != torch.uint8:
-        raise TypeError(f"rows must be uint8, got {rows.dtype}")
+    _check_codes("rows", rows)
     if gh.dtype != torch.float32 or mask.dtype != torch.float32:
         raise TypeError("gh and mask must be float32")
     if rows.dim() != 2 or gh.dim() != 2 or not 1 <= gh.shape[1] <= 4:
@@ -719,8 +815,9 @@ def _check_rows_inputs(rows, gh, mask, max_bin, row_tile):
     for name, t in (("rows", rows), ("gh", gh), ("mask", mask)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if max_bin < 1:
-        raise ValueError(f"max_bin must be positive, got {max_bin}")
+    if not 1 <= max_bin <= MAX_CODE_BINS:
+        raise ValueError(f"max_bin must be in [1, {MAX_CODE_BINS}], got "
+                         f"{max_bin}")
 
 
 def build_histogram_rows_pallas(rows: torch.Tensor, gh: torch.Tensor,
@@ -729,7 +826,8 @@ def build_histogram_rows_pallas(rows: torch.Tensor, gh: torch.Tensor,
     """Single-leaf histogram over row-major rows (K4).
 
     Args:
-      rows: [S, F] uint8 bin codes, S a multiple of row_tile.
+      rows: [S, F] bin codes (uint8, or int16 storage of 16-bit codes),
+        S a multiple of row_tile.
       gh: [S, C] float32 values.  mask: [S] float32 membership, folded
         into gh.  max_bin: B.
 
@@ -775,7 +873,7 @@ def build_histogram(binned: torch.Tensor, gh: torch.Tensor,
     F, n = binned.shape
     C = gh.shape[-1]
     vals = (gh * mask.to(gh.dtype)[:, None]).to(torch.float32)
-    ids = (binned.to(torch.int64)
+    ids = (codes_to_int(binned)
            + torch.arange(F, device=binned.device)[:, None] * max_bin)
     out = torch.zeros((F * max_bin, C), dtype=torch.float32,
                       device=binned.device)

@@ -34,10 +34,14 @@ Basic monotone constraints (feature_histogram.hpp:758 GetSplitGains
 USE_MC) clamp every candidate's outputs to the leaf's [cmin, cmax] once
 the tree has a constraint and score 0 the splits of a monotone feature
 that break its order; `monotone_penalty` scales monotone features' gains
-by the leaf's depth (monotone_constraints.hpp:357).  Path smoothing
-blends each output with its parent's (hpp:716).  CEGB subtracts
-tradeoff * (penalty_split * leaf rows + the coupled penalty of a feature
-no earlier split used) (cost_effective_gradient_boosting.hpp:79).
+by the leaf's depth (monotone_constraints.hpp:357).  The advanced mode
+(monotone_constraints.hpp:858 AdvancedLeafConstraints) passes per-child,
+per-threshold [L, F, B] bounds instead of the leaf's scalars.  Path
+smoothing blends each output with its parent's (hpp:716).  CEGB
+subtracts tradeoff * (penalty_split * leaf rows + the coupled penalty of
+a feature no earlier split used + the lazy penalties of the leaf's rows
+not yet fetched for the feature) (cost_effective_gradient_boosting.hpp:79
+DeltaGain, :139 CalculateOndemandCosts).
 """
 
 from __future__ import annotations
@@ -81,6 +85,11 @@ class SplitParams(NamedTuple):
     has_cegb: bool = False
     cegb_tradeoff: float = 1.0
     cegb_penalty_split: float = 0.0
+    # lazy per-(row, feature) acquisition penalty (ref:
+    # cost_effective_gradient_boosting.hpp:139 CalculateOndemandCosts):
+    # the scan receives each feature's cost summed over the leaf's rows
+    # not yet fetched
+    has_cegb_lazy: bool = False
     max_cat_threshold: int = 32
     cat_l2: float = 10.0
     cat_smooth: float = 10.0
@@ -314,7 +323,12 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
                     constraint_max: torch.Tensor = None,
                     mono_penalty: torch.Tensor = None,
                     cegb_coupled: torch.Tensor = None,
-                    cegb_used: torch.Tensor = None) -> SplitResult:
+                    cegb_used: torch.Tensor = None,
+                    constraint_min_left: torch.Tensor = None,
+                    constraint_max_left: torch.Tensor = None,
+                    constraint_min_right: torch.Tensor = None,
+                    constraint_max_right: torch.Tensor = None,
+                    cegb_lazy_cost: torch.Tensor = None) -> SplitResult:
     """Scan all (feature, threshold, direction) candidates of every leaf;
     return each leaf's best.
 
@@ -335,6 +349,10 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
         the leaves' [L] bounds and depth multipliers (has_monotone).
       cegb_coupled, cegb_used: [F] coupled penalties and the features an
         earlier split used (has_cegb).
+      constraint_{min,max}_{left,right}: [L, F, B] per-child bounds of a
+        split at each threshold (advanced monotone mode), or None.
+      cegb_lazy_cost: [L, F] lazy penalties summed over each leaf's rows
+        not yet fetched (has_cegb_lazy), or None.
     """
     L, F, B, _ = hist.shape
     dev = hist.device
@@ -376,6 +394,14 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
         mc = monotone.to(i32)[None, :, None]                     # [1,F,1]
         cmin = constraint_min.to(f32)[:, None, None]
         cmax = constraint_max.to(f32)[:, None, None]
+        adv = constraint_min_left is not None
+        # the advanced mode's per-child [L, F, B] bounds, else the leaf's
+        if adv:
+            cmin_l, cmax_l = constraint_min_left, constraint_max_left
+            cmin_r, cmax_r = constraint_min_right, constraint_max_right
+        else:
+            cmin_l = cmin_r = cmin
+            cmax_l = cmax_r = cmax
 
     def eval_candidates(left_g, left_h_raw, left_c, tau_ok):
         left_h = left_h_raw + K_EPSILON
@@ -394,9 +420,9 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
             # feature; a monotone feature's split that breaks its order
             # scores 0 (feature_histogram.hpp:758-797 USE_MC)
             lout = _clip(leaf_output(left_g, left_h, left_c.to(f32), po, p),
-                         cmin, cmax)
+                         cmin_l, cmax_l)
             rout = _clip(leaf_output(right_g, right_h, right_c.to(f32), po,
-                                     p), cmin, cmax)
+                                     p), cmin_r, cmax_r)
             bad = ((mc > 0) & (lout > rout)) | ((mc < 0) & (lout < rout))
             gain_mc = (leaf_gain_given_output(left_g, left_h, lout, p)
                        + leaf_gain_given_output(right_g, right_h, rout, p))
@@ -501,6 +527,9 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
             delta = delta + p.cegb_tradeoff * torch.where(
                 used, torch.zeros((), dtype=f32, device=dev),
                 cegb_coupled.to(f32)[None, :])
+        if p.has_cegb_lazy and cegb_lazy_cost is not None:
+            # DeltaGain's CalculateOndemandCosts term (hpp:91)
+            delta = delta + p.cegb_tradeoff * cegb_lazy_cost.to(f32)
         shifted = shifted - delta
     if p.has_monotone and p.monotone_penalty > 0:
         # depth penalty on monotone features (serial_tree_learner.cpp:987)
@@ -520,6 +549,7 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
     rh_ = sh - lh_
     po1 = po[:, 0, 0]
     thr_out = _take(best_thr_f, best_f)
+    thr_num = thr_out          # the numerical threshold, before cat zeroing
     if p.has_categorical:
         won_cat = catset[best_f.to(torch.int64)]                    # [L]
         rows = torch.arange(L, device=dev)
@@ -561,10 +591,24 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
         is_cat_out = torch.zeros(L, dtype=torch.bool, device=dev)
     if p.has_monotone:
         # the leaf's [min, max] clamps the winner's stored outputs too
-        # (CalculateSplittedLeafOutput USE_MC, feature_histogram.hpp:740)
+        # (CalculateSplittedLeafOutput USE_MC, feature_histogram.hpp:740);
+        # the advanced mode clamps with its bounds at the winning
+        # (feature, threshold), a categorical winner with the leaf's
         lo, hi = constraint_min.to(f32), constraint_max.to(f32)
-        left_out = _clip(left_out, lo, hi)
-        right_out = _clip(right_out, lo, hi)
+        if adv:
+            at = (best_f.to(torch.int64)[:, None],
+                  thr_num.to(torch.int64)[:, None])
+
+            def won(bound, scalar):
+                b = torch.gather(bound, 1, at[0][:, :, None].expand(
+                    -1, 1, B))[:, 0]                                # [L, B]
+                return torch.where(is_cat_out, scalar,
+                                   torch.gather(b, 1, at[1])[:, 0])
+            left_out = _clip(left_out, won(cmin_l, lo), won(cmax_l, hi))
+            right_out = _clip(right_out, won(cmin_r, lo), won(cmax_r, hi))
+        else:
+            left_out = _clip(left_out, lo, hi)
+            right_out = _clip(right_out, lo, hi)
     return SplitResult(
         gain=g_, feature=best_f, threshold=thr_out,
         default_left=_take(default_left_f, best_f),

@@ -478,8 +478,14 @@ def test_few_plan_fits_and_shares_an_sm(S, cell_bytes):
 
 
 def test_few_plan_refuses_what_does_not_fit():
+    # 29 slots of one whole 255-bin feature exceed the tile: the plan cuts
+    # the bins into two windows; only slots that not even a one-bin
+    # window holds are refused
+    plan = th.wave_few_plan(28, 255, 2, 29)
+    assert (plan.FG, plan.Bw) == (1, 128)
+    assert plan.tile_bytes == 8 * 29 * (128 * 2 + 1) <= th.FEW_TILE_BYTES
     with pytest.raises(ValueError):
-        th.wave_few_plan(28, 255, 2, 29)
+        th.wave_few_plan(28, 255, 2, th.FEW_TILE_BYTES // 24 + 1)
     assert th.wave_few_plan(28, 255, 2, 28).FG == 1
     # 8 slots: 3 features a block (10 groups) in half an SM; a smaller
     # budget takes fewer

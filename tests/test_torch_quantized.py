@@ -334,12 +334,17 @@ def _wave_fits_before(F, B, L):
 def test_wave_fits_decides_auto_as_before():
     """`auto` picks the same engine at every (features, max_bin, leaves)
     as before: the restated `wave_fits` equals the old rule on a grid
-    around each of its edges."""
+    around each of its edges.  Above 14,527 bins, where one feature's
+    tile used to exceed a block, the kernels' bin windows make it fit,
+    and only the partition's slot counters decide."""
     from lightgbm_tpu_torch.boosting.gbdt import wave_fits
     grid = [(F, B, L)
             for F in (0, 1, 2, 7, 28, 100)
             for B in (2, 15, 63, 255, 256, 1024, 14527, 14528, 20000)
             for L in (2, 7, 8, 31, 255, 1000, 58112, 58113, 60000)]
     got = [wave_fits(*x) for x in grid]
-    assert got == [_wave_fits_before(*x) for x in grid]
+    want = [_wave_fits_before(F, B, L) if B <= 14527
+            else F >= 1 and 232448 // (4 * th.wave_slot_pad(L)) >= 1
+            for F, B, L in grid]
+    assert got == want
     assert any(got) and not all(got)

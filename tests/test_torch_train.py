@@ -114,30 +114,36 @@ def test_port_model_text_loads_in_jax(boosters):
 
 # the ids keep the positions of the cases they replaced, and the names of
 # extra0, extra7 and extra8 (linear trees, ported since): they hold other
-# refusals that still stand
+# refusals that still stand.  More than 256 bins and the intermediate,
+# advanced and lazy CEGB options are ported since too: extra0, extra1,
+# extra3, extra5 and extra9 now pair each with a tree learner the port
+# still refuses, which must refuse whatever options come with it
 @pytest.mark.parametrize("extra,item", [
-    pytest.param({"max_bin": 511}, "item 2", id="extra0-item 14"),
+    pytest.param({"max_bin": 511, "tree_learner": "data"},
+                 "tree_learner='data'.*item 15", id="extra0-item 14"),
     # the pointwise, multiclass, cross-entropy and ranking objectives, RF
     # and DART, linear trees,
-    # row and column sampling, categorical features, basic monotone
-    # constraints, path_smooth, CEGB's split and coupled penalties, forced
+    # row and column sampling, categorical features, monotone
+    # constraints, path_smooth, CEGB's penalties, forced
     # splits and interaction constraints are ported: these cases hold
     # options that stay refused
     pytest.param({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
-                  "monotone_constraints_method": "intermediate"},
-                 "monotone_constraints_method=intermediate.*item 13",
-                 id="extra1-item 13"),
+                  "monotone_constraints_method": "intermediate",
+                  "tree_learner": "voting"},
+                 "tree_learner='voting'.*item 15", id="extra1-item 13"),
     pytest.param({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
-                  "monotone_constraints_method": "advanced"},
-                 "monotone_constraints_method=advanced.*item 13",
-                 id="extra3-item 13"),
-    pytest.param({"cegb_penalty_feature_lazy": [1.0] * 8},
-                 "cegb_penalty_feature_lazy.*item 13", id="extra5-item 13"),
+                  "monotone_constraints_method": "advanced",
+                  "tree_learner": "feature"},
+                 "tree_learner='feature'.*item 15", id="extra3-item 13"),
+    pytest.param({"cegb_penalty_feature_lazy": [1.0] * 8,
+                  "tree_learner": "data"},
+                 "tree_learner='data'.*item 15", id="extra5-item 13"),
     pytest.param({"tree_learner": "voting"}, "item 15", id="extra6-item 15"),
     pytest.param({"tree_learner": "data"}, "item 15", id="extra7-item 14"),
     pytest.param({"linear_tree": True, "tree_learner": "feature"},
                  "tree_learner='feature'.*item 15", id="extra8-item 14"),
-    pytest.param({"max_bin": 300}, "item 2", id="extra9-item 2")])
+    pytest.param({"max_bin": 300, "tree_learner": "voting"},
+                 "tree_learner='voting'.*item 15", id="extra9-item 2")])
 def test_unported_options_refuse(extra, item):
     X, y = _data()
     ds = tlgb.Dataset(X[:1024], label=y[:1024])

@@ -420,12 +420,16 @@ def test_booster_eval_train_and_feval(runs):
 @pytest.mark.parametrize("kw,item", [
     # continued training, DART, custom and ranking objectives and linear
     # trees are ported: these cases hold options that stay refused (kw0
-    # and kw2 keep the names of the linear-tree cases they replaced)
-    pytest.param({"params": {"max_bin": 511}}, "item 2", id="kw0-item 14"),
+    # and kw2 keep the names of the linear-tree cases they replaced; more
+    # than 256 bins and the advanced monotone mode are ported since, so
+    # they pair them with a tree learner the port still refuses)
+    pytest.param({"params": {"max_bin": 511, "tree_learner": "data"}},
+                 "tree_learner='data'.*item 15", id="kw0-item 14"),
     ({"params": {"tree_learner": "voting"}}, "item 15"),
     pytest.param({"params": {"linear_tree": True,
-                             "cegb_penalty_feature_lazy": [1.0]}},
-                 "item 13", id="kw2-item 14"),
+                             "monotone_constraints_method": "advanced",
+                             "tree_learner": "feature"}},
+                 "tree_learner='feature'.*item 15", id="kw2-item 14"),
     ({"checkpoint_dir": "ck"}, "item 16"),
     ({"metrics_dir": "m"}, "item 16"),
     ({"params": {"profile_dir": "p"}}, "item 16"),
