@@ -1,12 +1,12 @@
 """Rehearse chip_smoke.py's split_features, objectives, efb,
 forced_interaction, surface, ranking, file, linear, refit_contrib, cli,
-wide_bins and monotone_modes phases on the CPU at 1/8 of their rows, to
-size their gates before a run on the card:
+wide_bins, monotone_modes and reliability phases on the CPU at 1/8 of
+their rows, to size their gates before a run on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
                               [forced_interaction] [surface] [ranking]
                               [file] [linear] [refit_contrib] [cli]
-                              [wide_bins] [monotone_modes]
+                              [wide_bins] [monotone_modes] [reliability]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -37,7 +37,10 @@ max_bin=1023 on 16-bit codes and monotone_modes on the leaf-wise engine
 (each of its runs rescans every leaf after every split on the CPU: a few
 minutes); their lines give the held-out AUCs WIDE_LEAFWISE_AUC_MIN and
 MONO_MODE_AUC_MIN are taken from (the path B numbers they stand beside
-are the card's, not rehearsed).
+are the card's, not rehearsed).  reliability runs the rollback on the
+main path's 13 trees and its child processes on the CPU at CHILD_ROWS /
+8 rows; the device-memory gauge and the stall diagnosis's allocator
+snapshot are card-only (a stand-in gauge, the snapshot's device name).
 """
 
 import json
@@ -193,6 +196,25 @@ def main(argv) -> int:
         elif phase == "wide_bins":
             cs.phase_wide_bins(Rehearsal(), H, global_timer,
                                "cpu rehearsal", main, data)
+            lines = {}
+        elif phase == "reliability":
+            # the main path's 13 trees; the children on the CPU too; the
+            # allocator's gauges and snapshot are card-only
+            booster.rollback_one_iter().rollback_one_iter() \
+                .rollback_one_iter()
+            main["model_text"] = booster.model_to_string(num_iteration=-1)
+            import lightgbm_tpu_torch.observability as obs
+            obs.update_memory_gauges = lambda device=None: \
+                obs.global_registry.set_gauge("device_bytes_in_use", 1)
+            cs.CHILD_ROWS //= SCALE
+            cs.STALL_DEVICE_KEY = "device"
+            cs.RELIABILITY_DEVICE = "cpu"
+            start = cs.start_children
+            cs.start_children = lambda script, specs: start(script, [
+                (name, on_cpu(p), kw, fault, attempt)
+                for name, p, kw, fault, attempt in specs])
+            cs.phase_reliability(Rehearsal(), H, "cpu rehearsal", main,
+                                 bench)
             lines = {}
         elif phase == "monotone_modes":
             cs.phase_monotone_modes(Rehearsal(), H, global_timer,

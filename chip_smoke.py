@@ -53,6 +53,29 @@ Phases, each printing one JSON line:
      2^-24·(Σ|g| + |out|·Σh) / Σh) of the plain refit from the native
      predictor's leaf ids and float64 host gradients.  One
      `refit_contrib` line: refit seconds, contributions rows/s, the card;
+  3c. reliability: the training host planes right after the main path
+     (its model text kept before `predict`): `train` on the main path's
+     Dataset and params, 13 iterations, with checkpoint_dir
+     (checkpoint_freq=4), metrics_dir and LGBM_TPU_FAULT=nan_grad@7 set
+     in the process; the launch counts set to 0 just before and read
+     just after.  Gates: one `rollback_retry` event, to the checkpoint
+     at 4; the final model text equal to the main path's byte for byte;
+     K1 and K3 launched; an iteration event for each of the 13
+     iterations, each with `GBDT::*` phase seconds; non-empty
+     torch.cuda memory gauges in the last; `train_end` last.  Then
+     child processes on the card at CHILD_ROWS (65,536) rows, 255
+     leaves, started together in two waves: worker_crash@5 with
+     checkpoints every 2 iterations exits 17 and the relaunch resumes
+     to the model text of an uninterrupted child, with bagging and with
+     DART; hang@3 with stall_floor_s=STALL_FLOOR_S (3), stall_factor 3
+     and auto_degrade exits 86 with a stall-rank0.json whose last
+     iteration is 3 and whose device snapshot holds the allocator's
+     bytes, and the relaunch degrades tpu_donate_buffers and resumes to
+     the trees of a clean child with tpu_donate_buffers=false.  One
+     `reliability` line: checkpoint bytes, sync write ms and async
+     capture ms per checkpoint, s/iter of the checkpointed run (timer
+     on) beside the main path's, the children's exit codes and seconds,
+     the stall's silent seconds, the launches, the card;
   4. path A, quantized training: the same workload with
      use_quantized_grad=true (4 bins, stochastic rounding), 13
      iterations; K2 launched, K1/K3 not; held-out AUC within 0.01 of
@@ -253,7 +276,8 @@ Phases, each printing one JSON line:
      and `GBDT::eval` ms/iter (three instrumented iterations after the
      13), peak device GiB of the 13 and of the gradients step alone,
      launches, valid NDCG@10 at iterations 1 and 13;
-  5h. file: the ranking rows' first whole queries in 65,536 rows (1/16
+  5h. file: the ranking rows' first whole queries in FILE_ROWS (32,768)
+     rows (1/16
      grid values, so the text holds them exactly) written as a TSV file
      with a header and as LibSVM, each with `.query` and `.weight` side
      files, and loaded through `Dataset(path)`, with two_round=true, and
@@ -1149,8 +1173,12 @@ def phase_paths(lgb, H, global_timer, probe, bench):
     out = {}
     probe.reset()
     surface = {}
+    model_text = []
 
     def after_main(b):
+        # the uninterrupted run the reliability phase's rollback must
+        # reproduce, before the later phases touch the booster
+        model_text.append(b.model_to_string(num_iteration=-1))
         phase_predict(b, data)
         # the estimator's and train's scans are not the main path's
         held = probe.calls, probe.last
@@ -1166,7 +1194,8 @@ def phase_paths(lgb, H, global_timer, probe, bench):
     main = {"s_per_iter": r["s_per_iter"], "ms_per_iter": r["ms_per_iter"],
             "auc": auc_main,
             "scan_calls_per_tree": calls / len(r["booster"]._gbdt.models_),
-            "features": distinct_features(r["booster"]._gbdt.models_[:13])}
+            "features": distinct_features(r["booster"]._gbdt.models_[:13]),
+            "model_text": model_text[0]}
     del r
     if auc_main < 0.72:
         raise AssertionError(f"main path: held-out AUC {auc_main} < 0.72")
@@ -2656,9 +2685,11 @@ RANK_PARAMS = {"num_leaves": 255, "max_bin": 255, "learning_rate": 0.1,
 # of the rows, less a margin (PERF.md)
 RANK_NDCG_MIN = {"lambdarank": 0.596, "rank_xendcg": 0.596}
 # the ranking card-vs-CPU cases (their CPU sides took 40-57 s each at
-# 65,536 rows, PERF.md) and the file phase
+# 65,536 rows, PERF.md) and the file phase (65,536 rows until the
+# reliability phase needed its ~30 s: the file loads are host binning,
+# linear in the rows)
 CARD_RANK_ROWS = 32_768
-FILE_ROWS = 65_536
+FILE_ROWS = 32_768
 
 
 def make_mslr_like(n_rows, seed=0):
@@ -3750,6 +3781,270 @@ def run_card_vs_cpu(lgb, H, rank):
     return out
 
 
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+RELIABILITY_DIR = os.path.join("build", "chip_smoke_reliability")
+RELIABILITY_NAN_AT = 7      # nan_grad@7: the 8th update's gradients
+RELIABILITY_CKPT_FREQ = 4   # the rollback lands on the checkpoint at 4
+CHILD_ROWS = 65_536         # the crash and stall drills' children
+CHILD_ITERATIONS = 8
+CHILD_CRASH_AT = 5          # worker_crash@5: after the checkpoint at 4
+CHILD_TIMEOUT_S = 300
+CHILD_THREADS = 1           # torch threads a child: six run at once
+STALL_FLOOR_S = 3.0
+STALL_HANG_AT = 3
+STALL_ITERATIONS = 6
+# the stall diagnosis's device snapshot must hold the card's allocator
+STALL_DEVICE_KEY = "allocated_bytes"
+RELIABILITY_DEVICE = "cuda"     # where the checkpointed run must train
+
+# a child of the crash and stall drills: trains make_higgs_like(CHILD_ROWS,
+# 28) with BENCH_PARAMS + REL_PARAMS on the card, writes its model text
+RELIABILITY_CHILD = r"""
+import json, os, sys
+sys.path.insert(0, os.environ["REL_REPO"])
+import torch
+torch.set_num_threads(int(os.environ["REL_THREADS"]))
+import lightgbm_tpu_torch as lgb
+from chip_smoke import BENCH_PARAMS, make_higgs_like
+X, y = make_higgs_like(int(os.environ["REL_ROWS"]), 28, seed=2)
+kw = json.loads(os.environ.get("REL_KW", "{}"))
+b = lgb.train({**BENCH_PARAMS, **json.loads(os.environ["REL_PARAMS"])},
+              lgb.Dataset(X, label=y), int(os.environ["REL_ITERS"]), **kw)
+with open(os.environ["REL_OUT"], "w") as f:
+    f.write(b.model_to_string(num_iteration=-1))
+print(json.dumps({"iterations": b.current_iteration(),
+                  "device": str(b._gbdt.device)}), flush=True)
+"""
+
+
+def start_children(script, specs):
+    """Start one child per spec (name, REL_PARAMS, REL_KW, fault,
+    attempt), all at once; returns {name: (Popen, log file, start)}."""
+    out = {}
+    for name, params, kw, fault, attempt in specs:
+        env = dict(os.environ)
+        env.pop("LGBM_TPU_FAULT", None)
+        env.update({"REL_REPO": REPO_ROOT,
+                    "REL_ROWS": str(CHILD_ROWS),
+                    "REL_ITERS": str(STALL_ITERATIONS if name.startswith(
+                        "stall") else CHILD_ITERATIONS),
+                    "REL_PARAMS": json.dumps(params),
+                    "REL_KW": json.dumps(kw),
+                    "REL_THREADS": str(CHILD_THREADS),
+                    "REL_OUT": os.path.join(RELIABILITY_DIR, name + ".txt"),
+                    "LGBM_TPU_FAULT_ATTEMPT": str(attempt)})
+        if fault:
+            env["LGBM_TPU_FAULT"] = fault
+        log = open(os.path.join(RELIABILITY_DIR, name + ".log"), "w")
+        out[name] = (subprocess.Popen([sys.executable, script], env=env,
+                                      stdout=log, stderr=subprocess.STDOUT),
+                     log, time.perf_counter())
+    return out
+
+
+def wait_children(running):
+    """Wait for every child (killing all of them on a timeout); returns
+    {name: (returncode, seconds)}."""
+    done = {}
+    try:
+        for name, (p, log, t0) in running.items():
+            rc = p.wait(timeout=max(1.0, CHILD_TIMEOUT_S
+                                    - (time.perf_counter() - t0)))
+            done[name] = (rc, time.perf_counter() - t0)
+    finally:
+        for p, log, _ in running.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return done
+
+
+def child_tail(name, n=1500):
+    with open(os.path.join(RELIABILITY_DIR, name + ".log")) as f:
+        return f.read()[-n:]
+
+
+def child_model(name, trees_only=False):
+    with open(os.path.join(RELIABILITY_DIR, name + ".txt")) as f:
+        text = f.read()
+    return text.split("\nparameters:")[0] if trees_only else text
+
+
+def read_events(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_reliability(lgb, H, card, main, bench):
+    """The training host planes on the card (gates in the module
+    docstring): the full-width rollback run with its event log, then
+    the crash/resume and stall/degrade drills in child processes.
+    Returns the checkpointed run's launch counts."""
+    import shutil
+    from lightgbm_tpu_torch.reliability import faults
+    from lightgbm_tpu_torch.reliability.checkpoint import CheckpointManager
+    from lightgbm_tpu_torch.reliability.guard import STALL_EXIT_CODE
+    data, ds = bench
+    shutil.rmtree(RELIABILITY_DIR, ignore_errors=True)
+    os.makedirs(RELIABILITY_DIR)
+    ck = os.path.join(RELIABILITY_DIR, "ckpt")
+    mx = os.path.join(RELIABILITY_DIR, "metrics")
+    t_phase = time.perf_counter()
+    params = dict(BENCH_PARAMS)
+    check_dataset_params("reliability", params, ds)
+    os.environ["LGBM_TPU_FAULT"] = f"nan_grad@{RELIABILITY_NAN_AT}"
+    faults.reload()
+    try:
+        torch.cuda.synchronize()
+        reset_counts(H)
+        t0 = time.perf_counter()
+        b = lgb.train(params, ds, 13, checkpoint_dir=ck,
+                      checkpoint_freq=RELIABILITY_CKPT_FREQ, metrics_dir=mx)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = launch_counts(H)
+    finally:
+        del os.environ["LGBM_TPU_FAULT"]
+        faults.reload()
+    if b._gbdt.device.type != RELIABILITY_DEVICE:
+        raise AssertionError(f"reliability: trained on {b._gbdt.device}")
+    if launches["K1"] <= 0 or launches["K3"] <= 0:
+        raise AssertionError(f"reliability: K1 and K3 must launch in the "
+                             f"checkpointed run: {launches}")
+    ev = read_events(os.path.join(mx, "events-rank0.jsonl"))
+    rollbacks = [e for e in ev if e["event"] == "rollback_retry"]
+    if len(rollbacks) != 1 or rollbacks[0]["from_iteration"] \
+            != RELIABILITY_CKPT_FREQ:
+        raise AssertionError(f"reliability: want one rollback_retry to "
+                             f"{RELIABILITY_CKPT_FREQ}: {rollbacks}")
+    if b.model_to_string(num_iteration=-1) != main["model_text"]:
+        raise AssertionError("reliability: the rolled-back run's model "
+                             "text differs from the main path's")
+    its = [e for e in ev if e["event"] == "iteration"]
+    if sorted({e["iteration"] for e in its}) != list(range(1, 14)):
+        raise AssertionError(f"reliability: iteration events "
+                             f"{[e['iteration'] for e in its]}")
+    for e in its:
+        if not any(k.startswith("GBDT::") for k in e["phases"]):
+            raise AssertionError(f"reliability: no GBDT:: phase seconds "
+                                 f"in iteration {e['iteration']}")
+    gauges = its[-1]["gauges"]
+    if not gauges.get("device_bytes_in_use", 0) > 0:
+        raise AssertionError(f"reliability: no device memory gauges in "
+                             f"the last iteration event: {gauges}")
+    if ev[-1]["event"] != "train_end":
+        raise AssertionError(f"reliability: the log ends with "
+                             f"{ev[-1]['event']}")
+    # the training thread's share of a checkpoint (the capture: model
+    # text + the scores' clone and pinned copy), from the event phases
+    cap_s = sum(e["phases"].get("Checkpoint::save", 0.0) for e in its)
+    n_ckpt = sum(1 for e in ev if e["event"] == "checkpoint")
+    # s/iter of the second pass's last iterations (timer on: the metrics
+    # run synchronizes at each scope's end)
+    tail = [e["time_s"] for e in its[-10:]]
+    # one synchronous write, as the preemption hook makes it
+    sync = CheckpointManager(os.path.join(RELIABILITY_DIR, "sync"),
+                             keep_last=1, params=params)
+    write_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sync.save(b, 13)
+        write_ms.append((time.perf_counter() - t0) * 1e3)
+    last = sync.latest()
+    ckpt_bytes = sum(os.path.getsize(p) for p in (last.model_path,
+                                                   last.state_path))
+    del b
+
+    # crash and resume, stall and degrade: children on the card
+    script = os.path.join(RELIABILITY_DIR, "child.py")
+    with open(script, "w") as f:
+        f.write(RELIABILITY_CHILD)
+    crash = f"worker_crash@{CHILD_CRASH_AT}@0"
+    hang = f"hang@{STALL_HANG_AT}@0"
+    stall_params = {"metrics_dir": os.path.join(RELIABILITY_DIR, "stall_m"),
+                    "checkpoint_dir": os.path.join(RELIABILITY_DIR,
+                                                   "stall_ck"),
+                    "checkpoint_freq": 1, "auto_degrade": True,
+                    "stall_floor_s": STALL_FLOOR_S, "stall_factor": 3.0}
+    drills = {"bagging": BAG, "dart": DART}
+    first = []
+    for name, extra in drills.items():
+        ckw = {"checkpoint_dir": os.path.join(RELIABILITY_DIR, f"ck_{name}"),
+               "checkpoint_freq": 2}
+        first += [(f"crash_{name}", extra, ckw, crash, 0),
+                  (f"clean_{name}", extra, {}, "", 0)]
+    first += [("stall_hang", stall_params, {}, hang, 0),
+              ("stall_clean", {"tpu_donate_buffers": False}, {}, "", 0)]
+    t0 = time.perf_counter()
+    rc1 = wait_children(start_children(script, first))
+    for name in drills:
+        if rc1[f"crash_{name}"][0] != faults.CRASH_EXIT_CODE:
+            raise AssertionError(f"reliability crash_{name}: rc "
+                                 f"{rc1[f'crash_{name}'][0]}\n"
+                                 f"{child_tail(f'crash_{name}')}")
+        if rc1[f"clean_{name}"][0] != 0:
+            raise AssertionError(f"reliability clean_{name}: "
+                                 f"{child_tail(f'clean_{name}')}")
+    if rc1["stall_hang"][0] != STALL_EXIT_CODE:
+        raise AssertionError(f"reliability stall: rc {rc1['stall_hang'][0]}"
+                             f"\n{child_tail('stall_hang')}")
+    if rc1["stall_clean"][0] != 0:
+        raise AssertionError(f"reliability stall_clean: "
+                             f"{child_tail('stall_clean')}")
+    with open(os.path.join(stall_params["metrics_dir"],
+                           "stall-rank0.json")) as f:
+        diag = json.load(f)
+    if diag["last_iteration"] != STALL_HANG_AT or diag["exit_code"] \
+            != STALL_EXIT_CODE or not diag["device"].get(STALL_DEVICE_KEY):
+        raise AssertionError(f"reliability stall: diagnosis "
+                             f"{ {k: diag.get(k) for k in ('last_iteration', 'exit_code', 'device')} }")
+    second = [(f"resume_{name}", extra,
+               {"checkpoint_dir": os.path.join(RELIABILITY_DIR,
+                                               f"ck_{name}"),
+                "checkpoint_freq": 2}, crash, 1)
+              for name, extra in drills.items()]
+    second.append(("stall_degraded", stall_params, {}, hang, 1))
+    rc2 = wait_children(start_children(script, second))
+    for name, (rc, _) in rc2.items():
+        if rc != 0:
+            raise AssertionError(f"reliability {name}: rc {rc}\n"
+                                 f"{child_tail(name)}")
+    for name in drills:
+        if child_model(f"resume_{name}") != child_model(f"clean_{name}"):
+            raise AssertionError(f"reliability {name}: the resumed model "
+                                 "differs from the uninterrupted child's")
+    with open(os.path.join(stall_params["metrics_dir"],
+                           "degrade-state.json")) as f:
+        degraded = json.load(f)["degraded_knobs"]
+    if degraded != ["tpu_donate_buffers"]:
+        raise AssertionError(f"reliability stall: degraded {degraded}")
+    if child_model("stall_degraded", True) != child_model("stall_clean",
+                                                          True):
+        raise AssertionError("reliability stall: the degraded resume's "
+                             "trees differ from the clean run's")
+    drills_s = time.perf_counter() - t0
+    emit({"phase": "reliability", "rows": data[0].shape[0],
+          "iterations": 13, "nan_grad_at": RELIABILITY_NAN_AT,
+          "checkpoint_freq": RELIABILITY_CKPT_FREQ,
+          "rollback_to": rollbacks[0]["from_iteration"],
+          "updates_run": len(its), "run_s": run_s,
+          "s_per_iter_last10_timer_on": sum(tail) / len(tail),
+          "main_path_s_per_iter_last10": main["s_per_iter"],
+          "checkpoints_written": n_ckpt,
+          "capture_ms_per_checkpoint": (cap_s * 1e3 / n_ckpt
+                                        if n_ckpt else None),
+          "sync_write_ms": write_ms, "checkpoint_bytes": ckpt_bytes,
+          "device_gauges": gauges, "launches": launches,
+          "children": {k: {"rc": v[0], "s": v[1]}
+                       for k, v in {**rc1, **rc2}.items()},
+          "child_rows": CHILD_ROWS, "stall_floor_s": STALL_FLOOR_S,
+          "stall_silent_s": diag["silent_s"], "degraded": degraded,
+          "drills_s": drills_s, "phase_s": time.perf_counter() - t_phase,
+          "card": card})
+    return launches
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     if not torch.cuda.is_available():
@@ -3811,6 +4106,7 @@ def main(argv) -> int:
     launches, main_wall, main = phase_paths(lgb, H, global_timer, probe,
                                             bench)
     launches["efb"] = efb_launches
+    launches["reliability"] = phase_reliability(lgb, H, card, main, bench)
     fi_launches, _ = phase_forced_interaction(lgb, H, global_timer, card,
                                               main, bench)
     launches.update(fi_launches)

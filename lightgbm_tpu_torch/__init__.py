@@ -6,7 +6,10 @@ wave engine with hand-written Hopper histogram kernels, evaluates the
 training metrics on the card and the validation sets on float64 host
 scores, and `Booster.predict` scores rows with a tensor traversal of the
 ensemble.  The scikit-learn estimators (`LGBMClassifier`, ...) and the
-plotting helpers sit on the same `train` and `Booster`.  Everything runs
+plotting helpers sit on the same `train` and `Booster`.  `train` takes
+the JAX package's host planes: checkpoints and resume
+(`CheckpointManager`), fault injection, the stall watchdog and the JSONL
+training telemetry.  Everything runs
 on the card unless `device_type="cpu"` is asked for.  This package
 imports torch and numpy, never JAX or the JAX package; scikit-learn,
 pandas, matplotlib and graphviz are imported only where they are used.
@@ -20,7 +23,7 @@ from .config import Config
 from .engine import CVBooster, cv, train
 from .plotting import (create_tree_digraph, plot_importance, plot_metric,
                        plot_split_value_histogram, plot_tree)
-from .reliability import NonFiniteError
+from .reliability import CheckpointManager, NonFiniteError
 from .utils.log import LightGBMError, register_callback, register_logger
 
 __version__ = "0.1.0"
@@ -38,7 +41,7 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["Booster", "CVBooster", "Config", "Dataset",
+__all__ = ["Booster", "CVBooster", "CheckpointManager", "Config", "Dataset",
            "EarlyStopException", "LGBMClassifier", "LGBMModel",
            "LGBMRanker", "LGBMRegressor", "LightGBMError", "NonFiniteError",
            "Sequence", "checkpoint", "create_tree_digraph", "cv", "early_stopping",

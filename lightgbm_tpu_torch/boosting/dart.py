@@ -12,8 +12,10 @@ Mechanics per iteration (ref: dart.hpp Normalize note):
 A dropped host tree's training rows are routed once, by a bin-space
 traversal of the training bins on the device; the drop and the
 normalization reuse its leaf ids.  Valid scores stay float64 on the
-host.  The drop state does not ride a checkpoint yet (ROADMAP Queue 1
-item 16).
+host.  The drop state rides a checkpoint under the JAX package's npz
+keys (its dart.py:41-109): the drop stream, the per-tree weights and
+their sum, and every tree's full-precision shrinkage and internal
+values.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..utils import log
 from ..utils.timer import global_timer
 from .gbdt import GBDT
 
@@ -47,6 +50,72 @@ class DART(GBDT):
             with global_timer.scope("DART::drop"):
                 self._dropping_trees()
             self._dropped_cur_iter = True
+
+    # ------------------------------------------------- checkpoint state
+    def capture_train_state(self, async_copy: bool = False):
+        """The drop state rides the checkpoint (byte-exact resume): the
+        drop RandomState, the normalization counters (per-tree weights
+        and their sum), and each tree's full-precision shrinkage and
+        internal values; the model text prints those two at %g
+        precision, and dropping keeps multiplying them, so a resume
+        seeded from text alone drifts from the uninterrupted run at the
+        first re-drop of an adopted tree."""
+        state = super().capture_train_state(async_copy)
+        state["dart_rng_drop"] = np.array(
+            self._rng_drop.get_state(legacy=False), dtype=object)
+        state["dart_tree_weight"] = np.asarray(self.tree_weight_, np.float64)
+        state["dart_sum_weight"] = np.float64(self.sum_weight_)
+        trees = self.models_
+        state["dart_shrinkage"] = np.asarray(
+            [t.shrinkage for t in trees], np.float64)
+        sizes = [max(t.num_leaves - 1, 0) for t in trees]
+        state["dart_internal_sizes"] = np.asarray(sizes, np.int64)
+        state["dart_internal_value"] = (
+            np.concatenate([np.asarray(t.internal_value[:n], np.float64)
+                            for t, n in zip(trees, sizes)])
+            if trees else np.zeros(0, np.float64))
+        return state
+
+    def restore_train_state(self, state) -> bool:
+        ok = super().restore_train_state(state)
+        if state is None or "dart_rng_drop" not in state:
+            # plain init_model continuation: the reference's semantics
+            # (the adopted trees are never dropped, a fresh drop stream)
+            return ok
+        st = state["dart_rng_drop"]
+        try:
+            self._rng_drop.set_state(st.item() if hasattr(st, "item")
+                                     else st)
+        except (ValueError, TypeError) as e:
+            log.warning(f"Could not restore DART drop RNG state: {e}")
+        tw = state.get("dart_tree_weight")
+        if tw is not None:
+            self.tree_weight_ = [float(x) for x in np.asarray(tw)]
+        self.sum_weight_ = float(state.get("dart_sum_weight",
+                                           sum(self.tree_weight_)))
+        sh = state.get("dart_shrinkage")
+        if sh is not None and len(sh) == len(self.models_):
+            for t, v in zip(self.models_, np.asarray(sh, np.float64)):
+                t.shrinkage = float(v)
+        sizes = state.get("dart_internal_sizes")
+        ivals = state.get("dart_internal_value")
+        if sizes is not None and ivals is not None \
+                and len(sizes) == len(self.models_):
+            off = 0
+            for t, n in zip(self.models_, np.asarray(sizes, np.int64)):
+                t.internal_value[:n] = np.asarray(ivals[off:off + n],
+                                                  np.float64)
+                off += int(n)
+        # the restored values mutated the trees in place: repack before
+        # any predict
+        self._bump_model_mutations()
+        # a checkpoint resume CONTINUES the same DART run: the adopted
+        # trees stay droppable, so they fold back into `iter_`
+        # (continue_from counted them as frozen init trees); the
+        # absolute iteration num_init_iteration_ + iter_ is unchanged
+        self.iter_ = self.num_init_iteration_
+        self.num_init_iteration_ = 0
+        return ok
 
     def train_one_iter(self, gradients=None, hessians=None) -> bool:
         cfg = self.config

@@ -24,6 +24,16 @@ keys folded with the absolute iteration.  `continue_from` adopts an
 earlier model's trees and seeds the scores with its predictions;
 `rollback_one_iter` drops the last iteration's trees.
 
+Checkpoints (reliability/checkpoint.py) carry the exact trainer state
+beside the model text: `capture_train_state` takes the float32 score
+buffer, the NumPy bagging and feature streams and the host bag mask,
+under the JAX package's npz keys; `restore_train_state` puts them back
+after `continue_from` adopted the checkpoint's trees, so a resumed run
+grows the uninterrupted run's trees bit for bit.  The fault hooks of
+`LGBM_TPU_FAULT` (crash, worker loss, hang at an iteration's start, NaN
+gradients, a stalled collective before a tree's growth) sit behind one
+`faults.active()` check.
+
 Training metrics are evaluated on the booster's device, one packed
 transfer per tick (`ops/metrics.py` DeviceEval).  Validation sets keep
 float64 scores on the host, advanced per finished tree by the leaf ids of
@@ -97,6 +107,8 @@ from ..objective import ObjectiveFunction
 from ..ops.histogram import (code_dtype, codes_to_device, codes_to_int,
                              wave_part_plan, wave_slot_pad)
 from ..ops.split import SplitParams, cat_bitset_words, leaf_output
+from ..observability import emit_event, global_registry
+from ..reliability import faults
 from ..utils import log
 from ..utils import random as jrandom
 from ..utils.device import resolve_device
@@ -305,6 +317,29 @@ def wave_fits(num_features: int, max_bin: int, num_leaves: int) -> bool:
     except ValueError:
         return False
     return True
+
+
+class PendingHostCopy:
+    """A device tensor's copy into pinned host memory, in flight: made on
+    the training thread (a `clone()` snapshot on the current stream, a
+    `non_blocking` copy into a pinned tensor, a recorded CUDA event),
+    read as an array on the checkpoint writer's thread, which waits on
+    the event first (`np.asarray` calls `__array__`).  A non_blocking
+    copy into pageable memory would be silently synchronous; into pinned
+    memory the host must not read it before the event."""
+
+    def __init__(self, t: torch.Tensor):
+        self._snap = t.clone()
+        self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self._host.copy_(self._snap, non_blocking=True)
+        self._event = torch.cuda.Event()
+        self._event.record()
+
+    def __array__(self, dtype=None, copy=None):
+        self._event.synchronize()
+        self._snap = None
+        out = self._host.numpy()
+        return out if dtype is None else out.astype(dtype, copy=False)
 
 
 class GBDT:
@@ -708,6 +743,81 @@ class GBDT:
                 sets.append(idxs)
         return tuple(sets)
 
+    # ------------------------------------------------------- checkpoint state
+    def capture_train_state(self, async_copy: bool = False):
+        """Exact trainer state for CheckpointManager (the JAX booster's
+        keys, gbdt.py:985): the float32 [K, n_pad] score buffer, the row
+        count, the bagging and feature RandomState streams and the host
+        bag mask.  Model text alone is not enough for a byte-identical
+        resume: scores re-seeded from predictions differ from the
+        accumulated buffer in ulps, which changes later trees.
+
+        With `async_copy` (the async checkpoint writer) on a CUDA booster
+        the scores are snapshotted with `clone()` on the current stream
+        and copied `non_blocking` into a pinned host tensor behind a
+        recorded CUDA event; the returned `scores` is a `PendingHostCopy`
+        that the writer thread turns into an array (waiting on the
+        event) when it serializes, so the training thread never waits
+        for the copy."""
+        sc = self.scores
+        if async_copy and sc.is_cuda:
+            scores = PendingHostCopy(sc)
+        else:
+            # a copy even on the CPU, where .cpu() would alias the live
+            # buffer that the next update changes in place
+            scores = sc.to("cpu", copy=True).numpy()
+        return {"scores": scores,
+                "num_data": np.int64(self.num_data),
+                "rng_bag": np.array(self._rng_bag.get_state(legacy=False),
+                                    dtype=object),
+                "rng_feat": np.array(self._rng_feat.get_state(legacy=False),
+                                     dtype=object),
+                "bag_mask": np.array(self._bag_mask_host)}
+
+    def restore_train_state(self, state) -> bool:
+        """Restore a capture_train_state() payload, of either package,
+        after continue_from adopted the checkpoint's trees (it goes
+        through continue_from, which keyed the threefry streams by the
+        adopted iterations).  The scores land in the padded [K, n_pad]
+        buffer (the padding too when the buffer has this run's width),
+        the bag mask on the host and on the device.  Returns True when
+        the exact score buffer was restored."""
+        if state is None:
+            return False
+        ok = False
+        sc = state.get("scores")
+        if sc is not None:
+            sc = np.asarray(sc, np.float32)
+            sc = sc.reshape(self.num_tree_per_iteration, -1)
+            n = int(state.get("num_data", sc.shape[-1]))
+            if n != self.num_data:
+                log.warning(f"Checkpoint state has {n} rows but the train "
+                            f"set has {self.num_data}; keeping "
+                            "predict-seeded scores")
+            else:
+                if sc.shape[1] == self.n_pad:
+                    buf = np.ascontiguousarray(sc)
+                else:
+                    buf = np.zeros((sc.shape[0], self.n_pad), np.float32)
+                    buf[:, :n] = sc[:, :n]
+                self.scores = torch.from_numpy(buf).to(self.device)
+                ok = True
+        for key, rng in (("rng_bag", self._rng_bag),
+                         ("rng_feat", self._rng_feat)):
+            st = state.get(key)
+            if st is not None:
+                try:
+                    rng.set_state(st.item() if hasattr(st, "item") else st)
+                except (ValueError, TypeError) as e:
+                    log.warning(f"Could not restore {key} RNG state: {e}")
+        bm = state.get("bag_mask")
+        if bm is not None and len(bm) >= self.num_data:
+            mask = np.zeros(self.n_pad, np.float32)
+            mask[:self.num_data] = np.asarray(bm, np.float32)[:self.num_data]
+            self._bag_mask_host = mask
+            self.bag_mask = torch.from_numpy(mask).to(self.device)
+        return ok
+
     def add_valid_data(self, valid_data: Dataset,
                        metrics: Sequence[Metric]) -> None:
         """A validation set (ref: gbdt.cpp AddValidDataset): float64 host
@@ -946,6 +1056,11 @@ class GBDT:
         """One boosting iteration; returns True when training should stop
         (ref: gbdt.cpp:338 TrainOneIter)."""
         K = self.num_tree_per_iteration
+        abs_iter = self.num_init_iteration_ + self.iter_
+        if faults.active():
+            faults.maybe_crash(abs_iter)
+            faults.maybe_worker_lost(abs_iter)
+            faults.maybe_hang(abs_iter)
         # the sentinel flags fetched for the previous iteration are stale
         self._finite_cache = None
         init_scores = [0.0] * K
@@ -955,6 +1070,8 @@ class GBDT:
             with global_timer.scope("GBDT::gradients"):
                 grad, hess = self._compute_gradients()
                 grad, hess = global_timer.block((grad, hess))
+            if faults.active():
+                grad, hess = faults.maybe_nan_grad(grad, hess, abs_iter)
             if self.config.nonfinite_check_freq > 0:
                 # device flag, accumulated with no host synchronization;
                 # the engine's sentinel fetches it (gradients_finite)
@@ -1015,6 +1132,7 @@ class GBDT:
                     else:
                         tree = self._finalize_tree(arrays, leaf_id, k,
                                                    init_scores[k])
+                global_registry.inc("trees_grown")
             if tree is None:
                 # no split: this class keeps a stump, a constant one in
                 # the first iteration (ref: gbdt.cpp:372-391)
@@ -1040,6 +1158,11 @@ class GBDT:
         arrays, leaf id of every row)."""
         with global_timer.scope("GBDT::col_sampling"):
             col_mask = self._col_mask()
+        if faults.active():
+            # one rank wedging here leaves its peers blocked in the
+            # histogram reduction: the stall watchdog's shape
+            faults.maybe_collective_stall(self.num_init_iteration_
+                                          + self.iter_)
         with global_timer.scope("GBDT::grow_tree"):
             if self.growth_strategy == "wave":
                 arrays, leaf_id = grow_tree_wave_impl(
@@ -1499,14 +1622,21 @@ class GBDT:
     def _device_predict_run(self, dp, X, mode: str,
                             early_stop=None) -> np.ndarray:
         """One device predict dispatch under the `GBDT::predict_device`
-        timer scope.  `early_stop=(freq, margin)` runs the device masked
+        timer scope, and a structured `predict` event when an EventLogger
+        is active.  `early_stop=(freq, margin)` runs the device masked
         accumulation (parity with the host early-stop path)."""
         with global_timer.scope("GBDT::predict_device"):
             if mode == "leaf":
-                return dp.predict_leaf(X)
-            if mode == "raw":
-                return dp.predict_raw(X, early_stop=early_stop)
-            return dp.predict(X, early_stop=early_stop)
+                out = dp.predict_leaf(X)
+            elif mode == "raw":
+                out = dp.predict_raw(X, early_stop=early_stop)
+            else:
+                out = dp.predict(X, early_stop=early_stop)
+        n = out.shape[0]
+        emit_event("predict", path="device", mode=mode, rows=int(n),
+                   trees=dp.pack.num_trees, bucket=dp.bucket_rows(n),
+                   early_stop=early_stop is not None)
+        return out
 
     def _es_tuple(self, pred_early_stop, freq, margin):
         """(freq, margin) when prediction early stopping engages: the

@@ -1,9 +1,7 @@
 """Training callbacks (PyTorch port of `lightgbm_tpu/callback.py`; ref:
-python-package/lightgbm/callback.py).
-
-`checkpoint` and `record_metrics` belong to the host planes (checkpoint
-capture of device state, the event log), which come with ROADMAP
-Queue 1 item 16; calling them raises NotImplementedError.
+python-package/lightgbm/callback.py), with the JAX package's host-plane
+callbacks: `checkpoint` (atomic, rotated, resumable checkpoints) and
+`record_metrics` (the per-iteration JSONL event).
 """
 
 from __future__ import annotations
@@ -81,16 +79,129 @@ def reset_parameter(**kwargs):
 
 def checkpoint(checkpoint_dir: str, frequency: int = 1, keep_last: int = 3,
                manager=None):
-    """Periodic checkpoints: not ported yet (ROADMAP Queue 1 item 16)."""
-    raise NotImplementedError("the checkpoint callback is not ported yet "
-                              "(ROADMAP Queue 1 item 16)")
+    """Periodic checkpoint callback (the JAX package's `checkpoint`):
+    every `frequency` iterations (and at the final iteration) write an
+    atomic, rotated checkpoint of the model plus the exact trainer
+    state, resumable through `train(checkpoint_dir=...)` by either
+    package.  A failed write warns and training continues: losing one
+    checkpoint must not kill a long run.  Under a process group only
+    rank 0 writes (every rank holds the same model)."""
+    from .observability import process_rank
+    from .reliability.checkpoint import CheckpointManager
+    mgr = manager if manager is not None else CheckpointManager(
+        checkpoint_dir, keep_last=keep_last)
+
+    def _callback(env: CallbackEnv) -> None:
+        if frequency <= 0:
+            return
+        it = env.iteration + 1
+        if it % frequency != 0 and it != env.end_iteration:
+            return
+        if process_rank() != 0:
+            return
+        if mgr.params_hash is None:
+            from .reliability.checkpoint import hash_params
+            mgr.params_hash = hash_params(env.params)
+        from .observability import emit_event, global_registry
+
+        def _on_done(ok, err, ck):
+            # shared accounting for both write modes: in async mode this
+            # fires from the writer thread once the files land (or fail)
+            if ok:
+                global_registry.inc("checkpoint_writes")
+                emit_event("checkpoint", iteration=it, path=ck.model_path)
+            else:
+                global_registry.inc("checkpoint_failures")
+                emit_event("checkpoint_write_failed", iteration=it,
+                           error=str(err))
+                log.warning(f"Checkpoint write failed at iteration {it}: "
+                            f"{err}; training continues (the previous "
+                            "checkpoint is intact)")
+        mgr.save(env.model, it, on_done=_on_done)
+    _callback.order = 40
+    return _callback
 
 
 def record_metrics(metrics_dir: str = None, logger=None):
-    """Structured telemetry events: not ported yet (ROADMAP Queue 1 item
-    16)."""
-    raise NotImplementedError("the record_metrics callback is not ported "
-                              "yet (ROADMAP Queue 1 item 16)")
+    """Structured telemetry callback (the JAX package's `record_metrics`):
+    appends ONE JSONL `iteration` event per boosting iteration to
+    `<metrics_dir>/events-rank<r>.jsonl` with the JAX event's fields:
+    iteration wall-clock, the per-phase timer breakdown (delta of
+    `global_timer` since the previous iteration, `<scope>::device` the
+    CUDA-event device time), train/valid eval results, the grown trees'
+    leaves and depth, and the cumulative counter/gauge snapshot
+    (checkpoint writes, injected faults, rollbacks, trees grown, device
+    memory).  Every record also goes to the always-on flight recorder.
+
+    `train(metrics_dir=...)` installs it and turns the timer on; pass it
+    explicitly (with a shared EventLogger) to co-locate events from
+    custom callbacks.  The JAX event's `roofline` fields come from its
+    cost model, which waits for ROADMAP Queue 1 item 16's serving half;
+    the port's event leaves them out."""
+    import time as _time
+
+    import numpy as np
+
+    from .observability import EventLogger, global_registry
+    from .observability.flightrec import flight_recorder
+    from .utils.timer import global_timer
+
+    if metrics_dir is None and logger is None:
+        raise ValueError("record_metrics needs metrics_dir or a logger")
+    state: Dict[str, Any] = {"t": _time.perf_counter(),
+                             "snap": global_timer.snapshot()}
+
+    def _callback(env: CallbackEnv) -> None:
+        lg = state.get("logger")
+        if lg is None:
+            lg = logger if logger is not None else EventLogger(metrics_dir)
+            state["logger"] = lg
+        gbdt = env.model._gbdt
+        now = _time.perf_counter()
+        snap = global_timer.snapshot()
+        prev = state["snap"]
+        phases = {}
+        phase_secs = {}
+        for name, (sec, _cnt) in snap.items():
+            d = sec - prev.get(name, (0.0, 0))[0]
+            if d > 0:
+                phase_secs[name] = d
+                phases[name] = round(d, 6)
+        state["snap"] = snap
+        time_s = now - state["t"]
+        state["t"] = now
+
+        train_evals, valid_evals = {}, {}
+        for name, metric, value, _hb in env.evaluation_result_list:
+            if name == "training":
+                train_evals[metric] = value
+            else:
+                valid_evals[f"{name} {metric}"] = value
+        K = gbdt.num_tree_per_iteration
+        trees = []
+        for t in gbdt.models_[-K:] if len(gbdt.models_) >= K else []:
+            nl = int(getattr(t, "num_leaves", 1))
+            depth = (int(np.max(t.leaf_depth[:nl]))
+                     if nl > 1 and hasattr(t, "leaf_depth") else 0)
+            trees.append({"leaves": nl, "depth": depth})
+        reg = global_registry.snapshot()
+        lg.emit("iteration", iteration=env.iteration + 1,
+                time_s=round(time_s, 6), phases=phases,
+                train=train_evals, valid=valid_evals, trees=trees,
+                counters=reg["counters"], gauges=reg["gauges"])
+        # the bounded in-process tail a stall/crash/SIGUSR2 dump reads
+        device_ms = sum(v for k, v in phase_secs.items()
+                        if k.endswith("::device")) * 1000.0
+        flight_recorder.record_iteration(
+            iteration=env.iteration + 1, time_s=round(time_s, 6),
+            phase_ms={k: round(v * 1000.0, 3)
+                      for k, v in phase_secs.items()},
+            device_ms=round(device_ms, 3),
+            device_bytes=reg["gauges"].get("device_bytes_in_use"),
+            rows_per_s=(round(gbdt.num_data / time_s, 1)
+                        if time_s > 0 else None))
+    _callback.order = 50
+    return _callback
 
 
 def early_stopping(stopping_rounds: int, first_metric_only: bool = False,

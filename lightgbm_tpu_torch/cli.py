@@ -73,15 +73,29 @@ def _task_train(cfg: Config, params: Dict[str, str]) -> None:
                     f"{cfg.output_model}.snapshot_iter_{it}")
         _snapshot.order = 100
         callbacks = [_snapshot]
-    # checkpoint_dir, metrics_dir and profile_dir reach train, which
-    # refuses them until the host planes are ported
+    # resume flags (the JAX package's cli.py:66-93): checkpoint_dir=DIR
+    # writes rotated atomic checkpoints every checkpoint_freq rounds, and
+    # re-running the same command continues from the newest one unless
+    # resume=false; metrics_dir and profile_dir reach train in params
+    if cfg.checkpoint_dir:
+        log.info(f"Checkpointing to {cfg.checkpoint_dir} every "
+                 f"{cfg.checkpoint_freq} iteration(s) "
+                 f"(resume={'on' if cfg.resume else 'off'})")
+    if cfg.metrics_dir:
+        log.info(f"Writing per-iteration telemetry events to "
+                 f"{cfg.metrics_dir}")
+    if cfg.profile_dir:
+        log.info(f"Profiling the run; the trace will be written to "
+                 f"{cfg.profile_dir}")
     booster = train_api(dict(params), train_set,
                         num_boost_round=cfg.num_iterations,
                         valid_sets=valid_sets or None,
                         valid_names=valid_names or None,
                         init_model=cfg.input_model or None,
                         callbacks=callbacks,
-                        checkpoint_dir=cfg.checkpoint_dir or None)
+                        checkpoint_dir=cfg.checkpoint_dir or None,
+                        checkpoint_freq=cfg.checkpoint_freq,
+                        resume=cfg.resume)
     booster.save_model(cfg.output_model)
     log.info(f"Finished training; model saved to {cfg.output_model}")
 

@@ -1,7 +1,20 @@
-"""Fault tolerance for training runs (PyTorch port of the part of
-`lightgbm_tpu/reliability/` that the training loop uses): the error the
-non-finite sentinel raises.  Checkpoints, rollback, supervision and the
-stall watchdog come with ROADMAP Queue 1 item 16.
+"""Fault tolerance for long training runs (PyTorch port of
+`lightgbm_tpu/reliability/`):
+
+* checkpoint/resume — `CheckpointManager` writes atomic, rotated
+  checkpoints (model text + exact trainer state) so a job killed at
+  iteration k restarts from k, not from zero (`checkpoint.py`); the
+  layout is the JAX package's, so either package resumes the other's.
+* fault injection — env-driven crash/NaN/hang/write-failure hooks so the
+  recovery paths are testable without real hardware faults
+  (`faults.py`, `LGBM_TPU_FAULT=worker_crash@3,...`).
+* stall watchdog + degradation ladder — `guard.py` turns live-but-hung
+  runs into a structured stall diagnosis and a distinct exit code, and
+  with `auto_degrade=true` relaunches from checkpoint with the next
+  risky knob disabled.
+
+The distributed supervisor and the elastic policy come with multi-GPU
+training (ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -12,7 +25,15 @@ from ..utils.log import LightGBMError
 class NonFiniteError(LightGBMError):
     """Raised when NaN/Inf gradients or eval scores are detected: boosting
     on non-finite values silently produces garbage trees, so training
-    fails fast."""
+    fails fast (or rolls back to the last checkpoint when one exists)."""
 
 
-__all__ = ["NonFiniteError"]
+from . import faults  # noqa: E402
+from .checkpoint import Checkpoint, CheckpointManager  # noqa: E402
+from .faults import WORKER_LOST_EXIT_CODE  # noqa: E402
+from .guard import (DEGRADE_LADDER, STALL_EXIT_CODE,  # noqa: E402
+                    RunGuard, classify_returncode)
+
+__all__ = ["Checkpoint", "CheckpointManager", "NonFiniteError", "faults",
+           "RunGuard", "STALL_EXIT_CODE", "DEGRADE_LADDER",
+           "classify_returncode", "WORKER_LOST_EXIT_CODE"]

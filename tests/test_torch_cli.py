@@ -205,10 +205,7 @@ def test_python_dash_m_with_jax_blocked(files, tmp_path):
     (["serve", "serve_models=m=model.txt"], "item 16"),
     (["serve-fleet", "serve_models=m=model.txt"], "item 16"),
     (["task=train-and-serve", "online_chunk_dir=x"], "item 16"),
-    (["num_machines=2", "machines=a:1,b:2"], "item 15"),
-    (["checkpoint_dir={d}/ck"], "item 16"),
-    (["metrics_dir={d}/m"], "item 16"),
-    (["profile_dir={d}/p"], "item 16")])
+    (["num_machines=2", "machines=a:1,b:2"], "item 15")])
 def test_unported_refuse(files, args, item):
     d = files
     with pytest.raises(NotImplementedError, match=item):

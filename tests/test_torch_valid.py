@@ -418,8 +418,10 @@ def test_booster_eval_train_and_feval(runs):
 
 
 @pytest.mark.parametrize("kw,item", [
-    # continued training, DART, custom and ranking objectives and linear
-    # trees are ported: these cases hold options that stay refused (kw0
+    # continued training, DART, custom and ranking objectives, linear
+    # trees and the host planes (checkpoints, metrics_dir, profile_dir,
+    # metrics_port and their callbacks) are ported: these cases hold
+    # options that stay refused (kw0
     # and kw2 keep the names of the linear-tree cases they replaced; more
     # than 256 bins and the advanced monotone mode are ported since, so
     # they pair them with a tree learner the port still refuses)
@@ -429,22 +431,11 @@ def test_booster_eval_train_and_feval(runs):
     pytest.param({"params": {"linear_tree": True,
                              "monotone_constraints_method": "advanced",
                              "tree_learner": "feature"}},
-                 "tree_learner='feature'.*item 15", id="kw2-item 14"),
-    ({"checkpoint_dir": "ck"}, "item 16"),
-    ({"metrics_dir": "m"}, "item 16"),
-    ({"params": {"profile_dir": "p"}}, "item 16"),
-    ({"params": {"metrics_port": 0}}, "item 16"),
-    ({"callbacks": "checkpoint"}, "item 16"),
-    ({"callbacks": "record_metrics"}, "item 16")])
+                 "tree_learner='feature'.*item 15", id="kw2-item 14")])
 def test_unported_train_options_refuse(kw, item):
     X, y = _data(1024)
     params = {**PARAMS, "device_type": "cpu", **kw.pop("params", {})}
     with pytest.raises(NotImplementedError, match=item):
-        cb = kw.pop("callbacks", None)
-        if cb == "checkpoint":
-            kw["callbacks"] = [tlgb.checkpoint("ck")]
-        elif cb == "record_metrics":
-            kw["callbacks"] = [tlgb.record_metrics("m")]
         tlgb.train(params, tlgb.Dataset(X, label=y), 2, **kw)
 
 
