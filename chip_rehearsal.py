@@ -1,12 +1,13 @@
 """Rehearse chip_smoke.py's split_features, objectives, efb,
 forced_interaction, surface, ranking, file, linear, refit_contrib, cli,
-wide_bins, monotone_modes and reliability phases on the CPU at 1/8 of
-their rows, to size their gates before a run on the card:
+wide_bins, monotone_modes, reliability and serving phases on the CPU at
+1/8 of their rows, to size their gates before a run on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
                               [forced_interaction] [surface] [ranking]
                               [file] [linear] [refit_contrib] [cli]
                               [wide_bins] [monotone_modes] [reliability]
+                              [serving]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -40,7 +41,12 @@ MONO_MODE_AUC_MIN are taken from (the path B numbers they stand beside
 are the card's, not rehearsed).  reliability runs the rollback on the
 main path's 13 trees and its child processes on the CPU at CHILD_ROWS /
 8 rows; the device-memory gauge and the stall diagnosis's allocator
-snapshot are card-only (a stand-in gauge, the snapshot's device name).
+snapshot are card-only (a stand-in gauge, the snapshot's device name),
+and the grow_tree roofline reads the host seconds of `Tree::histogram`.
+serving runs the in-process and fleet drills on the main path's 13 trees
+with the daemon and the replica children on the CPU (their CPU
+dispatches counted as the card's); the bw_util gate holds against the
+cost model's cpu peaks.
 """
 
 import json
@@ -209,12 +215,23 @@ def main(argv) -> int:
             cs.CHILD_ROWS //= SCALE
             cs.STALL_DEVICE_KEY = "device"
             cs.RELIABILITY_DEVICE = "cpu"
+            # no CUDA events on the CPU: the scope's host seconds
+            cs.GROW_TREE_PHASE = "Tree::histogram"
             start = cs.start_children
             cs.start_children = lambda script, specs: start(script, [
                 (name, on_cpu(p), kw, fault, attempt)
                 for name, p, kw, fault, attempt in specs])
             cs.phase_reliability(Rehearsal(), H, "cpu rehearsal", main,
                                  bench)
+            lines = {}
+        elif phase == "serving":
+            main["model_text"] = booster.model_to_string(num_iteration=13)
+            main["model_text_v1"] = booster.model_to_string(
+                num_iteration=cs.SERVE_V1_ITERATIONS)
+            cs.SERVE_DEVICE = "cpu"
+            cs.SERVE_PARAMS = on_cpu(cs.SERVE_PARAMS)
+            cs.FLEET_PARAMS = on_cpu(cs.FLEET_PARAMS)
+            cs.phase_serving(Rehearsal(), "cpu rehearsal", main, data)
             lines = {}
         elif phase == "monotone_modes":
             cs.phase_monotone_modes(Rehearsal(), H, global_timer,

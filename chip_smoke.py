@@ -61,8 +61,11 @@ Phases, each printing one JSON line:
      just after.  Gates: one `rollback_retry` event, to the checkpoint
      at 4; the final model text equal to the main path's byte for byte;
      K1 and K3 launched; an iteration event for each of the 13
-     iterations, each with `GBDT::*` phase seconds; non-empty
-     torch.cuda memory gauges in the last; `train_end` last.  Then
+     iterations, each with `GBDT::*` phase seconds and a `roofline`
+     whose `grow_tree` group (the histogram passes) reads the CUDA-event
+     time of `Tree::histogram::device` with 0 < bw_util <= BW_UTIL_MAX
+     (1.05); non-empty torch.cuda memory gauges in the last;
+     `train_end` last.  Then
      child processes on the card at CHILD_ROWS (65,536) rows, 255
      leaves, started together in two waves: worker_crash@5 with
      checkpoints every 2 iterations exits 17 and the relaunch resumes
@@ -74,8 +77,37 @@ Phases, each printing one JSON line:
      the trees of a clean child with tpu_donate_buffers=false.  One
      `reliability` line: checkpoint bytes, sync write ms and async
      capture ms per checkpoint, s/iter of the checkpointed run (timer
-     on) beside the main path's, the children's exit codes and seconds,
-     the stall's silent seconds, the launches, the card;
+     on) beside the main path's, each roofline group's bw_util, the
+     children's exit codes and seconds, the stall's silent seconds,
+     the launches, the card;
+  3d. serving: the main path's first SERVE_V1_ITERATIONS (7) trees (v1)
+     and all 13 (v2) as model text.  In process: a ServingDaemon on the
+     card (roofline=true, metrics_port=0, buckets 64-1,024) serves v1;
+     SERVE_STREAMS (256) closed-loop streams of SERVE_ROWS (4) rows over
+     SERVE_THREADS (16) threads, SERVE_ROUNDS (5) rounds, v2 loaded and
+     hot-swapped in under the third round's traffic once two rounds are
+     done (the last two rounds wait for it to land).  Gates: every response byte-identical
+     to `Booster.predict` (device_predict=true, on the card) of the
+     version that served it; no failed request; both versions seen;
+     serve_recompiles 0 after warmup; one line-JSON TCP request equal to
+     the in-process answer; `/metrics` with the daemon and cost series;
+     a `roofline` block with 0 < bw_util <= BW_UTIL_MAX (1.05).  Then
+     the fleet drill (bench.py --serve-fleet --smoke's setup): 2 replica
+     children on the card (`python -m lightgbm_tpu_torch` task=serve,
+     fresh processes), the router, FLEET_THREADS (6) client threads of
+     4-row requests (at least FLEET_REQUESTS, 400), serve_crash@25 on
+     replica 1 (relaunched), serve_shed@10 on replica 0, a rolling
+     publish to v2 once the relaunch is routable, then a canary trained
+     with scale_pos_weight=100 that must roll back.  Gates: no failed
+     request (the router's explicit `overloaded` answers, bench.py's
+     admission rejections, at most FLEET_OVERLOAD_MAX (5%) of the served
+     ones, the client backing off 0.1 s after each); every reply byte-identical to one version's
+     `Booster.predict`; a relaunch; each replica's health reporting its
+     CUDA dispatches; the router's `/metrics` with lgbm_router_requests
+     and lgbm_fleet_replicas_routable; a sampled trace assembled across
+     2 processes; SIGTERM draining every replica to rc 143 (or -15).
+     One `serving` line: p50/p99 ms, rows/s, dispatches and mean batch
+     rows of each drill, the roofline, the fleet's seconds, the card;
   4. path A, quantized training: the same workload with
      use_quantized_grad=true (4 bins, stochastic rounding), 13
      iterations; K2 launched, K1/K3 not; held-out AUC within 0.01 of
@@ -299,7 +331,8 @@ Phases, each printing one JSON line:
   6. card against CPU (the CPU sides train in CARD_CPU_WORKERS spawned
      worker processes of CARD_CPU_THREADS torch threads while the main
      process runs the card sides in turn): `train` at CARD_ROWS (65,536)
-     rows, 3 iterations, on "cuda"
+     rows, CARD_ITERATIONS (2) iterations (3 for the GOSS and DART
+     cases), on "cuda"
      and "cpu", for the main path, paths A and B, sampling runs (a), (b)
      at learning_rate 0.5 (GOSS samples from iteration 2), (c), and (a)
      with use_quantized_grad=true (K2 on a sampling path, gated); then on
@@ -391,6 +424,7 @@ unpacked with `git archive`), it times that commit's kernels by the
 same methods, for a comparison within one call.
 """
 
+import faulthandler
 import functools
 import json
 import os
@@ -408,11 +442,14 @@ N_KERNEL = 1 << 20
 N_ODD = 1953 * 512             # rows that are no multiple of K1's chunks
 F, B, C = 28, 255, 2
 GROUP_BINS = 256               # EFB bundle codes: MAX_BUNDLE_BINS
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 VALID_MIN_DELTA = 0.001        # early_stopping_min_delta of the valid path
 CARD_ROWS = 65_536             # rows of the higgs and EFB card-vs-CPU cases
 CARD_LINEAR_ROWS = 32_768      # rows of the linear card-vs-CPU cases
+# iterations of a card-vs-CPU case (3 until the serving phase came): the
+# GOSS case samples from its third iteration and DART's drops need
+# trees to drop, so those two keep 3
+CARD_ITERATIONS = 2
+CARD_ITERATIONS_OF = {"sampling_b_goss_lr0.5": 3, "dart_wave": 3}
 # the card-vs-CPU cases' CPU sides train in worker processes meanwhile
 CARD_CPU_WORKERS = 4
 CARD_CPU_THREADS = 2
@@ -568,14 +605,14 @@ def kernel_inputs(num_slots, dev, seed, n=N_KERNEL, uneven=False,
 def bound_of(binned_bytes, n, num_slots, rows_in_slots, width=(F, B)):
     """(bound_ms, bound_by): bytes each input read once and each output
     written once over HBM bandwidth, against one add per computed row,
-    feature and channel (plus the count) over the float32 peak."""
+    feature and channel (plus the count) over the float32 peak: the
+    cost model's count (costmodel.wave_hist_bytes / wave_hist_ops) at
+    its H100 peaks (PEAK_TABLE["gpu"])."""
+    from lightgbm_tpu_torch.observability import costmodel as cm
     Fw, Bw = width
-    nbytes = (binned_bytes + 4 * n + 4 * (C + 1) * n
-              + num_slots * Fw * Bw * C * 4 + num_slots * 4)
-    ops = rows_in_slots * (Fw * C + 1)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return cm.bound_ms(
+        cm.wave_hist_bytes(binned_bytes, n, num_slots, Fw, Bw, C),
+        cm.wave_hist_ops(rows_in_slots, Fw, C))
 
 
 def same(name, got, want):
@@ -697,12 +734,12 @@ def quantized_gh(n, gen, qbins=4):
 def bound_rows(S, rows_in_mask, width=(F, B), code_bytes=1):
     """K4's (bound_ms, bound_by): rows (codes of `code_bytes` bytes), gh
     and mask read once and the float32 histograms written once, against
-    one add per masked row, feature and channel."""
+    one add per masked row, feature and channel: the cost model's count
+    (costmodel.rows_hist_bytes / rows_hist_ops)."""
+    from lightgbm_tpu_torch.observability import costmodel as cm
     Fw, Bw = width
-    nbytes = S * Fw * code_bytes + 4 * C * S + 4 * S + Fw * Bw * C * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = rows_in_mask * Fw * C / F32_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return cm.bound_ms(cm.rows_hist_bytes(S, Fw, Bw, C, code_bytes),
+                       cm.rows_hist_ops(rows_in_mask, Fw, C))
 
 
 # K4 shapes: (rows S, every row in one bin of every feature, every row
@@ -1179,6 +1216,9 @@ def phase_paths(lgb, H, global_timer, probe, bench):
         # the uninterrupted run the reliability phase's rollback must
         # reproduce, before the later phases touch the booster
         model_text.append(b.model_to_string(num_iteration=-1))
+        # the serving phase's v1: the first SERVE_V1_ITERATIONS trees
+        model_text.append(b.model_to_string(
+            num_iteration=SERVE_V1_ITERATIONS))
         phase_predict(b, data)
         # the estimator's and train's scans are not the main path's
         held = probe.calls, probe.last
@@ -1195,7 +1235,7 @@ def phase_paths(lgb, H, global_timer, probe, bench):
             "auc": auc_main,
             "scan_calls_per_tree": calls / len(r["booster"]._gbdt.models_),
             "features": distinct_features(r["booster"]._gbdt.models_[:13]),
-            "model_text": model_text[0]}
+            "model_text": model_text[0], "model_text_v1": model_text[1]}
     del r
     if auc_main < 0.72:
         raise AssertionError(f"main path: held-out AUC {auc_main} < 0.72")
@@ -3175,8 +3215,9 @@ def phase_monotone_modes(lgb, H, global_timer, card, main, bench):
 
 def case_inputs(name, extra, categorical=False, label="binary",
                 data="higgs", forced=False, rank=None, rows=CARD_ROWS):
-    """The inputs of one card-vs-CPU case: `train` at `rows` rows, 3
-    iterations (`categorical`: the split_features phase's transform of
+    """The inputs of one card-vs-CPU case: `train` at `rows` rows,
+    CARD_ITERATIONS iterations (CARD_ITERATIONS_OF names the cases that
+    take more; `categorical`: the split_features phase's transform of
     the data, columns 0, 1 and 3 as `categorical_feature`; `label`:
     "binary", the objectives phase's "regression" label, its
     non-negative part ("nonnegative") or its class label cut into 3
@@ -3226,16 +3267,18 @@ def case_inputs(name, extra, categorical=False, label="binary",
               "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
               **extra}
     return {"name": name, "X": X, "y": y, "ds_kw": ds_kw, "params": params,
+            "iterations": CARD_ITERATIONS_OF.get(name, CARD_ITERATIONS),
             "forced": forced, "extra": extra, "categorical": categorical,
             "label": label, "data": data}
 
 
 def train_case(lgb, inputs, dev):
-    """A case's 3 iterations on `dev`: (trees, bundle groups or None);
+    """A case's iterations on `dev`: (trees, bundle groups or None);
     forced splits are held on the way."""
     b = lgb.train({**inputs["params"], "device_type": dev},
                   lgb.Dataset(inputs["X"], label=inputs["y"],
-                              **inputs["ds_kw"]), num_boost_round=3)
+                              **inputs["ds_kw"]),
+                  num_boost_round=inputs["iterations"])
     if inputs["forced"]:
         check_forced(b._gbdt, inputs["forced"])
     plan = b._gbdt.bundle_plan
@@ -3311,13 +3354,14 @@ def phase_card_vs_cpu(lgb, H, inputs, cpu_side=None):
                                      "differ")
             linear_worst[i] = float(ratio.max())
     K = extra.get("num_class", 1)
-    if len(models["cuda"]) != 3 * K or len(models["cpu"]) != 3 * K:
+    trees = inputs["iterations"] * K
+    if len(models["cuda"]) != trees or len(models["cpu"]) != trees:
         raise AssertionError(f"{name}: card/CPU tree counts differ from "
-                             f"{3 * K}")
+                             f"{trees}")
     if categorical and cat_nodes == 0:
         raise AssertionError(f"{name}: no categorical split to compare")
     emit({"phase": "card_vs_cpu", "path": name, "params": extra,
-          "rows": X.shape[0], "trees": 3 * K, "categorical": categorical,
+          "rows": X.shape[0], "trees": trees, "categorical": categorical,
           "label": inputs["label"], "data": data, "columns": X.shape[1],
           "bundle_columns": (None if plans["cuda"] is None
                              else len(plans["cuda"])),
@@ -3796,6 +3840,10 @@ STALL_ITERATIONS = 6
 # the stall diagnosis's device snapshot must hold the card's allocator
 STALL_DEVICE_KEY = "allocated_bytes"
 RELIABILITY_DEVICE = "cuda"     # where the checkpointed run must train
+# the phase whose seconds the grow_tree roofline must read: the
+# histogram passes' CUDA-event time (costmodel.GROUP_PHASES)
+GROW_TREE_PHASE = "Tree::histogram::device"
+BW_UTIL_MAX = 1.05          # a byte count above this is a wrong count
 
 # a child of the crash and stall drills: trains make_higgs_like(CHILD_ROWS,
 # 28) with BENCH_PARAMS + REL_PARAMS on the card, writes its model text
@@ -3876,6 +3924,43 @@ def read_events(path):
         return [json.loads(line) for line in f]
 
 
+def roofline_of_iterations(its):
+    """Gate the iteration events' training roofline: every event's
+    `grow_tree` group (the histogram passes) reads GROW_TREE_PHASE's
+    seconds and moves 0 < bw_util <= BW_UTIL_MAX.  Returns, per group,
+    the events it is in, its bw_util range, and its mean device ms,
+    bytes and calls per event."""
+    out = {}
+    for e in its:
+        roof = e.get("roofline") or {}
+        g = roof.get("grow_tree")
+        dev = e["phases"].get(GROW_TREE_PHASE)
+        if g is None or dev is None or g["device_s"] is None \
+                or abs(g["device_s"] - dev) > 1e-6 \
+                or not 0 < (g.get("bw_util") or 0) <= BW_UTIL_MAX:
+            raise AssertionError(
+                f"reliability: iteration {e['iteration']}'s grow_tree "
+                f"roofline {g} against {GROW_TREE_PHASE} = {dev}")
+        for group, r in roof.items():
+            o = out.setdefault(group, {"events": 0, "bw_util": [],
+                                       "device_ms": 0.0, "bytes": 0.0,
+                                       "calls": 0})
+            o["events"] += 1
+            o["bw_util"].append(r.get("bw_util"))
+            o["device_ms"] += (r["device_s"] or 0.0) * 1e3
+            o["bytes"] += r["bytes"]
+            o["calls"] += r["calls"]
+    for o in out.values():
+        n = o.pop("events")
+        bw = [x for x in o.pop("bw_util") if x is not None]
+        o.update(events=n, bw_util_min=min(bw, default=None),
+                 bw_util_max=max(bw, default=None),
+                 device_ms_per_event=o.pop("device_ms") / n,
+                 bytes_per_event=o.pop("bytes") / n,
+                 calls_per_event=o.pop("calls") / n)
+    return out
+
+
 def phase_reliability(lgb, H, card, main, bench):
     """The training host planes on the card (gates in the module
     docstring): the full-width rollback run with its event log, then
@@ -3929,6 +4014,7 @@ def phase_reliability(lgb, H, card, main, bench):
         if not any(k.startswith("GBDT::") for k in e["phases"]):
             raise AssertionError(f"reliability: no GBDT:: phase seconds "
                                  f"in iteration {e['iteration']}")
+    roof = roofline_of_iterations(its)
     gauges = its[-1]["gauges"]
     if not gauges.get("device_bytes_in_use", 0) > 0:
         raise AssertionError(f"reliability: no device memory gauges in "
@@ -4035,7 +4121,8 @@ def phase_reliability(lgb, H, card, main, bench):
           "capture_ms_per_checkpoint": (cap_s * 1e3 / n_ckpt
                                         if n_ckpt else None),
           "sync_write_ms": write_ms, "checkpoint_bytes": ckpt_bytes,
-          "device_gauges": gauges, "launches": launches,
+          "device_gauges": gauges, "roofline": roof,
+          "launches": launches,
           "children": {k: {"rc": v[0], "s": v[1]}
                        for k, v in {**rc1, **rc2}.items()},
           "child_rows": CHILD_ROWS, "stall_floor_s": STALL_FLOOR_S,
@@ -4045,8 +4132,352 @@ def phase_reliability(lgb, H, card, main, bench):
     return launches
 
 
+SERVING_DIR = os.path.join("build", "chip_smoke_serving")
+SERVE_STREAMS = 256         # closed-loop streams of SERVE_ROWS rows
+SERVE_THREADS = 16
+SERVE_ROUNDS = 5
+SERVE_ROWS = 4
+SERVE_SWAP_AT = 2           # v2 loads once this many rounds are done,
+                            # under the next round's traffic
+SERVE_V1_ITERATIONS = 7     # v1: the main path's first 7 iterations
+SERVE_POOL = 4096           # the rows requests draw from
+SERVE_PARAMS = {"device_predict_min_bucket": 64,
+                "serve_max_batch_rows": 1024, "verbosity": -1}
+FLEET_REPLICAS = 2
+FLEET_THREADS = 6
+FLEET_REQUESTS = 400
+FLEET_FAULTS = {1: "serve_crash@25", 0: "serve_shed@10"}
+FLEET_CANARY_AT = 120       # requests served before the canary goes out
+# the admission controller's explicit `overloaded` answers, as bench.py
+# --serve-fleet counts them: not failures, at most this share of the
+# served requests (a shed on one replica while the other relaunches
+# marks the only routable replica as shedding for up to a second)
+FLEET_OVERLOAD_MAX = 0.05
+FLEET_PARAMS = {"device_predict_min_bucket": 64,
+                "serve_max_batch_rows": 256, "serve_queue_depth": 256,
+                "verbosity": -1}
+FLEET_ROUTER = {"serve_retry_max": 4, "serve_retry_backoff_ms": 25.0,
+                "serve_request_timeout_s": 60.0, "serve_canary_pct": 50.0,
+                "serve_canary_min_samples": 24,
+                "serve_canary_max_divergence": 2.0,
+                "serve_canary_max_error_rate": 0.2,
+                "serve_trace_sample": 16}
+SERVE_DEVICE = "cuda"       # where the daemon and the replicas must serve
+
+
+def serve_in_process(lgb, texts, pool, expected):
+    """The in-process drill (module docstring): returns its line."""
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.inference import DevicePredictor
+    from lightgbm_tpu_torch.observability.registry import global_registry
+    from lightgbm_tpu_torch.serving import (LineClient, ServingDaemon,
+                                            serve_counters_reset,
+                                            start_frontend)
+    serve_counters_reset()
+    for key in ("device_predict_flops", "device_predict_bytes",
+                "device_predict_s", "device_predict_dispatches"):
+        global_registry.inc(key, -global_registry.counter(key))
+    d = ServingDaemon(Config({**SERVE_PARAMS, "roofline": True,
+                              "metrics_port": 0})).start()
+    srv = None
+    try:
+        t0 = time.perf_counter()
+        d.registry.register("higgs", model_str=texts[1], block=True)
+        warm_s = time.perf_counter() - t0
+        if d.registry.device.type != SERVE_DEVICE:
+            raise AssertionError(f"serving: daemon on {d.registry.device}")
+        cuda_before = DevicePredictor.dispatch_counts().get(SERVE_DEVICE, 0)
+        lat, bad, seen = [], [], {1: 0, 2: 0}
+        lock = threading.Lock()
+        rounds_done = [0]
+        swap_go, swap_done = threading.Event(), threading.Event()
+
+        def worker(tid):
+            streams = range(tid, SERVE_STREAMS, SERVE_THREADS)
+            for rnd in range(SERVE_ROUNDS):
+                if rnd == SERVE_SWAP_AT + 1:
+                    # the load and warmup ran under round SERVE_SWAP_AT's
+                    # traffic; the rounds after it must see v2
+                    swap_done.wait(timeout=120)
+                sent = []
+                for s in streams:
+                    lo = (s * 61 + rnd * 1031) % (SERVE_POOL - SERVE_ROWS)
+                    sent.append((lo, time.perf_counter(), d.submit(
+                        "higgs", pool[lo:lo + SERVE_ROWS])))
+                for lo, ts, fut in sent:
+                    try:
+                        out = fut.result(timeout=60)
+                        ms = (time.perf_counter() - ts) * 1e3
+                        v = fut.version
+                        ok = out.tobytes() == expected[v][
+                            lo:lo + SERVE_ROWS].tobytes()
+                    except Exception as e:  # noqa: BLE001
+                        with lock:
+                            bad.append(repr(e))
+                        continue
+                    with lock:
+                        lat.append(ms)
+                        seen[v] += 1
+                        if not ok:
+                            bad.append(f"v{v} rows {lo}: not Booster.predict")
+                with lock:
+                    rounds_done[0] += 1
+                    if rounds_done[0] == SERVE_SWAP_AT * SERVE_THREADS:
+                        swap_go.set()
+
+        def swapper():
+            swap_go.wait(timeout=120)
+            d.registry.register("higgs", model_str=texts[2], block=True)
+            swap_done.set()
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(SERVE_THREADS)]
+        sw = threading.Thread(target=swapper)
+        t0 = time.perf_counter()
+        sw.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        sw.join(timeout=120)
+        if bad:
+            raise AssertionError(f"serving: {len(bad)} failed or differing "
+                                 f"responses: {bad[:3]}")
+        if not (seen[1] and seen[2]):
+            raise AssertionError(f"serving: the hot swap was not seen "
+                                 f"mid-run: {seen}")
+        recompiles = d.registry.serve_recompiles()
+        if recompiles:
+            raise AssertionError(f"serving: {recompiles} programs first run "
+                                 "by live traffic after warmup")
+        srv = start_frontend(d, port=0, request_timeout_s=60.0)
+        c = LineClient("127.0.0.1", srv.server_address[1])
+        reply = c.request({"model": "higgs",
+                           "rows": pool[:SERVE_ROWS].tolist()}, timeout_s=60)
+        c.close()
+        wire = np.asarray(reply.get("preds", []), np.float64).astype(
+            np.float32)
+        if not reply.get("ok") or wire.tobytes() != d.predict(
+                "higgs", pool[:SERVE_ROWS]).tobytes():
+            raise AssertionError(f"serving: the TCP answer differs from "
+                                 f"the in-process one: {reply}")
+        page = urllib.request.urlopen(
+            f"http://127.0.0.1:{d.metrics_server.port}/metrics",
+            timeout=30).read().decode()
+        missing = [k for k in ("lgbm_serve_requests", "lgbm_serve_latency_ms",
+                               "lgbm_serve_recompiles",
+                               "lgbm_cost_bytes_total") if k not in page]
+        if missing:
+            raise AssertionError(f"serving: /metrics lacks {missing}")
+        stats = d.stats()
+        rl = stats.get("roofline")
+        if rl is None or not 0 < rl["bw_util"] <= BW_UTIL_MAX:
+            raise AssertionError(f"serving: roofline {rl}")
+        cuda = (DevicePredictor.dispatch_counts().get(SERVE_DEVICE, 0)
+                - cuda_before)
+        n_req = int(stats["serve_requests"])
+        return {"requests": n_req, "rows": int(stats["serve_rows"]),
+                "streams": SERVE_STREAMS, "threads": SERVE_THREADS,
+                "rounds": SERVE_ROUNDS, "rows_per_request": SERVE_ROWS,
+                "versions_seen": seen, "warmup_s": warm_s, "wall_s": wall,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "rows_per_s": len(lat) * SERVE_ROWS / wall,
+                "dispatches": int(stats["serve_dispatches"]),
+                "cuda_dispatches": cuda,
+                "mean_batch_rows": stats["serve_rows"]
+                / max(stats["serve_dispatches"], 1),
+                "daemon_p50_ms": stats["serve_p50_ms"],
+                "daemon_p99_ms": stats["serve_p99_ms"],
+                "serve_recompiles": recompiles, "roofline": rl}
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        d.stop(drain=True, timeout=30)
+
+
+def serve_fleet(lgb, paths, pool, expected):
+    """The fleet drill (module docstring): returns its line."""
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.serving import (LineClient, OverloadedError,
+                                            ReplicaFleet, Router)
+    fleet = ReplicaFleet(
+        num_replicas=FLEET_REPLICAS, model_entries=[("higgs", paths[1])],
+        workdir=os.path.abspath(SERVING_DIR), params=FLEET_PARAMS,
+        max_restarts=3, health_interval_s=0.25,
+        fault_envs={i: {"LGBM_TPU_FAULT": f} for i, f in
+                    FLEET_FAULTS.items()}).start()
+    router = Router(fleet, Config({**FLEET_PARAMS, **FLEET_ROUTER}))
+    router.register_incumbent("higgs", paths[1])
+    t_start = time.perf_counter()
+    rcs, failures, ok, tags, overloads = None, [], [0], {}, [0]
+    lock, stop = threading.Lock(), threading.Event()
+    lat = []
+    try:
+        if not fleet.wait_ready(timeout=240.0):
+            raise AssertionError(f"serving fleet: not ready: "
+                                 f"{fleet.describe()}")
+        ready_s = time.perf_counter() - t_start
+
+        def client(tid):
+            rnd = 0
+            while not stop.is_set():
+                rnd += 1
+                lo = (tid * 2654435761 + rnd * 97) % (SERVE_POOL - SERVE_ROWS)
+                try:
+                    r = router.predict("higgs", pool[lo:lo + SERVE_ROWS],
+                                       deadline_ms=45_000.0)
+                except OverloadedError:
+                    # the fleet's explicit answer: back off, as a client
+                    with lock:
+                        overloads[0] += 1
+                    time.sleep(0.1)
+                    continue
+                except Exception as e:  # noqa: BLE001
+                    with lock:
+                        failures.append(f"t{tid}r{rnd}: {e!r}")
+                    time.sleep(0.05)
+                    continue
+                got = np.asarray(r.preds, np.float64).astype(np.float32)
+                tag = next((t for t, exp in expected.items() if got.tobytes()
+                            == exp[lo:lo + SERVE_ROWS].tobytes()), None)
+                with lock:
+                    ok[0] += 1
+                    lat.append(r.latency_ms)
+                    if tag is None:
+                        failures.append(f"t{tid}r{rnd}: v{r.version} on "
+                                        f"replica {r.replica} matches no "
+                                        "version's Booster.predict")
+                    else:
+                        tags[tag] = tags.get(tag, 0) + 1
+
+        def wait_for(n, timeout=180.0):
+            deadline = time.perf_counter() + timeout
+            while ok[0] < n and time.perf_counter() < deadline:
+                time.sleep(0.02)
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(FLEET_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        # the crash and the shed fire in the first third; the rolling
+        # publish to v2 waits for the crashed replica's relaunch
+        wait_for(FLEET_REQUESTS * 35 // 100)
+        fleet.wait_ready(timeout=180.0)
+        relaunch_s = time.perf_counter() - t0
+        publish = router.publish("higgs", paths[2], canary_pct=0)
+        wait_for(ok[0] + FLEET_CANARY_AT)
+        fleet.wait_ready(timeout=120.0, min_replicas=FLEET_REPLICAS)
+        router.publish("higgs", paths["bad"])
+        verdict = router.canary_wait("higgs", timeout=120.0)
+        wait_for(max(FLEET_REQUESTS, ok[0] + 50))
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        drive_s = time.perf_counter() - t0
+        if failures:
+            raise AssertionError(f"serving fleet: {len(failures)} failed "
+                                 f"requests: {failures[:3]}")
+        if overloads[0] > FLEET_OVERLOAD_MAX * ok[0]:
+            raise AssertionError(f"serving fleet: {overloads[0]} overloaded "
+                                 f"answers against {ok[0]} served")
+        if verdict != "rolled_back":
+            raise AssertionError(f"serving fleet: the canary was "
+                                 f"{verdict}, not rolled back")
+        desc = fleet.describe()
+        if not any(r["restarts"] >= 1 for r in desc):
+            raise AssertionError(f"serving fleet: no relaunch: {desc}")
+        health = {}
+        for ep in fleet.endpoints():
+            c = LineClient(ep.host, ep.port)
+            health[ep.idx] = c.request({"op": "health"}, timeout_s=30)
+            c.close()
+        no_card = {i: h.get("dispatches") for i, h in health.items()
+                   if not h.get("dispatches", {}).get(SERVE_DEVICE)
+                   or not str(h.get("device", "")).startswith(SERVE_DEVICE)}
+        if len(health) != FLEET_REPLICAS or no_card:
+            raise AssertionError(f"serving fleet: replicas without CUDA "
+                                 f"dispatches: {no_card or health}")
+        router.start_frontend(port=0, metrics_port=0)
+        page = urllib.request.urlopen(
+            f"http://127.0.0.1:{router.metrics_server.port}/metrics",
+            timeout=30).read().decode()
+        missing = [k for k in ("lgbm_router_requests",
+                               "lgbm_fleet_replicas_routable")
+                   if k not in page]
+        if missing:
+            raise AssertionError(f"serving fleet: /metrics lacks {missing}")
+        traces = [t for t in router.assembler.traces()
+                  if t.get("outcome") == "ok"
+                  and len(t.get("processes", ())) >= 2]
+        if not traces:
+            raise AssertionError("serving fleet: no sampled trace "
+                                 "assembled across 2 processes")
+        line = {"requests_ok": ok[0], "overloaded": overloads[0],
+                "versions_served": tags,
+                "fleet_ready_s": ready_s, "relaunch_wait_s": relaunch_s,
+                "drive_s": drive_s, "publish": publish, "canary": verdict,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99)),
+                "replicas": desc,
+                "replica_dispatches": {i: h["dispatches"]
+                                       for i, h in health.items()},
+                "trace_spans": len(traces[-1]["spans"]),
+                "trace_processes": len(traces[-1]["processes"])}
+    finally:
+        stop.set()
+        router.stop()
+        rcs = fleet.stop(drain=True, timeout=60.0)
+    if sorted(rcs) != list(range(FLEET_REPLICAS)) or any(
+            rc not in (143, -15) for rc in rcs.values()):
+        raise AssertionError(f"serving fleet: SIGTERM drain exit codes "
+                             f"{rcs}")
+    line["drain_rcs"] = rcs
+    line["seconds"] = time.perf_counter() - t_start
+    return line
+
+
+def phase_serving(lgb, card, main, data):
+    """The serving phase (module docstring): the in-process drill, then
+    the fleet drill, on the main path's model texts."""
+    import shutil
+    X, y = data[0], data[1]
+    t_phase = time.perf_counter()
+    shutil.rmtree(SERVING_DIR, ignore_errors=True)
+    os.makedirs(SERVING_DIR)
+    pool = np.ascontiguousarray(X[:SERVE_POOL], np.float32)
+    # the canary bait: a pathological class weight, so its scores diverge
+    bad = lgb.train({"objective": "binary", "num_leaves": 31,
+                     "verbosity": -1, "scale_pos_weight": 100.0},
+                    lgb.Dataset(X[:20_000], label=y[:20_000]), 10)
+    texts = {1: main["model_text_v1"], 2: main["model_text"],
+             "bad": bad.model_to_string()}
+    paths = {}
+    for tag, text in texts.items():
+        paths[tag] = os.path.abspath(os.path.join(SERVING_DIR,
+                                                  f"model_{tag}.txt"))
+        with open(paths[tag], "w") as f:
+            f.write(text)
+    expected = {tag: lgb.Booster(model_str=text, params={
+        "device_predict": "true"}).predict(pool)
+        for tag, text in texts.items()}
+    inproc = serve_in_process(lgb, texts, pool, expected)
+    fleet = serve_fleet(lgb, paths, pool, expected)
+    emit({"phase": "serving", "seconds": time.perf_counter() - t_phase,
+          "in_process": inproc, "fleet": fleet, "card": card})
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
+    # a fatal signal (a crash after a device-side assert, say) dumps
+    # every thread's Python stack to stderr
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4106,6 +4537,7 @@ def main(argv) -> int:
     launches, main_wall, main = phase_paths(lgb, H, global_timer, probe,
                                             bench)
     launches["efb"] = efb_launches
+    phase_serving(lgb, card, main, bench[0])
     launches["reliability"] = phase_reliability(lgb, H, card, main, bench)
     fi_launches, _ = phase_forced_interaction(lgb, H, global_timer, card,
                                               main, bench)

@@ -108,6 +108,7 @@ from ..ops.histogram import (code_dtype, codes_to_device, codes_to_int,
                              wave_part_plan, wave_slot_pad)
 from ..ops.split import SplitParams, cat_bitset_words, leaf_output
 from ..observability import emit_event, global_registry
+from ..observability.costmodel import global_cost_model, gradients_cost
 from ..reliability import faults
 from ..utils import log
 from ..utils import random as jrandom
@@ -1070,6 +1071,9 @@ class GBDT:
             with global_timer.scope("GBDT::gradients"):
                 grad, hess = self._compute_gradients()
                 grad, hess = global_timer.block((grad, hess))
+            if global_cost_model.enabled:
+                global_cost_model.account("gradients", *gradients_cost(
+                    K, self.n_pad, self.weight_dev is not None))
             if faults.active():
                 grad, hess = faults.maybe_nan_grad(grad, hess, abs_iter)
             if self.config.nonfinite_check_freq > 0:

@@ -135,21 +135,26 @@ def record_metrics(metrics_dir: str = None, logger=None):
 
     `train(metrics_dir=...)` installs it and turns the timer on; pass it
     explicitly (with a shared EventLogger) to co-locate events from
-    custom callbacks.  The JAX event's `roofline` fields come from its
-    cost model, which waits for ROADMAP Queue 1 item 16's serving half;
-    the port's event leaves them out."""
+    custom callbacks.  With the cost model enabled (param `roofline`, on
+    during metrics runs) the event also carries `roofline`: per group
+    (`grow_tree`, `gradients`, `device_eval`, as in the JAX event) the
+    measured MFU, arithmetic intensity and a compute- vs memory-bound
+    classification, from the analytic flop/byte deltas over the same
+    window as the phase timings (observability/costmodel.py)."""
     import time as _time
 
     import numpy as np
 
     from .observability import EventLogger, global_registry
+    from .observability.costmodel import global_cost_model
     from .observability.flightrec import flight_recorder
     from .utils.timer import global_timer
 
     if metrics_dir is None and logger is None:
         raise ValueError("record_metrics needs metrics_dir or a logger")
     state: Dict[str, Any] = {"t": _time.perf_counter(),
-                             "snap": global_timer.snapshot()}
+                             "snap": global_timer.snapshot(),
+                             "cost": global_cost_model.snapshot()}
 
     def _callback(env: CallbackEnv) -> None:
         lg = state.get("logger")
@@ -171,6 +176,16 @@ def record_metrics(metrics_dir: str = None, logger=None):
         time_s = now - state["t"]
         state["t"] = now
 
+        # per-phase roofline: analytic flop/byte deltas over this
+        # iteration's window, against the phase's ::device time
+        roofline = None
+        if global_cost_model.enabled:
+            cost = global_cost_model.snapshot()
+            roofline = global_cost_model.phase_roofline(
+                state["cost"], cost, phase_secs,
+                backend=gbdt.device.type) or None
+            state["cost"] = cost
+
         train_evals, valid_evals = {}, {}
         for name, metric, value, _hb in env.evaluation_result_list:
             if name == "training":
@@ -185,10 +200,13 @@ def record_metrics(metrics_dir: str = None, logger=None):
                      if nl > 1 and hasattr(t, "leaf_depth") else 0)
             trees.append({"leaves": nl, "depth": depth})
         reg = global_registry.snapshot()
-        lg.emit("iteration", iteration=env.iteration + 1,
-                time_s=round(time_s, 6), phases=phases,
-                train=train_evals, valid=valid_evals, trees=trees,
-                counters=reg["counters"], gauges=reg["gauges"])
+        fields = dict(iteration=env.iteration + 1,
+                      time_s=round(time_s, 6), phases=phases,
+                      train=train_evals, valid=valid_evals, trees=trees,
+                      counters=reg["counters"], gauges=reg["gauges"])
+        if roofline:
+            fields["roofline"] = roofline
+        lg.emit("iteration", **fields)
         # the bounded in-process tail a stall/crash/SIGUSR2 dump reads
         device_ms = sum(v for k, v in phase_secs.items()
                         if k.endswith("::device")) * 1000.0

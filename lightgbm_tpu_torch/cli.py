@@ -5,16 +5,20 @@ src/application/application.cpp:31 Application).
 Parameters as the reference's LoadParameters takes them: command-line
 `key=value` pairs win over the config file's entries (the first value
 of a key wins, ref: application.cpp:79 KeepFirstValues).  Tasks: train,
-predict, refit, save_binary and convert_model (ref: config.h TaskType).
+predict, refit, save_binary and convert_model (ref: config.h TaskType),
+and the JAX package's serving tasks `serve` and `serve-fleet`.
 `device_type` comes from the parameters like any other, so the command
 line runs on the card unless `device_type=cpu` is given, models loaded
-for predict and refit included.
+for predict, refit and serving included.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import sys
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -22,6 +26,7 @@ from .basic import Booster, Dataset
 from .config import Config, read_config_file
 from .engine import train as train_api
 from .utils import log
+from .utils.device import resolve_device
 
 
 def parse_args(argv: List[str]) -> Dict[str, str]:
@@ -163,20 +168,193 @@ def _task_convert_model(cfg: Config, params: Dict[str, str]) -> None:
     log.info(f"Converted model saved to {out}")
 
 
+def _serve_entries(cfg: Config, task: str) -> List[Tuple[str, str]]:
+    """(name, model file) pairs from serve_models (`name=path`, a bare
+    path serving under its file stem), else input_model as `default`."""
+    entries = []
+    for tok in cfg.serve_models:
+        name, sep, path = tok.partition("=")
+        if not sep:
+            name, path = os.path.splitext(os.path.basename(tok))[0], tok
+        entries.append((name.strip(), path.strip()))
+    if not entries and cfg.input_model:
+        entries.append(("default", cfg.input_model))
+    if not entries:
+        log.fatal(f"task={task} needs serve_models=name=model.txt[,...] "
+                  "or input_model=<file>")
+    return entries
+
+
+def _event_log(cfg: Config) -> None:
+    """serve_* events (swap/evict/drain) land in the JSONL event log
+    under metrics_dir, as training telemetry does."""
+    from .observability import EventLogger, set_event_logger
+    set_event_logger(EventLogger(cfg.metrics_dir,
+                                 rotate_mb=cfg.metrics_rotate_mb))
+
+
+def _write_ready_file(path: str, payload: Dict[str, object]) -> None:
+    from .utils import atomic_write_text
+    atomic_write_text(path, json.dumps({"pid": os.getpid(), **payload}))
+    log.info(f"Ready file written to {path}")
+
+
+def _task_serve(cfg: Config, params: Dict[str, str]) -> None:
+    """Long-lived multi-model serving daemon (the JAX package's task):
+    `python -m lightgbm_tpu_torch serve serve_models=name=model.txt`.
+    Loads and warms every model (the whole bucket ladder on the
+    device) BEFORE serving, optionally exposes the line-JSON front end
+    on TCP (serve_port=0 for an ephemeral port) and a Unix socket
+    (serve_uds_path), and treats SIGTERM as a drain notice: queued
+    requests complete, a final `serve_drain` event lands, and the exit
+    stays 143 (the supervisor's *preempt* classification)."""
+    from .serving import ServingDaemon, start_frontend, start_uds_frontend
+
+    if cfg.metrics_dir:
+        _event_log(cfg)
+        # SIGUSR2 dumps the flight recorder + registry snapshot from the
+        # LIVE daemon without killing it
+        from .reliability.faults import register_flight_dump_signal
+        register_flight_dump_signal(cfg.metrics_dir)
+    entries = _serve_entries(cfg, "serve")
+    daemon = ServingDaemon(cfg)
+    for name, path in entries:
+        daemon.registry.register(name, model_file=path, block=True)
+        log.info(f"Serving model {name!r} from {path} on "
+                 f"{daemon.registry.device} (warmed)")
+    daemon.start()
+    daemon.install_signal_handlers()
+    srv = uds_srv = None
+    if cfg.serve_port >= 0:
+        srv = start_frontend(daemon, port=cfg.serve_port,
+                             request_timeout_s=cfg.serve_request_timeout_s)
+    if cfg.serve_uds_path:
+        uds_srv = start_uds_frontend(
+            daemon, cfg.serve_uds_path,
+            request_timeout_s=cfg.serve_request_timeout_s)
+    if cfg.serve_ready_file:
+        # readiness marker for the fleet supervisor: port + pid land
+        # atomically only AFTER every model is loaded, warmed, and the
+        # front end listens; an early file would route traffic into
+        # cold buckets
+        _write_ready_file(cfg.serve_ready_file, {
+            "port": srv.server_address[1] if srv is not None else -1,
+            "metrics_port": (daemon.metrics_server.port
+                             if daemon.metrics_server else -1),
+            "models": daemon.registry.versions()})
+    log.info(f"Serving {len(entries)} model(s); SIGTERM drains and exits")
+    try:
+        while not daemon.stopped:
+            time.sleep(0.2)
+    except KeyboardInterrupt:
+        log.info("Interrupted; draining the request queue")
+        daemon.stop(drain=True, timeout=cfg.serve_drain_timeout_s)
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        if uds_srv is not None:
+            uds_srv.shutdown()
+
+
+def _task_serve_fleet(cfg: Config, params: Dict[str, str]) -> None:
+    """Serving fault domain (the JAX package's task):
+    `python -m lightgbm_tpu_torch serve-fleet serve_models=m=model.txt
+    serve_replicas=2 serve_port=0`.  Spawns `serve_replicas` replica
+    daemons (each a supervised `task=serve` child process with its own
+    CUDA context and ready file), health-checks them, and fronts them
+    with the retry/shed/canary router on `serve_port`.  SIGTERM drains
+    the WHOLE fleet: the router stops accepting, every replica gets its
+    own SIGTERM drain (each exits 143), and the runner re-delivers: the
+    exit stays 143.  The router process itself touches no device."""
+    import tempfile
+
+    from .observability import install_sigterm_flush, set_preemption_hook
+    from .serving import ReplicaFleet, Router
+
+    if cfg.metrics_dir:
+        _event_log(cfg)
+    entries = _serve_entries(cfg, "serve-fleet")
+    force_cpu = os.environ.get("LGBM_TPU_SERVE_FORCE_CPU") == "1"
+    if not force_cpu:
+        # the replicas serve where device_type says: refuse here, once,
+        # rather than in every child (no card, no fallback)
+        resolve_device(cfg.device_type)
+    workdir = cfg.metrics_dir or tempfile.mkdtemp(prefix="lgbm-fleet-")
+    # replica daemons inherit the serving knobs; their OWN ports are
+    # ephemeral (the ready file reports them) and the router owns the
+    # client-facing serve_port
+    replica_params = {k: v for k, v in params.items()
+                      if k not in ("task", "serve_port", "serve_replicas",
+                                   "serve_ready_file", "metrics_dir",
+                                   "metrics_port")}
+    fleet = ReplicaFleet(
+        num_replicas=cfg.serve_replicas, model_entries=entries,
+        workdir=workdir, params=replica_params,
+        max_restarts=cfg.serve_max_replica_restarts,
+        health_interval_s=cfg.serve_health_interval_s,
+        force_cpu=force_cpu).start()
+    router = Router(fleet, cfg)
+    for name, path in entries:
+        router.register_incumbent(name, path)
+    if not fleet.wait_ready(timeout=300.0, min_replicas=1):
+        fleet.stop(drain=False)
+        log.fatal("serve-fleet: no replica became ready within 300 s "
+                  f"(see {workdir}/replica-*.log)")
+    srv = router.start_frontend(port=max(cfg.serve_port, 0),
+                                metrics_port=cfg.metrics_port)
+    log.info(f"Fleet router listening on "
+             f"{srv.server_address[0]}:{srv.server_address[1]} "
+             f"({cfg.serve_replicas} replicas); SIGTERM drains the fleet")
+    if cfg.serve_slo_p99_ms > 0:
+        log.info(f"SLO tracking on: p99 <= {cfg.serve_slo_p99_ms:g} ms, "
+                 f"error budget {cfg.serve_slo_error_pct:g}% "
+                 f"(burn windows {cfg.serve_slo_fast_window_s:g}s / "
+                 f"{cfg.serve_slo_slow_window_s:g}s)")
+    if cfg.serve_ready_file:
+        _write_ready_file(cfg.serve_ready_file, {
+            "port": srv.server_address[1],
+            "metrics_port": (router.metrics_server.port
+                             if router.metrics_server else -1),
+            "replicas": fleet.describe()})
+    stopping = {"flag": False}
+
+    def _drain():
+        stopping["flag"] = True
+        router.stop()
+        fleet.stop(drain=True, timeout=cfg.serve_drain_timeout_s + 30.0)
+        return None  # finish_preemption re-delivers; rc stays 143
+
+    if install_sigterm_flush():
+        set_preemption_hook(_drain)
+    try:
+        while not stopping["flag"] and fleet.alive():
+            time.sleep(0.2)
+        if not stopping["flag"]:
+            log.warning("serve-fleet: every replica exhausted its "
+                        "restart budget; shutting down")
+    except KeyboardInterrupt:
+        log.info("Interrupted; draining the fleet")
+        _drain()
+    finally:
+        router.stop()
+
+
 def _refuse_unported(task: str) -> None:
     raise NotImplementedError(
         f"task={task} is not ported yet (ROADMAP Queue 1 item 16): the "
         "PyTorch port's command line trains, predicts, refits, saves "
-        "binary datasets and converts models")
+        "binary datasets, converts models and serves (serve, "
+        "serve-fleet); online training waits")
 
 
 HANDLERS = {"train": _task_train, "predict": _task_predict,
             "prediction": _task_predict, "refit": _task_refit,
             "refit_tree": _task_refit, "save_binary": _task_save_binary,
-            "convert_model": _task_convert_model}
-# the JAX package's serving and online tasks
-UNPORTED_TASKS = ("serve", "serve-fleet", "serve_fleet", "train-and-serve",
-                  "train_and_serve")
+            "convert_model": _task_convert_model, "serve": _task_serve,
+            "serve-fleet": _task_serve_fleet,
+            "serve_fleet": _task_serve_fleet}
+# the JAX package's online task
+UNPORTED_TASKS = ("train-and-serve", "train_and_serve")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -187,6 +187,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     # ---- observability
     event_logger = None
     timer_was_enabled = global_timer.enabled
+    cost_was_enabled = None
     metrics_srv = None
     if metrics_dir:
         from .observability import EventLogger, set_event_logger
@@ -200,8 +201,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
         # a metrics run always times (restored afterwards)
         global_timer.enabled = True
         if cfg.roofline:
-            log.info("roofline: the iteration events' roofline fields "
-                     "wait for the cost model (ROADMAP Queue 1 item 16)")
+            # per-phase measured MFU and roofline classification in the
+            # iteration events (observability/costmodel.py; restored
+            # afterwards)
+            from .observability import enable_cost_model
+            cost_was_enabled = enable_cost_model(True)
         # flight recorder bound + SIGUSR2 on-demand dump
         flight_recorder.resize(cfg.flight_recorder_size)
         register_flight_dump_signal(metrics_dir, rank=rank)
@@ -401,6 +405,9 @@ def train(params: Dict[str, Any], train_set: Dataset,
         if run_guard is not None:
             run_guard.stop()
         global_timer.enabled = timer_was_enabled
+        if cost_was_enabled is not None:
+            from .observability import enable_cost_model
+            enable_cost_model(cost_was_enabled)
         if metrics_srv is not None:
             metrics_srv.shutdown()
         _stop_profiler(profiler, cfg.profile_dir or None, rank)

@@ -13,17 +13,32 @@ reuses the same blocks from call to call.  Only the request's rows
 cross to the device; the padding rows are zeroed there.
 
 `DevicePredictor.dispatches` counts dispatches by device type
-("cuda", "cpu"), so a caller can show that a predict ran on the card.
+("cuda", "cpu"), so a caller can show that a predict ran on the card;
+the serving dispatcher thread and callers' threads advance it under a
+lock.
+
+Where the JAX package counts traced signatures per bucket entry, the
+port counts the distinct (mode, bucket, width) programs first
+dispatched (`num_traces`, `total_traces`): the serving registry's
+`serve_recompiles` then means buckets first run by live traffic after
+warmup.  With the cost model on (param `roofline`), every dispatch but
+warmup's adds its analytic flops and bytes (costmodel.traverse_cost)
+and its wall seconds to the registry's `device_predict_*` counters, and
+`last_dispatch_info()` carries the newest one for the serving trace.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from collections import Counter
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..observability.costmodel import global_cost_model, traverse_cost
+from ..observability.registry import global_registry
 from ..utils import log
 from ..utils.device import resolve_device
 from ..utils.timer import global_timer
@@ -80,6 +95,7 @@ class DevicePredictor:
     """
 
     dispatches: Counter = Counter()
+    _dispatches_lock = threading.Lock()
 
     def __init__(self, trees: List, num_class: int = 1,
                  average: bool = False, convert=None,
@@ -94,6 +110,16 @@ class DevicePredictor:
         self._min_bucket = max(int(min_bucket), 8)
         self._has_cat = bool(self.ok and self.pack.is_cat.any())
         self._dev = None      # device copies of the pack arrays
+        # (mode, bucket, F) programs dispatched so far: the port's
+        # counterpart of the JAX package's traced bucket entries
+        self._programs = set()
+        # the newest accounted dispatch's cost (flops / bytes / wall
+        # seconds / bucket), stamped on the serving dispatch span; the
+        # serving dispatcher writes it, any thread reads it
+        self._dispatch_lock = threading.Lock()
+        self._last_dispatch = None
+        self._pack_bytes = (sum(int(a.nbytes) for a in self.pack[:11])
+                            if self.pack is not None else 0)
 
     # ------------------------------------------------------------- device
     def _device_arrays(self):
@@ -117,16 +143,42 @@ class DevicePredictor:
             b *= 2
         return b
 
+    @classmethod
+    def dispatch_counts(cls) -> dict:
+        """A copy of `dispatches`, read under its lock."""
+        with cls._dispatches_lock:
+            return dict(cls.dispatches)
+
+    def num_traces(self, mode: str = "raw") -> int:
+        """Distinct (bucket, width) programs dispatched in `mode`."""
+        with self._dispatch_lock:
+            return sum(1 for m, _, _ in self._programs if m == mode)
+
+    def total_traces(self) -> int:
+        """Distinct (mode, bucket, width) programs dispatched: the
+        serving registry's `serve_recompiles` reads it before and after
+        the warmup ladder."""
+        with self._dispatch_lock:
+            return len(self._programs)
+
     def release_device(self) -> None:
-        """Drop the device copies of the pack; the next predict puts it
-        back."""
+        """Drop the device copies of the pack and the program ledger, so
+        an evicted serving model frees its buffers; the next predict
+        puts the pack back."""
         self._dev = None
+        with self._dispatch_lock:
+            self._programs = set()
 
     # ------------------------------------------------------------ predict
     def _run(self, X: np.ndarray, mode: str,
-             early_stop: Optional[Tuple[int, float]] = None):
+             early_stop: Optional[Tuple[int, float]] = None,
+             account: bool = True):
         """One padded-bucket dispatch; returns (host result [n, ...],
-        bucket)."""
+        bucket).  With the cost model on and `account` (false for
+        warmup), the dispatch's analytic flops/bytes and wall seconds
+        accumulate into the registry (`device_predict_flops` / `_bytes`
+        / `_s` / `_dispatches`), flop and second measured at the same
+        site."""
         X = np.ascontiguousarray(X, np.float32)
         if X.ndim == 1:
             X = X[None, :]
@@ -147,36 +199,70 @@ class DevicePredictor:
         fn = build_program(self.pack.max_depth, self.num_class,
                            self.average, self._convert, mode, es_freq,
                            self._has_cat)
+        mode_key = f"{mode}+es{es_freq}" if es_freq > 0 else mode
+        with self._dispatch_lock:
+            self._programs.add((mode_key, bucket, F))
+        t0 = (time.perf_counter()
+              if account and global_cost_model.enabled else None)
         with global_timer.scope("DevicePredictor::dispatch"):
             xd = torch.empty((bucket, F), dtype=torch.float32,
                              device=self.device)
             xd[:n].copy_(torch.from_numpy(X))
             xd[n:] = 0.0
             out = fn(xd, *extra, *self._device_arrays())
-            DevicePredictor.dispatches[self.device.type] += 1
+            with DevicePredictor._dispatches_lock:
+                DevicePredictor.dispatches[self.device.type] += 1
             host = global_timer.block(out)[:n].cpu().numpy()
+        if t0 is not None:
+            # the copy to the host settled the device, so the wall time
+            # covers pad + H2D + traversal + D2H of exactly this dispatch
+            dt = time.perf_counter() - t0
+            p = self.pack
+            flops, nbytes = traverse_cost(
+                bucket, F, p.num_trees, p.max_depth,
+                p.num_trees if mode == "leaf" else self.num_class,
+                self._pack_bytes, sums=mode != "leaf")
+            global_cost_model.account(
+                f"device_predict[{mode_key}@{bucket}]", flops, nbytes)
+            global_registry.inc("device_predict_flops", flops)
+            global_registry.inc("device_predict_bytes", nbytes)
+            global_registry.inc("device_predict_s", dt)
+            global_registry.inc("device_predict_dispatches")
+            with self._dispatch_lock:
+                self._last_dispatch = {
+                    "flops": flops, "bytes": nbytes,
+                    "dispatch_s": round(dt, 6), "bucket": int(bucket)}
         return host, bucket
+
+    def last_dispatch_info(self):
+        """The newest accounted dispatch's cost (`{flops, bytes,
+        dispatch_s, bucket}`), or None before any accounted dispatch or
+        with the cost model off: the serving trace's dispatch-span
+        attributes."""
+        with self._dispatch_lock:
+            info = self._last_dispatch
+            return dict(info) if info is not None else None
 
     def warmup(self, num_features: int, max_rows: int,
                modes=("convert", "raw"),
                early_stop: Optional[Tuple[int, float]] = None) -> int:
         """Run every bucket of the ladder up through the one covering
         `max_rows` once per mode, so the caching allocator holds their
-        blocks before the first real request.  Returns the number of
-        dispatches."""
+        blocks before the first real request (the serving registry runs
+        this before a model entry goes live).  Warmup dispatches stay out
+        of the cost ledger.  Returns the number of distinct programs
+        dispatched so far."""
         if not self.ok:
             return 0
-        count = 0
         b = self._min_bucket
         while True:
             x = np.zeros((b, num_features), np.float32)
             for mode in modes:
-                self._run(x, mode, early_stop=early_stop)
-                count += 1
+                self._run(x, mode, early_stop=early_stop, account=False)
             if b >= max_rows:
                 break
             b *= 2
-        return count
+        return self.total_traces()
 
     def predict_leaf(self, X: np.ndarray) -> np.ndarray:
         """[n, T] int32 leaf indices, bit-identical to the native

@@ -74,6 +74,8 @@ import torch
 from ..ops.histogram import (ROW_TILE, build_histogram_rows_fixed,
                              codes_to_int, fixed_unit, from_fixed,
                              scale_exps)
+from ..observability.costmodel import (global_cost_model, rows_hist_bytes,
+                                       rows_hist_ops)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO,
                          SplitParams, SplitResult, cat_bitset_words,
                          find_best_split, leaf_gain, leaf_output,
@@ -543,15 +545,25 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         set_masks = interaction_masks(params.interaction_sets, F, dev)
         leaf_branch = torch.zeros((L, F), dtype=torch.bool, device=dev)
 
+    def account_rows(rows, values):
+        if global_cost_model.enabled:
+            S, Fh = rows.shape
+            Ch = values.shape[1]
+            global_cost_model.account(
+                "grow_tree[histogram]", rows_hist_ops(S, Fh, Ch),
+                rows_hist_bytes(S, Fh, hist_B, Ch, rows.element_size()))
+
     def hist_of(member_mask):
         """Group-space histogram of every row under a membership mask
         (int64)."""
+        account_rows(binned_rm, gh)
         with global_timer.device_scope("Tree::histogram", dev):
             return build_histogram_rows_fixed(binned_rm, gh, member_mask,
                                               exps, max_bin=hist_B)
 
     def hist_of_rows(rows, gh_sub, member_mask):
         """Group-space histogram of gathered rows [S, F'] (int64)."""
+        account_rows(rows, gh_sub)
         with global_timer.device_scope("Tree::histogram", dev):
             return build_histogram_rows_fixed(rows, gh_sub, member_mask,
                                               exps, max_bin=hist_B)

@@ -81,6 +81,8 @@ from ..ops.histogram import (build_histogram_wave_fixed,
                              fixed_unit, from_fixed, scale_exps,
                              wave_hl_fits,
                              wave_hl_profitable, wave_slot_pad)
+from ..observability.costmodel import (global_cost_model, wave_hist_bytes,
+                                       wave_hist_ops)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
                          cat_bitset_words, find_best_split,
                          monotone_gain_penalty)
@@ -437,6 +439,13 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                 H, cnt = build_histogram_wave_fixed(
                     binned, state["kslot"], gh, exps, max_bin=hist_B,
                     num_slots=Kb)
+            if global_cost_model.enabled:
+                Fh, nh = binned.shape
+                Ch = gh.shape[1] - 1
+                global_cost_model.account(
+                    "grow_tree[histogram]", wave_hist_ops(nh, Fh, Ch),
+                    wave_hist_bytes(binned.element_size() * Fh * nh, nh,
+                                    Kb, Fh, hist_B, Ch))
         Hf = H.reshape(Kb, Dh)
         if first:
             cache_h[0] = Hf[0]

@@ -9,8 +9,17 @@ be buffered behind a hung AsyncWriter, rotated away, or on a disk the
 failing rank cannot reach.  So a bounded ring keeps the recent
 iteration records IN PROCESS, always on (one deque append per
 iteration): iteration, wall time, per-phase ms (device split included),
-device-memory gauge, rows/s.  The serving traces and batch histograms
-of the JAX recorder come with the serving slice.
+device-memory gauge, rows/s.  Serving adds, as in the JAX recorder:
+
+* sampled per-request serving traces: trace id plus the enqueue ->
+  coalesce -> dispatch -> device-settle -> respond stage timestamps
+  (param `serve_trace_sample`: every Nth request); in the ROUTER
+  process the same ring also holds `kind: "assembled_trace"` summaries
+  of the cross-process span waterfalls (observability/tracing.py
+  SpanAssembler), and replicas record `kind: "dispatch_error"` entries
+  carrying the failed requests' trace ids;
+* a coalesce-batch-size histogram (power-of-two buckets, requests and
+  rows).
 
 `dump_flight_record` writes the ring and a registry snapshot to
 `<dir>/flight-rank<r>.json` SYNCHRONOUSLY via the atomic-write path,
@@ -23,6 +32,7 @@ thread that holds the recorder's lock must not deadlock on it.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
@@ -33,11 +43,25 @@ from typing import Any, Dict, List, Optional
 from ..utils import atomic_write_text, log
 
 
-class FlightRecorder:
-    """Bounded in-memory ring of recent iteration records."""
+# power-of-two histogram: bucket k counts dispatches with batch size in
+# [2^k, 2^(k+1)); the last bucket is open-ended
+_HIST_BUCKETS = 17
 
-    def __init__(self, capacity: int = 256):
+
+def _bucket_of(n: int) -> int:
+    return min(max(int(n), 1).bit_length() - 1, _HIST_BUCKETS - 1)
+
+
+class FlightRecorder:
+    """Bounded in-memory ring of recent iteration records and serving
+    traces."""
+
+    def __init__(self, capacity: int = 256, trace_capacity: int = 256):
         self._iters: deque = deque(maxlen=max(int(capacity), 8))
+        self._traces: deque = deque(maxlen=max(int(trace_capacity), 8))
+        self._batch_req_hist = [0] * _HIST_BUCKETS
+        self._batch_row_hist = [0] * _HIST_BUCKETS
+        self._trace_seq = itertools.count()
         # guards appends only; every read path is lock-free on purpose
         # (signal handlers dump through here, see the module docstring)
         self._lock = threading.Lock()
@@ -56,6 +80,20 @@ class FlightRecorder:
         with self._lock:
             self._iters.append(rec)
 
+    def next_trace_id(self) -> int:
+        return next(self._trace_seq)
+
+    def record_trace(self, **fields) -> None:
+        rec = {"ts": time.time()}
+        rec.update(fields)
+        with self._lock:
+            self._traces.append(rec)
+
+    def record_batch(self, num_requests: int, num_rows: int) -> None:
+        with self._lock:
+            self._batch_req_hist[_bucket_of(num_requests)] += 1
+            self._batch_row_hist[_bucket_of(num_rows)] += 1
+
     @staticmethod
     def _tail_of(buf: deque, n: Optional[int]) -> List[Dict[str, Any]]:
         # lock-free: a deque snapshot can raise RuntimeError when an
@@ -73,14 +111,28 @@ class FlightRecorder:
         """Newest `n` iteration records (lock-free, signal-safe)."""
         return self._tail_of(self._iters, n)
 
+    def trace_tail(self, n: int = 32) -> List[Dict[str, Any]]:
+        return self._tail_of(self._traces, n)
+
     def contents(self) -> Dict[str, Any]:
         """Everything the recorder holds, as one JSON-ready dict
-        (lock-free: it runs from signal handlers)."""
-        return {"iterations": self._tail_of(self._iters, None)}
+        (lock-free: it runs from signal handlers; a list copy racing one
+        int increment reads a momentarily stale bucket, never a torn
+        structure)."""
+        return {
+            "iterations": self._tail_of(self._iters, None),
+            "serve_traces": self._tail_of(self._traces, None),
+            "coalesce_batch_requests_hist": list(self._batch_req_hist),
+            "coalesce_batch_rows_hist": list(self._batch_row_hist),
+            "hist_bucket_base": 2,
+        }
 
     def reset(self) -> None:
         with self._lock:
             self._iters.clear()
+            self._traces.clear()
+            self._batch_req_hist = [0] * _HIST_BUCKETS
+            self._batch_row_hist = [0] * _HIST_BUCKETS
 
 
 # the process-wide recorder; always on (bounded memory, O(1) appends)

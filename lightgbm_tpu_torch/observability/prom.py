@@ -1,20 +1,25 @@
 """Prometheus text-format exposition of the metrics registry (PyTorch
-port of `lightgbm_tpu/observability/prom.py`).
+port of `lightgbm_tpu/observability/prom.py`): the scrape surface the
+fleet, router and canary layer needs.
 
-`render_prometheus` renders the process-wide registry (counters,
-gauges) in the Prometheus text format (version 0.0.4: `# TYPE` lines +
+This module renders the process-wide registry (counters, gauges), the
+serving daemon's latency window and per-model state, and the cost
+model's roofline aggregates (`cost_{flops,bytes,calls}_total`) in the
+Prometheus text format (version 0.0.4: `# TYPE` lines +
 `name{label="v"} value`), the same page the JAX package renders for the
-same registry contents; `start_metrics_http` serves it as `GET /metrics`
-on a tiny threaded HTTP listener (param `metrics_port`: -1 off, 0
-ephemeral, >0 fixed) for the length of a `train()` call.  Counters whose
-registry name carries a `::label` suffix render as labelled series
-(`name::higgs` -> `lgbm_name{model="higgs"}`).  The serving daemon's
-series, the trace endpoint and the cost model's roofline totals come
-with the serving slice and the cost model (ROADMAP Queue 1 item 16).
+same contents, and serves it two ways:
+
+* `GET /metrics` on a tiny threaded HTTP listener (`start_metrics_http`,
+  param `metrics_port`: -1 off, 0 ephemeral, >0 fixed), for a
+  `train()` call or a serving daemon's or router's lifetime;
+* `op=metrics` on the line-JSON front end (serving/frontend.py): the
+  same text inline, for clients already on that wire.
 
 Everything renders from one `snapshot()` read: a scrape costs two dict
 copies and string formatting, no device interaction, no lock held
-across I/O.
+across I/O.  Counters whose registry name carries a `::label` suffix
+(e.g. `serve_requests_by_model::higgs`, maintained by the coalescer)
+render as labelled series: `lgbm_serve_requests_by_model{model="higgs"}`.
 """
 
 from __future__ import annotations
@@ -47,10 +52,12 @@ def _fmt(value) -> str:
 
 
 def parse_prometheus_text(page: str) -> Dict[str, Dict[str, float]]:
-    """Inverse of `render_prometheus`: a text-format page parsed into
-    `{"counters": {...}, "gauges": {...}}` keyed by the FULL series name
-    (labels included).  `# TYPE` lines route each family to its kind;
-    unparseable lines are skipped."""
+    """Inverse of `render_prometheus`, for the fleet aggregator: parse a
+    text-format page into `{"counters": {...}, "gauges": {...}}` keyed
+    by the FULL series name (labels included, e.g.
+    `lgbm_serve_requests_by_model{model="higgs"}`).  `# TYPE` lines
+    route each family to its kind; unparseable lines are skipped (a
+    replica mid-restart must never poison the merged view)."""
     out: Dict[str, Dict[str, float]] = {"counters": {}, "gauges": {}}
     kinds: Dict[str, str] = {}
     for line in page.splitlines():
@@ -76,16 +83,28 @@ def parse_prometheus_text(page: str) -> Dict[str, Dict[str, float]]:
     return out
 
 
-def render_prometheus(registry=None, prefix: str = "lgbm_") -> str:
+def render_prometheus(registry=None, daemon=None, prefix: str = "lgbm_",
+                      extra_gauges: Optional[Dict[str, float]] = None,
+                      gauges_cb=None, text_cb=None) -> str:
     """One Prometheus text page: registry counters/gauges (+ labelled
-    `name::label` series)."""
+    `name::label` series), serving latency quantiles / queue depth /
+    per-model state when a daemon is given, roofline aggregates when
+    the cost model is enabled, and any `extra_gauges`.  `gauges_cb` is
+    the LIVE form of extra_gauges — a zero-arg callable re-evaluated at
+    every scrape (the fleet router feeds its p50/p99 and replica-state
+    gauges through it; a static dict would freeze at registration).
+    `text_cb` returns a pre-rendered text BLOCK appended verbatim —
+    the fleet aggregator renders its merged multi-replica families
+    through it (labelled series with non-`model` label keys, which the
+    `::label` counter folding cannot express)."""
     if registry is None:
         from .registry import global_registry
         registry = global_registry
     snap = registry.snapshot()
     lines: List[str] = []
 
-    def emit_family(kind: str, base: str, series: List[tuple]) -> None:
+    def emit_family(kind: str, base: str,
+                    series: List[tuple]) -> None:
         # series: [(labels_dict_or_None, value), ...]
         lines.append(f"# TYPE {base} {kind}")
         for labels, value in series:
@@ -96,8 +115,8 @@ def render_prometheus(registry=None, prefix: str = "lgbm_") -> str:
             else:
                 lines.append(f"{base} {_fmt(value)}")
 
-    # plain names become one series; `name::label` names fold into one
-    # labelled family per base name
+    # registry counters: plain names become one series; `name::label`
+    # names fold into one labelled family per base name
     for kind, table in (("counter", snap["counters"]),
                         ("gauge", snap["gauges"])):
         families: Dict[str, List[tuple]] = {}
@@ -108,6 +127,52 @@ def render_prometheus(registry=None, prefix: str = "lgbm_") -> str:
                 ({"model": label} if sep else None, table[name]))
         for base, series in families.items():
             emit_family(kind, base, series)
+
+    if daemon is not None:
+        try:
+            p50, p99 = daemon.latency.percentiles((50.0, 99.0))
+            emit_family("gauge", f"{prefix}serve_latency_ms",
+                        [({"quantile": "0.5"}, p50),
+                         ({"quantile": "0.99"}, p99)])
+            emit_family("gauge", f"{prefix}serve_queue_pending",
+                        [(None, daemon.coalescer.pending)])
+            rstats = daemon.registry.stats()
+            emit_family("gauge", f"{prefix}serve_recompiles",
+                        [(None, rstats.get("serve_recompiles", 0))])
+            models = rstats.get("models", {})
+            for field in ("version", "in_flight"):
+                emit_family(
+                    "gauge", f"{prefix}serve_model_{field}",
+                    [({"model": n}, m.get(field))
+                     for n, m in sorted(models.items())] or [(None, 0)])
+        except Exception as e:  # noqa: BLE001 - a scrape must never kill serving
+            log.warning(f"/metrics: daemon stats unavailable: {e}")
+
+    from .costmodel import global_cost_model
+    if global_cost_model.enabled:
+        cm = global_cost_model.snapshot()
+        for field, kind in (("flops", "counter"), ("bytes", "counter"),
+                            ("calls", "counter")):
+            series = [({"phase": g}, tot[field])
+                      for g, tot in sorted(cm.items())]
+            if series:
+                emit_family(kind, f"{prefix}cost_{field}_total", series)
+
+    live = dict(extra_gauges or {})
+    if gauges_cb is not None:
+        try:
+            live.update(gauges_cb() or {})
+        except Exception as e:  # noqa: BLE001 - a scrape must never kill serving
+            log.warning(f"/metrics: gauges_cb failed: {e}")
+    for name, value in sorted(live.items()):
+        emit_family("gauge", _metric_name(name, prefix), [(None, value)])
+    if text_cb is not None:
+        try:
+            block = text_cb()
+            if block:
+                lines.append(str(block).rstrip("\n"))
+        except Exception as e:  # noqa: BLE001 - a scrape must never kill serving
+            log.warning(f"/metrics: text_cb failed: {e}")
     return "\n".join(lines) + "\n"
 
 
@@ -131,21 +196,53 @@ class _MetricsServer:
 
 
 def start_metrics_http(port: int = 0, host: str = "127.0.0.1",
-                       registry=None, prefix: str = "lgbm_"
-                       ) -> Optional[_MetricsServer]:
+                       daemon=None, registry=None,
+                       prefix: str = "lgbm_",
+                       gauges_cb=None, text_cb=None,
+                       traces_cb=None) -> Optional[_MetricsServer]:
     """Bind `GET /metrics` (port 0 = ephemeral; read `server.port`) and
     serve on a background thread.  Returns None (with a warning) when
-    the bind fails: a metrics port conflict must never block training."""
+    the bind fails — a metrics port conflict must never block serving
+    or training.  With `traces_cb` (a `trace_id_or_None -> dict|None`
+    callable, the router's SpanAssembler) the listener also answers
+    `GET /trace/<id>` — and bare `GET /trace` with the newest — as the
+    assembled cross-process waterfall JSON (docs/Observability.md
+    "Distributed tracing")."""
+    import json as _json
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     class _Handler(BaseHTTPRequestHandler):
         def do_GET(self):  # noqa: N802 - http.server API
-            if self.path.split("?", 1)[0] != "/metrics":
-                self.send_error(404, "try /metrics")
+            path = self.path.split("?", 1)[0]
+            if traces_cb is not None and (path == "/trace"
+                                          or path.startswith("/trace/")):
+                trace_id = path[len("/trace/"):] or None \
+                    if path.startswith("/trace/") else None
+                try:
+                    trace = traces_cb(trace_id)
+                except Exception as e:  # noqa: BLE001 - debug surface must answer
+                    self.send_error(500, str(e))
+                    return
+                if trace is None:
+                    self.send_error(404, "no such trace (sampled out, "
+                                         "evicted, or never assembled)")
+                    return
+                body = _json.dumps(trace, indent=1, default=str).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+                return
+            if path != "/metrics":
+                self.send_error(404, "try /metrics"
+                                + (" or /trace/<id>" if traces_cb else ""))
                 return
             try:
-                body = render_prometheus(registry=registry,
-                                         prefix=prefix).encode()
+                body = render_prometheus(registry=registry, daemon=daemon,
+                                         prefix=prefix,
+                                         gauges_cb=gauges_cb,
+                                         text_cb=text_cb).encode()
             except Exception as e:  # noqa: BLE001 - scrape must answer, not raise
                 self.send_error(500, str(e))
                 return

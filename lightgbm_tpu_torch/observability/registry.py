@@ -6,14 +6,15 @@ increment into one registry; the per-iteration JSONL event
 (observability/events.py) snapshots it so a run's structured log carries
 the cumulative counter state next to each iteration's phase timings.
 Counter updates are a dict add behind a lock, cheap enough to stay on
-unconditionally.  The serving daemon's latency window comes with the
-serving slice.
+unconditionally.  `LatencyWindow` is the serving daemon's and the
+router's rolling tail-latency view.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Union
+from collections import deque
+from typing import Dict, Optional, Tuple, Union
 
 Number = Union[int, float]
 
@@ -81,3 +82,45 @@ class MetricsRegistry:
 
 # the process-wide registry every subsystem increments into
 global_registry = MetricsRegistry()
+
+
+class LatencyWindow:
+    """Bounded ring of recent latency samples with percentile readout.
+
+    The serving daemon records one sample per request (submit ->
+    response, ms) and `stats()` reads p50/p99 over the most recent
+    `capacity` samples: a rolling tail-latency view that costs O(1) per
+    request and never grows (a long-lived daemon must not hoard
+    per-request history; a bench computes its EXACT percentiles from
+    its own client-side lists instead)."""
+
+    def __init__(self, capacity: int = 8192):
+        self._lock = threading.Lock()
+        self._buf: deque = deque(maxlen=max(int(capacity), 16))
+        self._count = 0
+
+    def record(self, value_ms: float) -> None:
+        with self._lock:
+            self._buf.append(float(value_ms))
+            self._count += 1
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    def percentiles(self, qs: Tuple[float, ...] = (50.0, 99.0)
+                    ) -> Tuple[Optional[float], ...]:
+        """Percentiles (ms) over the retained window; Nones when empty."""
+        with self._lock:
+            data = list(self._buf)
+        if not data:
+            return tuple(None for _ in qs)
+        import numpy as np
+        arr = np.asarray(data, np.float64)
+        return tuple(float(np.percentile(arr, q)) for q in qs)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._buf.clear()
+            self._count = 0

@@ -34,6 +34,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..observability.costmodel import eval_cost, global_cost_model
 from ..utils import log
 
 _F64 = torch.float64
@@ -253,6 +254,7 @@ class DeviceEval:
             w[:gbdt.num_data] = np.asarray(md.weight, np.float32)
             self._weight_dev = torch.from_numpy(w).to(dev)
         self._plans = plans
+        self._cost = eval_cost(len(plans), K, n_pad, md.weight is not None)
         self._fn = make_tick_fn(plans, obj, K, int(cfg.multi_error_top_k))
         self._pad_mask = gbdt.pad_mask
         self._true_flag = torch.tensor(True, device=dev)
@@ -266,6 +268,8 @@ class DeviceEval:
         vec = self._fn(scores, self._label_dev, self._weight_dev,
                        self._pad_mask, flag).cpu().numpy()
         self.fetches += 1
+        if global_cost_model.enabled:
+            global_cost_model.account("device_eval", *self._cost)
         out = [(name, float(v))
                for (name, _kind, _fn), v in zip(self._plans, vec)]
         return out, bool(vec[-2] > 0), bool(vec[-1] > 0)

@@ -97,13 +97,17 @@ class Timer:
                 self._cnt[name] += 1
 
     def block(self, x):
-        """Synchronize the current CUDA stream when timing is on and
-        credit the wait to `<enclosing scope>::device`; identity when
-        timing is off."""
+        """Synchronize the current CUDA stream (of the device that `x`,
+        or its first tensor, lies on; else of the current device) when
+        timing is on and credit the wait to `<enclosing scope>::device`;
+        identity when timing is off."""
         if not self.enabled or x is None or not torch.cuda.is_available():
             return x
+        first = x[0] if isinstance(x, (tuple, list)) and x else x
+        dev = (first.device if isinstance(first, torch.Tensor)
+               and first.device.type == "cuda" else None)
         t0 = time.perf_counter()
-        torch.cuda.current_stream().synchronize()
+        torch.cuda.current_stream(dev).synchronize()
         stack = self._scope_stack()
         if stack:
             dt = time.perf_counter() - t0

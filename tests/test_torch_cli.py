@@ -13,12 +13,18 @@ leaf values, `convert_model` C++ source; valid files, snapshots,
 `input_model`, `save_binary`, streamed prediction in chunks, SHAP
 contributions.  Then the port's own: `python -m lightgbm_tpu_torch` in a
 subprocess with JAX blocked, the tasks and options that stay refused
-(items 15 and 16), and the default device, which refuses without a card.
+(items 15 and 16), the default device, which refuses without a card,
+and the serving tasks in subprocesses on the CPU: `serve` with a ready
+file answering a line-JSON request byte for byte and draining to 143 on
+SIGTERM, and `serve-fleet` answering through its router.
 """
 
+import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -202,9 +208,8 @@ def test_python_dash_m_with_jax_blocked(files, tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["serve", "serve_models=m=model.txt"], "item 16"),
-    (["serve-fleet", "serve_models=m=model.txt"], "item 16"),
     (["task=train-and-serve", "online_chunk_dir=x"], "item 16"),
+    (["train-and-serve", "online_chunk_dir=x"], "item 16"),
     (["num_machines=2", "machines=a:1,b:2"], "item 15")])
 def test_unported_refuse(files, args, item):
     d = files
@@ -220,3 +225,106 @@ def test_default_device_refuses_without_a_card(files):
     with pytest.raises(RuntimeError, match="CUDA"):
         main([f"data={d}/train.tsv", "num_iterations=1", *COMMON,
               f"output_model={d}/nocard.txt"])
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
+@pytest.mark.parametrize("task", ["serve", "serve-fleet"])
+def test_serving_tasks_refuse_without_a_card(files, task):
+    d = files
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main([task, f"serve_models=m={d}/absent.txt", "verbosity=-1"])
+
+
+@pytest.fixture(scope="module")
+def serve_model(files):
+    d = files
+    model = d / "serve_model.txt"
+    assert main([f"data={d}/train.tsv", "num_iterations=4", *COMMON,
+                 f"output_model={model}", *CPU]) == 0
+    X = np.loadtxt(d / "test.tsv", delimiter="\t")[:, 1:]
+    return model, X.astype(np.float32)
+
+
+def _start(args, ready, env=None):
+    """A `python -m lightgbm_tpu_torch` serving process; waits for its
+    ready file and returns (process, ready JSON)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", *args,
+         f"serve_ready_file={ready}"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    deadline = time.monotonic() + 180
+    while not os.path.exists(ready):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            pytest.fail(proc.communicate()[0][-3000:])
+        time.sleep(0.1)
+    with open(ready) as f:
+        return proc, json.load(f)
+
+
+def _sigterm(proc):
+    proc.send_signal(signal.SIGTERM)
+    out, _ = proc.communicate(timeout=120)
+    assert proc.returncode in (143, -signal.SIGTERM), out[-3000:]
+
+
+def _oracle(model, X):
+    b = tlgb.Booster(model_file=str(model),
+                     params={"device_type": "cpu", "device_predict": "true"})
+    return b.predict(X)
+
+
+def test_cli_serve_answers_a_line_client(serve_model, tmp_path):
+    from lightgbm_tpu_torch.serving import LineClient
+    model, X = serve_model
+    proc, ready = _start(["serve", f"serve_models=m={model}",
+                          "serve_port=0", "device_predict_min_bucket=64",
+                          "serve_max_batch_rows=256", "verbosity=-1",
+                          *CPU], tmp_path / "ready.json")
+    try:
+        assert ready["pid"] == proc.pid and ready["models"] == {"m": 1}
+        c = LineClient("127.0.0.1", ready["port"])
+        reply = c.request({"model": "m", "rows": X[:7].tolist()},
+                          timeout_s=60)
+        assert reply["ok"] and reply["version"] == 1
+        got = np.asarray(reply["preds"]).astype(np.float32)
+        assert got.tobytes() == _oracle(model, X[:7]).tobytes()
+        assert c.request({"op": "health"}, timeout_s=30)["ready"] is True
+        c.close()
+    finally:
+        _sigterm(proc)
+
+
+def test_cli_serve_fleet_answers_through_the_router(serve_model, tmp_path):
+    from lightgbm_tpu_torch.serving import LineClient
+    model, X = serve_model
+    proc, ready = _start(["serve-fleet", f"serve_models=m={model}",
+                          "serve_replicas=2", "serve_port=0",
+                          "device_predict_min_bucket=64",
+                          "serve_max_batch_rows=256", "verbosity=-1",
+                          f"metrics_dir={tmp_path / 'fleet'}", *CPU],
+                         tmp_path / "ready.json")
+    try:
+        assert len(ready["replicas"]) == 2
+        c = LineClient("127.0.0.1", ready["port"])
+        want = _oracle(model, X[:5]).tobytes()
+        for _ in range(4):
+            reply = c.request({"model": "m", "rows": X[:5].tolist(),
+                               "deadline_ms": 30_000}, timeout_s=60)
+            assert reply["ok"], reply
+            got = np.asarray(reply["preds"]).astype(np.float32)
+            assert got.tobytes() == want
+        # the ready file lands once one replica is routable
+        deadline = time.monotonic() + 120
+        while True:
+            h = c.request({"op": "health"}, timeout_s=30)
+            if h["routable"] == 2 or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        assert h["ok"] and h["routable"] == 2
+        page = c.request({"op": "metrics"}, timeout_s=30)["metrics"]
+        assert "lgbm_router_requests" in page
+        assert "lgbm_fleet_replicas_routable 2" in page
+        c.close()
+    finally:
+        _sigterm(proc)

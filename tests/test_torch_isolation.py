@@ -33,7 +33,8 @@ def _imported_modules(path: pathlib.Path):
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py", ROOT / "chip_rehearsal.py"],
+                         [ROOT / "chip_smoke.py", ROOT / "chip_rehearsal.py",
+                          ROOT / "chip_guard.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_jax_package_import(path):
     for mod in _imported_modules(path):
@@ -172,3 +173,35 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert out.returncode != 0
     assert "lightgbm_tpu_torch" in out.stderr
     assert '"ok"' not in out.stdout
+
+
+def test_serving_runs_with_jax_blocked():
+    """The serving stack, the cost model and tracing stand apart too:
+    a daemon on the CPU answers with JAX blocked."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'lightgbm_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "import lightgbm_tpu_torch as L\n"
+        "from lightgbm_tpu_torch.config import Config\n"
+        "from lightgbm_tpu_torch.serving import ServingDaemon\n"
+        "rng = np.random.RandomState(0)\n"
+        "X = rng.randn(512, 4).astype(np.float32)\n"
+        "y = (X[:, 0] > 0).astype(np.float32)\n"
+        "b = L.train({'objective': 'binary', 'num_leaves': 7,\n"
+        "             'verbosity': -1, 'device_type': 'cpu'},\n"
+        "            L.Dataset(X, label=y), num_boost_round=2)\n"
+        "d = ServingDaemon(Config({'device_type': 'cpu', 'verbosity': -1,\n"
+        "    'device_predict_min_bucket': 64,\n"
+        "    'serve_max_batch_rows': 64})).start()\n"
+        "d.registry.register('m', model_str=b.model_to_string(),\n"
+        "                    block=True)\n"
+        "assert d.predict('m', X[:3]).shape == (3,)\n"
+        "assert d.stats()['roofline']['dispatches'] == 1\n"
+        "d.stop()\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

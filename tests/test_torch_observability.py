@@ -3,9 +3,9 @@ package's.
 
 * The same small run (a validation set, checkpoints every 2 iterations,
   synchronous host I/O) logs the same event types in the same order in
-  both packages, and each event the same keys, less the JAX iteration
-  event's `roofline` (the cost model is not ported) and less the JAX
-  package's `recompile` events (eager torch does not recompile).
+  both packages, and each event the same keys (the iteration event's
+  `roofline` included), less the JAX package's `recompile` events
+  (eager torch does not recompile).
 * Registry counters in a run (trees grown, checkpoint writes), the
   Prometheus page equal to the JAX package's for the same registry
   contents and its parse round trip, `GET /metrics` on an ephemeral
@@ -85,7 +85,7 @@ def test_event_stream_equals_jax(tmp_path):
         ["train_start", "iteration", "checkpoint", "iteration",
          "iteration", "checkpoint", "iteration", "train_end"])
     for te, je in zip(tev, jev):
-        assert set(te) == set(je) - {"roofline"}, te["event"]
+        assert set(te) == set(je), te["event"]
     its = [e for e in tev if e["event"] == "iteration"]
     assert [e["iteration"] for e in its] == [1, 2, 3, 4]
     for e in its:
