@@ -1,13 +1,14 @@
 """Rehearse chip_smoke.py's split_features, objectives, efb,
 forced_interaction, surface, ranking, file, linear, refit_contrib, cli,
-wide_bins, monotone_modes, reliability and serving phases on the CPU at
-1/8 of their rows, to size their gates before a run on the card:
+wide_bins, monotone_modes, reliability, serving, online and huge_bins
+phases on the CPU at 1/8 of their rows, to size their gates before a run
+on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
                               [forced_interaction] [surface] [ranking]
                               [file] [linear] [refit_contrib] [cli]
                               [wide_bins] [monotone_modes] [reliability]
-                              [serving]
+                              [serving] [online] [huge_bins]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -46,7 +47,12 @@ and the grow_tree roofline reads the host seconds of `Tree::histogram`.
 serving runs the in-process and fleet drills on the main path's 13 trees
 with the daemon and the replica children on the CPU (their CPU
 dispatches counted as the card's); the bw_util gate holds against the
-cost model's cpu peaks.
+cost model's cpu peaks.  online runs the in-process loop (chunks of
+ONLINE_CHUNK_ROWS / 8 rows, the chaos spec, the client threads) and the
+SIGTERM drill's train-and-serve children on the CPU.  huge_bins keeps its
+HUGE_ROWS rows (1/8 of them hold fewer than 65,536 distinct values, so
+no column would reach int32 codes) and trains its "card" sides on the CPU
+too.
 """
 
 import json
@@ -232,6 +238,17 @@ def main(argv) -> int:
             cs.SERVE_PARAMS = on_cpu(cs.SERVE_PARAMS)
             cs.FLEET_PARAMS = on_cpu(cs.FLEET_PARAMS)
             cs.phase_serving(Rehearsal(), "cpu rehearsal", main, data)
+            lines = {}
+        elif phase == "online":
+            cs.ONLINE_DEVICE = "cpu"
+            cs.ONLINE_PARAMS = on_cpu(cs.ONLINE_PARAMS)
+            cs.phase_online(Rehearsal(), H, "cpu rehearsal")
+            lines = {}
+        elif phase == "huge_bins":
+            cs.make_higgs_like = full
+            cs.phase_huge_bins(Rehearsal(), H, "cpu rehearsal")
+            cs.make_higgs_like = lambda n, F, seed=0: full(n // SCALE, F,
+                                                           seed)
             lines = {}
         elif phase == "monotone_modes":
             cs.phase_monotone_modes(Rehearsal(), H, global_timer,

@@ -108,6 +108,33 @@ Phases, each printing one JSON line:
      2 processes; SIGTERM draining every replica to rc 143 (or -15).
      One `serving` line: p50/p99 ms, rows/s, dispatches and mean batch
      rows of each drill, the roofline, the fleet's seconds, the card;
+  3e. online (bench.py --online's full sizes, copied here): a seed model
+     of ONLINE_SEED_TREES (10) trees on chunk 0, then an OnlineTrainer
+     thread over ONLINE_CHUNKS (10) MemoryChunkSource chunks of
+     make_higgs_like(ONLINE_CHUNK_ROWS (20,000), 28) rows, one every
+     ONLINE_PUSH_S (1) s, boosting ONLINE_TREES_PER_CHUNK (3) trees of 15
+     leaves a chunk on the card, checkpointing each generation and
+     publishing it into a local ServingDaemon on the card while
+     ONLINE_THREADS (8) closed-loop client threads send 4-row requests,
+     under LGBM_TPU_FAULT=ONLINE_FAULT (the publish of generation 2 fails
+     once, chunk 4 arrives corrupt), the launch counts set to 0 after the
+     seed and read after the loop.  Gates: zero lost requests; every
+     response byte-identical to `Booster.predict` (device_predict=true)
+     of the generation that served it; >= 3 generations published;
+     exactly one skipped; >= 1 publish retry; a finite freshness lag <=
+     ONLINE_MAX_LAG_S (60 s); `/metrics` with the freshness series; the
+     wave engine's kernels alone launched (K3, which takes every wave of
+     up to 8 computed slots, so all of them at 15 leaves; K1 on any
+     wider one).  Then the SIGTERM drill, `python -m
+     lightgbm_tpu_torch train-and-serve` children on the card over three
+     chunk files: a control run and a drill run side by side, the drill
+     SIGTERM'd after its generation-2 checkpoint (exit 143, the control
+     0); the drill's relaunch writes its ready file at generation 2,
+     serves generation 2 (or 3) over TCP, and its generation-3
+     checkpoint equals the control run's byte for byte (children and
+     logs in build/chip_smoke_online/).  One `online` line: generations
+     published and skipped, retries, p50/p99 ms, rows/s, the lag, each
+     generation's train seconds and trees, the drill's seconds;
   4. path A, quantized training: the same workload with
      use_quantized_grad=true (4 bins, stochastic rounding), 13
      iterations; K2 launched, K1/K3 not; held-out AUC within 0.01 of
@@ -192,6 +219,17 @@ Phases, each printing one JSON line:
      `Tree::monotone_rescan` device ms/iter (the bounds and the rescan of
      every alive leaf after each split), `Tree::split_find` beside path
      B's, peak GiB, launches, AUC;
+  5.6 huge_bins: more than 65,536 bins in a column: HUGE_ROWS (100,000)
+     rows of make_higgs_like's first HUGE_F (4) features at max_bin
+     HUGE_MAX_BIN (70,000), min_data_in_bin 1, 15 leaves, HUGE_ITERATIONS
+     (3) iterations on one Dataset: the leaf-wise engine (K4), quantized
+     on the wave engine (K2) and the wave engine (K1; K3 takes no wave
+     above 7,231 bins, `wave_kernels_at`), the wave runs where
+     `wave_fits` takes the width.  Gates: int32 device codes; the
+     run's engine; exactly the run's kernels launched; the trees equal
+     the port's CPU trees (phase_card_vs_cpu's rule; the CPU sides train
+     in spawned workers meanwhile).  One `huge_bins` line per run: each
+     feature's bins, s/iter, peak GiB, launches;
   5a. valid path: `train` on the main path's workload with
      valid_sets=[train, valid] (valid = make_higgs_like(100_000, 28,
      seed=1)), metric=["auc", "binary_logloss"], early_stopping_round=5,
@@ -330,7 +368,7 @@ Phases, each printing one JSON line:
      the tasks' seconds, launches;
   6. card against CPU (the CPU sides train in CARD_CPU_WORKERS spawned
      worker processes of CARD_CPU_THREADS torch threads while the main
-     process runs the card sides in turn): `train` at CARD_ROWS (65,536)
+     process runs the card sides in turn): `train` at CARD_ROWS (32,768)
      rows, CARD_ITERATIONS (2) iterations (3 for the GOSS and DART
      cases), on "cuda"
      and "cpu", for the main path, paths A and B, sampling runs (a), (b)
@@ -388,7 +426,12 @@ Phases, each printing one JSON line:
      windows, WINDOW_F (4) features of WINDOW_B (32,768) bins, n = 2^20:
      K1 at 16 slots, K2 at 16 (partition) and 4 (streaming), K3 at 1,
      K4 at 2^20 rows.  The kernels line lists these as four more rows,
-     each with its windowed shapes.
+     each with its windowed shapes.  Then the same shapes on 32-bit codes
+     (int32 storage, the kernels' uint32_t instantiations) at INT32_F
+     (2) features of INT32_B (131,072) bins, n = 2^20, in bin windows:
+     three more rows of the kernels line (K1, K2 with both routes, K4,
+     each with the huge_bins run's launches) and K3's row inside K3's
+     entry (`int32_codes`: no training wave goes to K3 at that width).
      Every kernel's output must equal its plain PyTorch version's bit
      for bit (all four sum exact integers) and repeat bit for bit on a
      second launch, and each call must advance the kernel's launch count
@@ -443,7 +486,9 @@ N_ODD = 1953 * 512             # rows that are no multiple of K1's chunks
 F, B, C = 28, 255, 2
 GROUP_BINS = 256               # EFB bundle codes: MAX_BUNDLE_BINS
 VALID_MIN_DELTA = 0.001        # early_stopping_min_delta of the valid path
-CARD_ROWS = 65_536             # rows of the higgs and EFB card-vs-CPU cases
+# rows of the higgs and EFB card-vs-CPU cases (65,536 until the online
+# and huge_bins phases came: the command then took 912 s)
+CARD_ROWS = 32_768
 CARD_LINEAR_ROWS = 32_768      # rows of the linear card-vs-CPU cases
 # iterations of a card-vs-CPU case (3 until the serving phase came): the
 # GOSS case samples from its third iteration and DART's drops need
@@ -817,14 +862,17 @@ def phase_kernels_k2_k4(H, dev):
 
 
 # 16-bit codes: the wide_bins phase's width, and one shape whose feature
-# does not fit a block (the kernels cut its bins into windows)
+# does not fit a block (the kernels cut its bins into windows); 32-bit
+# codes: INT32_F features of INT32_B bins (int32 storage, bin windows)
 WIDE_B = 1023
 WINDOW_F, WINDOW_B = 4, 32768
+INT32_F, INT32_B = 2, 131072
 
 
 def wide_inputs(num_slots, dev, seed, width):
-    """kernel_inputs on 16-bit codes (int16 storage, codes over [0, B)):
-    (binned, its codes as int64 for the yardstick, slot, gh)."""
+    """kernel_inputs on 16-bit codes (int16 storage, codes over [0, B)),
+    or int32 ones above 65,536 bins: (binned, its codes as int64 for the
+    yardstick, slot, gh)."""
     Fw, Bw = width
     g = torch.Generator(device="cpu").manual_seed(seed)
     codes = torch.randint(0, Bw, (Fw, N_KERNEL), generator=g)
@@ -840,27 +888,39 @@ def wide_inputs(num_slots, dev, seed, width):
     return binned, codes.to(dev), slot.to(dev), gh.contiguous().to(dev)
 
 
-def phase_kernels_wide(H, dev):
+WINDOW_SHAPES = (("K1", 16), ("K2", 16), ("K2", 4), ("K3", 1), ("K4", 0))
+
+
+def phase_kernels_wide(H, dev, tags=("wide", "window", "int32")):
     """K1-K4 on 16-bit codes at the wide_bins phase's width (28 features,
     WIDE_B bins; K1 and K2 at 256 slots, K3 at the most slots
     `wave_hl_fits` lets it take there, K4 at 2^20 rows) and in bin
     windows (WINDOW_F features of WINDOW_B bins: K1 and K2's partition
     at 16 slots, K2's streaming route at 4, K3 at 1, K4 at 2^20 rows),
+    then on 32-bit codes (the kernels' uint32_t instantiations) at
+    INT32_F features of INT32_B bins in windows, at the window shapes;
     each bit for bit its plain version and itself on a repeat, each call
-    one launch.  Returns {(kernel, "wide" | "window"): row}."""
+    one launch.  Returns {(kernel, "wide" | "window" | "int32"): row}."""
     K3_SLOTS = max(s for s in range(1, 64) if H.wave_hl_fits(WIDE_B, s))
     out = {}
     for tag, width, shapes in (
             ("wide", (F, WIDE_B), (("K1", 256), ("K2", 256),
                                    ("K3", K3_SLOTS), ("K4", 0))),
-            ("window", (WINDOW_F, WINDOW_B),
-             (("K1", 16), ("K2", 16), ("K2", 4), ("K3", 1), ("K4", 0)))):
+            ("window", (WINDOW_F, WINDOW_B), WINDOW_SHAPES),
+            ("int32", (INT32_F, INT32_B), WINDOW_SHAPES)):
+        if tag not in tags:
+            continue
         Fw, Bw = width
         for kern, NL in shapes:
             binned, codes, slot, gh = wide_inputs(max(NL, 1), dev,
                                                   seed=900 + NL, width=width)
-            extra = {"codes": "uint16 (int16 storage)", "features": Fw,
-                     "max_bin": Bw, "windowed": tag == "window"}
+            cb = binned.element_size()
+            if cb != (4 if tag == "int32" else 2):
+                raise AssertionError(f"{tag} rows: {binned.dtype} codes")
+            extra = {"codes": ("uint16 (int16 storage)" if cb == 2
+                               else "uint32 (int32 storage)"),
+                     "features": Fw, "max_bin": Bw,
+                     "windowed": tag != "wide"}
             if kern == "K4":
                 rows = binned.t().contiguous()
                 mask = (slot < (1 << 20)).to(torch.float32)
@@ -875,7 +935,7 @@ def phase_kernels_wide(H, dev):
                 lib_out = torch.zeros(Fw * Bw, C, device=dev)
                 lib = lambda: lib_out.index_add_(0, ids, vals)
                 bnd = bound_rows(N_KERNEL, int(mask.sum()), width=width,
-                                 code_bytes=2)
+                                 code_bytes=cb)
                 row = kernel_row(kern, H.build_histogram_rows_pallas, k, p,
                                  lib, rows=N_KERNEL, bound_ms=bnd[0],
                                  bound_by=bnd[1], **extra)
@@ -918,7 +978,7 @@ def phase_kernels_wide(H, dev):
                 extra["out_slots"] = Kb
             lib, rows_in = wave_yardstick(codes, slot, gh, NL, dev,
                                           vals_of=vals_of, width=width)
-            bound, by = bound_of(2 * Fw * N_KERNEL, N_KERNEL, slots_out,
+            bound, by = bound_of(cb * Fw * N_KERNEL, N_KERNEL, slots_out,
                                  rows_in, width=width)
             row = kernel_row(kern, counter, k, p, lib, num_slots=NL,
                              bound_ms=bound, bound_by=by, **extra)
@@ -3293,6 +3353,36 @@ def cpu_case(inputs):
     return train_case(lgb, inputs, "cpu")
 
 
+def hold_tree(what, i, a, b):
+    """Tree i of the card (a) against the CPU's (b): the same split
+    features, thresholds and decision types (on a categorical node
+    `threshold` is the index of its category set: the sets themselves
+    are compared too), leaf values within rtol 1e-4.  Returns the
+    largest relative leaf difference."""
+    ni = a.num_leaves - 1
+    same = (a.num_leaves == b.num_leaves
+            and np.array_equal(a.split_feature[:ni], b.split_feature[:ni])
+            and np.array_equal(a.threshold[:ni], b.threshold[:ni])
+            and np.array_equal(a.decision_type[:ni], b.decision_type[:ni])
+            and a.cat_boundaries == b.cat_boundaries
+            and a.cat_threshold == b.cat_threshold)
+    if not same:
+        diff = [j for j in range(min(a.num_leaves, b.num_leaves) - 1)
+                if (a.split_feature[j], a.threshold[j])
+                != (b.split_feature[j], b.threshold[j])][:3]
+        raise AssertionError(
+            f"{what} tree {i}: card and CPU trees differ at nodes {diff}: "
+            + "; ".join(f"card f{a.split_feature[j]}<={a.threshold[j]!r} "
+                        f"gain {a.split_gain[j]!r}, cpu "
+                        f"f{b.split_feature[j]}<={b.threshold[j]!r} "
+                        f"gain {b.split_gain[j]!r}" for j in diff))
+    lv_a, lv_b = a.leaf_value[:ni + 1], b.leaf_value[:ni + 1]
+    if not np.allclose(lv_a, lv_b, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"{what} tree {i}: leaf values differ")
+    return float(np.max(np.abs(lv_a - lv_b)
+                        / np.maximum(np.abs(lv_b), 1e-30)))
+
+
 def phase_card_vs_cpu(lgb, H, inputs, cpu_side=None):
     """One case (`case_inputs`) on the card and on the CPU (`cpu_side()`,
     the worker's result, or trained here): the same trees, category sets
@@ -3318,32 +3408,8 @@ def phase_card_vs_cpu(lgb, H, inputs, cpu_side=None):
     linear_worst = {}
     cat_nodes = 0
     for i, (a, b) in enumerate(zip(models["cuda"], models["cpu"])):
-        ni = a.num_leaves - 1
-        # on a categorical node `threshold` is the index of its category
-        # set: the sets themselves are compared too
-        same = (a.num_leaves == b.num_leaves
-                and np.array_equal(a.split_feature[:ni], b.split_feature[:ni])
-                and np.array_equal(a.threshold[:ni], b.threshold[:ni])
-                and np.array_equal(a.decision_type[:ni],
-                                   b.decision_type[:ni])
-                and a.cat_boundaries == b.cat_boundaries
-                and a.cat_threshold == b.cat_threshold)
+        worst = max(worst, hold_tree(name, i, a, b))
         cat_nodes += a.num_cat
-        if not same:
-            diff = [j for j in range(min(a.num_leaves, b.num_leaves) - 1)
-                    if (a.split_feature[j], a.threshold[j])
-                    != (b.split_feature[j], b.threshold[j])][:3]
-            raise AssertionError(
-                f"{name} tree {i}: card and CPU trees differ at nodes {diff}: "
-                + "; ".join(f"card f{a.split_feature[j]}<={a.threshold[j]!r} "
-                            f"gain {a.split_gain[j]!r}, cpu "
-                            f"f{b.split_feature[j]}<={b.threshold[j]!r} "
-                            f"gain {b.split_gain[j]!r}" for j in diff))
-        lv_a, lv_b = a.leaf_value[:ni + 1], b.leaf_value[:ni + 1]
-        if not np.allclose(lv_a, lv_b, rtol=1e-4, atol=0.0):
-            raise AssertionError(f"{name} tree {i}: leaf values differ")
-        worst = max(worst, float(np.max(np.abs(lv_a - lv_b)
-                                        / np.maximum(np.abs(lv_b), 1e-30))))
         if a.is_linear or b.is_linear:
             X64 = np.asarray(X, np.float64)
             pa, pb = a.predict(X64), b.predict(X64)
@@ -4473,6 +4539,462 @@ def phase_serving(lgb, card, main, data):
           "in_process": inproc, "fleet": fleet, "card": card})
 
 
+# the online phase: bench.py --online's full sizes
+ONLINE_DIR = os.path.join("build", "chip_smoke_online")
+ONLINE_F = 28
+ONLINE_CHUNK_ROWS = 20_000
+ONLINE_CHUNKS = 10
+ONLINE_SEED_TREES = 10      # the seed model, on chunk 0
+ONLINE_TREES_PER_CHUNK = 3
+ONLINE_THREADS = 8          # closed-loop clients of ONLINE_REQ_ROWS rows
+ONLINE_REQ_ROWS = 4
+ONLINE_PUSH_S = 1.0         # a chunk arrives every this many seconds
+ONLINE_MAX_LAG_S = 60.0
+ONLINE_POOL = 2048          # the rows requests draw from
+# the publish of generation 2 fails once (it must retry and land); chunk
+# generation 4 arrives corrupt (it must be skipped, generation 3 serving)
+ONLINE_FAULT = "online_publish_fail@2,online_chunk_corrupt@4"
+ONLINE_PARAMS = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+                 "min_data_in_leaf": 10, "device_predict": "true",
+                 "device_predict_min_bucket": 64,
+                 "serve_max_batch_rows": 256, "serve_queue_depth": 256,
+                 "serve_max_coalesce_wait_ms": 2.0, "metrics_port": 0,
+                 "online_trees_per_chunk": ONLINE_TREES_PER_CHUNK,
+                 "online_mode": "boost", "online_max_lag_s": ONLINE_MAX_LAG_S,
+                 "online_publish_backoff_ms": 25.0}
+# the SIGTERM drill's `python -m lightgbm_tpu_torch train-and-serve`
+# children: 3 on-disk chunks, 2 trees a chunk
+ONLINE_CHILD_ARGS = ["objective=binary", "num_leaves=15", "verbosity=-1",
+                     "min_data_in_leaf=10", "device_predict=true",
+                     "device_predict_min_bucket=64", "serve_warmup=false",
+                     "online_mode=boost", "online_trees_per_chunk=2",
+                     "online_poll_interval_s=0.05"]
+ONLINE_CHILD_S = 600        # each child's deadline
+ONLINE_DEVICE = "cuda"      # where the generations train and are served
+ONLINE_COUNTERS = ("online_generations_published",
+                   "online_generations_skipped", "online_publish_retries")
+
+
+def online_chunk(seed, rows=None):
+    return make_higgs_like(rows or ONLINE_CHUNK_ROWS, ONLINE_F, seed=seed)
+
+
+def child_run(cmd, log, env):
+    """A drill child with its output in `log` (a path)."""
+    f = open(log, "w")
+    try:
+        return subprocess.Popen(cmd, cwd=REPO_ROOT, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    finally:
+        f.close()
+
+
+def wait_exit(proc, what, log, timeout=ONLINE_CHILD_S):
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
+        raise AssertionError(f"online drill: {what} did not exit within "
+                             f"{timeout} s: {open(log).read()[-1500:]}")
+
+
+def wait_file(path, proc, what, log, timeout=ONLINE_CHILD_S):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            proc.wait(timeout=60)
+            raise AssertionError(f"online drill: {what}: no {path} (rc "
+                                 f"{proc.returncode}): "
+                                 f"{open(log).read()[-1500:]}")
+        time.sleep(0.1)
+
+
+def online_drill(lgb, workdir, seed_path, pool):
+    """The SIGTERM drill (module docstring): a control child and the drill
+    child side by side, then the drill's relaunch.  Returns its line."""
+    import shutil
+    import signal
+    from lightgbm_tpu_torch.online import write_chunk
+    from lightgbm_tpu_torch.serving import LineClient
+    t0 = time.perf_counter()
+    chunks_a = os.path.join(workdir, "chunks-a")
+    chunks_b = os.path.join(workdir, "chunks-b")
+    os.makedirs(chunks_a)
+    os.makedirs(chunks_b)
+    files = {g: write_chunk(chunks_a, g, *online_chunk(100 + g))
+             for g in (1, 2, 3)}
+    base = [sys.executable, "-m", "lightgbm_tpu_torch", "train-and-serve",
+            *ONLINE_CHILD_ARGS, f"input_model={seed_path}"]
+    if ONLINE_DEVICE != "cuda":
+        base.append(f"device_type={ONLINE_DEVICE}")
+    env = {k: v for k, v in os.environ.items() if k != "LGBM_TPU_FAULT"}
+    ck_a, ck_b = (os.path.join(workdir, d) for d in ("ckpt-a", "ckpt-b"))
+    logs = {k: os.path.join(workdir, f"{k}.log")
+            for k in ("control", "drill", "relaunch")}
+    control = child_run(base + [f"online_chunk_dir={chunks_a}",
+                                f"checkpoint_dir={ck_a}", "serve_port=-1",
+                                "online_idle_exit_s=1.5"],
+                        logs["control"], env)
+    for g in (1, 2):
+        shutil.copy(files[g], chunks_b)
+    drill = child_run(base + [f"online_chunk_dir={chunks_b}",
+                              f"checkpoint_dir={ck_b}", "serve_port=-1",
+                              "online_idle_exit_s=0"], logs["drill"], env)
+    try:
+        wait_file(os.path.join(ck_b, "ckpt_0000002.txt"), drill, "drill",
+                  logs["drill"])
+        time.sleep(0.3)     # the generation-2 publish settles
+        drill.send_signal(signal.SIGTERM)
+        kill_rc = wait_exit(drill, "the SIGTERM'd drill", logs["drill"])
+        control_rc = wait_exit(control, "control", logs["control"])
+    finally:
+        for p in (drill, control):
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    control_s = time.perf_counter() - t0
+    if control_rc != 0 or kill_rc not in (143, -15):
+        raise AssertionError(f"online drill: control rc {control_rc}, "
+                             f"SIGTERM rc {kill_rc} (want 0, 143)")
+    texts = {g: open(os.path.join(ck_a, f"ckpt_000000{g}.txt")).read()
+             for g in (2, 3)}
+    expected = {g: lgb.Booster(model_str=t, params={
+        "device_predict": "true"}).predict(pool[:ONLINE_REQ_ROWS])
+        for g, t in texts.items()}
+    shutil.copy(files[3], chunks_b)
+    ready = os.path.join(workdir, "ready-b2.json")
+    t1 = time.perf_counter()
+    relaunch = child_run(base + [f"online_chunk_dir={chunks_b}",
+                                 f"checkpoint_dir={ck_b}", "serve_port=0",
+                                 "online_idle_exit_s=1.5",
+                                 f"serve_ready_file={ready}"],
+                         logs["relaunch"], env)
+    try:
+        wait_file(ready, relaunch, "relaunch", logs["relaunch"])
+        ready_s = time.perf_counter() - t1
+        with open(ready) as f:
+            info = json.load(f)
+        c = LineClient("127.0.0.1", int(info["port"]))
+        try:
+            reply = c.request({"model": "online",
+                               "rows": pool[:ONLINE_REQ_ROWS].tolist()},
+                              timeout_s=120)
+        finally:
+            c.close()
+        resume_rc = wait_exit(relaunch, "relaunch", logs["relaunch"])
+    finally:
+        if relaunch.poll() is None:
+            relaunch.kill()
+            relaunch.wait(timeout=60)
+    got = np.asarray(reply.get("preds", []), np.float64).astype(np.float32)
+    served = [g for g, e in expected.items() if got.tobytes() == e.tobytes()]
+    with open(os.path.join(ck_b, "ckpt_0000003.txt")) as f:
+        byte_exact = f.read() == texts[3]
+    if (info.get("generation") != 2 or not reply.get("ok") or not served
+            or resume_rc != 0 or not byte_exact):
+        raise AssertionError(
+            f"online drill: relaunch ready at generation "
+            f"{info.get('generation')} (want 2), served generation "
+            f"{served} (want 2 or 3), rc {resume_rc}, generation 3 byte "
+            f"for byte the control's: {byte_exact}; "
+            f"{open(logs['relaunch']).read()[-1500:]}")
+    return {"control_rc": control_rc, "kill_rc": kill_rc,
+            "resume_rc": resume_rc, "byte_exact": byte_exact,
+            "relaunch_ready_generation": info["generation"],
+            "relaunch_served_generation": served[0],
+            "control_and_kill_s": control_s, "relaunch_ready_s": ready_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_online(lgb, H, card):
+    """The online phase (module docstring): the in-process loop under
+    load with the chaos spec, then the SIGTERM drill.  Returns the boost
+    generations' launches."""
+    import shutil
+    import threading
+    import urllib.request
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.observability.registry import global_registry
+    from lightgbm_tpu_torch.online import (LocalPublisher,
+                                           MemoryChunkSource, OnlineTrainer)
+    from lightgbm_tpu_torch.reliability import faults
+    from lightgbm_tpu_torch.serving import ServingDaemon, serve_counters_reset
+    t_phase = time.perf_counter()
+    shutil.rmtree(ONLINE_DIR, ignore_errors=True)
+    os.makedirs(ONLINE_DIR)
+    workdir = os.path.abspath(ONLINE_DIR)
+    corrupt = {int(tok.split("@")[1]) for tok in ONLINE_FAULT.split(",")
+               if tok.startswith("online_chunk_corrupt@")}
+    serve_counters_reset()
+    for key in ONLINE_COUNTERS:
+        global_registry.inc(key, -global_registry.counter(key))
+    pool = np.ascontiguousarray(
+        make_higgs_like(ONLINE_POOL, ONLINE_F, seed=99)[0], np.float32)
+    chunks = [online_chunk(g) for g in range(ONLINE_CHUNKS + 1)]
+    X0, y0 = chunks[0]
+    seed = lgb.train({k: v for k, v in ONLINE_PARAMS.items()
+                      if not k.startswith(("serve_", "online_", "metrics_"))},
+                     lgb.Dataset(X0, label=y0), ONLINE_SEED_TREES)
+    seed_path = os.path.join(workdir, "seed.txt")
+    seed.save_model(seed_path)
+    prev_fault = os.environ.get("LGBM_TPU_FAULT")
+    os.environ["LGBM_TPU_FAULT"] = ONLINE_FAULT
+    faults.reload()
+    failures, samples, models = [], [], {}
+    lock = threading.Lock()
+    try:
+        daemon = ServingDaemon(Config(ONLINE_PARAMS)).start()
+        try:
+            if daemon.registry.device.type != ONLINE_DEVICE:
+                raise AssertionError(f"online: daemon on "
+                                     f"{daemon.registry.device}")
+
+            def on_publish(gen, version, model_str):
+                with lock:
+                    models[version] = model_str
+
+            source = MemoryChunkSource()
+            trainer = OnlineTrainer(
+                source, LocalPublisher(daemon, timeout_s=300.0),
+                params=dict(ONLINE_PARAMS),
+                checkpoint_dir=os.path.join(workdir, "ckpt"),
+                seed_model=seed_path, on_publish=on_publish)
+            trainer.start()
+            stop = threading.Event()
+
+            def client(tid):
+                rnd = 0
+                while not stop.is_set():
+                    rnd += 1
+                    lo = ((tid * 2654435761 + rnd * 97)
+                          % (len(pool) - ONLINE_REQ_ROWS))
+                    ts = time.perf_counter()
+                    try:
+                        fut = daemon.submit(trainer.model_name,
+                                            pool[lo:lo + ONLINE_REQ_ROWS])
+                        out = fut.result(timeout=120)
+                    except Exception as e:  # noqa: BLE001
+                        with lock:
+                            failures.append(f"t{tid}r{rnd}: {e!r}")
+                        time.sleep(0.05)
+                        continue
+                    ms = (time.perf_counter() - ts) * 1e3
+                    with lock:
+                        samples.append((fut.version, lo, np.asarray(out), ms))
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(ONLINE_THREADS)]
+            # the generations' launches alone: the seed trained before
+            reset_counts(H)
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            loop = threading.Thread(target=trainer.run, kwargs={
+                "max_generations": ONLINE_CHUNKS, "idle_exit_s": 60.0})
+            loop.start()
+            for g in range(1, ONLINE_CHUNKS + 1):
+                source.push(*chunks[g])
+                time.sleep(ONLINE_PUSH_S)
+            loop.join(timeout=600)
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = launch_counts(H)
+            alive = [t.name for t in threads + [loop] if t.is_alive()]
+            if alive:
+                trainer.request_stop()
+                raise AssertionError(f"online: {alive} still running")
+            page = urllib.request.urlopen(
+                f"http://127.0.0.1:{daemon.metrics_server.port}/metrics",
+                timeout=30).read().decode()
+        finally:
+            daemon.stop(drain=True, timeout=60)
+    finally:
+        if prev_fault is None:
+            os.environ.pop("LGBM_TPU_FAULT", None)
+        else:
+            os.environ["LGBM_TPU_FAULT"] = prev_fault
+        faults.reload()
+    expected = {v: lgb.Booster(model_str=s, params={
+        "device_predict": "true"}).predict(pool) for v, s in models.items()}
+    mismatches = sum(
+        1 for v, lo, preds, _ in samples
+        if v not in expected
+        or preds.tobytes() != expected[v][lo:lo + ONLINE_REQ_ROWS].tobytes())
+    published = int(global_registry.counter("online_generations_published"))
+    skipped = int(global_registry.counter("online_generations_skipped"))
+    retries = int(global_registry.counter("online_publish_retries"))
+    stats = trainer.stats()
+    lag = stats.get("freshness_lag_s")
+    missing = [k for k in ("lgbm_model_freshness_lag_s",
+                           "lgbm_online_generations_published",
+                           "lgbm_online_generation",
+                           "lgbm_online_generations_skipped")
+               if k not in page]
+    problems = []
+    if failures:
+        problems.append(f"{len(failures)} lost requests: {failures[:3]}")
+    if mismatches:
+        problems.append(f"{mismatches} responses not byte-identical to "
+                        "their serving generation")
+    if published < 3:
+        problems.append(f"{published} generations published (want >= 3)")
+    if skipped != 1 or skipped != len(corrupt):
+        problems.append(f"{skipped} generations skipped (want 1)")
+    if retries < 1:
+        problems.append("no publish retry")
+    if lag is None or not np.isfinite(lag) or lag > ONLINE_MAX_LAG_S:
+        problems.append(f"freshness lag {lag} (want finite, <= "
+                        f"{ONLINE_MAX_LAG_S} s)")
+    if missing:
+        problems.append(f"/metrics lacks {missing}")
+    if problems:
+        raise AssertionError("online: " + "; ".join(problems))
+    # the wave engine carries every histogram: at 15 leaves no wave has
+    # more than 8 computed slots, so K3 takes them all and K1 may not run
+    check_kernels("online", launches,
+                  ("K1", "K3") if launches["K1"] else ("K3",))
+    drill = online_drill(lgb, workdir, seed_path, pool)
+    lat = [ms for *_, ms in samples]
+    hist = trainer.history
+    emit({"phase": "online", "chunk_rows": ONLINE_CHUNK_ROWS,
+          "features": ONLINE_F, "chunks": ONLINE_CHUNKS,
+          "seed_trees": ONLINE_SEED_TREES,
+          "trees_per_chunk": ONLINE_TREES_PER_CHUNK,
+          "num_leaves": ONLINE_PARAMS["num_leaves"], "fault": ONLINE_FAULT,
+          "generations_published": published,
+          "generations_skipped": skipped, "publish_retries": retries,
+          "requests": len(samples), "lost_requests": len(failures),
+          "versions_served": sorted({v for v, *_ in samples}),
+          "p50_ms": float(np.percentile(lat, 50)),
+          "p99_ms": float(np.percentile(lat, 99)),
+          "rows_per_s": len(samples) * ONLINE_REQ_ROWS / wall,
+          "freshness_lag_s": lag,
+          "lag_s_by_generation": [h["freshness_lag_s"] for h in hist],
+          "train_s_by_generation": [h["train_s"] for h in hist],
+          "trees_by_generation": [h["trees"] for h in hist],
+          "generations": [h["generation"] for h in hist],
+          "launches": launches, "loop_wall_s": wall, "drill": drill,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return launches
+
+
+# the huge_bins phase: more than 65,536 bins in a column (int32 codes)
+HUGE_ROWS = 100_000
+HUGE_F = 4
+HUGE_MAX_BIN = 70_000
+HUGE_ITERATIONS = 3
+HUGE_PARAMS = {"objective": "binary", "num_leaves": 15,
+               "learning_rate": 0.1, "max_bin": HUGE_MAX_BIN,
+               "min_data_in_bin": 1, "min_data_in_leaf": 20,
+               "verbosity": -1}
+HUGE_RUNS = (("leafwise", {"tpu_growth_strategy": "leafwise"}, ("K4",)),
+             ("quantized", {"tpu_growth_strategy": "wave",
+                            "use_quantized_grad": True}, ("K2",)),
+             ("wave", {"tpu_growth_strategy": "wave"}, ("K1", "K3")))
+
+
+def wave_kernels_at(H, max_bin):
+    """The wave engine's float kernels at `max_bin` bins: K1, and K3 where
+    the dispatch rule (the JAX package's `wave_hl_profitable`, then the
+    tile rule `wave_hl_fits`) marks a wave of 1-8 computed slots; above
+    7,231 bins it marks none (the tile rule; above 8,192 the JAX rule
+    too), so K1 takes every wave."""
+    k3 = any(H.wave_hl_profitable(max_bin, s) and H.wave_hl_fits(max_bin, s)
+             for s in range(1, 9))
+    return ("K1", "K3") if k3 else ("K1",)
+
+
+def phase_huge_bins(lgb, H, card):
+    """max_bin HUGE_MAX_BIN on HUGE_ROWS rows of HUGE_F features: int32
+    device codes through the leaf-wise engine (K4), quantized (K2) and
+    the wave engine (K1/K3, where `wave_fits` takes the width), each run
+    HUGE_ITERATIONS iterations on one Dataset, its trees held to the
+    port's CPU trees (trained in spawned workers meanwhile).  Returns
+    {run: launches}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    from lightgbm_tpu_torch.boosting.gbdt import wave_fits
+    t_phase = time.perf_counter()
+    X, y = make_higgs_like(HUGE_ROWS, HUGE_F, seed=3)
+    wave_ok = wave_fits(HUGE_F, HUGE_MAX_BIN, HUGE_PARAMS["num_leaves"])
+    runs = [r for r in HUGE_RUNS if wave_ok or r[0] == "leafwise"]
+    cases = {name: {"name": f"huge_bins_{name}", "X": X, "y": y,
+                    "ds_kw": {}, "params": {**HUGE_PARAMS, **extra},
+                    "iterations": HUGE_ITERATIONS, "forced": False}
+             for name, extra, _ in runs}
+    pool = ProcessPoolExecutor(
+        max_workers=len(cases),
+        mp_context=multiprocessing.get_context("spawn"))
+    out = {}
+    try:
+        futures = {name: pool.submit(cpu_case, c)
+                   for name, c in cases.items()}
+        t0 = time.perf_counter()
+        ds = lgb.Dataset(X, label=y, params=dict(HUGE_PARAMS)).construct()
+        construct_s = time.perf_counter() - t0
+        for name, extra, kernels in runs:
+            params = {**HUGE_PARAMS, **extra}
+            check_dataset_params(f"huge_bins {name}", params, ds)
+            booster = lgb.Booster(params=params, train_set=ds)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(H)
+            iters = []
+            for _ in range(HUGE_ITERATIONS):
+                t1 = time.perf_counter()
+                if booster.update():
+                    raise AssertionError(f"huge_bins {name}: stopped early")
+                torch.cuda.synchronize()
+                iters.append(time.perf_counter() - t1)
+            launches = launch_counts(H)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            g = booster._gbdt
+            if g.binned_dev.dtype != torch.int32:
+                raise AssertionError(f"huge_bins {name}: device codes "
+                                     f"{g.binned_dev.dtype}, not int32")
+            want = extra["tpu_growth_strategy"]
+            if g.growth_strategy != want:
+                raise AssertionError(f"huge_bins {name}: the "
+                                     f"{g.growth_strategy} engine")
+            if name == "wave":
+                kernels = wave_kernels_at(H, HUGE_MAX_BIN)
+            check_kernels(f"huge_bins {name}", launches, kernels)
+            cpu_models, _ = futures[name].result(timeout=900)
+            if len(cpu_models) != len(g.models_):
+                raise AssertionError(f"huge_bins {name}: {len(g.models_)} "
+                                     f"card trees, {len(cpu_models)} CPU")
+            worst = max(hold_tree(f"huge_bins {name}", i, a, b)
+                        for i, (a, b) in enumerate(zip(g.models_,
+                                                       cpu_models)))
+            emit({"phase": "huge_bins", "run": name, "rows": HUGE_ROWS,
+                  "features": HUGE_F, "max_bin": HUGE_MAX_BIN,
+                  "num_bin": [int(b) for b in g.f_num_bin],
+                  "num_leaves": HUGE_PARAMS["num_leaves"],
+                  "iterations": HUGE_ITERATIONS, "codes": "int32",
+                  "growth_strategy": g.growth_strategy,
+                  "construct_s": construct_s, "iter_s": iters,
+                  "s_per_iter": sum(iters) / len(iters),
+                  "peak_mem_gib": peak, "launches": launches,
+                  "leaves": [t.num_leaves for t in g.models_],
+                  "card_vs_cpu_max_rel_leaf_diff": worst, "card": card})
+            out[f"huge_bins_{name}"] = launches
+            del booster, g
+        if not wave_ok:
+            emit({"phase": "huge_bins", "run": "wave", "skipped":
+                  "wave_fits refuses the width"})
+        del ds
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    emit({"phase": "huge_bins_total", "seconds": time.perf_counter() - t_phase,
+          "card": card})
+    return out
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     # a fatal signal (a crash after a device-side assert, say) dumps
@@ -4538,6 +5060,7 @@ def main(argv) -> int:
                                             bench)
     launches["efb"] = efb_launches
     phase_serving(lgb, card, main, bench[0])
+    launches["online"] = phase_online(lgb, H, card)
     launches["reliability"] = phase_reliability(lgb, H, card, main, bench)
     fi_launches, _ = phase_forced_interaction(lgb, H, global_timer, card,
                                               main, bench)
@@ -4546,6 +5069,7 @@ def main(argv) -> int:
                                       bench[0])
     launches.update(phase_wide_bins(lgb, H, global_timer, card, main,
                                     bench[0]))
+    launches.update(phase_huge_bins(lgb, H, card))
     launches.update(phase_monotone_modes(lgb, H, global_timer, card, main,
                                          bench))
     probe.reset()
@@ -4669,6 +5193,40 @@ def main(argv) -> int:
                           "route": v.get("route"),
                           **{k: v[k] for k in row_keys}}
                          for v in windows.values()]})
+    # and on 32-bit codes (their uint32_t instantiations): INT32_F
+    # features of INT32_B bins, in bin windows, K2 on both routes.  K1, K2
+    # and K4 carry the huge_bins runs; no wave of those runs goes to K3
+    # (wave_kernels_at), so its 32-bit row stands in its entry
+    for e8, (kern, path) in zip(entries[:4], (
+            ("K1", "huge_bins_wave"), ("K2", "huge_bins_quantized"),
+            ("K3", None), ("K4", "huge_bins_leafwise"))):
+        rows32 = [v for k, v in wide.items()
+                  if k[0] == kern and k[1] == "int32"]
+        r = wide[(kern, "int32")]
+        if path is None:
+            e8["int32_codes"] = {
+                "F": INT32_F, "B": INT32_B, "C": C, "codes": "uint32",
+                "num_slots": r["num_slots"], **{k: r[k] for k in row_keys},
+                "launches": 0, "launches_path": None,
+                "why": f"at {HUGE_MAX_BIN} bins the wave engine's dispatch "
+                       "sends every wave to K1"}
+            e8["max_abs_err"] = max(e8["max_abs_err"], r["max_abs_err"])
+            continue
+        entries.append({
+            "name": f"{e8['name']} on 32-bit codes", "route": "cuda",
+            "source": e8["source"], "replaces": e8["replaces"],
+            "launches": launches.get(path, {}).get(kern, 0),
+            "launches_path": path,
+            "max_abs_err": max(v["max_abs_err"] for v in rows32),
+            **{k: r[k] for k in row_keys if k != "max_abs_err"},
+            "status": "ported",
+            "shape": {"n": N_KERNEL, "F": INT32_F, "B": INT32_B, "C": C,
+                      "codes": "uint32", **({"num_slots": r["num_slots"]}
+                                            if kern != "K4" else
+                                            {"S": N_KERNEL})},
+            "routes": [{"num_slots": v.get("num_slots"),
+                        "route": v.get("route"),
+                        **{k: v[k] for k in row_keys}} for v in rows32]})
     emit({"phase": "total", "seconds": time.perf_counter() - T0,
           "card": card})
     emit({"kernels": entries, "launches_by_path": launches})

@@ -49,8 +49,8 @@ an [F, n] bitset of the rows each feature has been fetched for carries
 the lazy one.
 
 More than 256 bins: the device codes are 16-bit where a column has more
-than 256 bins (ops/histogram.py `code_dtype`; above 65,536 bins the port
-refuses), binned on the host as in the JAX package.
+than 256 bins and int32 above 65,536 (ops/histogram.py `code_dtype`),
+binned on the host as in the JAX package.
 
 The objectives' gradients are [K, n_pad] (softmax over the classes for
 multiclass); L1, quantile and MAPE renew each tree's leaf outputs on the
@@ -426,8 +426,8 @@ class GBDT:
                 log.info(f"EFB bundled {len(plan.group_idx)} features into "
                          f"{plan.num_groups} columns")
         # device codes: uint8 while every column has at most 256 bins,
-        # else 16-bit codes (int16 storage, ops/histogram.py code_dtype;
-        # more than 65,536 bins is refused there)
+        # 16-bit codes (int16 storage) up to 65,536, int32 above
+        # (ops/histogram.py code_dtype)
         col_bins = (train_data.max_num_bin if self.bundle_plan is None
                     else int(self.bundle_plan.group_num_bin.max(initial=1)))
         codes = code_dtype(col_bins)
@@ -439,7 +439,8 @@ class GBDT:
             self.binned_dev[:, :n] = binned[:, :n]
         else:
             host = np.zeros((binned.shape[0], self.n_pad),
-                            np.uint8 if codes == torch.uint8 else np.uint16)
+                            {torch.uint8: np.uint8, torch.int16: np.uint16,
+                             torch.int32: np.int32}[codes])
             host[:, :n] = binned
             self.binned_dev = codes_to_device(host, dev, col_bins)
         if own_bins:

@@ -6,7 +6,8 @@ Parameters as the reference's LoadParameters takes them: command-line
 `key=value` pairs win over the config file's entries (the first value
 of a key wins, ref: application.cpp:79 KeepFirstValues).  Tasks: train,
 predict, refit, save_binary and convert_model (ref: config.h TaskType),
-and the JAX package's serving tasks `serve` and `serve-fleet`.
+the JAX package's serving tasks `serve` and `serve-fleet`, and its
+online task `train-and-serve`.
 `device_type` comes from the parameters like any other, so the command
 line runs on the card unless `device_type=cpu` is given, models loaded
 for predict, refit and serving included.
@@ -339,12 +340,102 @@ def _task_serve_fleet(cfg: Config, params: Dict[str, str]) -> None:
         router.stop()
 
 
-def _refuse_unported(task: str) -> None:
-    raise NotImplementedError(
-        f"task={task} is not ported yet (ROADMAP Queue 1 item 16): the "
-        "PyTorch port's command line trains, predicts, refits, saves "
-        "binary datasets, converts models and serves (serve, "
-        "serve-fleet); online training waits")
+def _task_train_and_serve(cfg: Config, params: Dict[str, str]) -> None:
+    """Online continual learning (the JAX package's task):
+    `python -m lightgbm_tpu_torch train-and-serve online_chunk_dir=DIR
+    checkpoint_dir=CKPT [input_model=seed.txt] [serve_port=0]`.
+
+    One process closing the train->serve loop: a DirectoryChunkSource
+    watches `online_chunk_dir`, the OnlineTrainer boosts/refits per
+    chunk generation (on the card unless `device_type=cpu`),
+    checkpoints each generation (byte-exact SIGTERM/crash resume), and
+    publishes atomically — into this process's own serving daemon
+    (default; serve_port/serve_uds_path expose it), or over the wire to
+    a remote router/replica when `online_publish_addr=host:port` is set.
+    SIGTERM stops the loop at the next boundary (mid-generation: the
+    relaunch resumes from the last completed generation's checkpoint)
+    and drains the local daemon; exit stays 143."""
+    from .observability import set_preemption_hook
+    from .online import (DirectoryChunkSource, LocalPublisher,
+                         OnlineTrainer, WirePublisher)
+
+    if cfg.metrics_dir:
+        _event_log(cfg)
+        from .reliability.faults import register_flight_dump_signal
+        register_flight_dump_signal(cfg.metrics_dir)
+    if not cfg.online_chunk_dir:
+        log.fatal("task=train-and-serve needs online_chunk_dir=<dir>")
+    if not cfg.checkpoint_dir:
+        log.warning("train-and-serve without checkpoint_dir=: a restart "
+                    "re-trains from scratch (no byte-exact resume)")
+
+    daemon = srv = uds_srv = None
+    if cfg.online_publish_addr:
+        host, _, port = cfg.online_publish_addr.rpartition(":")
+        if not port.isdigit():
+            log.fatal(f"online_publish_addr must be host:port "
+                      f"(got {cfg.online_publish_addr!r})")
+        publisher = WirePublisher(host or "127.0.0.1", int(port))
+        log.info(f"Publishing generations to {cfg.online_publish_addr} "
+                 "(op=publish over the wire)")
+    else:
+        from .serving import (ServingDaemon, start_frontend,
+                              start_uds_frontend)
+        daemon = ServingDaemon(cfg).start()
+        publisher = LocalPublisher(daemon)
+        if cfg.serve_port >= 0:
+            srv = start_frontend(
+                daemon, port=cfg.serve_port,
+                request_timeout_s=cfg.serve_request_timeout_s)
+        if cfg.serve_uds_path:
+            uds_srv = start_uds_frontend(
+                daemon, cfg.serve_uds_path,
+                request_timeout_s=cfg.serve_request_timeout_s)
+
+    source = DirectoryChunkSource(cfg.online_chunk_dir)
+    trainer = OnlineTrainer(source, publisher, config=cfg,
+                            params=dict(params),
+                            checkpoint_dir=cfg.checkpoint_dir or None,
+                            seed_model=cfg.input_model or None)
+    trainer.install_signal_handlers()
+    if daemon is not None:
+        # one preemption-hook slot: the trainer owns it; chain the
+        # daemon's drain behind the loop-stop so a SIGTERM between
+        # generations completes queued requests before the exit
+        def _stop_all():
+            trainer.request_stop()
+            daemon.stop(drain=True, timeout=cfg.serve_drain_timeout_s)
+            return None  # finish_preemption re-delivers; rc stays 143
+
+        set_preemption_hook(_stop_all)
+    trainer.start()  # resume (or seed) + initial publish
+    if cfg.serve_ready_file:
+        _write_ready_file(cfg.serve_ready_file, {
+            "port": (srv.server_address[1] if srv is not None else -1),
+            "uds_path": cfg.serve_uds_path or None,
+            "metrics_port": (daemon.metrics_server.port
+                             if daemon is not None
+                             and daemon.metrics_server else -1),
+            "generation": trainer.generation,
+            "model": trainer.model_name})
+    log.info(f"Online loop watching {cfg.online_chunk_dir} "
+             f"(mode={cfg.online_mode}, "
+             f"{cfg.online_trees_per_chunk} trees/chunk"
+             + (f", freshness SLO {cfg.online_max_lag_s:g}s"
+                if cfg.online_max_lag_s > 0 else "") + ")")
+    try:
+        stats = trainer.run()
+        log.info(f"Online loop finished: {stats}")
+    except KeyboardInterrupt:
+        log.info("Interrupted; stopping the online loop")
+        trainer.request_stop()
+    finally:
+        if daemon is not None and not daemon.stopped:
+            daemon.stop(drain=True, timeout=cfg.serve_drain_timeout_s)
+        if srv is not None:
+            srv.shutdown()
+        if uds_srv is not None:
+            uds_srv.shutdown()
 
 
 HANDLERS = {"train": _task_train, "predict": _task_predict,
@@ -352,9 +443,9 @@ HANDLERS = {"train": _task_train, "predict": _task_predict,
             "refit_tree": _task_refit, "save_binary": _task_save_binary,
             "convert_model": _task_convert_model, "serve": _task_serve,
             "serve-fleet": _task_serve_fleet,
-            "serve_fleet": _task_serve_fleet}
-# the JAX package's online task
-UNPORTED_TASKS = ("train-and-serve", "train_and_serve")
+            "serve_fleet": _task_serve_fleet,
+            "train-and-serve": _task_train_and_serve,
+            "train_and_serve": _task_train_and_serve}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -365,8 +456,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     params = parse_args(argv)
     cfg = Config(dict(params))
     task = cfg.task
-    if task in UNPORTED_TASKS:
-        _refuse_unported(task)
     if cfg.num_machines > 1:
         raise NotImplementedError(
             "num_machines > 1 (training across machines) is not ported yet "

@@ -106,6 +106,6 @@ def bin_matrix_device(data: np.ndarray, mappers, used_features,
 
 def pull_host(binned: torch.Tensor) -> np.ndarray:
     """Device [F, n] -> host np.ndarray (16-bit codes, stored as int16,
-    come back as their uint16 values)."""
+    come back as their uint16 values; uint8 and int32 as they are)."""
     out = binned.cpu().numpy()
     return out.view(np.uint16) if out.dtype == np.int16 else out

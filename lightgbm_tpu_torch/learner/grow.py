@@ -467,9 +467,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     """Grow one leaf-wise tree.
 
     Args:
-      binned: [F', n] feature-major bin codes (n a multiple of 512), uint8
-        or 16-bit (int16 storage, ops/histogram.py code_dtype): one row
-        per feature, or per bundle column under EFB.
+      binned: [F', n] feature-major bin codes (n a multiple of 512), uint8,
+        16-bit (int16 storage) or int32 (ops/histogram.py code_dtype): one
+        row per feature, or per bundle column under EFB.
       grad, hess, row_mask: [n] float32 (row_mask: bagging x padding).
       col_mask: [F] bool.  meta, params: as the wave engine's.
       binned_rm: optional [n, F'] row-major copy (made here when None).

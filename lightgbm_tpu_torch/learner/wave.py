@@ -292,9 +292,9 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     """Grow one tree by waves.
 
     Args:
-      binned: [F', n] feature-major bin codes (n a multiple of 512), uint8
-        or 16-bit (int16 storage, ops/histogram.py code_dtype): one row
-        per feature, or per bundle column under EFB.
+      binned: [F', n] feature-major bin codes (n a multiple of 512), uint8,
+        16-bit (int16 storage) or int32 (ops/histogram.py code_dtype): one
+        row per feature, or per bundle column under EFB.
       grad, hess, row_mask: [n] float32.  col_mask: [F] bool.
       quant_scales: [2] float32 (gradient, hessian) scales of quantized
         gradients; with params.quant_bins > 0 every wave's histograms go

@@ -4,9 +4,9 @@
 // Replaces the TPU kernel K4 of lightgbm_tpu/ops/histogram.py:
 //   _hist_pallas_kernel (:94), launched at :136 by
 //   build_histogram_rows_pallas (:118)
-// It computes, for rows r of rows [S, F] (uint8 bin codes, or uint16 ones
-// where a column has more than 256 bins: the kernel is templated on the
-// code type),
+// It computes, for rows r of rows [S, F] (uint8 bin codes, uint16 ones
+// where a column has more than 256 bins, uint32 ones above 65,536: the
+// kernel is templated on the code type),
 //   hist[f, b, c] = sum over r with rows[r, f] == b of gh[r, c] * mask[r]
 // The leaf-wise engine calls it on the split leaf's gathered segment (the
 // partitioned engine) or on all rows with a membership mask (the masked
@@ -159,7 +159,8 @@ __global__ void finish_kernel(const long long* __restrict__ acc,
 
 extern "C" {
 
-// K4.  rows: [S, F] codes of code_bytes bytes (1: uint8, 2: uint16);
+// K4.  rows: [S, F] codes of code_bytes bytes (1: uint8, 2: uint16, 4:
+// uint32);
 // gh: float32 [S, C]; mask: float32 [S]; exps: int32 [C] (device); acc:
 // int64 [F*B*C].  Bw bins per window, FG (<= kTileFeatures) features and
 // rows_per_block rows per block (the wrapper's planner).  With hist ==
@@ -170,8 +171,8 @@ int rows_hist_f32(const void* rows, const void* gh, const void* mask,
                   void* acc, void* hist, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   if (C < 1 || C > kMaxC || FG < 1 || FG > kTileFeatures ||
-      rows_per_block < 1 || S < 1 || B < 1 || B > 65536 || Bw < 1 ||
-      Bw > B || (code_bytes != 1 && code_bytes != 2))
+      rows_per_block < 1 || S < 1 || B < 1 || Bw < 1 || Bw > B ||
+      (code_bytes != 1 && code_bytes != 2 && code_bytes != 4))
     return (int)cudaErrorInvalidValue;
   const long long total = (long long)F * B * C;
   const int groups = (F + FG - 1) / FG, windows = (B + Bw - 1) / Bw;
@@ -180,14 +181,13 @@ int rows_hist_f32(const void* rows, const void* gh, const void* mask,
     cudaMemsetAsync(acc, 0, sizeof(long long) * total, stream);
   const size_t smem = sizeof(long long) * (size_t)FG * Bw * C;
   dim3 grid(chunks, groups * windows);
-  cudaError_t err =
-      code_bytes == 2
-          ? launch_rows<uint16_t>(rows, gh, mask, exps, S, F, B, Bw, C, FG,
-                                  rows_per_block, grid, smem,
-                                  (long long*)acc, stream)
-          : launch_rows<uint8_t>(rows, gh, mask, exps, S, F, B, Bw, C, FG,
-                                 rows_per_block, grid, smem, (long long*)acc,
-                                 stream);
+  decltype(&launch_rows<uint8_t>) const launch =
+      code_bytes == 4   ? launch_rows<uint32_t>
+      : code_bytes == 2 ? launch_rows<uint16_t>
+                        : launch_rows<uint8_t>;
+  cudaError_t err = launch(rows, gh, mask, exps, S, F, B, Bw, C, FG,
+                           rows_per_block, grid, smem, (long long*)acc,
+                           stream);
   if (err != cudaSuccess || hist == nullptr) return (int)err;
   long long g = std::min((total + kThreads - 1) / kThreads, 132LL * 16);
   finish_kernel<<<(int)std::max(g, 1LL), kThreads, 0, stream>>>(

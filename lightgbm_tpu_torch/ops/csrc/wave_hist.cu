@@ -32,9 +32,10 @@
 //
 // Codes.  Every kernel is templated on the bin code type: uint8_t while
 // every column has at most 256 bins, uint16_t up to 65,536 (the wrapper
-// stores them as int16 bits).  A streaming warp loads 4 rows of one
-// feature as one word (4 bytes of uint8 codes, 8 of uint16); the
-// partition packs rows at Fp codes.  Bin windows: where one feature's
+// stores them as int16 bits), uint32_t above (int32 storage, codes below
+// 2^31).  A streaming warp loads 4 rows of one feature as one word (4
+// bytes of uint8 codes, 8 of uint16, 16 of uint32); the partition packs
+// rows at Fp codes.  Bin windows: where one feature's
 // (slots x B x C) cells exceed a block's shared memory, the wrapper's
 // planner cuts the bin axis into windows of Bw bins (bin_window in
 // ops/histogram.py); a work item or block then covers one window of one
@@ -153,6 +154,24 @@ struct Codes<uint16_t> {
                           j < 2 ? b[2 * k + 1].x : b[2 * k + 1].y, sel);
     dst[0] = make_uint4(wd[0], wd[1], wd[2], wd[3]);
     dst[1] = make_uint4(wd[4], wd[5], wd[6], wd[7]);
+  }
+};
+
+template <>
+struct Codes<uint32_t> {
+  using Word = uint4;  // rows 0-3 in x, y, z, w
+  static DEV int bin(Word w, int j) {
+    return (int)(j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w);
+  }
+  // row j's 16 codes are component j of each word: 64 bytes, 4 stores
+  static DEV unsigned part(const Word& w, int j) {
+    return j == 0 ? w.x : j == 1 ? w.y : j == 2 ? w.z : w.w;
+  }
+  static DEV void pack16(const Word* b, int j, uint4* dst) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      dst[k] = make_uint4(part(b[4 * k], j), part(b[4 * k + 1], j),
+                          part(b[4 * k + 2], j), part(b[4 * k + 3], j));
   }
 };
 
@@ -504,6 +523,8 @@ wave_few_kernel(const T* __restrict__ binned_fm,
                 long long* __restrict__ cnt_acc) {
   using Q = typename Cells::Q;
   using Word = typename Codes<T>::Word;
+  // 16-byte words of 32-bit codes would take 32 registers to hoist
+  constexpr bool kHoist = Cells::kHoist && sizeof(Word) <= 8;
   extern __shared__ __align__(16) unsigned tile[];
   const int Wn = (B + Bw - 1) / Bw;
   const int g = blockIdx.y / Wn, win = blockIdx.y - g * Wn;
@@ -545,12 +566,12 @@ wave_few_kernel(const T* __restrict__ binned_fm,
       Word wv[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k)
-        if (Cells::kHoist && f8 + k < fg) wv[k] = col[(f8 + k) * fstride + q4];
+        if (kHoist && f8 + k < fg) wv[k] = col[(f8 + k) * fstride + q4];
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int fl = f8 + k;
         if (fl >= fg) break;
-        const Word word = Cells::kHoist ? wv[k] : col[fl * fstride + q4];
+        const Word word = kHoist ? wv[k] : col[fl * fstride + q4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int bin = Codes<T>::bin(word, j) - b0;
@@ -748,10 +769,11 @@ cudaError_t run_few(const void* binned_fm, const void* slot, const void* gh,
 
 bool bad_shape(int n, int F, int B, int C, int NL, int code_bytes) {
   return C < 1 || C > kMaxC || n < 1 || n % 4 || F < 1 || B < 1 ||
-         B > 65536 || NL < 1 || (code_bytes != 1 && code_bytes != 2);
+         NL < 1 || (code_bytes != 1 && code_bytes != 2 && code_bytes != 4);
 }
 
-// The pipelines on the caller's code type (1: uint8_t, 2: uint16_t).
+// The pipelines on the caller's code type (1: uint8_t, 2: uint16_t, 4:
+// uint32_t).
 template <typename Cells>
 cudaError_t run_partition_codes(int code_bytes, const void* binned_fm,
                                 const void* slot, const void* gh,
@@ -760,6 +782,10 @@ cudaError_t run_partition_codes(int code_bytes, const void* binned_fm,
                                 int R, void* scratch, long long scratch_bytes,
                                 long long* acc, long long* cnt_acc,
                                 cudaStream_t stream) {
+  if (code_bytes == 4)
+    return run_partition<Cells, uint32_t>(
+        binned_fm, slot, gh, param, n, F, B, Bw, C, NL, UR, PW, FG, R,
+        scratch, scratch_bytes, acc, cnt_acc, stream);
   return code_bytes == 2
              ? run_partition<Cells, uint16_t>(
                    binned_fm, slot, gh, param, n, F, B, Bw, C, NL, UR, PW,
@@ -775,6 +801,9 @@ cudaError_t run_few_codes(int code_bytes, const void* binned_fm,
                           int n, int F, int B, int Bw, int C, int S, int FG,
                           long long* acc, long long* cnt_acc,
                           cudaStream_t stream) {
+  if (code_bytes == 4)
+    return run_few<Cells, uint32_t>(binned_fm, slot, gh, param, n, F, B, Bw,
+                                    C, S, FG, acc, cnt_acc, stream);
   return code_bytes == 2
              ? run_few<Cells, uint16_t>(binned_fm, slot, gh, param, n, F, B,
                                         Bw, C, S, FG, acc, cnt_acc, stream)

@@ -47,10 +47,11 @@ signature's row-major `binned_rm` (its plain version reads it), and only
 K4 reads a row-major copy.
 
 Bin codes.  The device holds `uint8` codes while every column has at most
-256 bins, and 16-bit codes above that, up to `MAX_CODE_BINS` bins (the
-JAX package keeps int32 codes there).  Torch's `uint16` has few CPU ops,
-so 16-bit codes are stored as `int16` holding the code's bits: the
-kernels read them as `uint16_t` (each is templated on the code type) and
+256 bins, 16-bit codes up to `MAX_CODE_BINS` bins, and `int32` codes
+above that (the JAX package keeps int32 codes above 256 bins).  Torch's
+`uint16` has few CPU ops, so 16-bit codes are stored as `int16` holding
+the code's bits: the kernels read them as `uint16_t` (each is templated
+on the code type; `int32` codes, always below 2^31, as `uint32_t`) and
 the plain versions as `codes_to_int`, which masks the sign extension
 away.  Where one feature's bins do not fit a block's shared memory the
 planners cut the bin axis into windows (`bin_window`): a block covers one
@@ -79,21 +80,18 @@ ROW_TILE = 512
 
 # --------------------------------------------------------------- bin codes
 MAX_CODE_BINS = 1 << 16    # bins a 16-bit code holds
-CODE_DTYPES = (torch.uint8, torch.int16)
+CODE_DTYPES = (torch.uint8, torch.int16, torch.int32)
 
 
 def code_dtype(num_bin: int) -> torch.dtype:
     """The device code type for columns of at most `num_bin` bins: uint8
-    up to 256, else int16 storage of uint16 codes.  Above MAX_CODE_BINS
-    no 16-bit code holds the bin."""
+    up to 256, int16 storage of uint16 codes up to MAX_CODE_BINS, else
+    int32."""
     if num_bin <= 256:
         return torch.uint8
     if num_bin <= MAX_CODE_BINS:
         return torch.int16
-    raise NotImplementedError(
-        f"{num_bin} bins in one column is more than a 16-bit bin code "
-        f"holds ({MAX_CODE_BINS}): not ported yet (ROADMAP Queue 1 item "
-        "18)")
+    return torch.int32
 
 
 def codes_to_device(codes, device, num_bin: int = None) -> torch.Tensor:
@@ -105,15 +103,17 @@ def codes_to_device(codes, device, num_bin: int = None) -> torch.Tensor:
     dt = code_dtype(num_bin)
     if dt == torch.uint8:
         host = np.ascontiguousarray(codes, np.uint8)
-    else:
+    elif dt == torch.int16:
         host = np.ascontiguousarray(codes.astype(np.uint16).view(np.int16))
+    else:
+        host = np.ascontiguousarray(codes, np.int32)
     return torch.from_numpy(host).to(device)
 
 
 def codes_to_int(codes: torch.Tensor,
                  dtype: torch.dtype = torch.int64) -> torch.Tensor:
-    """Device bin codes as integers: uint8 as they are, int16 storage as
-    its uint16 value (the sign extension masked off)."""
+    """Device bin codes as integers: uint8 and int32 as they are, int16
+    storage as its uint16 value (the sign extension masked off)."""
     out = codes.to(dtype)
     return out & 0xFFFF if codes.dtype == torch.int16 else out
 
@@ -345,8 +345,8 @@ def _quant_ints(gh: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 def _check_codes(name: str, codes: torch.Tensor) -> None:
     if codes.dtype not in CODE_DTYPES:
-        raise TypeError(f"{name} must be uint8 or int16 (16-bit) codes, got "
-                        f"{codes.dtype}")
+        raise TypeError(f"{name} must be uint8, int16 (16-bit) or int32 "
+                        f"codes, got {codes.dtype}")
 
 
 def _check_wave_inputs(binned: torch.Tensor, slot: torch.Tensor,
@@ -374,9 +374,8 @@ def _check_wave_inputs(binned: torch.Tensor, slot: torch.Tensor,
             raise ValueError(f"{name} must be contiguous")
     if gh.shape[1] - 1 > 4:
         raise ValueError("at most 4 accumulated gh channels")
-    if not 1 <= max_bin <= MAX_CODE_BINS:
-        raise ValueError(f"max_bin must be in [1, {MAX_CODE_BINS}], got "
-                         f"{max_bin}")
+    if not 1 <= max_bin < 1 << 31:
+        raise ValueError(f"max_bin must be in [1, 2^31), got {max_bin}")
 
 
 def _check_exps(exps: torch.Tensor, k: int, device) -> None:
@@ -403,8 +402,8 @@ def _check_cuda(dev) -> None:
 
 def _check_aligned(binned_fm, slot, gh) -> None:
     """The wave kernels load 4 rows of one feature's bins as one word (4
-    bytes of uint8 codes, 8 of 16-bit ones), and 4 rows' slots and gh as
-    16-byte vectors."""
+    bytes of uint8 codes, 8 of 16-bit ones, 16 of int32 ones), and 4
+    rows' slots and gh as 16-byte vectors."""
     word = 4 * binned_fm.element_size()
     if (binned_fm.data_ptr() % word or slot.data_ptr() % 16
             or gh.data_ptr() % 16):
@@ -653,8 +652,8 @@ def build_histogram_wave(binned_fm: torch.Tensor, slot: torch.Tensor,
     when `quant_scales` is given).
 
     Args:
-      binned_fm: [F, n] feature-major bin codes, uint8 or int16 storage
-        of 16-bit codes (`code_dtype`).
+      binned_fm: [F, n] feature-major bin codes, uint8, int16 storage
+        of 16-bit codes or int32 (`code_dtype`).
       slot: [n] int32 leaf slot per row; slots outside [0, num_slots)
         are a sentinel that matches nothing.
       gh: [n, C+1] float32 accumulands (gradient, hessian, ...); the LAST
@@ -815,9 +814,8 @@ def _check_rows_inputs(rows, gh, mask, max_bin, row_tile):
     for name, t in (("rows", rows), ("gh", gh), ("mask", mask)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not 1 <= max_bin <= MAX_CODE_BINS:
-        raise ValueError(f"max_bin must be in [1, {MAX_CODE_BINS}], got "
-                         f"{max_bin}")
+    if not 1 <= max_bin < 1 << 31:
+        raise ValueError(f"max_bin must be in [1, 2^31), got {max_bin}")
 
 
 def build_histogram_rows_pallas(rows: torch.Tensor, gh: torch.Tensor,
@@ -826,8 +824,8 @@ def build_histogram_rows_pallas(rows: torch.Tensor, gh: torch.Tensor,
     """Single-leaf histogram over row-major rows (K4).
 
     Args:
-      rows: [S, F] bin codes (uint8, or int16 storage of 16-bit codes),
-        S a multiple of row_tile.
+      rows: [S, F] bin codes (uint8, int16 storage of 16-bit codes, or
+        int32), S a multiple of row_tile.
       gh: [S, C] float32 values.  mask: [S] float32 membership, folded
         into gh.  max_bin: B.
 

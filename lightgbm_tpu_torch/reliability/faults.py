@@ -47,8 +47,9 @@ tests drill the router's retry/shed/restart paths with them:
   dispatch: latency injection on the dispatcher thread, the shape a
   wedged device presents to the frontend (queue backs up -> shed)
 
-Online-loop fault points (their callers come with the online slice): the `@N`
-matches the CHUNK GENERATION id the online trainer is processing:
+Online-loop fault points (called by online/chunks.py and
+online/trainer.py): the `@N` matches the CHUNK GENERATION id the online
+trainer is processing:
 
 * `online_chunk_corrupt@N` — damage chunk generation N before the
   trainer reads it: an on-disk chunk is truncated in place (the read

@@ -12,11 +12,15 @@ both), `predict` writes the same numbers within 1e-5, `refit` the same
 leaf values, `convert_model` C++ source; valid files, snapshots,
 `input_model`, `save_binary`, streamed prediction in chunks, SHAP
 contributions.  Then the port's own: `python -m lightgbm_tpu_torch` in a
-subprocess with JAX blocked, the tasks and options that stay refused
-(items 15 and 16), the default device, which refuses without a card,
-and the serving tasks in subprocesses on the CPU: `serve` with a ready
-file answering a line-JSON request byte for byte and draining to 143 on
-SIGTERM, and `serve-fleet` answering through its router.
+subprocess with JAX blocked, the option that stays refused (training
+across machines), the default device, which refuses without a card,
+the serving tasks in subprocesses on the CPU: `serve` with a ready file
+answering a line-JSON request byte for byte and draining to 143 on
+SIGTERM, and `serve-fleet` answering through its router; and the online
+task `train-and-serve`: a control run over three chunk files, a run
+killed by SIGTERM after generation 2 (exit 143), and its relaunch, which
+serves generation 2 at once and re-trains generation 3 into the control
+run's checkpoint byte for byte.
 """
 
 import json
@@ -208,9 +212,8 @@ def test_python_dash_m_with_jax_blocked(files, tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["task=train-and-serve", "online_chunk_dir=x"], "item 16"),
-    (["train-and-serve", "online_chunk_dir=x"], "item 16"),
-    (["num_machines=2", "machines=a:1,b:2"], "item 15")])
+    pytest.param(["num_machines=2", "machines=a:1,b:2"], "item 15",
+                 id="args2-item 15")])
 def test_unported_refuse(files, args, item):
     d = files
     with pytest.raises(NotImplementedError, match=item):
@@ -328,3 +331,128 @@ def test_cli_serve_fleet_answers_through_the_router(serve_model, tmp_path):
         c.close()
     finally:
         _sigterm(proc)
+
+
+# ------------------------------------------------------ train-and-serve
+ONLINE = ["objective=binary", "num_leaves=7", "verbosity=-1",
+          "min_data_in_leaf=10", "device_predict=true",
+          "device_predict_min_bucket=64", "serve_warmup=false",
+          "online_mode=boost", "online_trees_per_chunk=2",
+          "online_poll_interval_s=0.05", *CPU]
+RUN_S = 300     # every child process's deadline
+
+
+def _online(args, **kw):
+    return subprocess.Popen(
+        [sys.executable, "-m", "lightgbm_tpu_torch", "train-and-serve",
+         *ONLINE, *args], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, **kw)
+
+
+def _finish(proc):
+    try:
+        out, _ = proc.communicate(timeout=RUN_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate(timeout=60)
+        pytest.fail(f"timed out: {out[-3000:]}")
+    return proc.returncode, out
+
+
+def _wait_for(path, proc):
+    deadline = time.monotonic() + RUN_S
+    while not os.path.exists(path):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            pytest.fail(proc.communicate(timeout=60)[0][-3000:])
+        time.sleep(0.1)
+
+
+def test_cli_train_and_serve_sigterm_drill(serve_model, tmp_path):
+    from lightgbm_tpu_torch.online import write_chunk
+    from lightgbm_tpu_torch.serving import LineClient
+    seed, X = serve_model
+    rng = np.random.RandomState(5)
+    (tmp_path / "src").mkdir()
+    chunk_files = {}
+    for g in (1, 2, 3):
+        Xg = rng.randn(300, 6)
+        yg = (Xg[:, 0] + 0.5 * Xg[:, 1] > 0).astype(np.float64)
+        chunk_files[g] = write_chunk(str(tmp_path / "src"), g, Xg, yg)
+    # control: all three generations in one run, exits once idle
+    ck_a = tmp_path / "ck_a"
+    rc, out = _finish(_online([f"online_chunk_dir={tmp_path / 'src'}",
+                               f"checkpoint_dir={ck_a}", "serve_port=-1",
+                               "online_idle_exit_s=1.5",
+                               f"input_model={seed}"]))
+    assert rc == 0, out[-3000:]
+    control_g2 = (ck_a / "ckpt_0000002.txt").read_text()
+    control_g3 = (ck_a / "ckpt_0000003.txt").read_text()
+    # the drill: generations 1-2 land, SIGTERM after generation 2
+    chunks_b = tmp_path / "chunks_b"
+    chunks_b.mkdir()
+    for g in (1, 2):
+        os.link(chunk_files[g], chunks_b / os.path.basename(chunk_files[g]))
+    ck_b = tmp_path / "ck_b"
+    proc = _online([f"online_chunk_dir={chunks_b}", f"checkpoint_dir={ck_b}",
+                    "serve_port=-1", "online_idle_exit_s=0",
+                    f"input_model={seed}"])
+    _wait_for(ck_b / "ckpt_0000002.txt", proc)
+    time.sleep(0.3)     # the generation-2 publish settles
+    proc.send_signal(signal.SIGTERM)
+    rc, out = _finish(proc)
+    assert rc in (143, -signal.SIGTERM), out[-3000:]
+    # the relaunch with generation 3 landed: it serves generation 2 at
+    # once, then re-trains generation 3 as the control run did
+    os.link(chunk_files[3], chunks_b / os.path.basename(chunk_files[3]))
+    ready = tmp_path / "ready.json"
+    proc = _online([f"online_chunk_dir={chunks_b}", f"checkpoint_dir={ck_b}",
+                    "serve_port=0", "online_idle_exit_s=1.5",
+                    f"serve_ready_file={ready}", f"input_model={seed}"])
+    _wait_for(ready, proc)
+    with open(ready) as f:
+        info = json.load(f)
+    assert info["generation"] == 2 and info["model"] == "online"
+    c = LineClient("127.0.0.1", info["port"])
+    try:
+        reply = c.request({"model": "online", "rows": X[:4].tolist()},
+                          timeout_s=60)
+    finally:
+        c.close()
+    assert reply["ok"], reply
+    got = np.asarray(reply["preds"]).astype(np.float32).tobytes()
+    served = [tlgb.Booster(model_str=t, params={
+        "device_type": "cpu", "device_predict": "true"}).predict(
+            X[:4]).tobytes() for t in (control_g2, control_g3)]
+    assert got in served        # never the seed
+    rc, out = _finish(proc)
+    assert rc == 0, out[-3000:]
+    assert (ck_b / "ckpt_0000003.txt").read_text() == control_g3
+
+
+@pytest.mark.parametrize("spelling", [["task=train_and_serve"],
+                                      ["task=train-and-serve"]])
+def test_cli_train_and_serve_spellings(serve_model, tmp_path, spelling):
+    """Both task spellings run the loop (here with no seed model: the
+    first generation boosts from scratch), and without a chunk
+    directory the task refuses."""
+    from lightgbm_tpu_torch.online import write_chunk
+    rng = np.random.RandomState(6)
+    d = tmp_path / "chunks"
+    d.mkdir()
+    Xg = rng.randn(300, 6)
+    write_chunk(str(d), 1, Xg, (Xg[:, 0] > 0).astype(np.float64))
+    cmd = [sys.executable, "-m", "lightgbm_tpu_torch", *spelling, *ONLINE]
+    r = subprocess.run(cmd + [f"online_chunk_dir={d}",
+                              f"checkpoint_dir={tmp_path / 'ck'}",
+                              "serve_port=-1", "online_max_generations=1"],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=RUN_S)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    b = tlgb.Booster(model_file=str(tmp_path / "ck" / "ckpt_0000001.txt"),
+                     params={"device_type": "cpu"})
+    assert b.num_trees() == 2
+    r = subprocess.run(cmd + ["serve_port=-1"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=RUN_S)
+    assert r.returncode != 0
+    assert "online_chunk_dir" in r.stdout + r.stderr

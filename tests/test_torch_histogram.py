@@ -151,7 +151,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
             th.build_histogram_wave(b[:, :1000].contiguous(), s[:1000],
                                     g[:1000], max_bin=32, num_slots=8)
         elif bad == "dtype":
-            th.build_histogram_wave(b.to(torch.int32), s, g, max_bin=32,
+            th.build_histogram_wave(b.to(torch.int64), s, g, max_bin=32,
                                     num_slots=8)
         elif bad == "slot_dtype":
             th.build_histogram_wave(b, s.to(torch.int64), g, max_bin=32,
@@ -258,7 +258,7 @@ def test_rows_wrapper_refuses_what_the_kernel_does_not_take(bad):
             th.build_histogram_rows_pallas(r[:1000], g[:1000], m[:1000],
                                            max_bin=32)
         elif bad == "dtype":
-            th.build_histogram_rows_pallas(r.to(torch.int32), g, m,
+            th.build_histogram_rows_pallas(r.to(torch.int64), g, m,
                                            max_bin=32)
         elif bad == "mask":
             th.build_histogram_rows_pallas(r, g, m[:512], max_bin=32)

@@ -205,3 +205,41 @@ def test_serving_runs_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_online_runs_with_jax_blocked(tmp_path):
+    """The online loop stands apart too: with JAX blocked, chunk files
+    land, the trainer boosts two generations on the CPU, checkpoints and
+    publishes them into a daemon, which serves the newest."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'lightgbm_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from lightgbm_tpu_torch.config import Config\n"
+        "from lightgbm_tpu_torch.online import (DirectoryChunkSource,\n"
+        "    LocalPublisher, OnlineTrainer, write_chunk)\n"
+        "from lightgbm_tpu_torch.serving import ServingDaemon\n"
+        "rng = np.random.RandomState(0)\n"
+        "d = sys.argv[1]\n"
+        "for g in (1, 2):\n"
+        "    X = rng.randn(256, 4)\n"
+        "    write_chunk(d + '/chunks', g, X, (X[:, 0] > 0) * 1.0)\n"
+        "p = {'objective': 'binary', 'num_leaves': 7, 'verbosity': -1,\n"
+        "     'device_type': 'cpu', 'serve_warmup': False,\n"
+        "     'online_trees_per_chunk': 2}\n"
+        "daemon = ServingDaemon(Config(p)).start()\n"
+        "tr = OnlineTrainer(DirectoryChunkSource(d + '/chunks'),\n"
+        "                   LocalPublisher(daemon, timeout_s=60), params=p,\n"
+        "                   checkpoint_dir=d + '/ck')\n"
+        "out = tr.run(max_generations=2)\n"
+        "assert out['generation'] == 2 and out['published'] == 2, out\n"
+        "assert daemon.registry.versions() == {'online': 2}\n"
+        "daemon.stop(drain=True, timeout=60)\n"
+        "print('ok')\n")
+    (tmp_path / "chunks").mkdir()
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

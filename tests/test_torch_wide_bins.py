@@ -12,8 +12,12 @@ against the JAX package, on the CPU.
   packages asked for it, so the JAX package takes `_hist_wave_xla`), on
   the leaf-wise engine, quantized, and with EFB (one-hot columns beside
   wide features, each of which keeps a bundle column of its own).
-* The valid-set traversal of wide codes, model text both ways, and the
-  refusal above 65,536 bins.
+* The valid-set traversal of wide codes and model text both ways.
+* Above 65,536 bins the device codes are int32: the codes round-trip
+  exactly, the plain versions of K1-K4 on them equal the segment method
+  at 70,000 bins, and `train` at max_bin 70,000 gives the JAX package's
+  leaf-wise trees on both of the port's engines (the JAX package's wave
+  engine does not take that width on the CPU: it asks for tens of GB).
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ torch.set_num_threads(1)
 import lightgbm_tpu as jlgb
 from lightgbm_tpu.ops import histogram as jh
 import lightgbm_tpu_torch as tlgb
+from lightgbm_tpu_torch.io.device_bin import pull_host
 from lightgbm_tpu_torch.ops import histogram as th
 
 from test_torch_categorical import compare_training
@@ -37,7 +42,7 @@ SENTINEL = 10 ** 6
 
 
 def _mk(n, F, B, slots, seed, snap=True):
-    """16-bit codes [F, n] in [0, B), slots with a sentinel share, gh
+    """Codes [F, n] in [0, B), slots with a sentinel share, gh
     [n, 3] with the count column last."""
     rng = np.random.RandomState(seed)
     codes = rng.randint(0, B, size=(F, n))
@@ -72,12 +77,25 @@ def test_codes_are_16_bit(B):
     # codes past 32,767 are stored with the sign bit and read back whole
     assert np.array_equal(th.codes_to_int(b).numpy(), codes)
     assert th.codes_to_device(codes % 256, CPU_DEV).dtype == torch.uint8
-    with pytest.raises(NotImplementedError, match="item 18"):
-        th.code_dtype(65537)
+    assert th.code_dtype(65536) == torch.int16
+    assert th.code_dtype(65537) == torch.int32
+
+
+@pytest.mark.parametrize("B", [65537, 70000, 1 << 20])
+def test_codes_are_int32_above_65536(B):
+    """int32 above 65,536 bins, round trip exact (the codes' top values
+    included)."""
+    codes, _, _ = _mk(1024, 2, B, 1, seed=1)
+    codes[:, :2] = [B - 1, 65536]
+    b = th.codes_to_device(codes, CPU_DEV, num_bin=B)
+    assert b.dtype == torch.int32
+    assert np.array_equal(th.codes_to_int(b).numpy(), codes)
+    assert np.array_equal(th.codes_to_int(b, torch.int32).numpy(), codes)
+    assert np.array_equal(pull_host(b), codes)
 
 
 @pytest.mark.parametrize("snap", [True, False])
-@pytest.mark.parametrize("B", [1023, 20000])
+@pytest.mark.parametrize("B", [1023, 20000, 70000])
 def test_plain_k1_k3_k4_match_segment(B, snap):
     n, F, NL, Ks = 2048, 3, 5, 3
     codes, slot, gh = _mk(n, F, B, NL, seed=B, snap=snap)
@@ -90,6 +108,7 @@ def test_plain_k1_k3_k4_match_segment(B, snap):
         else:
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
+    assert b16.dtype == (torch.int32 if B > 65536 else torch.int16)
     hist, cnt = th.build_histogram_wave(b16, s, g, max_bin=B, num_slots=NL)
     sk = torch.where(s < Ks, s, torch.full_like(s, SENTINEL))
     hl, cl = th.build_histogram_wave_hl(b16, b16.t(), sk, g, max_bin=B,
@@ -109,7 +128,7 @@ def test_plain_k1_k3_k4_match_segment(B, snap):
           _segment(codes, gh[:, :2], mask, B))
 
 
-@pytest.mark.parametrize("B", [1023, 20000])
+@pytest.mark.parametrize("B", [1023, 20000, 70000])
 def test_plain_k2_matches_segment_exactly(B):
     """K2's integer sums of round(gh / scale) are the segment sums of the
     integers, exactly."""
@@ -235,12 +254,48 @@ def test_valid_traversal_and_model_text_both_ways():
                                atol=1e-12)
 
 
-def test_more_than_65536_bins_refused():
-    rng = np.random.RandomState(0)
-    X = rng.rand(70000, 1)
-    y = (X[:, 0] > 0.5).astype(np.float32)
-    params = {"objective": "binary", "max_bin": 70000, "min_data_in_bin": 1,
-              "bin_construct_sample_cnt": 70000, "num_leaves": 4,
-              "verbosity": -1, **CPU}
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tlgb.train(params, tlgb.Dataset(X, label=y), 1)
+# max_bin 70,000 on 70,000 distinct values: one bin a row, int32 codes
+HUGE = {"objective": "binary", "max_bin": 70000, "min_data_in_bin": 1,
+        "bin_construct_sample_cnt": 70000, "num_leaves": 8,
+        "min_data_in_leaf": 20, "verbosity": -1, "tpu_donate_buffers": False}
+_HUGE = {}
+
+
+def _huge_data(n=70000, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, 2)
+    logit = 4 * (X[:, 0] - 0.5) - 3 * (X[:, 1] - 0.5) ** 2
+    y = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    return X, y
+
+
+def _huge_jax():
+    """The JAX package's leaf-wise booster at 70,000 bins (its engine
+    on the CPU at this width), trained once."""
+    if "jax" not in _HUGE:
+        X, y = _huge_data()
+        bj = jlgb.train({**HUGE, "tpu_growth_strategy": "leafwise"},
+                        jlgb.Dataset(X, label=y), 2)
+        bj._gbdt._sync_model()
+        _HUGE["jax"] = (bj, X, y)
+    return _HUGE["jax"]
+
+
+@pytest.mark.parametrize("strategy", ["leafwise", "wave"])
+def test_more_than_65536_bins_match_jax(strategy):
+    """Two trees at max_bin 70,000 on int32 device codes: the leaf-wise
+    engine and the wave engine (which prunes to the leaf-wise trees)
+    give the JAX package's leaf-wise trees under the tie rule, raw
+    scores within 1e-5 (float32 leaf sums in two orders)."""
+    bj, X, y = _huge_jax()
+    bt = tlgb.train({**HUGE, **CPU, "tpu_growth_strategy": strategy},
+                    tlgb.Dataset(X, label=y), 2)
+    g = bt._gbdt
+    assert g.binned_dev.dtype == torch.int32
+    assert g.growth_strategy == strategy
+    assert int(g.f_num_bin.max()) > 65536
+    n_ties, whole = compare_training(bj, bt, X, y, None)
+    assert whole, f"{n_ties} ties moved rows"
+    np.testing.assert_allclose(bt.predict(X, raw_score=True),
+                               bj.predict(X, raw_score=True), rtol=0,
+                               atol=1e-5)
