@@ -1,14 +1,15 @@
 """Rehearse chip_smoke.py's split_features, objectives, efb,
 forced_interaction, surface, ranking, file, linear, refit_contrib, cli,
-wide_bins, monotone_modes, reliability, serving, online and huge_bins
-phases on the CPU at 1/8 of their rows, to size their gates before a run
-on the card:
+wide_bins, monotone_modes, reliability, serving, online, huge_bins and
+data_parallel phases on the CPU at 1/8 of their rows, to size their
+gates before a run on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
                               [forced_interaction] [surface] [ranking]
                               [file] [linear] [refit_contrib] [cli]
                               [wide_bins] [monotone_modes] [reliability]
                               [serving] [online] [huge_bins]
+                              [data_parallel]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -52,7 +53,9 @@ ONLINE_CHUNK_ROWS / 8 rows, the chaos spec, the client threads) and the
 SIGTERM drill's train-and-serve children on the CPU.  huge_bins keeps its
 HUGE_ROWS rows (1/8 of them hold fewer than 65,536 distinct values, so
 no column would reach int32 codes) and trains its "card" sides on the CPU
-too.
+too.  data_parallel trains its ranks (train_distributed's workers and the
+one-machine cluster, gloo: no NCCL on the CPU) and its serial references
+on the CPU; the ranks' launch counts read 0 there.
 """
 
 import json
@@ -249,6 +252,11 @@ def main(argv) -> int:
             cs.phase_huge_bins(Rehearsal(), H, "cpu rehearsal")
             cs.make_higgs_like = lambda n, F, seed=0: full(n // SCALE, F,
                                                            seed)
+            lines = {}
+        elif phase == "data_parallel":
+            # the ranks and the one-machine cluster on the CPU (gloo)
+            cs.DP_DEVICE = "cpu"
+            cs.phase_data_parallel(Rehearsal(), H, "cpu rehearsal", bench)
             lines = {}
         elif phase == "monotone_modes":
             cs.phase_monotone_modes(Rehearsal(), H, global_timer,

@@ -135,6 +135,21 @@ Phases, each printing one JSON line:
      logs in build/chip_smoke_online/).  One `online` line: generations
      published and skipped, retries, p50/p99 ms, rows/s, the lag, each
      generation's train seconds and trees, the drill's seconds;
+  3f. data_parallel (right after the three paths): tree_learner=data at
+     the main path's width, the bench Dataset's bins saved once with
+     `save_binary` and loaded by every rank.  (a)
+     `train_distributed(num_machines=1)`: one CUDA child joins a
+     one-machine cluster (NCCL by the backend rule) and trains
+     DP_NCCL_ITERATIONS (3) wave iterations; (b)
+     `train_distributed(num_machines=DP_RANKS)` (2 ranks sharing the
+     card, gloo) trains the wave engine 5 iterations,
+     quantized 3 and leaf-wise 3.  Gates: each model text equal byte for
+     byte to the serial card run's with the same params (no process
+     group: one device); each rank's launch counts hold its path's
+     kernels and no other; the backends nccl (a) and gloo (b).  One
+     `data_parallel` line per run: each rank's s/iter, all-reduce ms,
+     bytes and calls per iteration, backend and launches, the cluster's
+     and the serial run's seconds;
   4. path A, quantized training: the same workload with
      use_quantized_grad=true (4 bins, stochastic rounding), 13
      iterations; K2 launched, K1/K3 not; held-out AUC within 0.01 of
@@ -368,7 +383,7 @@ Phases, each printing one JSON line:
      the tasks' seconds, launches;
   6. card against CPU (the CPU sides train in CARD_CPU_WORKERS spawned
      worker processes of CARD_CPU_THREADS torch threads while the main
-     process runs the card sides in turn): `train` at CARD_ROWS (32,768)
+     process runs the card sides in turn): `train` at CARD_ROWS (16,384)
      rows, CARD_ITERATIONS (2) iterations (3 for the GOSS and DART
      cases), on "cuda"
      and "cpu", for the main path, paths A and B, sampling runs (a), (b)
@@ -389,10 +404,10 @@ Phases, each printing one JSON line:
      devices) and interaction constraints on the leaf-wise engine (K4):
      the same split features, thresholds, decision types and category
      sets in every tree, leaf values within rtol 1e-4; then the ranking
-     objectives on the ranking data's whole queries in its first 32,768
+     objectives on the ranking data's whole queries in its first 16,384
      rows: lambdarank with position bias on the wave engine (K1, K3),
      rank_xendcg quantized (K2) and lambdarank on the leaf-wise engine
-     (K4); then linear trees at CARD_LINEAR_ROWS (32,768) rows, quantized
+     (K4); then linear trees at CARD_LINEAR_ROWS (16,384) rows, quantized
      on the wave engine (K2) and on the leaf-wise engine (K4), each tree's
      per-row linear outputs held too (tree 0 within LINEAR_FIT_REL, later
      trees within LINEAR_LATER_ATOL, of max(1, |output|)); then max_bin
@@ -488,8 +503,8 @@ GROUP_BINS = 256               # EFB bundle codes: MAX_BUNDLE_BINS
 VALID_MIN_DELTA = 0.001        # early_stopping_min_delta of the valid path
 # rows of the higgs and EFB card-vs-CPU cases (65,536 until the online
 # and huge_bins phases came: the command then took 912 s)
-CARD_ROWS = 32_768
-CARD_LINEAR_ROWS = 32_768      # rows of the linear card-vs-CPU cases
+CARD_ROWS = 16_384
+CARD_LINEAR_ROWS = 16_384      # rows of the linear card-vs-CPU cases
 # iterations of a card-vs-CPU case (3 until the serving phase came): the
 # GOSS case samples from its third iteration and DART's drops need
 # trees to drop, so those two keep 3
@@ -2788,7 +2803,7 @@ RANK_NDCG_MIN = {"lambdarank": 0.596, "rank_xendcg": 0.596}
 # 65,536 rows, PERF.md) and the file phase (65,536 rows until the
 # reliability phase needed its ~30 s: the file loads are host binning,
 # linear in the rows)
-CARD_RANK_ROWS = 32_768
+CARD_RANK_ROWS = 16_384
 FILE_ROWS = 32_768
 
 
@@ -3853,10 +3868,21 @@ def card_cases(rank):
     return out
 
 
-# card-vs-CPU cases whose CPU sides take longest (the rescans of the
-# monotone modes, the wide scan over EFB's columns)
-CPU_FIRST = ("advanced_leafwise", "intermediate_leafwise",
-             "wide_efb_csr_wave")
+# card-vs-CPU cases whose CPU sides take longest, slowest first (the
+# ranking gradients over 136 columns, the rescans of the monotone modes,
+# the wide scan over EFB's columns)
+CPU_FIRST = ("rank_xendcg_quantized", "advanced_leafwise",
+             "wide_efb_csr_wave", "lambdarank_position_bias_wave",
+             "intermediate_leafwise")
+
+
+def cpu_order(cases):
+    """The order the CPU sides are queued in: CPU_FIRST's, then the
+    cases' own."""
+    def key(i):
+        name = cases[i][0]["name"]
+        return CPU_FIRST.index(name) if name in CPU_FIRST else len(CPU_FIRST)
+    return sorted(range(len(cases)), key=key)
 
 
 def run_card_vs_cpu(lgb, H, rank):
@@ -3876,8 +3902,7 @@ def run_card_vs_cpu(lgb, H, rank):
         # the slowest CPU sides are queued first, so that they train while
         # the card sides before them run
         futures = [None] * len(cases)
-        for i in sorted(range(len(cases)),
-                        key=lambda i: cases[i][0]["name"] not in CPU_FIRST):
+        for i in cpu_order(cases):
             futures[i] = pool.submit(cpu_case, cases[i][0])
         for (inputs, kernels), fut in zip(cases, futures):
             card_launches = phase_card_vs_cpu(lgb, H, inputs, fut.result)
@@ -4995,6 +5020,111 @@ def phase_huge_bins(lgb, H, card):
     return out
 
 
+DP_DIR = os.path.join("build", "chip_smoke_data_parallel")
+DP_RANKS = 2                # train_distributed's ranks, sharing the card
+DP_RUNS = (("wave", {}, 5, ("K1", "K3")),
+           ("quantized", {"use_quantized_grad": True}, 3, ("K2",)),
+           ("leafwise", {"tpu_growth_strategy": "leafwise"}, 3, ("K4",)))
+DP_NCCL_ITERATIONS = 3      # (a): world size 1 on NCCL, the wave engine
+DP_TIMEOUT_S = 600          # each cluster's deadline
+DP_DEVICE = "cuda"          # where the ranks train
+DP_KERNEL_NAMES = {"build_histogram_wave": "K1",
+                   "build_histogram_wave_int": "K2",
+                   "build_histogram_wave_hl": "K3",
+                   "build_histogram_rows_pallas": "K4"}
+def dp_rank_line(st):
+    """One rank's figures: s/iter (every iteration, the first included),
+    the all-reduce's ms and bytes per iteration, the backend, the
+    launches by kernel."""
+    it = max(st["iterations"], 1)
+    launches = st["launches"]
+    return {"rank": st["rank"], "backend": st["backend"],
+            "world": st["world"], "iterations": st["iterations"],
+            "s_per_iter": st["seconds"] / it,
+            "allreduce_ms_per_iter": 1000.0 * st["allreduce_seconds"] / it,
+            "allreduce_bytes_per_iter": st["allreduce_bytes"] / it,
+            "allreduce_calls_per_iter": st["allreduce_calls"] / it,
+            "launches": {DP_KERNEL_NAMES.get(k, k): v
+                         for k, v in launches.items()}}
+
+
+def phase_data_parallel(lgb, H, card, bench):
+    """tree_learner=data at the main path's width (bench rows, 255
+    leaves, 255 bins, binary).  The serial references: each run's params
+    (tree_learner=data, no process group: one device) on the shared bench
+    Dataset, whose bins every rank loads from a `save_binary` file.  (a)
+    world size 1 on NCCL: `train_distributed(num_machines=1)`, one CUDA
+    child that joins a one-machine cluster and trains DP_NCCL_ITERATIONS
+    wave iterations; its model text must equal the serial run's byte for
+    byte.  (b) DP_RANKS ranks sharing the card through
+    `train_distributed` (gloo by the backend rule), each training its
+    half of the rows: the wave engine (K1/K3), quantized (K2) and the
+    leaf-wise engine (K4), each model text equal to the serial run's byte
+    for byte and each rank's launches of the run's kernels > 0 (the
+    others 0).  One `data_parallel` line per run, with each rank's
+    s/iter, all-reduce ms, bytes and calls per iteration, backend and
+    launches.  Returns {path: rank 0's launches}."""
+    from lightgbm_tpu_torch.distributed import train_distributed
+    t_phase = time.perf_counter()
+    (X, _, _, _), ds = bench
+    os.makedirs(DP_DIR, exist_ok=True)
+    serial = {}
+    want_runs = [("nccl_wave", {}, DP_NCCL_ITERATIONS, ("K1", "K3"))] + [
+        (name, extra, iters, kern) for name, extra, iters, kern in DP_RUNS]
+    # the bench Dataset's bins as a binary file, which every rank loads
+    # instead of binning the rows again
+    data_path = os.path.join(DP_DIR, "bench.bin")
+    ds.save_binary(data_path)
+    for name, extra, iters, _ in want_runs:
+        params = {**BENCH_PARAMS, **extra, "tree_learner": "data",
+                  "device_type": DP_DEVICE}
+        check_dataset_params(f"data_parallel {name}", params, ds)
+        t0 = time.perf_counter()
+        b = lgb.train(params, ds, iters)
+        torch.cuda.synchronize()
+        serial[name] = (b.model_to_string(), time.perf_counter() - t0)
+        if b._gbdt.net is not None:
+            raise AssertionError("data_parallel: the serial reference "
+                                 "trained in a process group")
+        del b
+    out = {}
+    # (a) world size 1 on NCCL, then (b) DP_RANKS ranks sharing the card
+    for name, extra, iters, kernels in want_runs:
+        world = 1 if name == "nccl_wave" else DP_RANKS
+        params = {**BENCH_PARAMS, **extra, "tree_learner": "data",
+                  "device_type": DP_DEVICE}
+        t0 = time.perf_counter()
+        b = train_distributed(params, data_path, num_boost_round=iters,
+                              num_machines=world, timeout=DP_TIMEOUT_S)
+        cluster_s = time.perf_counter() - t0
+        ranks = [dp_rank_line(st) for st in b.worker_stats]
+        if b.model_to_string() != serial[name][0]:
+            raise AssertionError(f"data_parallel {name}: the model text "
+                                 "differs from the serial run's")
+        # NCCL takes one rank a card; ranks sharing the card take gloo
+        backend = "nccl" if DP_DEVICE == "cuda" and world == 1 else "gloo"
+        for r in ranks:
+            if r["backend"] != backend:
+                raise AssertionError(f"data_parallel {name}: rank "
+                                     f"{r['rank']} on {r['backend']}, not "
+                                     f"{backend}")
+            check_kernels(f"data_parallel {name} rank {r['rank']}",
+                          r["launches"], kernels)
+            if r["world"] != world or r["iterations"] != iters:
+                raise AssertionError(f"data_parallel {name}: rank {r}")
+        out[f"data_parallel_{name}"] = ranks[0]["launches"]
+        emit({"phase": "data_parallel", "run": name, "world": world,
+              "rows": int(X.shape[0]), "iterations": iters,
+              "model_text_equal": True, "cluster_s": cluster_s,
+              "serial_s": serial[name][1],
+              "serial_s_per_iter": serial[name][1] / iters,
+              "ranks": ranks, "card": card})
+        del b
+    emit({"phase": "data_parallel_total",
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return out
+
+
 def main(argv) -> int:
     kernels_only = "--kernels-only" in argv
     # a fatal signal (a crash after a device-side assert, say) dumps
@@ -5019,7 +5149,8 @@ def main(argv) -> int:
         ("imported", rss_imported), ("cuda_context", current_rss_bytes()))}
     emit({"phase": "environment", "python": sys.version.split()[0],
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "device": torch.cuda.get_device_name(0), "nvidia_smi": card,
+          "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count(), "nvidia_smi": card,
           "host_rss_gib": rss_gib})
 
     t0 = time.perf_counter()
@@ -5059,6 +5190,7 @@ def main(argv) -> int:
     launches, main_wall, main = phase_paths(lgb, H, global_timer, probe,
                                             bench)
     launches["efb"] = efb_launches
+    launches.update(phase_data_parallel(lgb, H, card, bench))
     phase_serving(lgb, card, main, bench[0])
     launches["online"] = phase_online(lgb, H, card)
     launches["reliability"] = phase_reliability(lgb, H, card, main, bench)

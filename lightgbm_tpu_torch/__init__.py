@@ -9,8 +9,11 @@ ensemble.  The scikit-learn estimators (`LGBMClassifier`, ...) and the
 plotting helpers sit on the same `train` and `Booster`.  `train` takes
 the JAX package's host planes: checkpoints and resume
 (`CheckpointManager`), fault injection, the stall watchdog and the JSONL
-training telemetry.  Everything runs
-on the card unless `device_type="cpu"` is asked for.  This package
+training telemetry.  `tree_learner="data"` trains across ranks of a
+torch.distributed group (`distributed.join_cluster`, or
+`distributed.train_distributed`, which spawns them), each rank on its
+rows, with the serial run's trees.  Everything runs on the card unless
+`device_type="cpu"` is asked for.  This package
 imports torch and numpy, never JAX or the JAX package; scikit-learn,
 pandas, matplotlib and graphviz are imported only where they are used.
 """

@@ -667,7 +667,7 @@ class Booster:
 
     def _inner_predict_train(self) -> np.ndarray:
         g = self._gbdt
-        sc = g.scores[:, :g.num_data].cpu().numpy()
+        sc = g.train_scores().cpu().numpy()
         return sc[0] if sc.shape[0] == 1 else sc
 
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
@@ -1061,12 +1061,23 @@ class Booster:
                          np.asarray(label, np.float64), weight=weight)
         return self
 
+    def free_network(self) -> "Booster":
+        """No socket network to tear down: the collectives ride the
+        torch.distributed process group, which `join_cluster` forms and
+        the process owns (ref: basic.py free_network; the JAX package's
+        Booster.free_network)."""
+        self.network = False
+        return self
+
     def set_network(self, machines, local_listen_port: int = 12400,
                     listen_time_out: int = 120,
                     num_machines: int = 1) -> "Booster":
-        raise NotImplementedError("Booster.set_network is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
-
-    def free_network(self) -> "Booster":
-        raise NotImplementedError("Booster.free_network is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
+        """Accepted for API compatibility, as in the JAX package: a
+        cluster is joined through `distributed.join_cluster` (or the
+        CLI's `machines=`) before training with tree_learner=data (ref:
+        basic.py set_network)."""
+        log.warning("set_network changes nothing in the PyTorch port: "
+                    "join the cluster with lightgbm_tpu_torch.distributed."
+                    "join_cluster + tree_learner=data")
+        self.network = True
+        return self

@@ -76,6 +76,19 @@ linear output; valid sets predict them on the host.  `refit` rewrites
 the leaf values of the existing trees from new rows; `predict_contrib`
 gives SHAP contributions on the host (native TreeSHAP).
 
+Data-parallel training (`tree_learner=data` inside a torch.distributed
+process group, parallel/data_parallel.py): every rank holds the whole
+Dataset on the host (the same bin mappers and EFB plan as the serial
+run) and its `rows_of` slice of the rows on its device, padded to its
+own `_PAD` multiple.  Every row reduction is exact: the engines
+all-reduce their int64 histograms and counts on the serial run's
+fixed-point grid, the root and leaf sums are limb sums (`exact_sum`),
+maxima are all-reduced, and every stream (the NumPy bagging mask, the
+threefry uniforms of GOSS and stochastic rounding) is drawn over the
+serial run's shape and sliced.  A sharded run grows the serial run's
+trees bit for bit.  Without a group, tree_learner=data trains on one
+device.
+
 The port covers in-memory dense and scipy-sparse data with the wave and
 leaf-wise engines and quantized gradients.  Every parameter whose
 behaviour it does not carry raises NotImplementedError naming the
@@ -104,6 +117,8 @@ from ..metric import Metric
 from ..models.tree import K_CATEGORICAL_MASK, Tree, _to_bitset
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
 from ..objective import ObjectiveFunction
+from ..parallel.data_parallel import (DATA_LEARNERS, RowShard,
+                                      current_network, exact_sum)
 from ..ops.histogram import (code_dtype, codes_to_device, codes_to_int,
                              wave_part_plan, wave_slot_pad)
 from ..ops.split import SplitParams, cat_bitset_words, leaf_output
@@ -136,13 +151,35 @@ def check_slice(config: Config) -> None:
         raise ValueError(f"Unknown tpu_growth_strategy "
                          f"{c.tpu_growth_strategy!r}; expected auto, wave, "
                          "or leafwise")
-    if c.tree_learner not in ("serial",):
+    if c.tree_learner in ("feature", "voting"):
         refuse(f"tree_learner={c.tree_learner!r}", "15")
+    if c.tree_learner not in ("serial",) + DATA_LEARNERS:
+        log.fatal(f"Unknown tree_learner {c.tree_learner!r}")
+
+
+def check_sharded(config: Config, objective) -> None:
+    """Refuse, under data-parallel training, every option whose work
+    reads rows beyond sums and maxima and which the port does not shard
+    yet (ROADMAP Queue 1 item 15)."""
+    def refuse(what: str) -> None:
+        raise NotImplementedError(
+            f"{what} under tree_learner=data is not ported yet (ROADMAP "
+            "Queue 1 item 15); the sharded port trains the pointwise, "
+            "multiclass and cross-entropy objectives")
+
+    name = getattr(objective, "name", None)
+    if name in ("lambdarank", "rank_xendcg"):
+        refuse(f"the ranking objective {name!r}")
+    if objective is not None and objective.need_renew_tree_output:
+        refuse(f"leaf renewal by percentile ({name})")
+    if config.linear_tree:
+        refuse("linear_tree")
 
 
 def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
                          num_bins: int, const_hess: bool,
-                         key: Optional[torch.Tensor] = None):
+                         key: Optional[torch.Tensor] = None,
+                         shard: Optional[RowShard] = None):
     """Quantize one class's gradients (ref: gradient_discretizer.cpp:120-160
     DiscretizeGradients; port of the JAX booster's `_disc`, gbdt.py:841).
 
@@ -154,16 +191,31 @@ def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
     zero, with the noise signed by the gradient's sign (round away from
     zero), as static_cast<int8_t> does in the reference.
 
+    A data-parallel rank passes its `shard`: the maxima are the serial
+    run's (all-reduced, over the rows the serial run's maxima see) and
+    the noise is its slice of the serial run's stream.
+
     Returns (grad on the grid, hess on the grid, scales [2] float32).
     """
     qhalf = max(num_bins // 2, 1)
-    gscale = torch.clamp(grad.abs().max(), min=1e-35) / qhalf
-    hmax = torch.clamp(hess.abs().max(), min=1e-35)
+    ga, ha = grad.abs(), hess.abs()
+    if shard is None:
+        amax = torch.stack([ga.max(), ha.max()])
+    else:
+        amax = shard.max_(torch.stack([shard.serial_rows(ga).max(),
+                                       shard.serial_rows(ha).max()]))
+
+    def rg_of(k):
+        if shard is None:
+            return jrandom.uniform(k, grad.shape, device=grad.device)
+        return shard.uniform(k, grad.device)
+
+    gscale = torch.clamp(amax[0], min=1e-35) / qhalf
+    hmax = torch.clamp(amax[1], min=1e-35)
     hscale = hmax if const_hess else hmax / num_bins
     if key is not None:
         kg, kh = jrandom.split(key)
-        rg = jrandom.uniform(kg, grad.shape, device=grad.device)
-        rh = jrandom.uniform(kh, hess.shape, device=hess.device)
+        rg, rh = rg_of(kg), rg_of(kh)
     else:
         rg = rh = 0.5
     gi = torch.trunc(grad / gscale + torch.sign(grad) * rg)
@@ -174,21 +226,33 @@ def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
 
 def goss_sample(grad: torch.Tensor, hess: torch.Tensor,
                 pad_mask: torch.Tensor, key: torch.Tensor, top_k: int,
-                other_k: int):
+                other_k: int, shard: Optional[RowShard] = None):
     """Gradient one-side sampling (ref: goss.hpp:118-165; port of the JAX
     booster's `_goss_sample`, gbdt.py:53): keep the top_k rows by
     Σ_k |g·h|, keep each other row with probability other_k / rest and
     scale its gradients by rest / other_k.  Every step is float32, as in
     the JAX package, so the same float32 inputs give the same rows and
     the same bits.  grad, hess: [K, n]; returns (keep mask [n] float32,
-    grad, hess)."""
+    grad, hess).  A data-parallel rank passes its `shard`: the top-k
+    threshold is taken over every rank's importances (all-gathered), the
+    counts are all-reduced, and the uniforms are its slice of the serial
+    run's stream."""
     imp = (grad * hess).abs().sum(0) * pad_mask
-    thr = torch.topk(imp, top_k).values[-1]
     real = pad_mask > 0
+    if shard is None:
+        thr = torch.topk(imp, top_k).values[-1]
+    else:
+        every = shard.net.all_gather_rows(imp[:shard.count], shard.sizes)
+        thr = torch.topk(every, top_k).values[-1]
     is_top = (imp >= thr) & real
-    rest = pad_mask.sum() - is_top.to(torch.float32).sum()
+    counts = torch.stack([real.sum(dtype=torch.int64),
+                          is_top.sum(dtype=torch.int64)])
+    if shard is not None:
+        shard.net.all_reduce_sum_(counts)
+    rest = (counts[0] - counts[1]).to(torch.float32)
     prob = other_k / torch.clamp(rest, min=1.0)
-    u = jrandom.uniform(key, imp.shape, device=imp.device)
+    u = (jrandom.uniform(key, imp.shape, device=imp.device) if shard is None
+         else shard.uniform(key, imp.device))
     sampled = (u < prob) & ~is_top & real
     scale = torch.where(sampled, rest / other_k,
                         torch.ones((), dtype=torch.float32,
@@ -199,19 +263,18 @@ def goss_sample(grad: torch.Tensor, hess: torch.Tensor,
 
 def renew_leaf_values(leaf_value: torch.Tensor, leaf_id: torch.Tensor,
                       grad: torch.Tensor, hess: torch.Tensor,
-                      mask: torch.Tensor, params: SplitParams):
+                      mask: torch.Tensor, params: SplitParams, net=None):
     """Leaf outputs recomputed from the float gradients after quantized
     growth (ref: gradient_discretizer.cpp RenewIntGradTreeOutput; port of
-    the JAX booster's `_renew`, gbdt.py:870).  Leaf sums are taken in
-    float64, so CPU and CUDA agree.  Leaves with no hessian keep their
+    the JAX booster's `_renew`, gbdt.py:870).  Leaf sums are exact limb
+    sums (`exact_sum`, all-reduced over a data-parallel `net`), so CPU,
+    CUDA and any sharding agree.  Leaves with no hessian keep their
     value."""
     L = leaf_value.shape[0]
     ids = leaf_id.to(torch.int64).clamp(0, L - 1)
-    f64 = torch.float64
 
     def leaf_sum(v):
-        return torch.zeros(L, dtype=f64, device=v.device).index_add_(
-            0, ids, (v * mask).to(f64)).to(torch.float32)
+        return exact_sum(v * mask, ids, L, net).to(torch.float32)
 
     sg, sh = leaf_sum(grad), leaf_sum(hess)
     out = leaf_output(sg, sh, torch.zeros_like(sg), 0.0, params)
@@ -380,6 +443,10 @@ class GBDT:
         self.raw_dev: Optional[torch.Tensor] = None
         self.linear_fit_stats = []
         self._valid_raw = {}
+        # data-parallel training: the group's Network and this rank's rows
+        # (None when training serially)
+        self.net = None
+        self.shard: Optional[RowShard] = None
 
     # ------------------------------------------------------------------ init
     def init(self, config: Config, train_data: Dataset,
@@ -398,6 +465,9 @@ class GBDT:
                                        else config.num_class)
         self.num_data = n = train_data.num_data
         self.n_pad = (n + _PAD - 1) // _PAD * _PAD
+        self._init_shard(config, objective, n)
+        if self.shard is not None:
+            self.n_pad = self.shard.n_pad
 
         binned = train_data.binned
         on_device = isinstance(binned, torch.Tensor)
@@ -425,6 +495,13 @@ class GBDT:
                 on_device = own_bins = False
                 log.info(f"EFB bundled {len(plan.group_idx)} features into "
                          f"{plan.num_groups} columns")
+        sh = self.shard
+        if sh is not None:
+            # this rank's rows of the whole dataset's (bundle) codes; the
+            # dataset keeps every row (valid-set and host paths read it)
+            binned = binned[:, sh.start:sh.stop]
+            own_bins = False
+        n_here = n if sh is None else sh.count
         # device codes: uint8 while every column has at most 256 bins,
         # 16-bit codes (int16 storage) up to 65,536, int32 above
         # (ops/histogram.py code_dtype)
@@ -436,18 +513,18 @@ class GBDT:
             # padded copy) are padded on the device: no host round trip
             self.binned_dev = torch.zeros((binned.shape[0], self.n_pad),
                                           dtype=binned.dtype, device=dev)
-            self.binned_dev[:, :n] = binned[:, :n]
+            self.binned_dev[:, :n_here] = binned[:, :n_here].to(dev)
         else:
             host = np.zeros((binned.shape[0], self.n_pad),
                             {torch.uint8: np.uint8, torch.int16: np.uint16,
                              torch.int32: np.int32}[codes])
-            host[:, :n] = binned
+            host[:, :n_here] = binned
             self.binned_dev = codes_to_device(host, dev, col_bins)
         if own_bins:
             # the dataset's device-bins slot now holds the padded copy
             train_data.binned = self.binned_dev
         pad = np.zeros(self.n_pad, np.float32)
-        pad[:n] = 1.0
+        pad[:n_here] = 1.0
         self.pad_mask = torch.from_numpy(pad).to(dev)
         # row and column sampling streams (the JAX booster's, gbdt.py:898):
         # the bag mask holds the padding's zeros and starts as all rows
@@ -557,10 +634,12 @@ class GBDT:
         # quantized histograms (K2) hold exact int32 sums: the grid must
         # fit int8 and n * bins must fit int32; outside the gate the wave
         # engine takes K1 on the dequantized values, as in the JAX package
+        # (n is the serial run's padded rows, so every rank gates alike)
+        n_gate = self.n_pad if self.shard is None else self.shard.grid_rows
         quant_bins = (config.num_grad_quant_bins
                       if (config.use_quantized_grad
                           and config.num_grad_quant_bins <= 126
-                          and self.n_pad * config.num_grad_quant_bins
+                          and n_gate * config.num_grad_quant_bins
                           < 2 ** 31) else 0)
         self.grow_params = GrowParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
@@ -671,24 +750,53 @@ class GBDT:
         self.has_init_score = md.init_score is not None
         if self.has_init_score:
             init = np.asarray(md.init_score, np.float64).reshape(K, n)
-            sc = np.zeros((K, self.n_pad), np.float32)
-            sc[:, :n] = init
-            self.scores = torch.from_numpy(sc).to(dev)
+            self.scores = torch.from_numpy(
+                self._local_rows(init.astype(np.float32))).to(dev)
         self.class_need_train = [True] * K
         if objective is not None:
+            # the objective sees every row on the host (its init scores
+            # are the serial run's); the device gets this rank's rows
             objective.init(md, n)
-            lab = np.zeros(self.n_pad, np.float32)
-            lab[:n] = objective.label
-            self.label_dev = torch.from_numpy(lab).to(dev)
+            self.label_dev = torch.from_numpy(self._local_rows(
+                np.asarray(objective.label, np.float32))).to(dev)
             self.weight_dev = None
             if md.weight is not None:
-                w = np.zeros(self.n_pad, np.float32)
-                w[:n] = md.weight
-                self.weight_dev = torch.from_numpy(w).to(dev)
+                self.weight_dev = torch.from_numpy(self._local_rows(
+                    np.asarray(md.weight, np.float32))).to(dev)
             if getattr(objective, "need_train", True) is False:
                 self.class_need_train = [False] * K
         for m in self.train_metrics:
             m.init(md, n)
+
+    def _init_shard(self, config: Config, objective, n: int) -> None:
+        """Data-parallel set-up (the JAX booster's `_make_training_mesh`,
+        gbdt.py:179): under tree_learner=data inside a process group this
+        rank takes its rows; without a group it trains on one device."""
+        if config.tree_learner not in DATA_LEARNERS:
+            return
+        net = current_network()
+        if net is None:
+            log.info("tree_learner=data without a process group: training "
+                     "on one device (train_distributed or join_cluster "
+                     "shards the rows over GPUs)")
+            return
+        check_sharded(config, objective)
+        if net.backend == "nccl" and self.device.type != "cuda":
+            raise ValueError("an NCCL process group needs device_type=cuda")
+        self.net = net
+        self.shard = RowShard(net, n, _PAD)
+        log.info(f"tree_learner=data: rank {net.rank}/{net.world} trains "
+                 f"rows [{self.shard.start}, {self.shard.stop}) of {n} on "
+                 f"{self.device} over {net.backend}")
+
+    def _local_rows(self, a: np.ndarray) -> np.ndarray:
+        """A host array over every training row (last axis) -> this
+        rank's rows, zero-padded to n_pad."""
+        if self.shard is not None:
+            return self.shard.local(a)
+        out = np.zeros(a.shape[:-1] + (self.n_pad,), a.dtype)
+        out[..., :a.shape[-1]] = a
+        return out
 
     @staticmethod
     def _parse_forced_splits(config: Config, train_data: Dataset) -> tuple:
@@ -937,14 +1045,20 @@ class GBDT:
         self.num_init_iteration_ = len(self.models_) // max(K, 1)
         self.iter_ = 0
         self._bump_model_mutations()
-        n = self.num_data
-        X = (train_raw if train_raw is not None
-             else self._reconstruct_raw(self.train_data, self.binned_dev,
-                                        self.bundle_plan))
+        ds = self.train_data
+        if train_raw is not None:
+            X = train_raw
+        elif self.shard is not None:
+            # every row, from the dataset's own codes (the device holds
+            # only this rank's)
+            bins = (ds.binned if isinstance(ds.binned, torch.Tensor)
+                    else codes_to_device(ds.binned, "cpu"))
+            X = self._reconstruct_raw(ds, bins, ds.pre_bundled_plan)
+        else:
+            X = self._reconstruct_raw(ds, self.binned_dev, self.bundle_plan)
         raw = prev.predict_raw(np.asarray(X, np.float64))
         raw = raw[:, None] if raw.ndim == 1 else raw             # [n, K]
-        sc = np.zeros((K, self.n_pad), np.float32)
-        sc[:, :n] = raw.T.astype(np.float32)
+        sc = self._local_rows(np.ascontiguousarray(raw.T, np.float32))
         self.scores = self.scores + torch.from_numpy(sc).to(self.device)
         for vi, vds in enumerate(self.valid_sets):
             vX = (valid_raws[vi] if valid_raws is not None
@@ -1019,10 +1133,12 @@ class GBDT:
                                   device=self.device)
             return goss_sample(grad, hess, self.pad_mask, key,
                                max(1, int(n * cfg.top_rate)),
-                               max(1, int(n * cfg.other_rate)))
+                               max(1, int(n * cfg.other_rate)),
+                               shard=self.shard)
         if (cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
                 and abs_iter % cfg.bagging_freq == 0):
-            mask = np.zeros(self.n_pad, np.float32)
+            # over every row: a data-parallel rank keeps its slice
+            mask = np.zeros(n, np.float32)
             pos_frac, neg_frac = (cfg.pos_bagging_fraction,
                                   cfg.neg_bagging_fraction)
             if ((pos_frac < 1.0 or neg_frac < 1.0)
@@ -1038,6 +1154,7 @@ class GBDT:
             else:
                 cnt = int(n * cfg.bagging_fraction)
                 mask[self._rng_bag.choice(n, cnt, replace=False)] = 1.0
+            mask = self._local_rows(mask)
             self._bag_mask_host = mask
             self.bag_mask = torch.from_numpy(mask).to(self.device)
         return self.bag_mask, grad, hess
@@ -1106,7 +1223,7 @@ class GBDT:
                                 + k)
                         g_k, h_k, qscales = discretize_gradients(
                             g_k, h_k, self.config.num_grad_quant_bins,
-                            self._quant_const_hess, key)
+                            self._quant_const_hess, key, shard=self.shard)
                 # the per-scan draws' keys advance with the absolute
                 # iteration (gbdt.py:1242-1248 of the JAX package)
                 extra_tag = None
@@ -1126,7 +1243,7 @@ class GBDT:
                     # GOSS, whose rescaled gradients they are)
                     arrays = arrays._replace(leaf_value=renew_leaf_values(
                         arrays.leaf_value, leaf_id, grad[k], hess[k],
-                        self.bag_mask, self._renew_params))
+                        self.bag_mask, self._renew_params, self.net))
                 with global_timer.scope("GBDT::finalize_tree"):
                     if linear:
                         # fitted on the float gradients, quantized training
@@ -1168,18 +1285,22 @@ class GBDT:
             # histogram reduction: the stall watchdog's shape
             faults.maybe_collective_stall(self.num_init_iteration_
                                           + self.iter_)
+        # data-parallel: the Network and the serial run's padded row count
+        dp = ({} if self.shard is None else
+              dict(net=self.net, grid_rows=self.shard.grid_rows))
         with global_timer.scope("GBDT::grow_tree"):
             if self.growth_strategy == "wave":
                 arrays, leaf_id = grow_tree_wave_impl(
                     self.binned_dev, g_k, h_k, bag_mask, col_mask,
                     self.meta, self.grow_params, quant_scales=quant_scales,
-                    extra_tag=extra_tag, cegb_used=self.cegb_used)
+                    extra_tag=extra_tag, cegb_used=self.cegb_used, **dp)
             else:
                 out = grow_tree_impl(
                     self.binned_dev, g_k, h_k, bag_mask, col_mask,
                     self.meta, self.grow_params,
                     binned_rm=self.binned_rm_dev, extra_tag=extra_tag,
-                    cegb_used=self.cegb_used, lazy_used=self.lazy_used)
+                    cegb_used=self.cegb_used, lazy_used=self.lazy_used,
+                    **dp)
                 # lazy CEGB's fetched rows ride from tree to tree
                 # (gbdt.py:1249-1267 of the JAX package; RF's loop too)
                 arrays, leaf_id = out[:2]
@@ -1194,10 +1315,19 @@ class GBDT:
         return arrays, leaf_id
 
     def _pad_rows(self, values, K: int) -> torch.Tensor:
+        """A custom objective's gradients over every training row ->
+        this rank's rows on the device, padded."""
         a = np.asarray(values, np.float32).reshape(K, -1)
-        out = np.zeros((K, self.n_pad), np.float32)
-        out[:, :a.shape[1]] = a
-        return torch.from_numpy(out).to(self.device)
+        return torch.from_numpy(self._local_rows(a)).to(self.device)
+
+    def train_scores(self) -> torch.Tensor:
+        """The training scores of every row, [K, num_data] on the
+        booster's device (all-gathered from the ranks under
+        data-parallel training)."""
+        sh = self.shard
+        if sh is None:
+            return self.scores[:, :self.num_data]
+        return self.net.all_gather_rows(self.scores[:, :sh.count], sh.sizes)
 
     @staticmethod
     def _stump() -> Tree:
@@ -1465,6 +1595,9 @@ class GBDT:
             flags = torch.stack([
                 flag.to(torch.float32),
                 torch.isfinite(self.scores).all().to(torch.float32)])
+            if self.net is not None:
+                # every rank takes the same sentinel decision
+                self.net.all_reduce_min_(flags)
             flags = flags.cpu().numpy()
             self._finite_cache = (bool(flags[0] > 0), bool(flags[1] > 0))
         return self._finite_cache
@@ -1484,8 +1617,9 @@ class GBDT:
         set has no full device form or `device_eval=false`."""
         de = self._device_eval
         if de is None:
-            from ..ops.metrics import DeviceEval
-            de = self._device_eval = DeviceEval(self)
+            from ..ops.metrics import DeviceEval, ShardedEval
+            de = self._device_eval = (DeviceEval(self) if self.net is None
+                                      else ShardedEval(self))
         if de.ok:
             if not de._plans:
                 return []
@@ -1493,8 +1627,7 @@ class GBDT:
             # the sentinel flags rode the packed transfer
             self._finite_cache = (grads_ok, scores_ok)
             return out
-        score = self.scores[:, :self.num_data].cpu().numpy().astype(
-            np.float64)
+        score = self.train_scores().cpu().numpy().astype(np.float64)
         return self._eval(score, self.train_metrics)
 
     def eval_valid(self, idx: int):

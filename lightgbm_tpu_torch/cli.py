@@ -448,6 +448,53 @@ HANDLERS = {"train": _task_train, "predict": _task_predict,
             "train_and_serve": _task_train_and_serve}
 
 
+def _machine_entries(cfg: Config) -> List[str]:
+    """machines="ip1:port1,ip2:port2" or machine_list_filename (one
+    "ip port" per line) -> ordered list of "host:port" strings
+    (ref: config.h machines/machine_list_filename; network.cpp
+    Network::Init parses both the same way)."""
+    if cfg.machines:
+        return [e.strip() for e in str(cfg.machines).split(",")
+                if e.strip()]
+    if cfg.machine_list_filename:
+        entries = []
+        with open(cfg.machine_list_filename) as f:
+            for ln in f:
+                toks = ln.split()
+                if len(toks) >= 2:
+                    entries.append(f"{toks[0]}:{toks[1]}")
+        return entries
+    return []
+
+
+def _maybe_init_distributed(cfg: Config) -> None:
+    """Multi-machine launch (ref: application.cpp:100-115 machine setup;
+    the JAX package's cli.py `_maybe_init_distributed`).  Each worker runs
+    this same CLI with the shared `machines` list and its OWN
+    local_listen_port; the rank is `LIGHTGBM_TPU_MACHINE_RANK`, else the
+    machine-list entry matching this host and port (the reference's rank
+    resolution); entry 0 serves the group's TCPStore.  After
+    `join_cluster`, tree_learner=data trains this rank's rows and the
+    collectives replace the reference's socket linkers."""
+    if cfg.num_machines <= 1:
+        return
+    from .distributed import join_cluster, resolve_rank
+    entries = _machine_entries(cfg)
+    if not entries:
+        log.warning("num_machines > 1 without machines / "
+                    "machine_list_filename: training runs in this process "
+                    "on one device")
+        return
+    if len(entries) != cfg.num_machines:
+        log.fatal(f"num_machines={cfg.num_machines} but machine list has "
+                  f"{len(entries)} entries")
+    rank_env = os.environ.get("LIGHTGBM_TPU_MACHINE_RANK")
+    rank = (int(rank_env) if rank_env is not None
+            else resolve_rank(entries, cfg.local_listen_port))
+    join_cluster(entries, rank=rank, initialize_timeout=cfg.time_out,
+                 device_type=cfg.device_type)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] in ("serve", "serve-fleet", "train-and-serve"):
@@ -456,13 +503,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     params = parse_args(argv)
     cfg = Config(dict(params))
     task = cfg.task
-    if cfg.num_machines > 1:
-        raise NotImplementedError(
-            "num_machines > 1 (training across machines) is not ported yet "
-            "(ROADMAP Queue 1 item 15)")
     if task not in HANDLERS:
         log.fatal(f"Unknown task {task!r}")
-    HANDLERS[task](cfg, params)
+    _maybe_init_distributed(cfg)
+    try:
+        HANDLERS[task](cfg, params)
+    finally:
+        if cfg.num_machines > 1:
+            from .distributed import leave_cluster
+            leave_cluster()
     return 0
 
 

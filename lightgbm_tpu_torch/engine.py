@@ -25,6 +25,7 @@ from .callback import (CallbackEnv, EarlyStopException, checkpoint,
                        early_stopping, log_evaluation, record_evaluation,
                        record_metrics)
 from .config import Config
+from .parallel.data_parallel import DATA_LEARNERS
 from .reliability import CheckpointManager, NonFiniteError
 from .utils import log
 from .utils.timer import global_timer
@@ -122,6 +123,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
         resume = cfg.resume
     if metrics_dir is None:
         metrics_dir = cfg.metrics_dir or None
+    if checkpoint_dir and cfg.tree_learner in DATA_LEARNERS:
+        from .parallel import current_network
+        if current_network() is not None:
+            raise NotImplementedError(
+                "checkpoints under tree_learner=data are not ported yet "
+                "(ROADMAP Queue 1 item 15, with the elastic relaunch)")
 
     from .observability import process_rank
     rank = process_rank()

@@ -80,6 +80,7 @@ from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO,
                          SplitParams, SplitResult, cat_bitset_words,
                          find_best_split, leaf_gain, leaf_output,
                          monotone_gain_penalty)
+from ..parallel.data_parallel import exact_sum
 from ..utils import random as jrandom
 from ..utils.timer import global_timer
 
@@ -463,7 +464,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                    col_mask: torch.Tensor, meta: FeatureMeta,
                    params: GrowParams, binned_rm: torch.Tensor = None,
                    extra_tag: int = None, cegb_used: torch.Tensor = None,
-                   lazy_used: torch.Tensor = None):
+                   lazy_used: torch.Tensor = None, net=None,
+                   grid_rows: int = None):
     """Grow one leaf-wise tree.
 
     Args:
@@ -478,6 +480,12 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
       cegb_used: [F] bool, the features earlier trees used (CEGB).
       lazy_used: [F, n] bool, the rows whose value of each feature earlier
         splits fetched (lazy CEGB; zeros when None); updated in place.
+      net, grid_rows: a data-parallel rank's Network
+        (parallel/data_parallel.py) and the row count the serial run
+        pads to: the grid is the serial run's, and every K4 histogram,
+        row count, root sum and lazy-CEGB count is all-reduced (the
+        JAX package's GSPMD psums of the masked engine).  The partition
+        stays shard-local.
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32), and lazy_used after them under lazy CEGB.
@@ -500,7 +508,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     grad = grad.to(f32) * row_mask
     hess = hess.to(f32) * row_mask
     gh = torch.stack([grad, hess], dim=1).contiguous()
-    exps = scale_exps(gh)                     # the tree's fixed-point grid
+    # the tree's fixed-point grid (the serial run's under data-parallel)
+    exps = scale_exps(gh, grid_rows, net)
     unit = fixed_unit(exps)
     ones = torch.ones(n, dtype=f32, device=dev)
     nb_h = meta.num_bin.cpu().numpy()
@@ -553,20 +562,26 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                 "grow_tree[histogram]", rows_hist_ops(S, Fh, Ch),
                 rows_hist_bytes(S, Fh, hist_B, Ch, rows.element_size()))
 
+    def all_reduce(t):
+        return t if net is None else net.all_reduce_sum_(t)
+
     def hist_of(member_mask):
         """Group-space histogram of every row under a membership mask
-        (int64)."""
+        (int64, all-reduced)."""
         account_rows(binned_rm, gh)
         with global_timer.device_scope("Tree::histogram", dev):
-            return build_histogram_rows_fixed(binned_rm, gh, member_mask,
-                                              exps, max_bin=hist_B)
+            h = build_histogram_rows_fixed(binned_rm, gh, member_mask,
+                                           exps, max_bin=hist_B)
+        return all_reduce(h)
 
     def hist_of_rows(rows, gh_sub, member_mask):
-        """Group-space histogram of gathered rows [S, F'] (int64)."""
+        """Group-space histogram of gathered rows [S, F'] (int64,
+        all-reduced)."""
         account_rows(rows, gh_sub)
         with global_timer.device_scope("Tree::histogram", dev):
-            return build_histogram_rows_fixed(rows, gh_sub, member_mask,
-                                              exps, max_bin=hist_B)
+            h = build_histogram_rows_fixed(rows, gh_sub, member_mask,
+                                           exps, max_bin=hist_B)
+        return all_reduce(h)
 
     def feature_hists(hists):
         """int64 group-space histograms -> float32 per-feature ones."""
@@ -618,6 +633,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             # fetched for it: 0/1 counts below 2^24, exact in float32
             # whatever the order of the sums
             unused = ((~lazy_used).to(f32) @ lazy_masks.t()).t()     # [k, F]
+            if net is not None:
+                unused = all_reduce(unused.to(i64)).to(f32)
             kw["cegb_lazy_cost"] = meta.cegb_lazy[None, :] * unused
         with global_timer.device_scope("Tree::split_find", dev):
             return find_best_split(
@@ -652,10 +669,11 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         return int(grp_h[feat]) if bundles else feat
 
     # ---- root (ref: serial_tree_learner BeforeTrain) ----
-    # leaf totals summed in float64 so CPU and CUDA agree
-    sum_g0 = grad.sum(dtype=torch.float64).to(f32)
-    sum_h0 = hess.sum(dtype=torch.float64).to(f32)
-    cnt0 = row_mask.sum(dtype=torch.float64).to(i32)
+    # leaf totals: exact limb sums, the same bits on CPU and CUDA and
+    # however the rows are sharded
+    sum_g0 = exact_sum(grad, net=net)[0].to(f32)
+    sum_h0 = exact_sum(hess, net=net)[0].to(f32)
+    cnt0 = all_reduce(row_mask.sum(dtype=i64)).to(i32)
     root_hist = hist_of(ones)
     inf1 = torch.full((1,), float("inf"), dtype=f32, device=dev)
     root_best = best_of(root_hist[None], sum_g0[None], sum_h0[None],
@@ -727,8 +745,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             lm = gl & valid
             rm = ~gl & valid
             rmask = row_mask[idxs]
-            cnt_l = (lm * rmask).sum(dtype=torch.float64).to(i32)
-            cnt_r = (rm * rmask).sum(dtype=torch.float64).to(i32)
+            c = all_reduce(torch.stack([(lm * rmask).sum(dtype=i64),
+                                        (rm * rmask).sum(dtype=i64)]))
+            cnt_l, cnt_r = c.to(i32)
             smaller_is_left = cnt_l <= cnt_r
             # stable in-place partition of the segment: left rows first
             cl_seg = lm.sum(dtype=i64)
@@ -757,8 +776,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             leaf_id[:n] = torch.where(in_leaf & ~gl, new, leaf_id[:n])
             lmaskf = (in_leaf & gl).to(f32) * row_mask
             rmaskf = (in_leaf & ~gl).to(f32) * row_mask
-            cnt_l = lmaskf.sum(dtype=torch.float64).to(i32)
-            cnt_r = rmaskf.sum(dtype=torch.float64).to(i32)
+            c = all_reduce(torch.stack([lmaskf.sum(dtype=i64),
+                                        rmaskf.sum(dtype=i64)]))
+            cnt_l, cnt_r = c.to(i32)
             smaller_is_left = cnt_l <= cnt_r
         small_hist = None
         if use_stack:

@@ -86,6 +86,7 @@ from ..observability.costmodel import (global_cost_model, wave_hist_bytes,
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
                          cat_bitset_words, find_best_split,
                          monotone_gain_penalty)
+from ..parallel.data_parallel import exact_sum
 from ..utils.timer import global_timer
 from .grow import (FeatureMeta, GrowParams, ScanDraws, TreeArrays,
                    allowed_features, bundle_hist_to_features,
@@ -288,7 +289,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                         params: GrowParams,
                         quant_scales: torch.Tensor = None,
                         extra_tag: int = None,
-                        cegb_used: torch.Tensor = None):
+                        cegb_used: torch.Tensor = None,
+                        net=None, grid_rows: int = None):
     """Grow one tree by waves.
 
     Args:
@@ -302,6 +304,11 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
       extra_tag: folds the extra-trees and bynode keys (the booster's
         absolute iteration x classes + class).
       cegb_used: [F] bool, the features earlier trees used (CEGB).
+      net, grid_rows: a data-parallel rank's Network
+        (parallel/data_parallel.py) and the row count the serial run
+        pads to: the grid is the serial run's, and every wave's integer
+        histograms and counts, the root sums and the final counts are
+        all-reduced (the JAX engine's `_psum` points).
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
@@ -319,6 +326,10 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     use_interaction = bool(params.interaction_sets)
 
     row_mask = row_mask.to(f32)
+
+    def all_reduce(t):
+        return t if net is None else net.all_reduce_sum_(t)
+
     grad = grad.to(f32) * row_mask
     hess = hess.to(f32) * row_mask
     # 2 histogram channels; the trailing column is the count mask
@@ -340,7 +351,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         def deq_c(cnt):
             return cnt.to(f32)
     else:
-        exps = scale_exps(gh)
+        exps = scale_exps(gh, grid_rows, net)
         unit = fixed_unit(exps)
 
         def deq_h(acc):
@@ -349,10 +360,11 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         def deq_c(cnt):
             return from_fixed(cnt[:, None], unit[2:])[:, 0]
 
-    # leaf totals summed in float64 so CPU and CUDA agree
-    sum_g0 = grad.sum(dtype=torch.float64).to(f32)
-    sum_h0 = hess.sum(dtype=torch.float64).to(f32)
-    cnt0 = row_mask.sum(dtype=torch.float64).to(i32)
+    # leaf totals: exact limb sums, the same bits on CPU and CUDA and
+    # however the rows are sharded
+    sum_g0 = exact_sum(grad, net=net)[0].to(f32)
+    sum_h0 = exact_sum(hess, net=net)[0].to(f32)
+    cnt0 = all_reduce(row_mask.sum(dtype=i64)).to(i32)
 
     # forced splits turn prune off: the replay ranks by gain and could
     # drop a forced node, which the reference keeps whatever its gain
@@ -446,6 +458,11 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                     "grow_tree[histogram]", wave_hist_ops(nh, Fh, Ch),
                     wave_hist_bytes(binned.element_size() * Fh * nh, nh,
                                     Kb, Fh, hist_B, Ch))
+        if net is not None:
+            # the data-parallel reduction: one all-reduce of the wave's
+            # int64 sums and counts (exact in any order)
+            flat = all_reduce(torch.cat([H.reshape(-1), cnt]))
+            H, cnt = flat[:H.numel()], flat[H.numel():]
         Hf = H.reshape(Kb, Dh)
         if first:
             cache_h[0] = Hf[0]
@@ -790,8 +807,9 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         lid_map = torch.from_numpy(lid_map).to(dev)
         # exact final counts: per-old-slot masked counts scattered through
         # the slot -> leaf table (integer sums, exact in float32)
-        cnt_slot = zeros(Lp, f32).index_add_(0, leaf_id, row_mask)
-        exact = zeros(Lp, f32).index_add_(0, lid_map, cnt_slot).to(i32)
+        cnt_slot = all_reduce(zeros(Lp, i64).index_add_(
+            0, leaf_id, row_mask.to(i64)))
+        exact = zeros(Lp, i64).index_add_(0, lid_map, cnt_slot).to(i32)
         leaf_id = lid_map[leaf_id]
         out = {k: torch.from_numpy(v).to(dev) for k, v in pruned.items()}
         out["leaf_count"] = exact
@@ -801,8 +819,8 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         out["cat_bitset"] = node["cat_bitset"][:nf]
         out.update({k: leaf[k][:Lp] for k in _LEAF_FIELDS})
         if num_waves > 0:
-            out["leaf_count"] = zeros(Lp, f32).index_add_(
-                0, leaf_id, row_mask).to(i32)
+            out["leaf_count"] = all_reduce(zeros(Lp, i64).index_add_(
+                0, leaf_id, row_mask.to(i64))).to(i32)
     for k in _LEAF_FIELDS:
         out[k] = out[k][:L]
     return TreeArrays(num_leaves=nl_final, **out), leaf_id.to(i32)

@@ -9,10 +9,13 @@ the training metrics) and give the JAX package's numbers bit for bit on
 the same arrays.  `device_pointwise_loss` is the torch form of the
 pointwise losses that `ops/metrics.py` evaluates on the booster's device.
 `bucket_queries` groups queries by padded length for the ranking
-objectives' device programs (`ranking.py`).  The binned AUC /
-average-precision / AUC-mu forms and the NDCG and MAP device plans serve
-only the sharded evaluation and come with multi-GPU (ROADMAP Queue 1
-item 15): ranking metrics are evaluated by the host classes.
+objectives' device programs (`ranking.py`).  `device_binned_auc`,
+`device_binned_average_precision` and `device_auc_mu` are the binned
+forms of the sharded train eval under data-parallel training
+(ops/metrics.py ShardedEval): every term is a sum over rows, reduced
+exactly over the ranks.  The NDCG and MAP device plans wait with ranking
+under data-parallel training for ROADMAP Queue 1 item 15: ranking
+metrics are evaluated by the host classes.
 """
 
 from __future__ import annotations
@@ -633,3 +636,76 @@ def device_pointwise_loss(name: str, config: Config):
                                        torch.clamp(1.0 - s, eps15, 1.0))),
     }
     return fns.get(name)
+
+
+# ------------------------------------------------- sharded (binned) forms
+def _binned_hists(prob, label, w, num_bins: int, net=None):
+    """(positive, negative) weight histograms [num_bins] float64 over
+    the score bins of `prob` min-max normalized over the rows of
+    positive weight (the JAX package's binning, in float32), summed
+    exactly over the rows and the ranks of `net`."""
+    import torch
+    from .parallel.data_parallel import exact_sum
+    prob = prob.to(torch.float32)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=prob.device)
+    mm = torch.stack([torch.where(w > 0, -prob, -inf).max(),
+                      torch.where(w > 0, prob, -inf).max()])
+    if net is not None:
+        net.all_reduce_max_(mm)
+    lo, hi = -mm[0], mm[1]
+    span = torch.clamp(hi - lo, min=1e-30)
+    unit = torch.clamp((prob - lo) / span, 0.0, 1.0)
+    b = torch.clamp((unit * num_bins).to(torch.int64), 0, num_bins - 1)
+    ids = torch.where(label > 0, b, b + num_bins)
+    h = exact_sum(w.to(torch.float32), ids, 2 * num_bins, net)
+    return h[:num_bins], h[num_bins:]
+
+
+def device_binned_auc(prob, label, w, num_bins: int = 16384, net=None):
+    """Weighted AUC from a global score-bin histogram (the JAX package's
+    `device_binned_auc`, metric.py:590): resolution 1/num_bins of score
+    space, ties within a bin get half credit (binary_metric.hpp:159).
+    Every rank of `net` reads the same value."""
+    import torch
+    pos_h, neg_h = _binned_hists(prob, label, w, num_bins, net)
+    pos_above = torch.flip(torch.cumsum(torch.flip(pos_h, [0]), 0),
+                           [0]) - pos_h
+    accum = torch.sum(neg_h * (pos_above + 0.5 * pos_h))
+    tp, tn = pos_h.sum(), neg_h.sum()
+    return torch.where((tp == 0) | (tn == 0), torch.ones_like(tp),
+                       accum / torch.clamp(tp * tn, min=1e-30))
+
+
+def device_binned_average_precision(prob, label, w, num_bins: int = 16384,
+                                    net=None):
+    """Weighted average precision from the same histogram (the JAX
+    package's `device_binned_average_precision`, metric.py:620)."""
+    import torch
+    pos_h, neg_h = _binned_hists(prob, label, w, num_bins, net)
+    tp = torch.flip(torch.cumsum(torch.flip(pos_h, [0]), 0), [0])
+    fp = torch.flip(torch.cumsum(torch.flip(neg_h, [0]), 0), [0])
+    prec = tp / torch.clamp(tp + fp, min=1e-20)
+    total = pos_h.sum()
+    ap = torch.sum(prec * pos_h) / torch.clamp(total, min=1e-30)
+    return torch.where(total == 0, torch.ones_like(ap), ap)
+
+
+def device_auc_mu(score, label, w, class_weights: np.ndarray,
+                  num_bins: int = 4096, net=None):
+    """auc_mu over sharded rows (the JAX package's `device_auc_mu`,
+    metric.py:645): each class pair's rows are projected on
+    v = W[i] - W[j], then a binned two-class AUC runs per pair."""
+    import torch
+    K = score.shape[0]
+    Wm = np.asarray(class_weights, np.float32)
+    total = 0.0
+    for i in range(K):
+        for j in range(i + 1, K):
+            v = torch.from_numpy(Wm[i] - Wm[j]).to(score.device)
+            t1 = float(Wm[i, i] - Wm[j, i] - (Wm[i, j] - Wm[j, j]))
+            dist = t1 * (v @ score.to(torch.float32))
+            in_pair = (label == i) | (label == j)
+            wp = torch.where(in_pair, w, torch.zeros_like(w))
+            total = total + device_binned_auc(dist, (label == i), wp,
+                                              num_bins=num_bins, net=net)
+    return 2.0 * total / (K * (K - 1))

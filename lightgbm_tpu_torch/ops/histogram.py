@@ -296,13 +296,22 @@ def rows_plan(S: int, num_features: int, max_bin: int, C: int):
 
 
 # --------------------------------------------------------------- fixed point
-def scale_exps(gh: torch.Tensor) -> torch.Tensor:
+def scale_exps(gh: torch.Tensor, num_rows: int = None,
+               net=None) -> torch.Tensor:
     """[k] int32 exponents E with max|gh[:, c]| * n <= 2^E for gh [n, k]
     (frexp of the float32 product, clamped to [-38, 62]): the grid of
-    every fixed-point histogram of these rows or of any subset of them."""
+    every fixed-point histogram of these rows or of any subset of them.
+    A data-parallel rank passes `num_rows`, the row count the serial run
+    pads to, and its `net` (parallel/data_parallel.py Network), which
+    all-reduces the maximum: every rank then takes the serial run's
+    grid, and the ranks' int64 sums add up to the serial run's."""
     n = gh.shape[0]
     amax = (torch.linalg.vector_norm(gh, float("inf"), dim=0) if n
             else gh.new_zeros(gh.shape[1]))
+    if net is not None:
+        net.all_reduce_max_(amax)
+    if num_rows is not None:
+        n = num_rows
     _, e = torch.frexp(amax * float(n))
     return e.clamp(-38, 62).to(torch.int32)
 

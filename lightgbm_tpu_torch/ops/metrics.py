@@ -273,3 +273,116 @@ class DeviceEval:
         out = [(name, float(v))
                for (name, _kind, _fn), v in zip(self._plans, vec)]
         return out, bool(vec[-2] > 0), bool(vec[-1] > 0)
+
+
+class ShardedEval:
+    """Training metrics under data-parallel training (the torch form of
+    the JAX booster's `_eval_train_sharded`, gbdt.py:1705): every metric
+    is a set of sums over this rank's rows, reduced exactly over the
+    ranks (`exact_sum`; maxima for the score range), so every rank
+    reads the same scalars.  AUC and average precision use the binned
+    forms (`metric.device_binned_auc`, 16,384 bins), multiclass
+    `multi_logloss`/`multi_error` and `auc_mu` (`device_auc_mu`) their
+    sums; a metric with no sharded form is skipped with a warning, as in
+    the JAX package.  Labels are the metadata's (original label space).
+    The finite flags are all-reduced with the same tick."""
+
+    def __init__(self, gbdt):
+        from ..metric import device_pointwise_loss
+        self.ok = True
+        self.fetches = 0
+        self._gbdt = gbdt
+        self._net = gbdt.net
+        cfg = gbdt.config
+        K = gbdt.num_tree_per_iteration
+        plans = []
+        for m in gbdt.train_metrics:
+            name = m.name
+            if K > 1:
+                if name in ("multi_logloss", "multi_error"):
+                    plans.append((name, name, None))
+                elif name == "auc_mu":
+                    plans.append((name, "auc_mu",
+                                  np.asarray(m.class_weights)))
+                else:
+                    log.warning(f"train metric {name} has no sharded "
+                                "device form; skipped under data-parallel "
+                                "training")
+                continue
+            if name in (_KIND_AUC, _KIND_AP):
+                plans.append((name, name, None))
+                continue
+            fn = device_pointwise_loss(name, cfg)
+            if fn is None:
+                log.warning(f"train metric {name} has no sharded device "
+                            "form; skipped under data-parallel training")
+                continue
+            plans.append((name, _KIND_SQRT if name == "rmse" else _KIND_AVG,
+                          fn))
+        self._plans = plans
+        md = gbdt.train_data.metadata
+        dev = gbdt.device
+        self._label = torch.from_numpy(gbdt._local_rows(
+            np.asarray(md.label, np.float32))).to(dev)
+        self._weight = (None if md.weight is None else torch.from_numpy(
+            gbdt._local_rows(np.asarray(md.weight, np.float32))).to(dev))
+        self._top_k = int(cfg.multi_error_top_k)
+
+    def run(self, scores, grad_ok) -> Tuple[List[Tuple[str, float]],
+                                            bool, bool]:
+        from ..metric import (device_auc_mu, device_binned_auc,
+                              device_binned_average_precision)
+        from ..parallel.data_parallel import exact_sum
+        g, net = self._gbdt, self._net
+        obj = g.objective
+        pm = g.pad_mask
+        w = pm if self._weight is None else self._weight * pm
+        lab = self._label
+
+        def mean(v):
+            num = exact_sum(v * w, net=net)[0]
+            return num / exact_sum(w, net=net)[0]
+
+        vals = []
+        if g.num_tree_per_iteration > 1:
+            sc = scores.to(_F64)
+            prob = obj.convert_output(sc) if obj is not None else sc
+            K = prob.shape[0]
+            lab_oh = (lab.to(_F64)[None, :] == torch.arange(
+                K, dtype=_F64, device=sc.device)[:, None])
+            p_lab = torch.sum(torch.where(lab_oh, prob, 0.0), dim=0)
+            for _name, kind, extra in self._plans:
+                if kind == "multi_logloss":
+                    vals.append(mean(-torch.log(torch.clamp(p_lab, 1e-15,
+                                                            1.0))))
+                elif kind == "auc_mu":
+                    # pairwise projections of the raw scores
+                    vals.append(device_auc_mu(scores, lab, w, extra,
+                                              net=net))
+                else:   # multi_error: ties count AGAINST the row
+                    num_ge = torch.sum(prob >= p_lab[None, :], dim=0)
+                    vals.append(mean((num_ge > self._top_k).to(_F64)))
+        else:
+            sc = scores[0]
+            conv = obj.convert_output(sc) if obj is not None else sc
+            for _name, kind, fn in self._plans:
+                if kind == _KIND_AUC:
+                    vals.append(device_binned_auc(conv, lab, w, net=net))
+                elif kind == _KIND_AP:
+                    vals.append(device_binned_average_precision(
+                        conv, lab, w, net=net))
+                else:
+                    v = mean(fn(conv.to(_F64), lab.to(_F64)))
+                    vals.append(torch.sqrt(v) if kind == _KIND_SQRT else v)
+        flag = (torch.tensor(True, device=scores.device) if grad_ok is None
+                else grad_ok)
+        flags = torch.stack([flag.to(_F64),
+                             torch.isfinite(scores).all().to(_F64)])
+        net.all_reduce_min_(flags)
+        vec = torch.stack([torch.as_tensor(v, dtype=_F64,
+                                           device=scores.device)
+                           for v in vals] + list(flags)).cpu().numpy()
+        self.fetches += 1
+        out = [(name, float(v))
+               for (name, _kind, _fn), v in zip(self._plans, vec)]
+        return out, bool(vec[-2] > 0), bool(vec[-1] > 0)

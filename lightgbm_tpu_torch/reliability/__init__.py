@@ -13,8 +13,12 @@
   with `auto_degrade=true` relaunches from checkpoint with the next
   risky knob disabled.
 
-The distributed supervisor and the elastic policy come with multi-GPU
-training (ROADMAP Queue 1 item 15).
+* supervision — `supervisor.py` watches the ranks that
+  `distributed.train_distributed` spawns: the first failed rank, a
+  stale heartbeat or the deadline kills the cluster.
+
+The elastic policy (shrink and relaunch from checkpoints) waits for
+ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations

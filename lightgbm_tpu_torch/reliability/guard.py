@@ -33,8 +33,10 @@ ladder itself at startup (it finds the previous attempt's stall file in
 `degrade-state.json` crosses between the packages; in the port its first
 two rungs change nothing (the port donates no buffers and keeps no
 compile cache; its kernels build once into `build/kernels`), so a
-hang's first two relaunches retry unchanged in effect.  The distributed supervisor comes with multi-GPU
-training (ROADMAP Queue 1 item 15).
+hang's first two relaunches retry unchanged in effect.  The heartbeat
+file and the exit code feed the distributed supervisor
+(`supervisor.py`); its relaunch with the ladder waits for ROADMAP Queue
+1 item 15.
 """
 
 from __future__ import annotations

@@ -117,10 +117,12 @@ def test_port_model_text_loads_in_jax(boosters):
 # refusals that still stand.  More than 256 bins and the intermediate,
 # advanced and lazy CEGB options are ported since too: extra0, extra1,
 # extra3, extra5 and extra9 now pair each with a tree learner the port
-# still refuses, which must refuse whatever options come with it
+# still refuses, which must refuse whatever options come with it.
+# tree_learner=data is ported since too (test_torch_data_parallel.py):
+# extra0, extra5 and extra7 now name the feature and voting learners
 @pytest.mark.parametrize("extra,item", [
-    pytest.param({"max_bin": 511, "tree_learner": "data"},
-                 "tree_learner='data'.*item 15", id="extra0-item 14"),
+    pytest.param({"max_bin": 511, "tree_learner": "feature"},
+                 "tree_learner='feature'.*item 15", id="extra0-item 14"),
     # the pointwise, multiclass, cross-entropy and ranking objectives, RF
     # and DART, linear trees,
     # row and column sampling, categorical features, monotone
@@ -136,10 +138,10 @@ def test_port_model_text_loads_in_jax(boosters):
                   "tree_learner": "feature"},
                  "tree_learner='feature'.*item 15", id="extra3-item 13"),
     pytest.param({"cegb_penalty_feature_lazy": [1.0] * 8,
-                  "tree_learner": "data"},
-                 "tree_learner='data'.*item 15", id="extra5-item 13"),
+                  "tree_learner": "voting"},
+                 "tree_learner='voting'.*item 15", id="extra5-item 13"),
     pytest.param({"tree_learner": "voting"}, "item 15", id="extra6-item 15"),
-    pytest.param({"tree_learner": "data"}, "item 15", id="extra7-item 14"),
+    pytest.param({"tree_learner": "feature"}, "item 15", id="extra7-item 14"),
     pytest.param({"linear_tree": True, "tree_learner": "feature"},
                  "tree_learner='feature'.*item 15", id="extra8-item 14"),
     pytest.param({"max_bin": 300, "tree_learner": "voting"},

@@ -424,9 +424,10 @@ def test_booster_eval_train_and_feval(runs):
     # options that stay refused (kw0
     # and kw2 keep the names of the linear-tree cases they replaced; more
     # than 256 bins and the advanced monotone mode are ported since, so
-    # they pair them with a tree learner the port still refuses)
-    pytest.param({"params": {"max_bin": 511, "tree_learner": "data"}},
-                 "tree_learner='data'.*item 15", id="kw0-item 14"),
+    # they pair them with a tree learner the port still refuses;
+    # tree_learner=data is ported since too, so kw0 names feature)
+    pytest.param({"params": {"max_bin": 511, "tree_learner": "feature"}},
+                 "tree_learner='feature'.*item 15", id="kw0-item 14"),
     ({"params": {"tree_learner": "voting"}}, "item 15"),
     pytest.param({"params": {"linear_tree": True,
                              "monotone_constraints_method": "advanced",
