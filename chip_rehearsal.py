@@ -1,15 +1,15 @@
 """Rehearse chip_smoke.py's split_features, objectives, efb,
 forced_interaction, surface, ranking, file, linear, refit_contrib, cli,
-wide_bins, monotone_modes, reliability, serving, online, huge_bins and
-data_parallel phases on the CPU at 1/8 of their rows, to size their
-gates before a run on the card:
+wide_bins, monotone_modes, reliability, serving, online, huge_bins,
+data_parallel and parallel_learners phases on the CPU at 1/8 of their
+rows, to size their gates before a run on the card:
 
     python3 chip_rehearsal.py [split_features] [objectives] [efb]
                               [forced_interaction] [surface] [ranking]
                               [file] [linear] [refit_contrib] [cli]
                               [wide_bins] [monotone_modes] [reliability]
                               [serving] [online] [huge_bins]
-                              [data_parallel]
+                              [data_parallel] [parallel_learners]
 
 (the first two when no phase is named).  The main path and the runs of
 each phase (split_features: categorical, monotone, smooth_cegb;
@@ -55,7 +55,10 @@ HUGE_ROWS rows (1/8 of them hold fewer than 65,536 distinct values, so
 no column would reach int32 codes) and trains its "card" sides on the CPU
 too.  data_parallel trains its ranks (train_distributed's workers and the
 one-machine cluster, gloo: no NCCL on the CPU) and its serial references
-on the CPU; the ranks' launch counts read 0 there.
+on the CPU; the ranks' launch counts read 0 there.  parallel_learners
+runs data_parallel first (its serial references and bins file), then
+its cluster, its "card" and CPU runs and the elastic drill all on the
+CPU (the drill's relaunch on gloo).
 """
 
 import json
@@ -253,10 +256,14 @@ def main(argv) -> int:
             cs.make_higgs_like = lambda n, F, seed=0: full(n // SCALE, F,
                                                            seed)
             lines = {}
-        elif phase == "data_parallel":
+        elif phase in ("data_parallel", "parallel_learners"):
             # the ranks and the one-machine cluster on the CPU (gloo)
-            cs.DP_DEVICE = "cpu"
-            cs.phase_data_parallel(Rehearsal(), H, "cpu rehearsal", bench)
+            cs.DP_DEVICE = cs.PL_DEVICE = "cpu"
+            _, refs = cs.phase_data_parallel(Rehearsal(), H,
+                                             "cpu rehearsal", bench)
+            if phase == "parallel_learners":
+                cs.phase_parallel_learners(Rehearsal(), H, "cpu rehearsal",
+                                           bench, refs)
             lines = {}
         elif phase == "monotone_modes":
             cs.phase_monotone_modes(Rehearsal(), H, global_timer,

@@ -143,13 +143,40 @@ Phases, each printing one JSON line:
      DP_NCCL_ITERATIONS (3) wave iterations; (b)
      `train_distributed(num_machines=DP_RANKS)` (2 ranks sharing the
      card, gloo) trains the wave engine 5 iterations,
-     quantized 3 and leaf-wise 3.  Gates: each model text equal byte for
+     quantized 3 and leaf-wise DP_LEAFWISE_ITERATIONS (1; 3 until the
+     parallel_learners phase took their time, which reuses its
+     reference).  Gates: each model text equal byte for
      byte to the serial card run's with the same params (no process
      group: one device); each rank's launch counts hold its path's
      kernels and no other; the backends nccl (a) and gloo (b).  One
      `data_parallel` line per run: each rank's s/iter, all-reduce ms,
      bytes and calls per iteration, backend and launches, the cluster's
      and the serial run's seconds;
+  3g. parallel_learners (right after data_parallel, on its bins file and
+     against its serial references' trees, from `Tree=0` on): one
+     cluster of PL_RANKS (2) ranks sharing the card (join_cluster, gloo)
+     trains voting at top_k=PL_TOP_K (4) at PL_CPU_ROWS (16,384) rows
+     on the card and on the CPU in the same group, the trees equal (one
+     iteration, PL_CPU_ITERATIONS), then tree_learner=feature on the
+     wave engine 5 iterations (K1 and K3 over each rank's block of
+     columns) and quantized 3 (K2), tree_learner=voting at top_k=28
+     leaf-wise PL_VOTE_ITERATIONS (1; 2 in the phase's first version)
+     (K4), each with the serial run's first trees, and voting at
+     top_k=PL_TOP_K as many: its collective bytes per iteration at most
+     4/28 of the top-28 run's plus F*4 + 72 bytes a call, held-out raw
+     scores correlated >= 0.95 with the leaf-wise reference's first
+     trees'.  Meanwhile (while the cluster starts and trains the
+     16,384-row pair), the elastic drill through `train_distributed`:
+     tree_learner=data, wave, 5 iterations, two ranks with
+     worker_lost@3 on rank 1, max_retries=1, checkpoint_freq=1; the
+     first attempt fails (exit 77), the relaunch is one rank on NCCL
+     resumed from the checkpoint (2 iterations in its event log), with
+     the wave reference's trees and elastic_shrinks 1 (children, logs,
+     checkpoints and events in build/chip_smoke_parallel_learners/).
+     `reliability.supervisor.supervise` reaps the cluster.  One
+     `parallel_learners` line per run: each rank's s/iter, collective
+     ms, bytes and calls per iteration, backend, launches and block or
+     rows, the run's seconds and attempts;
   4. path A, quantized training: the same workload with
      use_quantized_grad=true (4 bins, stochastic rounding), 13
      iterations; K2 launched, K1/K3 not; held-out AUC within 0.01 of
@@ -221,7 +248,9 @@ Phases, each printing one JSON line:
      `Tree::histogram`/`split_find`/`partition` device ms/iter, peak
      GiB, launches, AUC;
   5.5 monotone_modes: the main path's workload on the leaf-wise engine,
-     5 iterations each, with monotone_signs() on MODE_MONOTONE_FEATURES
+     MONO_MODE_ITERATIONS (3) iterations each (5 until the
+     parallel_learners phase took their time; its depth, not its width,
+     cut), with monotone_signs() on MODE_MONOTONE_FEATURES
      (the logit's three strongest features) under
      monotone_constraints_method=intermediate and =advanced, and with
      lazy CEGB (LAZY_PER_ROW on every feature).  Gates: K4 launched and
@@ -237,7 +266,8 @@ Phases, each printing one JSON line:
   5.6 huge_bins: more than 65,536 bins in a column: HUGE_ROWS (100,000)
      rows of make_higgs_like's first HUGE_F (4) features at max_bin
      HUGE_MAX_BIN (70,000), min_data_in_bin 1, 15 leaves, HUGE_ITERATIONS
-     (3) iterations on one Dataset: the leaf-wise engine (K4), quantized
+     (2; 3 until the parallel_learners phase took their time)
+     iterations on one Dataset: the leaf-wise engine (K4), quantized
      on the wave engine (K2) and the wave engine (K1; K3 takes no wave
      above 7,231 bins, `wave_kernels_at`), the wave runs where
      `wave_fits` takes the width.  Gates: int32 device codes; the
@@ -462,9 +492,10 @@ Phases, each printing one JSON line:
      comes last so that the paths run in a process that holds no kernel
      inputs and that no profiler has traced.
 Every path runs with all four launch counts set to 0 just before it and
-reads them just after, then prints the breakdown of three instrumented
-iterations.  A `total` line gives the run's seconds before the kernels
-line.  The paths that train on the bench rows and labels with
+reads them just after, then prints the breakdown of
+BREAKDOWN_ITERATIONS (1; 3 until the parallel_learners phase took their
+time) instrumented iterations.  A `total` line gives the run's seconds
+before the kernels line.  The paths that train on the bench rows and labels with
 BENCH_PARAMS' Dataset parameters share one Dataset constructed once
 (`bench_rows`, its `bench_dataset` line; a path whose params would bin
 it otherwise is refused), and each JSON line carries `t_s`, the seconds
@@ -487,6 +518,7 @@ import functools
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1199,6 +1231,11 @@ def reset_counts(H):
         fn.launches = 0
 
 
+# the instrumented iterations of a path's breakdown (3 until the
+# parallel_learners phase took their time)
+BREAKDOWN_ITERATIONS = 1
+
+
 def drive_path(lgb, H, global_timer, name, extra, iterations, data,
                after_training=None, after_update=None, dataset_kw=None,
                before_training=None, metric=None, train_set=None):
@@ -1209,7 +1246,8 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
     runs before the counts are set): counts set to 0 just before the
     updates and read just after (`after_update(booster)`, if given, runs
     after each update, outside its time); then `after_training(booster)`,
-    if given; then three instrumented iterations for the breakdown.
+    if given; then BREAKDOWN_ITERATIONS instrumented iterations for the
+    breakdown.
     `metric` = (name, fn(booster, Xte, yte)) is the held-out measure,
     the AUC of the raw scores by default.  Returns a dict: launches, auc
     (the measure), s_per_iter (iterations 4-13), instrumented wall
@@ -1259,22 +1297,24 @@ def drive_path(lgb, H, global_timer, name, extra, iterations, data,
           "launches": launches, "peak_mem_gib": peak})
     if after_training is not None:
         after_training(booster)
-    # where the time goes: three more iterations with the port's timer on
-    # (host scopes plus CUDA-event device scopes; the timer synchronizes
-    # at scope ends, so these iterations run slower than the ones above)
+    # where the time goes: BREAKDOWN_ITERATIONS more iterations with the
+    # port's timer on (host scopes plus CUDA-event device scopes; the
+    # timer synchronizes at scope ends, so these iterations run slower
+    # than the ones above)
+    nb = BREAKDOWN_ITERATIONS
     global_timer.reset()
     global_timer.enabled = True
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(nb):
         booster.update()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 3
+    wall = (time.perf_counter() - t0) / nb
     snap = global_timer.snapshot()
     global_timer.enabled = False
-    ms_per_iter = {k: v[0] * 1e3 / 3 for k, v in snap.items()}
-    emit({"phase": f"{name}_breakdown", "iterations": 3,
+    ms_per_iter = {k: v[0] * 1e3 / nb for k, v in snap.items()}
+    emit({"phase": f"{name}_breakdown", "iterations": nb,
           "instrumented_s_per_iter": wall, "ms_per_iter": ms_per_iter,
-          "calls_per_iter": {k: v[1] / 3 for k, v in snap.items()}})
+          "calls_per_iter": {k: v[1] / nb for k, v in snap.items()}})
     return {"launches": launches, "auc": score, "wall": wall,
             "s_per_iter": sum(last) / len(last), "ms_per_iter": ms_per_iter,
             "booster": booster, "peak_gib": peak}
@@ -2189,7 +2229,7 @@ def phase_split_features(lgb, H, global_timer, card, main, probe, bench):
         lc = r["launches"]
         if lc["K1"] <= 0 or lc["K3"] <= 0:
             raise AssertionError(f"{name}: K1/K3 not launched: {lc}")
-        trees = len(g.models_)          # 13 counted + 3 breakdown trees
+        trees = len(g.models_)          # 13 counted + the breakdown's
         line = {"phase": "split_features", "run": name, "rows": n,
                 "params": extra, "iterations": 13,
                 "s_per_iter_4_13": r["s_per_iter"],
@@ -3211,18 +3251,19 @@ def phase_wide_bins(lgb, H, global_timer, card, main, data):
 # CEGB's per-row penalty of every feature
 MODE_MONOTONE_FEATURES = (9, 18, 27)
 LAZY_PER_ROW = 2e-4
-# held-out AUC after 5 iterations: chip_rehearsal.py monotone_modes at
-# 1/8 of the rows gave 0.69432 (intermediate), 0.70092 (advanced) and
-# 0.70948 (lazy), less 0.01
-MONO_MODE_AUC_MIN = {"intermediate": 0.684, "advanced": 0.690,
-                     "lazy": 0.699}
+MONO_MODE_ITERATIONS = 3
+# held-out AUC after MONO_MODE_ITERATIONS iterations: chip_rehearsal.py
+# monotone_modes at 1/8 of the rows gave 0.68473 (intermediate), 0.69433
+# (advanced) and 0.69924 (lazy), less 0.01
+MONO_MODE_AUC_MIN = {"intermediate": 0.674, "advanced": 0.684,
+                     "lazy": 0.689}
 
 
 def phase_monotone_modes(lgb, H, global_timer, card, main, bench):
     """The main path's workload on the leaf-wise engine with the monotone
     signs of MODE_MONOTONE_FEATURES under the intermediate and the
     advanced method, and with lazy CEGB (LAZY_PER_ROW on every feature):
-    5 iterations each.  Returns {run: launches}."""
+    MONO_MODE_ITERATIONS iterations each.  Returns {run: launches}."""
     data, ds = bench
     X, _, Xte, _ = data
     mc = monotone_signs(MODE_MONOTONE_FEATURES)
@@ -3235,8 +3276,8 @@ def phase_monotone_modes(lgb, H, global_timer, card, main, bench):
     out = {}
     for name, extra in runs:
         r = drive_path(lgb, H, global_timer, f"monotone_modes_{name}",
-                       {"tpu_growth_strategy": "leafwise", **extra}, 5,
-                       data, train_set=ds)
+                       {"tpu_growth_strategy": "leafwise", **extra},
+                       MONO_MODE_ITERATIONS, data, train_set=ds)
         b, g, lc = r["booster"], r["booster"]._gbdt, r["launches"]
         gp = g.grow_params
         check_kernels(f"monotone_modes {name}", lc, ("K4",))
@@ -3269,7 +3310,8 @@ def phase_monotone_modes(lgb, H, global_timer, card, main, bench):
                         mean_abs_sweep_change=sweep)
         ms = r["ms_per_iter"]
         emit({"phase": "monotone_modes", "run": name, "rows": X.shape[0],
-              "iterations": 5, "s_per_iter": r["s_per_iter"],
+              "iterations": MONO_MODE_ITERATIONS,
+              "s_per_iter": r["s_per_iter"],
               "path_b_s_per_iter": main["path_b"]["s_per_iter"],
               "monotone_rescan_device_ms_per_iter": ms.get(
                   "Tree::monotone_rescan::device"),
@@ -4912,7 +4954,7 @@ def phase_online(lgb, H, card):
 HUGE_ROWS = 100_000
 HUGE_F = 4
 HUGE_MAX_BIN = 70_000
-HUGE_ITERATIONS = 3
+HUGE_ITERATIONS = 2
 HUGE_PARAMS = {"objective": "binary", "num_leaves": 15,
                "learning_rate": 0.1, "max_bin": HUGE_MAX_BIN,
                "min_data_in_bin": 1, "min_data_in_leaf": 20,
@@ -5022,9 +5064,13 @@ def phase_huge_bins(lgb, H, card):
 
 DP_DIR = os.path.join("build", "chip_smoke_data_parallel")
 DP_RANKS = 2                # train_distributed's ranks, sharing the card
+# the leaf-wise run (the voting runs' reference): 1 (3 until the
+# parallel_learners phase took its time, then 2)
+DP_LEAFWISE_ITERATIONS = 1
 DP_RUNS = (("wave", {}, 5, ("K1", "K3")),
            ("quantized", {"use_quantized_grad": True}, 3, ("K2",)),
-           ("leafwise", {"tpu_growth_strategy": "leafwise"}, 3, ("K4",)))
+           ("leafwise", {"tpu_growth_strategy": "leafwise"},
+            DP_LEAFWISE_ITERATIONS, ("K4",)))
 DP_NCCL_ITERATIONS = 3      # (a): world size 1 on NCCL, the wave engine
 DP_TIMEOUT_S = 600          # each cluster's deadline
 DP_DEVICE = "cuda"          # where the ranks train
@@ -5063,7 +5109,9 @@ def phase_data_parallel(lgb, H, card, bench):
     for byte and each rank's launches of the run's kernels > 0 (the
     others 0).  One `data_parallel` line per run, with each rank's
     s/iter, all-reduce ms, bytes and calls per iteration, backend and
-    launches.  Returns {path: rank 0's launches}."""
+    launches.  Returns ({path: rank 0's launches}, the references the
+    parallel_learners phase reuses: the bins' file and each serial
+    run's model text)."""
     from lightgbm_tpu_torch.distributed import train_distributed
     t_phase = time.perf_counter()
     (X, _, _, _), ds = bench
@@ -5121,6 +5169,339 @@ def phase_data_parallel(lgb, H, card, bench):
               "ranks": ranks, "card": card})
         del b
     emit({"phase": "data_parallel_total",
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return out, {"data_path": data_path,
+                 "serial": {k: v[0] for k, v in serial.items()}}
+
+
+PL_DIR = os.path.join("build", "chip_smoke_parallel_learners")
+PL_RANKS = 2                # ranks of the learners' cluster, sharing the card
+PL_TOP_K = 4                # the small vote (of the bench's 28 features)
+PL_CPU_ROWS = 16_384        # the small vote held to a CPU cluster's trees
+PL_CPU_ITERATIONS = 1       # ... for this many iterations
+PL_CORR_MIN = 0.95          # held-out raw-score correlation of the small vote
+PL_TIMEOUT_S = 600          # the cluster's and the drill's deadline
+PL_DEVICE = "cuda"          # where the ranks train
+# the votes' iterations, held to the leaf-wise reference's first trees
+# (2 in the phase's first version)
+PL_VOTE_ITERATIONS = 1
+# (name, params over BENCH_PARAMS, iterations, data_parallel's serial
+# reference, the kernels that carry it)
+PL_RUNS = (
+    ("feature_wave", {"tree_learner": "feature"}, 5, "wave", ("K1", "K3")),
+    ("feature_quantized", {"tree_learner": "feature",
+                           "use_quantized_grad": True}, 3, "quantized",
+     ("K2",)),
+    ("voting_full", {"tree_learner": "voting", "top_k": 28,
+                     "tpu_growth_strategy": "leafwise"},
+     PL_VOTE_ITERATIONS, "leafwise", ("K4",)),
+    ("voting_top4", {"tree_learner": "voting", "top_k": PL_TOP_K,
+                     "tpu_growth_strategy": "leafwise"},
+     PL_VOTE_ITERATIONS, None, ("K4",)))
+PL_DRILL_ITERATIONS = 5     # the elastic drill (data_parallel's wave ref)
+PL_DRILL_FAULT = "worker_lost@3"
+# one rank of the learners' cluster: joins the group over a FileStore,
+# trains each run of the spec on the bench bins (or on PL_CPU_ROWS rows of
+# make_higgs_like), prints one `pl_stats` line a run and rank 0 writes
+# each model text
+PL_CHILD = r"""
+import json, os, sys, time
+spec = json.load(open(sys.argv[1]))
+rank = int(sys.argv[2])
+sys.path.insert(0, spec["repo"])
+import torch
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.distributed import join_cluster, leave_cluster
+from lightgbm_tpu_torch.ops import histogram as H
+from lightgbm_tpu_torch.parallel import current_network
+from chip_smoke import BENCH_PARAMS, make_higgs_like
+join_cluster(["localhost:0"] * spec["world"], rank=rank,
+             initialize_timeout=spec["timeout"], device_type=spec["device"],
+             store_path=spec["store"])
+net = current_network()
+kernels = (H.build_histogram_wave, H.build_histogram_wave_hl,
+           H.build_histogram_wave_int, H.build_histogram_rows_pallas)
+bench = lgb.Dataset(spec["data"], params={**BENCH_PARAMS,
+                                          "device_type": spec["device"]})
+for run in spec["runs"]:
+    params = run["params"]
+    if params["device_type"] == "cpu":
+        # CPU ranks share the host's cores (train_distributed's rule)
+        torch.set_num_threads(spec["cpu_threads"])
+    if run["rows"]:
+        X, y = make_higgs_like(run["rows"], 28, seed=3)
+        ds = lgb.Dataset(X, label=y, params=params)
+    else:
+        ds = bench
+    for k in kernels:
+        k.launches = 0
+    before = dict(net.stats())
+    t0 = time.perf_counter()
+    b = lgb.train(params, ds, run["iterations"])
+    if params["device_type"] == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    after = net.stats()
+    g = b._gbdt
+    print("pl_stats " + json.dumps({
+        "run": run["name"], "rank": rank, "seconds": seconds,
+        "iterations": b.current_iteration(), "backend": after["backend"],
+        "world": after["world"],
+        "allreduce_calls": after["calls"] - before["calls"],
+        "allreduce_bytes": after["bytes"] - before["bytes"],
+        "allreduce_seconds": after["seconds"] - before["seconds"],
+        "launches": {k.__name__: k.launches for k in kernels},
+        "block": None if g.block is None else [g.block.start, g.block.stop],
+        "rows": None if g.shard is None else g.shard.count,
+        "voting": g.voting is not None,
+        "strategy": g.growth_strategy}), flush=True)
+    if rank == 0:
+        with open(os.path.join(spec["out"], run["name"] + ".txt"), "w") as f:
+            f.write(b.model_to_string())
+    del b, ds
+leave_cluster()
+print(f"rank {rank} done", flush=True)
+"""
+
+
+def trees_of(text, k=None):
+    """A model text's trees, from `Tree=0` to `end of trees` (the header
+    and the parameters block name the learner), or its first k."""
+    end = text.index("end of trees")
+    if k is not None and f"Tree={k}\n" in text:
+        end = text.index(f"Tree={k}\n")
+    return text[text.index("Tree=0"):end]
+
+
+def pl_start(runs, data_path):
+    """Start PL_RANKS ranks of PL_CHILD over `runs` (one process group for
+    all of them: each rank starts once); returns (processes, log
+    paths)."""
+    os.makedirs(PL_DIR, exist_ok=True)
+    script = os.path.join(PL_DIR, "child.py")
+    with open(script, "w") as f:
+        f.write(PL_CHILD)
+    store = os.path.join(PL_DIR, "store")
+    if os.path.exists(store):
+        os.unlink(store)
+    spec = {"world": PL_RANKS, "repo": REPO_ROOT, "store": store,
+            "timeout": PL_TIMEOUT_S, "device": PL_DEVICE,
+            "cpu_threads": max(1, (os.cpu_count() or 1) // PL_RANKS),
+            "data": data_path, "out": PL_DIR, "runs": runs}
+    spec_path = os.path.join(PL_DIR, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    logs = [os.path.join(PL_DIR, f"rank{r}.log") for r in range(PL_RANKS)]
+    procs = []
+    try:
+        for r in range(PL_RANKS):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, script, spec_path, str(r)],
+                    stdout=f, stderr=subprocess.STDOUT))
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise
+    return procs, logs
+
+
+def pl_stats(res, logs):
+    """The cluster's `pl_stats` lines, {run: [rank stats]}, once
+    `supervise` has reaped it (`res`, its SuperviseResult)."""
+    if not res.ok:
+        raise AssertionError("parallel_learners: the cluster failed\n"
+                             + res.describe())
+    stats = {}
+    for path in logs:
+        with open(path) as f:
+            for ln in f:
+                if ln.startswith("pl_stats "):
+                    st = json.loads(ln[len("pl_stats "):])
+                    stats.setdefault(st["run"], []).append(st)
+    return stats
+
+
+def elastic_drill(data_path):
+    """The elastic drill through `train_distributed` (PL_RANKS ranks,
+    PL_DRILL_FAULT on rank 1, one retry); returns (booster, seconds,
+    metrics dir)."""
+    from lightgbm_tpu_torch.distributed import train_distributed
+    md = os.path.join(PL_DIR, "metrics")
+    ck = os.path.join(PL_DIR, "ckpt")
+    for d in (md, ck):
+        shutil.rmtree(d, ignore_errors=True)
+    params = {**BENCH_PARAMS, "tree_learner": "data", "metrics_dir": md,
+              "device_type": PL_DEVICE}
+    t0 = time.perf_counter()
+    b = train_distributed(params, data_path,
+                          num_boost_round=PL_DRILL_ITERATIONS,
+                          num_machines=PL_RANKS, timeout=PL_TIMEOUT_S,
+                          max_retries=1, checkpoint_dir=ck,
+                          checkpoint_freq=1, retry_backoff=0.5,
+                          worker_env={"LGBM_TPU_FAULT": PL_DRILL_FAULT,
+                                      "LGBM_TPU_FAULT_RANK": "1"})
+    return b, time.perf_counter() - t0, md
+
+
+def phase_parallel_learners(lgb, H, card, bench, dp):
+    """The feature- and voting-parallel learners and the elastic relaunch
+    at the main path's width, right after data_parallel, on its bench
+    bins file and against its serial card references (model text from
+    `Tree=0` on, the run's first trees; no serial training here).  One
+    cluster of PL_RANKS ranks sharing the card (gloo) trains, in turn:
+    (0) voting at top_k = PL_TOP_K at PL_CPU_ROWS rows for
+    PL_CPU_ITERATIONS on the card and on the CPU in the same group, the
+    trees equal; (1) feature, the wave engine, 5 iterations:
+    data_parallel's wave reference, K1 and K3 on each rank; (2) feature
+    quantized, 3: its quantized reference, K2; (3) voting at top_k = 28
+    (every feature), leaf-wise, PL_VOTE_ITERATIONS (1): its leaf-wise
+    reference, K4; (4) voting at top_k = PL_TOP_K, as many: K4, the
+    collective bytes per iteration at most PL_TOP_K/28 of run 3's plus
+    F*4 + 72 bytes a call (the [F] proposals and the small reductions),
+    the held-out raw scores' correlation with the leaf-wise reference's
+    first trees >= PL_CORR_MIN.  (5) Meanwhile, while the cluster starts
+    and trains (0), the elastic drill through `train_distributed`:
+    tree_learner=data, wave, PL_DRILL_ITERATIONS iterations, 2 ranks
+    with PL_DRILL_FAULT on rank 1 (exit 77, a tombstone),
+    max_retries=1, checkpoint_freq=1: the relaunch is one rank on NCCL
+    that resumes from the checkpoint (its event log holds 2 iterations)
+    and ends with data_parallel's wave reference's trees,
+    elastic_shrinks 1.  The cluster's ranks are reaped by
+    `reliability.supervisor.supervise` (a failed rank ends the others;
+    the deadline PL_TIMEOUT_S ends all).  One `parallel_learners` line
+    per run: each rank's s/iter, collective ms, bytes and calls per
+    iteration, backend and launches, the run's (or the drill's) seconds
+    and attempts.  Returns {path: rank 0's launches}."""
+    from lightgbm_tpu_torch.reliability.supervisor import supervise
+    t_phase = time.perf_counter()
+    (X, _, Xte, _), _ = bench
+    os.makedirs(PL_DIR, exist_ok=True)
+    small = dict(PL_RUNS[-1][1])
+    runs = [{"name": f"voting_top4_{PL_CPU_ROWS}_{side}",
+             "iterations": PL_CPU_ITERATIONS, "rows": PL_CPU_ROWS,
+             "params": {**BENCH_PARAMS, **small, "device_type": dev}}
+            for side, dev in (("card", PL_DEVICE), ("cpu", "cpu"))]
+    runs += [{"name": name, "iterations": iters, "rows": 0,
+              "params": {**BENCH_PARAMS, **extra, "device_type": PL_DEVICE}}
+             for name, extra, iters, _, _ in PL_RUNS]
+    procs, logs = pl_start(runs, dp["data_path"])
+    t0 = time.perf_counter()
+    try:
+        b, drill_s, md = elastic_drill(dp["data_path"])
+    finally:
+        res = supervise(procs, logs, PL_TIMEOUT_S)
+    cluster_s = time.perf_counter() - t0
+    stats = pl_stats(res, logs)
+
+    def model(name):
+        with open(os.path.join(PL_DIR, name + ".txt")) as f:
+            return f.read()
+
+    out = {}
+    for name, extra, iters, ref, kernels in PL_RUNS:
+        ranks = sorted(stats[name], key=lambda st: st["rank"])
+        lines = [{**dp_rank_line(st), "block": st["block"],
+                  "rows": st["rows"]} for st in ranks]
+        text = model(name)
+        if ref is not None and (trees_of(text)
+                                != trees_of(dp["serial"][ref], iters)):
+            raise AssertionError(f"parallel_learners {name}: the trees "
+                                 f"differ from the serial {ref} run's")
+        for st, ln in zip(ranks, lines):
+            check_kernels(f"parallel_learners {name} rank {st['rank']}",
+                          ln["launches"], kernels)
+            if (st["backend"] != "gloo" or st["world"] != PL_RANKS
+                    or st["iterations"] != iters
+                    or st["voting"] != extra["tree_learner"].startswith("v")
+                    or (st["block"] is None)
+                    != (extra["tree_learner"] != "feature")):
+                raise AssertionError(f"parallel_learners {name}: {st}")
+        line = {"phase": "parallel_learners", "run": name,
+                "world": PL_RANKS, "rows": int(X.shape[0]),
+                "iterations": iters, "trees_equal_serial": ref is not None,
+                "run_s": max(st["seconds"] for st in ranks), "attempts": 1,
+                "ranks": lines, "card": card}
+        if name == "voting_top4":
+            full = stats["voting_full"]
+            Fb = X.shape[1]
+            for st, fst in zip(ranks, sorted(full,
+                                             key=lambda t: t["rank"])):
+                per_it = st["allreduce_bytes"] / iters
+                allowed = (PL_TOP_K / 28.0 * fst["allreduce_bytes"] / iters
+                           + st["allreduce_calls"] / iters * (Fb * 4 + 72))
+                if per_it > allowed:
+                    raise AssertionError(
+                        f"parallel_learners {name}: {per_it} bytes an "
+                        f"iteration, above {allowed}")
+            ref_b = lgb.Booster(model_str=dp["serial"]["leafwise"])
+            got_b = lgb.Booster(model_str=text)
+            corr = float(np.corrcoef(
+                got_b.predict(Xte, raw_score=True),
+                ref_b.predict(Xte, raw_score=True,
+                              num_iteration=iters))[0, 1])
+            if not corr >= PL_CORR_MIN:
+                raise AssertionError(f"parallel_learners {name}: held-out "
+                                     f"raw-score correlation {corr}")
+            small_txt = [model(f"voting_top4_{PL_CPU_ROWS}_{side}")
+                         for side in ("card", "cpu")]
+            if trees_of(small_txt[0]) != trees_of(small_txt[1]):
+                raise AssertionError(f"parallel_learners {name}: at "
+                                     f"{PL_CPU_ROWS} rows the card's trees "
+                                     "differ from the CPU cluster's")
+            line.update(heldout_corr_vs_leafwise=corr,
+                        bytes_ratio_vs_top28=(
+                            ranks[0]["allreduce_bytes"]
+                            / max(full[0]["allreduce_bytes"], 1)),
+                        card_equals_cpu_rows=PL_CPU_ROWS,
+                        card_equals_cpu_run_s=[
+                            max(st["seconds"] for st in stats[
+                                f"voting_top4_{PL_CPU_ROWS}_{side}"])
+                            for side in ("card", "cpu")])
+        out[f"parallel_learners_{name}"] = lines[0]["launches"]
+        emit(line)
+    # (5) the elastic drill
+    if trees_of(b.model_to_string()) != trees_of(dp["serial"]["wave"]):
+        raise AssertionError("parallel_learners elastic: the trees differ "
+                             "from the serial wave run's")
+    sup = read_events(os.path.join(md, "events-ranksupervisor.jsonl"))
+    kinds = [(e["event"], e.get("classification")) for e in sup]
+    shrink = [e for e in sup if e["event"] == "elastic_shrink"]
+    ev0 = read_events(os.path.join(md, "events-rank0.jsonl"))
+    last = max(i for i, e in enumerate(ev0) if e["event"] == "train_start")
+    resumed_its = [e["iteration"] for e in ev0[last:]
+                   if e["event"] == "iteration"]
+    expect_its = PL_DRILL_ITERATIONS - int(PL_DRILL_FAULT.split("@")[1])
+    # the relaunch's figures per iteration it trained (its booster counts
+    # the resumed ones too)
+    ranks = [dp_rank_line({**st, "iterations": len(resumed_its)})
+             for st in b.worker_stats]
+    if (b.elastic_shrinks != 1 or b.final_num_machines != 1
+            or b.attempts != 2 or len(ranks) != 1
+            or ranks[0]["backend"] != ("nccl" if PL_DEVICE == "cuda"
+                                       else "gloo")
+            or ("cluster_attempt_failed", "lost") not in kinds
+            or len(shrink) != 1 or shrink[0]["new_num_machines"] != 1
+            or shrink[0]["lost_ranks"] != [1]
+            or len(resumed_its) != expect_its):
+        raise AssertionError(f"parallel_learners elastic: shrinks "
+                             f"{b.elastic_shrinks}, world "
+                             f"{b.final_num_machines}, attempts "
+                             f"{b.attempts}, ranks {ranks}, supervisor "
+                             f"{kinds}, resumed iterations {resumed_its}")
+    check_kernels("parallel_learners elastic", ranks[0]["launches"],
+                  ("K1", "K3"))
+    out["parallel_learners_elastic"] = ranks[0]["launches"]
+    emit({"phase": "parallel_learners", "run": "elastic_drill",
+          "fault": PL_DRILL_FAULT, "world": [PL_RANKS, 1],
+          "rows": int(X.shape[0]), "iterations": PL_DRILL_ITERATIONS,
+          "trees_equal_serial": True, "cluster_s": drill_s,
+          "attempts": b.attempts, "elastic_shrinks": b.elastic_shrinks,
+          "resumed_iterations": resumed_its,
+          "reshard": shrink[0].get("reshard"), "ranks": ranks,
+          "card": card})
+    emit({"phase": "parallel_learners_total", "cluster_s": cluster_s,
           "seconds": time.perf_counter() - t_phase, "card": card})
     return out
 
@@ -5190,7 +5571,10 @@ def main(argv) -> int:
     launches, main_wall, main = phase_paths(lgb, H, global_timer, probe,
                                             bench)
     launches["efb"] = efb_launches
-    launches.update(phase_data_parallel(lgb, H, card, bench))
+    dp_launches, dp_refs = phase_data_parallel(lgb, H, card, bench)
+    launches.update(dp_launches)
+    launches.update(phase_parallel_learners(lgb, H, card, bench, dp_refs))
+    del dp_refs
     phase_serving(lgb, card, main, bench[0])
     launches["online"] = phase_online(lgb, H, card)
     launches["reliability"] = phase_reliability(lgb, H, card, main, bench)

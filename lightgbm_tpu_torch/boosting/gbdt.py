@@ -86,8 +86,21 @@ fixed-point grid, the root and leaf sums are limb sums (`exact_sum`),
 maxima are all-reduced, and every stream (the NumPy bagging mask, the
 threefry uniforms of GOSS and stochastic rounding) is drawn over the
 serial run's shape and sliced.  A sharded run grows the serial run's
-trees bit for bit.  Without a group, tree_learner=data trains on one
+trees bit for bit.  The feature-parallel learner (`tree_learner=feature`)
+keeps every row on every rank and cuts the device columns into blocks
+(`ColumnBlock`): each rank histograms and scans its block, and the
+engines merge the ranks' best splits, so it too grows the serial trees
+bit for bit.  The voting-parallel learner (`tree_learner=voting`) shards
+the rows as data does, on the leaf-wise engine without a histogram
+stack, and reduces only the histograms of the features its ranks elect
+(parallel/voting.py).  Without a group, every learner trains on one
 device.
+
+Checkpoints of a process group hold the serial run's state: every rank
+gathers the score buffer and the bag mask into the serial row order,
+rank 0 writes them in a serial checkpoint's layout, and a restore slices
+them by the resuming run's rows, so a checkpoint of any world size
+resumes at any other, and serially.
 
 The port covers in-memory dense and scipy-sparse data with the wave and
 leaf-wise engines and quantized gradients.  Every parameter whose
@@ -117,8 +130,8 @@ from ..metric import Metric
 from ..models.tree import K_CATEGORICAL_MASK, Tree, _to_bitset
 from ..native import PackedPredictor, SingleRowFastPredictor, predictor_lib
 from ..objective import ObjectiveFunction
-from ..parallel.data_parallel import (DATA_LEARNERS, RowShard,
-                                      current_network, exact_sum)
+from ..parallel.data_parallel import (DATA_LEARNERS, ColumnBlock,
+                                      RowShard, current_network, exact_sum)
 from ..ops.histogram import (code_dtype, codes_to_device, codes_to_int,
                              wave_part_plan, wave_slot_pad)
 from ..ops.split import SplitParams, cat_bitset_words, leaf_output
@@ -135,37 +148,28 @@ _PAD = 1024  # row padding multiple (a multiple of the kernels' row tile)
 
 
 def check_slice(config: Config) -> None:
-    """Refuse every option this slice of the port does not carry."""
+    """Refuse an unknown boosting type, growth strategy or tree
+    learner."""
     c = config
-
-    def refuse(what: str, item: str) -> None:
-        raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP Queue 1 item {item}); "
-            "the PyTorch port trains the pointwise, multiclass, "
-            "cross-entropy and ranking objectives on the wave and "
-            "leaf-wise engines")
-
     if c.boosting not in ("gbdt", "rf", "dart"):
         log.fatal(f"Unknown boosting type: {c.boosting}")
     if c.tpu_growth_strategy not in ("auto", "wave", "leafwise"):
         raise ValueError(f"Unknown tpu_growth_strategy "
                          f"{c.tpu_growth_strategy!r}; expected auto, wave, "
                          "or leafwise")
-    if c.tree_learner in ("feature", "voting"):
-        refuse(f"tree_learner={c.tree_learner!r}", "15")
-    if c.tree_learner not in ("serial",) + DATA_LEARNERS:
+    if c.tree_learner not in ("serial",) + tuple(DATA_LEARNERS):
         log.fatal(f"Unknown tree_learner {c.tree_learner!r}")
 
 
 def check_sharded(config: Config, objective) -> None:
-    """Refuse, under data-parallel training, every option whose work
-    reads rows beyond sums and maxima and which the port does not shard
-    yet (ROADMAP Queue 1 item 15)."""
+    """Refuse, under a learner that shards the rows (data, voting), every
+    option whose work reads rows beyond sums and maxima and which the
+    port does not shard yet (ROADMAP Queue 1 item 15)."""
     def refuse(what: str) -> None:
         raise NotImplementedError(
-            f"{what} under tree_learner=data is not ported yet (ROADMAP "
-            "Queue 1 item 15); the sharded port trains the pointwise, "
-            "multiclass and cross-entropy objectives")
+            f"{what} under tree_learner={config.tree_learner} is not "
+            "ported yet (ROADMAP Queue 1 item 15); the sharded port trains "
+            "the pointwise, multiclass and cross-entropy objectives")
 
     name = getattr(objective, "name", None)
     if name in ("lambdarank", "rank_xendcg"):
@@ -443,10 +447,13 @@ class GBDT:
         self.raw_dev: Optional[torch.Tensor] = None
         self.linear_fit_stats = []
         self._valid_raw = {}
-        # data-parallel training: the group's Network and this rank's rows
-        # (None when training serially)
+        # parallel learners: the group's Network and this rank's rows
+        # (data, voting), the vote (voting), or this rank's column block
+        # (feature); None when training serially
         self.net = None
         self.shard: Optional[RowShard] = None
+        self.voting = None
+        self.block: Optional[ColumnBlock] = None
 
     # ------------------------------------------------------------------ init
     def init(self, config: Config, train_data: Dataset,
@@ -480,8 +487,17 @@ class GBDT:
         # whose bins are the device matrix's takes the padded copy over.
         self.bundle_plan = train_data.pre_bundled_plan
         own_bins = True
+        if self._vote and self.bundle_plan is not None:
+            # the vote is per feature: bundle codes from sparse ingestion
+            # cannot vote (gbdt.py:317-324 of the JAX package)
+            log.warning("tree_learner=voting needs per-feature bins; "
+                        "sparse pre-bundled datasets fall back to "
+                        "data-parallel histogram reduction")
+            self._vote = False
+        # EFB is not planned when the vote engages (the vote is per
+        # feature, gbdt.py:273-290 of the JAX package)
         if (self.bundle_plan is None and config.enable_bundle
-                and train_data.num_features > 1):
+                and train_data.num_features > 1 and not self._vote):
             from ..io.bundle import build_bundled, plan_bundles
             plan_src = train_data.efb_sample_bins() if on_device else binned
             if plan_src is None:
@@ -602,6 +618,9 @@ class GBDT:
             log.warning("monotone intermediate mode falls back to basic "
                         "with cegb_penalty_feature_lazy")
             mono_inter = False
+        if has_lazy and self._vote:
+            log.fatal("cegb_penalty_feature_lazy is not supported with "
+                      "tree_learner=voting")
         # the rows each feature has been fetched for, carried from tree to
         # tree (ref: cost_effective_gradient_boosting.hpp:63
         # feature_used_in_data_)
@@ -692,13 +711,34 @@ class GBDT:
                         "back to basic")
             self.grow_params = self.grow_params._replace(
                 monotone_intermediate=False)
+        if self._vote:
+            # PV-Tree vote (gbdt.py:524-542 of the JAX package): children
+            # are rebuilt per scan (a parent and its children elect other
+            # features, so subtraction is invalid)
+            from ..parallel.voting import VotingSpec
+            if config.forcedsplits_filename:
+                log.fatal("tree_learner=voting does not support forced "
+                          "splits")
+            if config.top_k <= 0:
+                log.fatal("top_k should be greater than 0 (ref: "
+                          "config.cpp CHECK_GT(top_k, 0))")
+            if self.grow_params.monotone_intermediate:
+                log.warning("monotone intermediate mode falls back to "
+                            "basic under tree_learner=voting (no "
+                            "histogram stack to rescan)")
+            self.grow_params = self.grow_params._replace(
+                use_hist_stack=False, monotone_intermediate=False,
+                monotone_advanced=False)
+            self.voting = VotingSpec(self.net, min(config.top_k, len(nb)),
+                                     self.net.world)
         # growth engine (gbdt.py:582-636 of the JAX package): wave when at
         # least 8 leaves and the wave kernels' tile fits, else leaf-wise;
         # intermediate/advanced monotone and lazy CEGB recompute state
         # after every split and keep the leaf-wise engine
         strategy = config.tpu_growth_strategy
         if (self.grow_params.monotone_intermediate
-                or self.grow_params.split.has_cegb_lazy):
+                or self.grow_params.split.has_cegb_lazy
+                or self.voting is not None):
             if strategy == "wave":
                 log.warning("voting / intermediate monotone / lazy CEGB "
                             "use the leaf-wise engine")
@@ -709,9 +749,26 @@ class GBDT:
                                       config.num_leaves)
                         else "leafwise")
         self.growth_strategy = strategy
-        # only the leaf-wise engine's K4 reads a row-major copy
-        self.binned_rm_dev = (self.binned_dev.t().contiguous()
-                              if strategy == "leafwise" else None)
+        if self._feature_net is not None:
+            # feature-parallel: this rank's block of the device columns
+            # (rows_of-balanced; may be empty when the world outnumbers
+            # them)
+            self.block = ColumnBlock(self._feature_net, self.meta,
+                                     self.binned_dev.shape[0])
+            log.info(f"tree_learner=feature: rank {self.block.net.rank}/"
+                     f"{self.block.net.world} histograms columns "
+                     f"[{self.block.start}, {self.block.stop}) of "
+                     f"{self.binned_dev.shape[0]} ("
+                     f"{len(self.block.features)} features) on "
+                     f"{self.device} over {self.block.net.backend}")
+        # only the leaf-wise engine's K4 reads a row-major copy (of a
+        # feature-parallel rank's block)
+        self.binned_rm_dev = None
+        if strategy == "leafwise":
+            b = self.block
+            self.binned_rm_dev = (self.binned_dev if b is None else
+                                  self.binned_dev[b.start:b.stop]
+                                  ).t().contiguous()
         self.col_mask = torch.ones(len(nb), dtype=torch.bool, device=dev)
 
         # linear leaves (learner/linear.py): the raw matrix on the device
@@ -769,23 +826,37 @@ class GBDT:
             m.init(md, n)
 
     def _init_shard(self, config: Config, objective, n: int) -> None:
-        """Data-parallel set-up (the JAX booster's `_make_training_mesh`,
-        gbdt.py:179): under tree_learner=data inside a process group this
-        rank takes its rows; without a group it trains on one device."""
-        if config.tree_learner not in DATA_LEARNERS:
+        """Parallel learner selection (the JAX booster's
+        `_make_training_mesh`, gbdt.py:179-220; ref: tree_learner.cpp:15
+        CreateTreeLearner).  Inside a process group, data and voting
+        shard the rows (this rank takes its rows; the vote engages at a
+        world above 1) and feature shards the device columns (every rank
+        keeps every row; the block is cut in `init` once the columns are
+        known).  Unlike the JAX package, which shrinks its feature mesh
+        to a divisor of the column count, every rank takes part: blocks
+        may be unequal, and a rank may hold none.  Without a group every
+        learner trains on one device."""
+        tl = config.tree_learner
+        self._vote = False
+        self._feature_net = None
+        if tl not in DATA_LEARNERS:
             return
         net = current_network()
         if net is None:
-            log.info("tree_learner=data without a process group: training "
+            log.info(f"tree_learner={tl} without a process group: training "
                      "on one device (train_distributed or join_cluster "
-                     "shards the rows over GPUs)")
+                     "spreads it over GPUs)")
             return
-        check_sharded(config, objective)
         if net.backend == "nccl" and self.device.type != "cuda":
             raise ValueError("an NCCL process group needs device_type=cuda")
+        if DATA_LEARNERS[tl] == "columns":
+            self._feature_net = net
+            return
+        check_sharded(config, objective)
         self.net = net
         self.shard = RowShard(net, n, _PAD)
-        log.info(f"tree_learner=data: rank {net.rank}/{net.world} trains "
+        self._vote = tl == "voting" and net.world > 1
+        log.info(f"tree_learner={tl}: rank {net.rank}/{net.world} trains "
                  f"rows [{self.shard.start}, {self.shard.stop}) of {n} on "
                  f"{self.device} over {net.backend}")
 
@@ -868,9 +939,18 @@ class GBDT:
         recorded CUDA event; the returned `scores` is a `PendingHostCopy`
         that the writer thread turns into an array (waiting on the
         event) when it serializes, so the training thread never waits
-        for the copy."""
+        for the copy.
+
+        A rank of a learner that shards the rows gathers the scores and
+        the bag mask of every rank into the serial row order and
+        [K, grid_rows] layout (every rank must call it: it is a
+        collective), the padding columns holding the serial run's
+        padding scores; the state is then the serial run's."""
         sc = self.scores
-        if async_copy and sc.is_cuda:
+        bag = np.array(self._bag_mask_host)
+        if self.shard is not None:
+            scores, bag = self._gather_serial_state()
+        elif async_copy and sc.is_cuda:
             scores = PendingHostCopy(sc)
         else:
             # a copy even on the CPU, where .cpu() would alias the live
@@ -882,7 +962,34 @@ class GBDT:
                                     dtype=object),
                 "rng_feat": np.array(self._rng_feat.get_state(legacy=False),
                                      dtype=object),
-                "bag_mask": np.array(self._bag_mask_host)}
+                "bag_mask": bag}
+
+    def _gather_serial_state(self):
+        """(scores [K, grid_rows] float32, bag mask [grid_rows] float32) in
+        the serial run's row order, gathered from every rank.  All
+        padding rows hold one score (every code 0, the same init), and
+        a rank that pads holds it: the serial run pads only when some
+        rank does."""
+        sh, net = self.shard, self.net
+        K, n = self.num_tree_per_iteration, self.num_data
+        scores = np.zeros((K, sh.grid_rows), np.float32)
+        scores[:, :n] = net.all_gather_rows(
+            self.scores[:, :sh.count], sh.sizes).cpu().numpy()
+        if sh.grid_rows > n:
+            pad = torch.full((K,), float("-inf"), device=self.device)
+            if self.n_pad > sh.count:
+                pad = self.scores[:, sh.count].clone()
+            scores[:, n:] = net.all_reduce_max_(pad).cpu().numpy()[:, None]
+        bag = np.zeros(sh.grid_rows, np.float32)
+        local = torch.from_numpy(np.ascontiguousarray(
+            self._bag_mask_host[:sh.count])).to(self.device)
+        bag[:n] = net.all_gather_rows(local, sh.sizes).cpu().numpy()
+        return scores, bag
+
+    def group_network(self):
+        """The Network of this booster's process group (any parallel
+        learner), or None when it trains serially."""
+        return self.net if self.block is None else self.block.net
 
     def restore_train_state(self, state) -> bool:
         """Restore a capture_train_state() payload, of either package,
@@ -905,11 +1012,16 @@ class GBDT:
                             f"set has {self.num_data}; keeping "
                             "predict-seeded scores")
             else:
-                if sc.shape[1] == self.n_pad:
+                if self.shard is None and sc.shape[1] == self.n_pad:
                     buf = np.ascontiguousarray(sc)
                 else:
-                    buf = np.zeros((sc.shape[0], self.n_pad), np.float32)
-                    buf[:, :n] = sc[:, :n]
+                    # this run's rows (a shard's slice of the serial
+                    # order), the padding at the serial padding's score
+                    # where the state has one
+                    buf = self._local_rows(sc[:, :n])
+                    if sc.shape[1] > n:
+                        real = n if self.shard is None else self.shard.count
+                        buf[:, real:] = sc[:, n:n + 1]
                 self.scores = torch.from_numpy(buf).to(self.device)
                 ok = True
         for key, rng in (("rng_bag", self._rng_bag),
@@ -922,8 +1034,8 @@ class GBDT:
                     log.warning(f"Could not restore {key} RNG state: {e}")
         bm = state.get("bag_mask")
         if bm is not None and len(bm) >= self.num_data:
-            mask = np.zeros(self.n_pad, np.float32)
-            mask[:self.num_data] = np.asarray(bm, np.float32)[:self.num_data]
+            mask = self._local_rows(
+                np.asarray(bm, np.float32)[:self.num_data])
             self._bag_mask_host = mask
             self.bag_mask = torch.from_numpy(mask).to(self.device)
         return ok
@@ -1285,9 +1397,12 @@ class GBDT:
             # histogram reduction: the stall watchdog's shape
             faults.maybe_collective_stall(self.num_init_iteration_
                                           + self.iter_)
-        # data-parallel: the Network and the serial run's padded row count
+        # parallel learners: the Network and the serial run's padded row
+        # count (data, voting), the vote, or the column block (feature)
         dp = ({} if self.shard is None else
               dict(net=self.net, grid_rows=self.shard.grid_rows))
+        if self.block is not None:
+            dp["block"] = self.block
         with global_timer.scope("GBDT::grow_tree"):
             if self.growth_strategy == "wave":
                 arrays, leaf_id = grow_tree_wave_impl(
@@ -1300,7 +1415,7 @@ class GBDT:
                     self.meta, self.grow_params,
                     binned_rm=self.binned_rm_dev, extra_tag=extra_tag,
                     cegb_used=self.cegb_used, lazy_used=self.lazy_used,
-                    **dp)
+                    voting=self.voting, **dp)
                 # lazy CEGB's fetched rows ride from tree to tree
                 # (gbdt.py:1249-1267 of the JAX package; RF's loop too)
                 arrays, leaf_id = out[:2]

@@ -84,8 +84,10 @@ def checkpoint(checkpoint_dir: str, frequency: int = 1, keep_last: int = 3,
     atomic, rotated checkpoint of the model plus the exact trainer
     state, resumable through `train(checkpoint_dir=...)` by either
     package.  A failed write warns and training continues: losing one
-    checkpoint must not kill a long run.  Under a process group only
-    rank 0 writes (every rank holds the same model)."""
+    checkpoint must not kill a long run.  Inside a process group every
+    rank takes part (a rank of a row-sharded learner gathers the serial
+    state), rank 0 writes, and every rank waits for the write
+    (`CheckpointManager.save_in_group`)."""
     from .observability import process_rank
     from .reliability.checkpoint import CheckpointManager
     mgr = manager if manager is not None else CheckpointManager(
@@ -97,7 +99,10 @@ def checkpoint(checkpoint_dir: str, frequency: int = 1, keep_last: int = 3,
         it = env.iteration + 1
         if it % frequency != 0 and it != env.end_iteration:
             return
-        if process_rank() != 0:
+        gbdt = getattr(env.model, "_gbdt", None)
+        net = (gbdt.group_network() if hasattr(gbdt, "group_network")
+               else None)
+        if net is None and process_rank() != 0:
             return
         if mgr.params_hash is None:
             from .reliability.checkpoint import hash_params
@@ -117,6 +122,9 @@ def checkpoint(checkpoint_dir: str, frequency: int = 1, keep_last: int = 3,
                 log.warning(f"Checkpoint write failed at iteration {it}: "
                             f"{err}; training continues (the previous "
                             "checkpoint is intact)")
+        if net is not None:
+            mgr.save_in_group(env.model, it, net, on_done=_on_done)
+            return
         mgr.save(env.model, it, on_done=_on_done)
     _callback.order = 40
     return _callback

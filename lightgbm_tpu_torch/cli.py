@@ -474,7 +474,9 @@ def _maybe_init_distributed(cfg: Config) -> None:
     local_listen_port; the rank is `LIGHTGBM_TPU_MACHINE_RANK`, else the
     machine-list entry matching this host and port (the reference's rank
     resolution); entry 0 serves the group's TCPStore.  After
-    `join_cluster`, tree_learner=data trains this rank's rows and the
+    `join_cluster`, tree_learner=data or voting trains this rank's rows,
+    tree_learner=feature its block of columns, checkpoints are taken by
+    every rank (rank 0 writes the serial run's state), and the
     collectives replace the reference's socket linkers."""
     if cfg.num_machines <= 1:
         return

@@ -21,12 +21,17 @@ Two entry points:
 * `train_distributed(...)` — single-host convenience that SPAWNS
   `num_machines` worker processes (the LocalCluster analogue), each
   importing only this package, joined over a FileStore in a private
-  work directory, trains tree_learner=data across them under the
-  supervisor (reliability/supervisor.py: the first failed rank kills the
-  rest), and returns rank 0's model as a Booster.  Every worker loads
-  the whole host arrays and keeps its own rows on its device; the ranks'
-  models are identical by construction.  Retries, checkpoints and the
-  elastic shrink wait for ROADMAP Queue 1 item 15.
+  work directory, trains a parallel learner (tree_learner=data unless
+  the params name feature or voting) across them under the supervisor
+  (reliability/supervisor.py: the first failed rank kills the rest),
+  and returns rank 0's model as a Booster.  Every worker loads the whole
+  host arrays and keeps its rows (or, under feature, its columns) on its
+  device; the ranks' models are identical by construction.  With
+  `max_retries > 0` a failed cluster is relaunched from its checkpoints
+  (a group's checkpoint holds the serial run's state, so it resumes at
+  any world size); a rank lost for good (`ElasticPolicy`) shrinks the
+  next attempt around it, and a hung attempt walks the degradation
+  ladder.
 """
 
 from __future__ import annotations
@@ -196,10 +201,20 @@ spec = json.load(open(sys.argv[1]))
 rank = int(sys.argv[2])
 for k, v in spec.get("env", {}).items():
     os.environ[k] = v
-# fault-injection context: which worker this is
+# fault-injection context: which worker and which attempt this is (a
+# retried cluster bumps the attempt, so one-shot faults do not re-fire)
 os.environ["LGBM_TPU_FAULT_SELF_RANK"] = str(rank)
-os.environ["LGBM_TPU_FAULT_ATTEMPT"] = "0"
+os.environ["LGBM_TPU_FAULT_ATTEMPT"] = str(spec.get("attempt", 0))
 os.environ["LGBM_TPU_WORLD_SIZE"] = str(spec["num_machines"])
+sys.path.insert(0, spec["repo"])
+# permanent-loss model (reliability/faults.py): a tombstoned (rank,
+# world) refuses every same-world relaunch before joining the cluster,
+# a fast clean exit the supervisor sees at once; only an elastic shrink
+# (another world size) gets past it
+if spec.get("tombstone_dir"):
+    os.environ["LGBM_TPU_TOMBSTONE_DIR"] = spec["tombstone_dir"]
+    from lightgbm_tpu_torch.reliability import faults as _faults
+    _faults.check_tombstone()
 # stall detection (reliability/guard.py): the engine's RunGuard touches
 # this file once per boosting iteration; the supervising parent polls its
 # mtime to catch live-but-hung ranks
@@ -208,7 +223,6 @@ if spec.get("heartbeat_dir"):
     os.environ["LGBM_TPU_HEARTBEAT_FILE"] = os.path.join(
         spec["heartbeat_dir"], f"heartbeat-rank{rank}")
     os.environ["LGBM_TPU_STALL_DIR"] = spec["heartbeat_dir"]
-sys.path.insert(0, spec["repo"])
 import torch
 if spec.get("torch_threads"):
     torch.set_num_threads(int(spec["torch_threads"]))
@@ -220,6 +234,17 @@ from lightgbm_tpu_torch.reliability import faults
 faults.register_stack_dump_signal()
 params = dict(spec["params"])
 params.setdefault("tree_learner", "data")
+if spec.get("reshard"):
+    # elastic relaunch: every rank derives the same row plan from the
+    # same three integers (parallel/elastic.py), with no communication
+    from lightgbm_tpu_torch.parallel import reshard_plan, rows_of
+    rs = spec["reshard"]
+    if rs.get("num_rows"):
+        plan = reshard_plan(rs["old_n"], rs["new_n"], rs["num_rows"])
+        assert plan.new_n == spec["num_machines"]
+        print(f"worker {rank} reshard {json.dumps(plan.summary())} rows="
+              f"{list(rows_of(rs['num_rows'], rs['new_n'], rank))}",
+              flush=True)
 join_cluster(["localhost:0"] * spec["num_machines"], rank=rank,
              initialize_timeout=spec["timeout"],
              device_type=params.get("device_type", "cuda"),
@@ -240,13 +265,17 @@ for k in kernels:
 net = current_network()
 before = dict(net.stats())
 t0 = time.perf_counter()
-booster = lgb.train(params, ds, num_boost_round=spec["num_boost_round"])
+ckpt_dir = spec.get("checkpoint_dir") or None
+booster = lgb.train(params, ds, num_boost_round=spec["num_boost_round"],
+                    checkpoint_dir=ckpt_dir,
+                    checkpoint_freq=spec.get("checkpoint_freq", 0),
+                    resume=bool(ckpt_dir))
 if torch.cuda.is_available() and params.get("device_type", "cuda") != "cpu":
     torch.cuda.synchronize()
 seconds = time.perf_counter() - t0
 after = net.stats()
-stats = {"rank": rank, "seconds": seconds,
-         "iterations": booster.current_iteration(),
+stats = {"rank": rank, "attempt": spec.get("attempt", 0),
+         "seconds": seconds, "iterations": booster.current_iteration(),
          "backend": after["backend"], "world": after["world"],
          "allreduce_calls": after["calls"] - before["calls"],
          "allreduce_bytes": after["bytes"] - before["bytes"],
@@ -271,6 +300,21 @@ def _parse_stats(log_path: str) -> Optional[Dict[str, Any]]:
     return None
 
 
+def _ckpt_num_rows(checkpoint_dir: Optional[str]) -> Optional[int]:
+    """The training-row count in the checkpoint manifest: the one number
+    the elastic reshard plan derives from, so the parent and every
+    relaunched rank agree on it without communicating."""
+    if not checkpoint_dir:
+        return None
+    try:
+        from .reliability.checkpoint import MANIFEST
+        with open(os.path.join(checkpoint_dir, MANIFEST)) as f:
+            n = json.load(f).get("num_rows")
+        return int(n) if n else None
+    except (OSError, ValueError, TypeError):
+        return None
+
+
 def train_distributed(params: Dict[str, Any], data, label=None, *,
                       weight=None, group=None, num_boost_round: int = 100,
                       num_machines: int = 2,
@@ -281,28 +325,37 @@ def train_distributed(params: Dict[str, Any], data, label=None, *,
                       checkpoint_freq: int = 0, retry_backoff: float = 1.0,
                       poll_interval: float = 0.25,
                       stall_timeout: Optional[float] = None):
-    """Spawn `num_machines` local worker processes, train
-    tree_learner=data across them, and return rank 0's model as a
-    Booster (all ranks hold the same model).
+    """Spawn `num_machines` local worker processes, train a parallel
+    learner (tree_learner=data unless the params name feature or voting)
+    across them, and return rank 0's model as a Booster (all ranks hold
+    the same model).
 
     `data` may be a file path (each worker loads it) or an array; arrays
     are shipped to the workers through a temp file.  `worker_env` sets
     per-worker env vars; `force_cpu` trains on the CPU (device_type=cpu,
     gloo).  The workers are SUPERVISED: the first non-zero exit, a stale
-    heartbeat (`stall_timeout` seconds) or `timeout` kills every worker,
-    and this call raises with the failed rank's log tail.  The returned
-    Booster's `worker_stats` holds each rank's seconds, iterations,
-    backend, all-reduce calls/bytes/seconds and kernel launch counts.
-    `max_retries > 0`, `checkpoint_dir`, `checkpoint_freq` and
-    `retry_backoff` (relaunch from checkpoints) are not ported yet
-    (ROADMAP Queue 1 item 15): any of them off its default raises."""
+    heartbeat (`stall_timeout` seconds) or `timeout` kills every worker.
+
+    Fault tolerance (the JAX package's relaunch loop): with
+    `max_retries > 0` the whole cluster is relaunched after
+    `retry_backoff * 2**attempt` seconds, on a fresh store, resuming
+    from the newest checkpoint in `checkpoint_dir` (a per-run directory
+    with checkpoint_freq=1 when none is given, so a retry repeats at
+    most one iteration).  A rank lost for good (it tombstoned itself,
+    or failed twice past `elastic_rank_grace_s`) shrinks the next
+    attempt around it (`ElasticPolicy`; below `elastic_min_machines` the
+    run gives up), every rank re-deriving its rows from the
+    checkpoint's row count; a hung attempt with `auto_degrade` relaunches
+    with the next ladder knob off.  When every attempt fails this call
+    raises with the last failed rank's log tail.
+
+    The returned Booster's `worker_stats` holds each rank's seconds,
+    iterations, backend, collective calls/bytes/seconds and kernel launch
+    counts in the attempt that finished; `elastic_shrinks`,
+    `degraded_knobs`, `final_num_machines` and `attempts` describe the
+    relaunches."""
     import shutil
 
-    if (max_retries > 0 or checkpoint_dir or checkpoint_freq
-            or retry_backoff != 1.0):
-        raise NotImplementedError(
-            "train_distributed's relaunch with retries and checkpoints is "
-            "not ported yet (ROADMAP Queue 1 item 15)")
     if num_machines < 1:
         log.fatal(f"num_machines must be positive, got {num_machines}")
     work = tempfile.mkdtemp(prefix="lgbtorch_dist")
@@ -310,27 +363,32 @@ def train_distributed(params: Dict[str, Any], data, label=None, *,
         return _train_distributed_in(
             work, params, data, label, weight, group, num_boost_round,
             num_machines, worker_env, force_cpu, timeout, poll_interval,
-            stall_timeout)
+            stall_timeout, max_retries=max_retries,
+            checkpoint_dir=checkpoint_dir, checkpoint_freq=checkpoint_freq,
+            retry_backoff=retry_backoff)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
 def _train_distributed_in(work, params, data, label, weight, group,
                           num_boost_round, num_machines, worker_env,
-                          force_cpu, timeout, poll_interval, stall_timeout):
+                          force_cpu, timeout, poll_interval, stall_timeout,
+                          *, max_retries=0, checkpoint_dir=None,
+                          checkpoint_freq=0, retry_backoff=1.0):
     from .basic import Booster
     from .config import Config
+    from .reliability.elastic import (GIVE_UP, SHRINK, ElasticPolicy,
+                                      plan_for_shrink)
+    from .reliability.guard import (_LADDER_KNOBS, disabled_value,
+                                    next_degradation)
     from .reliability.supervisor import supervise
 
     params = dict(params)
     if force_cpu:
         params["device_type"] = "cpu"
     params.setdefault("tree_learner", "data")
-    torch_threads = 0
-    if str(params.get("device_type")) == "cpu":
-        # CPU ranks share the host's cores instead of oversubscribing them
-        torch_threads = max(1, (os.cpu_count() or 1) // num_machines)
     run_cfg = Config(dict(params))
+    auto_degrade = bool(run_cfg.auto_degrade)
     if stall_timeout is None:
         stall_timeout = (max(10.0 * run_cfg.stall_floor_s, 600.0)
                          if run_cfg.stall_floor_s > 0 else 0.0)
@@ -347,52 +405,172 @@ def _train_distributed_in(work, params, data, label, weight, group,
                          "group": (None if group is None
                                    else np.asarray(group))}, f)
     model_out = os.path.join(work, "model.txt")
-    hb_dir = os.path.join(work, "hb")
-    spec = {"num_machines": int(num_machines), "params": params,
-            "num_boost_round": int(num_boost_round), "data": data_path,
-            "model_out": model_out, "store": os.path.join(work, "store"),
-            "repo": os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))),
-            "env": dict(worker_env or {}), "heartbeat_dir": hb_dir,
-            "timeout": float(timeout),
-            "torch_threads": torch_threads}
-    spec_path = os.path.join(work, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
+    if max_retries > 0 and not checkpoint_dir:
+        # retries without checkpoints would replay the whole run: a
+        # per-run directory, so a retry loses at most one iteration
+        checkpoint_dir = os.path.join(work, "ckpt")
+        if checkpoint_freq <= 0:
+            checkpoint_freq = 1
     script = os.path.join(work, "worker.py")
     with open(script, "w") as f:
         f.write(_WORKER_MAIN)
-    # worker output goes to files, not PIPEs: a chatty rank filling a
-    # pipe buffer would block inside a collective and stall every rank
-    log_paths = [os.path.join(work, f"worker_{r}.log")
-                 for r in range(num_machines)]
-    log_files = [open(p, "w") for p in log_paths]
-    procs = []
-    try:
-        for r in range(num_machines):
-            procs.append(subprocess.Popen(
-                [sys.executable, script, spec_path, str(r)],
-                stdout=log_files[r], stderr=subprocess.STDOUT, text=True))
-        result = supervise(
-            procs, log_paths, timeout, poll_interval=poll_interval,
-            heartbeats=[os.path.join(hb_dir, f"heartbeat-rank{r}")
-                        for r in range(num_machines)],
-            stall_timeout=stall_timeout,
-            stall_dir=str(params.get("metrics_dir") or "") or hb_dir)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for lf in log_files:
-            lf.close()
-    if not result.ok or not os.path.exists(model_out):
-        why = (result.describe() if not result.ok else
-               "all workers exited 0 but no model file was written")
-        log.fatal(f"distributed training failed:\n{why}")
-    booster = Booster(model_file=model_out,
-                      params={"device_type": params.get("device_type",
-                                                        "cuda")})
-    booster.worker_stats = [_parse_stats(p) for p in log_paths]
-    booster.final_num_machines = int(num_machines)
-    return booster
+    # the supervisor's own event stream beside the workers' when the run
+    # has a metrics_dir: cluster relaunches, shrinks and degradations
+    evt = None
+    if params.get("metrics_dir"):
+        from .observability import EventLogger
+        try:
+            evt = EventLogger(params["metrics_dir"], rank="supervisor")
+        except OSError as e:
+            log.warning(f"Could not open the supervisor event log in "
+                        f"{params['metrics_dir']}: {e}")
+    # the parent walks the degradation ladder: the workers must not also
+    # consume stall files and degrade twice
+    worker_params = dict(params)
+    worker_params["auto_degrade"] = False
+    degraded_knobs: List[str] = []
+    policy = ElasticPolicy(num_machines,
+                           min_machines=run_cfg.elastic_min_machines,
+                           rank_grace_s=run_cfg.elastic_rank_grace_s)
+    reshard: Optional[Dict[str, Any]] = None
+    last_failure = "no workers launched"
+    for attempt in range(max_retries + 1):
+        world = policy.num_machines
+        torch_threads = 0
+        if str(worker_params.get("device_type")) == "cpu":
+            # CPU ranks share the host's cores instead of oversubscribing
+            torch_threads = max(1, (os.cpu_count() or 1) // world)
+        # per attempt: a fresh store (the last attempt's may hold a dead
+        # rank's keys) and heartbeat directory; tombstones key on the
+        # stable work directory and so outlive attempts
+        hb_dir = os.path.join(work, f"hb_a{attempt}")
+        spec = {"num_machines": int(world), "params": dict(worker_params),
+                "num_boost_round": int(num_boost_round), "data": data_path,
+                "model_out": model_out,
+                "store": os.path.join(work, f"store_a{attempt}"),
+                "repo": os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__))),
+                "env": dict(worker_env or {}), "heartbeat_dir": hb_dir,
+                "timeout": float(timeout), "torch_threads": torch_threads,
+                "attempt": attempt, "checkpoint_dir": checkpoint_dir,
+                "checkpoint_freq": int(checkpoint_freq),
+                "tombstone_dir": work, "reshard": reshard}
+        spec_path = os.path.join(work, f"spec_a{attempt}.json")
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        # worker output goes to files, not PIPEs: a chatty rank filling a
+        # pipe buffer would block inside a collective and stall every rank
+        log_paths = [os.path.join(work, f"worker_{r}_a{attempt}.log")
+                     for r in range(world)]
+        log_files = [open(p, "w") for p in log_paths]
+        procs = []
+        try:
+            for r in range(world):
+                procs.append(subprocess.Popen(
+                    [sys.executable, script, spec_path, str(r)],
+                    stdout=log_files[r], stderr=subprocess.STDOUT,
+                    text=True))
+            result = supervise(
+                procs, log_paths, timeout, poll_interval=poll_interval,
+                heartbeats=[os.path.join(hb_dir, f"heartbeat-rank{r}")
+                            for r in range(world)],
+                stall_timeout=stall_timeout,
+                stall_dir=str(params.get("metrics_dir") or "") or hb_dir)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for lf in log_files:
+                lf.close()
+        if result.ok and os.path.exists(model_out):
+            if attempt > 0:
+                log.info(f"Distributed training succeeded on retry "
+                         f"{attempt} (resumed from {checkpoint_dir})"
+                         + (f" with degraded knobs {degraded_knobs}"
+                            if degraded_knobs else "")
+                         + (f" on a shrunken {world}-rank cluster"
+                            if policy.shrinks else ""))
+                if evt is not None:
+                    evt.emit("cluster_retry_succeeded", attempt=attempt,
+                             degraded_knobs=degraded_knobs,
+                             num_machines=world,
+                             elastic_shrinks=policy.shrinks)
+            booster = Booster(model_file=model_out, params={
+                "device_type": params.get("device_type", "cuda")})
+            booster.worker_stats = [_parse_stats(p) for p in log_paths]
+            booster.degraded_knobs = list(degraded_knobs)
+            booster.elastic_shrinks = policy.shrinks
+            booster.final_num_machines = int(world)
+            booster.attempts = attempt + 1
+            return booster
+        last_failure = (result.describe() if not result.ok else
+                        "all workers exited 0 but no model file was written")
+        genuine = bool(result.failures) or result.timed_out
+        classification = result.classification if genuine else "crash"
+        if evt is not None:
+            evt.emit("cluster_attempt_failed", attempt=attempt,
+                     classification=classification,
+                     failure=(last_failure.splitlines()[0]
+                              if last_failure else ""))
+        if attempt >= max_retries:
+            break
+        decision = policy.observe(result) if genuine else None
+        if decision is not None and decision.action == GIVE_UP:
+            log.fatal(f"distributed training cannot continue: "
+                      f"{decision.reason}\n{last_failure}")
+        if decision is not None and decision.action == SHRINK:
+            # shrink first, then walk knobs (the ladder's hang evidence
+            # was gathered on a topology that no longer exists); the
+            # relaunch resumes from the checkpoint on the surviving ranks
+            old_n, new_n = world, decision.num_machines
+            plan = plan_for_shrink(old_n, new_n,
+                                   _ckpt_num_rows(checkpoint_dir))
+            reshard = {"old_n": old_n, "new_n": new_n,
+                       "num_rows": plan.num_rows if plan else None}
+            log.warning(f"elastic_shrink: {decision.reason}; relaunching "
+                        f"on {new_n} rank(s)"
+                        + (f", reshard {plan.summary()}" if plan else "")
+                        + (f", resuming from {checkpoint_dir}"
+                           if checkpoint_dir else ""))
+            if evt is not None:
+                evt.emit("elastic_shrink", old_num_machines=old_n,
+                         new_num_machines=new_n,
+                         lost_ranks=decision.lost_ranks,
+                         attempt=attempt + 1,
+                         reshard=plan.summary() if plan else None)
+        elif result.hang and auto_degrade:
+            # the attempt hung: relaunch with the next risky knob off
+            # instead of replaying the same configuration into the stall
+            effective = {k: getattr(Config(dict(worker_params)), k)
+                         for k in _LADDER_KNOBS}
+            knob = next_degradation(effective, degraded_knobs)
+            if knob is not None:
+                worker_params[knob] = disabled_value(knob)
+                degraded_knobs.append(knob)
+                log.warning(f"auto_degrade: attempt {attempt} hung; "
+                            f"relaunching with {knob} disabled (degraded "
+                            f"so far: {degraded_knobs})")
+                if evt is not None:
+                    evt.emit("degrade", knob=knob, attempt=attempt + 1,
+                             active=list(degraded_knobs))
+            else:
+                log.warning("auto_degrade: ladder exhausted; relaunching "
+                            "unchanged")
+        elif classification == "preempt":
+            log.warning(f"attempt {attempt} was preempted (SIGTERM); "
+                        "relaunching at the same world size"
+                        + (f", resuming from {checkpoint_dir}"
+                           if checkpoint_dir else ""))
+        delay = retry_backoff * (2 ** attempt)
+        if evt is not None:
+            evt.emit("cluster_retry", next_attempt=attempt + 1,
+                     delay_s=delay)
+        log.warning(f"Distributed training attempt {attempt + 1}/"
+                    f"{max_retries + 1} failed:\n{last_failure}\n"
+                    f"Relaunching the cluster in {delay:.1f}s"
+                    + (f", resuming from checkpoints in {checkpoint_dir}"
+                       if checkpoint_dir else ""))
+        time.sleep(delay)
+    log.fatal(f"distributed training failed after {attempt + 1} "
+              f"attempt(s):\n{last_failure}")

@@ -123,12 +123,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
         resume = cfg.resume
     if metrics_dir is None:
         metrics_dir = cfg.metrics_dir or None
-    if checkpoint_dir and cfg.tree_learner in DATA_LEARNERS:
+    # inside a process group every rank takes part in each checkpoint
+    # (rank 0 writes the serial run's state, callback.checkpoint)
+    in_group = False
+    if cfg.tree_learner in DATA_LEARNERS:
         from .parallel import current_network
-        if current_network() is not None:
-            raise NotImplementedError(
-                "checkpoints under tree_learner=data are not ported yet "
-                "(ROADMAP Queue 1 item 15, with the elastic relaunch)")
+        in_group = current_network() is not None
 
     from .observability import process_rank
     rank = process_rank()
@@ -162,7 +162,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
     _progress: Dict[str, Any] = {"booster": None, "iteration": 0,
                                  "in_update": False,
                                  "preempt_pending": False}
-    if ckpt_mgr is not None and cfg.preempt_ckpt_grace_s > 0:
+    if ckpt_mgr is not None and cfg.preempt_ckpt_grace_s > 0 and in_group:
+        # a group's checkpoint is a collective: one rank's SIGTERM cannot
+        # take it alone (the supervisor relaunches from the last one)
+        log.info("preemption checkpoints are off inside a process group")
+    elif ckpt_mgr is not None and cfg.preempt_ckpt_grace_s > 0:
         from .observability import set_preemption_hook
 
         def _preempt_save():

@@ -61,7 +61,19 @@ CEGB (cost_effective_gradient_boosting.hpp:139) charges each scan the
 lazy penalties of its leaf's bagged-in rows not yet fetched for a
 feature; a split marks the split leaf's rows fetched for its feature
 before the children's scans, in an [F, n] state the booster carries from
-tree to tree.  Voting is not ported (GBDT.init refuses it).
+tree to tree.
+
+Parallel learners (parallel/): under data-parallel training (`net`)
+every histogram, count and sum is all-reduced over the ranks' rows.  The
+feature-parallel learner (`block`) keeps every row: K4 histograms the
+rank's block of columns, the stack holds the block, and each scan
+all-gathers the ranks' per-leaf best splits.  The voting-parallel
+learner (`voting`, the JAX engine's `best_of` under `params.voting`)
+builds every scanned leaf's histogram itself: the ranks vote on its
+top-k features and reduce only their histograms
+(parallel/voting.py); the root histogram is never reduced whole, and
+both children are rebuilt (no stack), since a parent and its children
+elect different features.
 """
 
 from __future__ import annotations
@@ -81,6 +93,7 @@ from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO,
                          find_best_split, leaf_gain, leaf_output,
                          monotone_gain_penalty)
 from ..parallel.data_parallel import exact_sum
+from ..parallel.voting import voting_hist_elect
 from ..utils import random as jrandom
 from ..utils.timer import global_timer
 
@@ -465,7 +478,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                    params: GrowParams, binned_rm: torch.Tensor = None,
                    extra_tag: int = None, cegb_used: torch.Tensor = None,
                    lazy_used: torch.Tensor = None, net=None,
-                   grid_rows: int = None):
+                   grid_rows: int = None, block=None, voting=None):
     """Grow one leaf-wise tree.
 
     Args:
@@ -486,6 +499,12 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         row count, root sum and lazy-CEGB count is all-reduced (the
         JAX package's GSPMD psums of the masked engine).  The partition
         stays shard-local.
+      block: a feature-parallel rank's ColumnBlock: `binned_rm` holds
+        its block's columns, every histogram is the block's and every
+        scan merges the ranks' best splits (parallel/data_parallel.py).
+      voting: a VotingSpec (parallel/voting.py) with `net`: every scan
+        votes on its leaf's features and reduces only the elected
+        histograms; needs use_hist_stack off and no EFB.
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32), and lazy_used after them under lazy CEGB.
@@ -499,8 +518,17 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     hist_B = params.group_max_bin if bundles else B
     sp = params.split
     f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    # the columns this rank histograms (a feature-parallel rank's block)
+    hmeta = meta if block is None else block.meta
     if binned_rm is None:
-        binned_rm = binned.t().contiguous()
+        binned_rm = (binned if block is None
+                     else binned[block.start:block.stop]).t().contiguous()
+    Fh = binned_rm.shape[1]
+    if voting is not None and (params.use_hist_stack or bundles
+                               or params.forced_splits):
+        raise ValueError("the voting learner rebuilds every scanned "
+                         "leaf's histogram: no histogram stack, EFB or "
+                         "forced splits")
     forced = tuple(params.forced_splits)[:max(L - 1, 0)]
     KF = len(forced)
 
@@ -565,28 +593,26 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     def all_reduce(t):
         return t if net is None else net.all_reduce_sum_(t)
 
-    def hist_of(member_mask):
-        """Group-space histogram of every row under a membership mask
-        (int64, all-reduced)."""
-        account_rows(binned_rm, gh)
-        with global_timer.device_scope("Tree::histogram", dev):
-            h = build_histogram_rows_fixed(binned_rm, gh, member_mask,
-                                           exps, max_bin=hist_B)
-        return all_reduce(h)
-
     def hist_of_rows(rows, gh_sub, member_mask):
-        """Group-space histogram of gathered rows [S, F'] (int64,
-        all-reduced)."""
+        """Group-space histogram of rows [S, F'] (int64, all-reduced; a
+        feature-parallel rank's block columns)."""
+        if Fh == 0:
+            # a feature-parallel rank without columns
+            return torch.zeros((0, hist_B, 2), dtype=i64, device=dev)
         account_rows(rows, gh_sub)
         with global_timer.device_scope("Tree::histogram", dev):
             h = build_histogram_rows_fixed(rows, gh_sub, member_mask,
                                            exps, max_bin=hist_B)
         return all_reduce(h)
 
+    def hist_of(member_mask):
+        """Group-space histogram of every row under a membership mask."""
+        return hist_of_rows(binned_rm, gh, member_mask)
+
     def feature_hists(hists):
         """int64 group-space histograms -> float32 per-feature ones."""
         return from_fixed(bundle_hist_to_features(
-            hists, None, None, meta, B, hist_B, bundles), unit)
+            hists, None, None, hmeta, B, hist_B, bundles), unit)
 
     # every scan's draws at once: tag 0 is the root's; the children of
     # forced step k take 2k+1 and 2k+2, those of best-gain split i
@@ -598,18 +624,26 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
 
     def best_of(hists, sum_g, sum_h, cnt, parent_out, tag0, cmin=None,
                 cmax=None, depth=None, branch=None, lazy_masks=None,
-                adv=None) -> SplitResult:
+                adv=None, member_masks=None) -> SplitResult:
         """Scan k leaves' int64 group-space histograms [k, F', B', 2]; the
         leaves' scan tags are tag0, tag0 + 1, ...; cmin/cmax/depth: the
         leaves' [k] monotone bounds and depths; branch: their [k, F]
         branch features (interaction constraints); lazy_masks: their
         [k, n] bagged-in rows (lazy CEGB); adv: the advanced mode's
-        (lL, uL, lR, uR) [k, F, B] bounds."""
-        k = hists.shape[0]
+        (lL, uL, lR, uR) [k, F, B] bounds.  Under voting `hists` is None
+        and member_masks [k, n] holds the leaves' rows: each leaf's
+        histogram is its vote's."""
+        k = sum_g.shape[0]
         cm = (col_mask if bym_all is None
               else col_mask[None, :] & bym_all[tag0:tag0 + k])
         if use_interaction:
             cm = cm & allowed_features(branch, set_masks)
+        if voting is not None:
+            cms = cm if cm.dim() == 2 else cm[None, :].expand(k, -1)
+            hists, elected = voting_hist_elect(
+                binned_rm, gh, member_masks, cms, parent_out, meta, voting,
+                sp, hist_B, exps, num_data=cnt)
+            cm = cms & elected
         kw = {}
         if rand_all is not None:
             kw["rand_bin"] = rand_all[tag0:tag0 + k]
@@ -637,6 +671,9 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
                 unused = all_reduce(unused.to(i64)).to(f32)
             kw["cegb_lazy_cost"] = meta.cegb_lazy[None, :] * unused
         with global_timer.device_scope("Tree::split_find", dev):
+            if block is not None:
+                return block.best_split(feature_hists(hists), cm, sum_g,
+                                        sum_h, cnt, parent_out, sp, **kw)
             return find_best_split(
                 feature_hists(hists), meta.num_bin, meta.missing_type,
                 meta.default_bin, meta.penalty, cm, sum_g, sum_h, cnt,
@@ -674,14 +711,18 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     sum_g0 = exact_sum(grad, net=net)[0].to(f32)
     sum_h0 = exact_sum(hess, net=net)[0].to(f32)
     cnt0 = all_reduce(row_mask.sum(dtype=i64)).to(i32)
-    root_hist = hist_of(ones)
+    # (the voting learner's root histogram is its vote's, never reduced
+    # whole)
+    root_hist = None if voting is not None else hist_of(ones)
     inf1 = torch.full((1,), float("inf"), dtype=f32, device=dev)
-    root_best = best_of(root_hist[None], sum_g0[None], sum_h0[None],
+    root_best = best_of(None if root_hist is None else root_hist[None],
+                        sum_g0[None], sum_h0[None],
                         cnt0[None], torch.zeros(1, dtype=f32, device=dev), 0,
                         -inf1, inf1, torch.zeros(1, dtype=i32, device=dev),
                         branch=(leaf_branch[:1] if use_interaction
                                 else None),
-                        lazy_masks=row_mask[None] if use_lazy else None)
+                        lazy_masks=row_mask[None] if use_lazy else None,
+                        member_masks=row_mask[None])
 
     ni = max(L - 1, 1)
     # host-side structure (decided by host ints); float fields on device
@@ -719,7 +760,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
 
     use_stack = params.use_hist_stack
     if use_stack:
-        hist_stack = torch.zeros((L, Fg, hist_B, 2), dtype=i64, device=dev)
+        hist_stack = torch.zeros((L, Fh, hist_B, 2), dtype=i64, device=dev)
         hist_stack[0] = root_hist
     use_partition = 0 < params.compact_min < n and L > 2
     leaf_id = torch.zeros(n + 1, dtype=i64, device=dev)   # [n] is a dump
@@ -739,9 +780,8 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             if S > seg:
                 idxs = torch.cat([idxs, idxs.new_zeros(S - seg)])
             valid = torch.arange(S, device=dev) < seg
-            rows = binned_rm[idxs]                            # [S, F']
-            gl = go_left_of(codes_to_int(rows[:, col_of(feat)], i32), feat,
-                            dleft, thr, isc, bitset)
+            gl = go_left_of(codes_to_int(binned[col_of(feat)][idxs], i32),
+                            feat, dleft, thr, isc, bitset)
             lm = gl & valid
             rm = ~gl & valid
             rmask = row_mask[idxs]
@@ -764,7 +804,7 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
         small_hist = None
         if use_stack:
             small_m = torch.where(smaller_is_left, lm, rm).to(f32)
-            small_hist = hist_of_rows(rows, gh[idxs], small_m)
+            small_hist = hist_of_rows(binned_rm[idxs], gh[idxs], small_m)
         return small_hist, cnt_l, cnt_r, smaller_is_left
 
     def mask_and_hist(best, new, feat, thr, dleft, isc, bitset):
@@ -874,8 +914,11 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             hist_stack[new] = hist_r
         else:
             lid = leaf_id[:n]
-            hist_l = hist_of((lid == best).to(f32) * row_mask)
-            hist_r = hist_of((lid == new).to(f32) * row_mask)
+            masks = torch.stack([(lid == best).to(f32) * row_mask,
+                                 (lid == new).to(f32) * row_mask])
+            hist_l = hist_r = None
+            if voting is None:
+                hist_l, hist_r = hist_of(masks[0]), hist_of(masks[1])
         # basic monotone propagation (monotone_constraints.hpp:489
         # BasicLeafConstraints::Update): the new leaf clones the parent's
         # bounds; a numerical split on a monotone feature bounds both
@@ -967,8 +1010,10 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
             for k, v in res._asdict().items():
                 pend[k].index_copy_(0, idx, v)
             return True
+        if voting is not None:
+            kw["member_masks"] = masks
         res = best_of(
-            torch.stack([hist_l, hist_r]),
+            None if hist_l is None else torch.stack([hist_l, hist_r]),
             torch.stack([pb["left_sum_gradient"], pb["right_sum_gradient"]]),
             torch.stack([pb["left_sum_hessian"], pb["right_sum_hessian"]]),
             torch.stack([cnt_l, cnt_r]),
@@ -986,10 +1031,19 @@ def grow_tree_impl(binned: torch.Tensor, grad: torch.Tensor,
     # pending splits as they were
     for k, (fleaf, ffeat, fthr) in enumerate(forced):
         saved = {key: v.clone() for key, v in pend.items()}
-        res = gather_forced_split(
-            feature_hists(hist_stack[fleaf][None])[0], ffeat, fthr,
-            leaf_sum_g[fleaf], leaf_sum_h[fleaf],
-            leaf_f["leaf_count"][fleaf].to(f32), meta, B, sp)
+
+        def gather(f, m):
+            return gather_forced_split(
+                feature_hists(hist_stack[fleaf][None])[0], f, fthr,
+                leaf_sum_g[fleaf], leaf_sum_h[fleaf],
+                leaf_f["leaf_count"][fleaf].to(f32), m, B, sp)
+        if block is None:
+            res = gather(ffeat, meta)
+        else:
+            # feature-parallel: the rank that holds the feature gathers it
+            li = block.local_index(ffeat)
+            res = block.merge_one(None if li is None else gather(li, hmeta),
+                                  ffeat, W, dev)
         fidx = torch.tensor([fleaf], dtype=i64, device=dev)
         for key, v in res._asdict().items():
             pend[key].index_copy_(0, fidx, v[None])

@@ -79,8 +79,8 @@ from ..ops.histogram import (build_histogram_wave_fixed,
                              build_histogram_wave_int, codes_to_int,
                              dequantize,
                              fixed_unit, from_fixed, scale_exps,
-                             wave_hl_fits,
-                             wave_hl_profitable, wave_slot_pad)
+                             wave_hl_fits, wave_hl_profitable,
+                             wave_slot_counts, wave_slot_pad)
 from ..observability.costmodel import (global_cost_model, wave_hist_bytes,
                                        wave_hist_ops)
 from ..ops.split import (K_MIN_SCORE, MISSING_NAN, MISSING_ZERO, SplitResult,
@@ -290,7 +290,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
                         quant_scales: torch.Tensor = None,
                         extra_tag: int = None,
                         cegb_used: torch.Tensor = None,
-                        net=None, grid_rows: int = None):
+                        net=None, grid_rows: int = None, block=None):
     """Grow one tree by waves.
 
     Args:
@@ -309,11 +309,17 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         pads to: the grid is the serial run's, and every wave's integer
         histograms and counts, the root sums and the final counts are
         all-reduced (the JAX engine's `_psum` points).
+      block: a feature-parallel rank's ColumnBlock
+        (parallel/data_parallel.py): the kernels histogram the block's
+        columns of every row, the cache holds them, the scan covers the
+        block's features and merges the ranks' per-leaf best splits in
+        one all-gather; the partition reads every column and stays
+        local.
 
     Returns (TreeArrays with node arrays [max(L-1, 1)] and leaf arrays
     [L], leaf_id [n] int32).
     """
-    Fg, n = binned.shape
+    n = binned.shape[1]
     F = meta.num_bin.shape[0]
     dev = binned.device
     L = params.num_leaves
@@ -330,6 +336,13 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     def all_reduce(t):
         return t if net is None else net.all_reduce_sum_(t)
 
+    # the columns this rank histograms: all of them, or a feature-parallel
+    # rank's block (its features' metadata in hmeta)
+    hbinned, hmeta = binned, meta
+    if block is not None:
+        hbinned, hmeta = binned[block.start:block.stop], block.meta
+    Fh = hbinned.shape[0]
+
     grad = grad.to(f32) * row_mask
     hess = hess.to(f32) * row_mask
     # 2 histogram channels; the trailing column is the count mask
@@ -339,8 +352,9 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
     # and the conversion the scan applies to the cached integer sums:
     # group-space sums become per-feature ones before they are scaled
     def to_features(acc):
-        return bundle_hist_to_features(acc.reshape(-1, Fg, hist_B, 2), None,
-                                       None, meta, B, hist_B, bundles)
+        return bundle_hist_to_features(
+            acc.reshape(acc.shape[0], Fh, hist_B, 2), None, None, hmeta, B,
+            hist_B, bundles)
 
     if use_int:
         quant_scales = quant_scales.to(dev, torch.float32)
@@ -381,7 +395,7 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
 
     ni = max(Lg - 1, 1)
     Lp = wave_slot_pad(Lg)
-    Dh = Fg * hist_B * 2
+    Dh = Fh * hist_B * 2
     W = cat_bitset_words(B)
 
     def zeros(size, dt):
@@ -436,27 +450,32 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
         split (compact slot = pair rank); the larger is parent - smaller.
         Rows outside a computed leaf carry the sentinel slot Lp."""
         with global_timer.device_scope("Tree::histogram", dev):
-            if use_int:
+            if Fh == 0:
+                # a feature-parallel rank without columns: counts only
+                H = torch.zeros((Kb, 0, hist_B, 2), dtype=i64, device=dev)
+                cnt = wave_slot_counts(state["kslot"], row_mask,
+                                       None if use_int else exps[2], Kb)
+            elif use_int:
                 H, cnt = build_histogram_wave_int(
-                    binned, state["kslot"], gh, quant_scales,
+                    hbinned, state["kslot"], gh, quant_scales,
                     max_bin=hist_B, num_slots=Kb)
             elif (Ks is not None and wave_hl_profitable(hist_B, Ks)
                     and wave_hl_fits(hist_B, Ks)):
                 # K3 reads the feature-major bins; the JAX signature's
                 # row-major argument is checked for its shape only
                 H, cnt = build_histogram_wave_hl_fixed(
-                    binned, binned.t(), state["kslot"], gh, exps,
+                    hbinned, hbinned.t(), state["kslot"], gh, exps,
                     max_bin=hist_B, num_slots=Ks, out_slots=Kb)
             else:
                 H, cnt = build_histogram_wave_fixed(
-                    binned, state["kslot"], gh, exps, max_bin=hist_B,
+                    hbinned, state["kslot"], gh, exps, max_bin=hist_B,
                     num_slots=Kb)
-            if global_cost_model.enabled:
-                Fh, nh = binned.shape
+            if global_cost_model.enabled and Fh:
+                nh = hbinned.shape[1]
                 Ch = gh.shape[1] - 1
                 global_cost_model.account(
                     "grow_tree[histogram]", wave_hist_ops(nh, Fh, Ch),
-                    wave_hist_bytes(binned.element_size() * Fh * nh, nh,
+                    wave_hist_bytes(hbinned.element_size() * Fh * nh, nh,
                                     Kb, Fh, hist_B, Ch))
         if net is not None:
             # the data-parallel reduction: one all-reduce of the wave's
@@ -525,21 +544,31 @@ def grow_tree_wave_impl(binned: torch.Tensor, grad: torch.Tensor,
             kw.update(cegb_coupled=meta.cegb_coupled, cegb_used=used_vec)
         with global_timer.device_scope("Tree::split_find", dev):
             hists = deq_h(cache_h[idx])
+            args = (cm, leaf_sum_g[idx], leaf_sum_h[idx],
+                    torch.round(deq_c(cache_c[idx])).to(i32), leaf_out[idx],
+                    sp)
+            if block is not None:
+                return block.best_split(hists, *args, **kw)
             return find_best_split(
                 hists, meta.num_bin, meta.missing_type, meta.default_bin,
-                meta.penalty, cm, leaf_sum_g[idx], leaf_sum_h[idx],
-                torch.round(deq_c(cache_c[idx])).to(i32), leaf_out[idx], sp,
-                **kw)
+                meta.penalty, *args, **kw)
 
     def forced_entry(fleaf: int, ffeat: int, fthr: int) -> SplitResult:
         """The forced split of leaf `fleaf`, gathered from its cached
         histogram (grow.gather_forced_split, shared with the leaf-wise
         engine)."""
-        hist = deq_h(cache_h[fleaf:fleaf + 1])[0]
-        return gather_forced_split(hist, ffeat, fthr, leaf_sum_g[fleaf],
-                                   leaf_sum_h[fleaf],
-                                   deq_c(cache_c[fleaf:fleaf + 1])[0], meta,
-                                   B, sp)
+        def gather(f, m):
+            hist = deq_h(cache_h[fleaf:fleaf + 1])[0]
+            return gather_forced_split(hist, f, fthr, leaf_sum_g[fleaf],
+                                       leaf_sum_h[fleaf],
+                                       deq_c(cache_c[fleaf:fleaf + 1])[0],
+                                       m, B, sp)
+        if block is None:
+            return gather(ffeat, meta)
+        # feature-parallel: the rank that holds the feature gathers it
+        li = block.local_index(ffeat)
+        return block.merge_one(None if li is None else gather(li, hmeta),
+                               ffeat, W, dev)
 
     def wave_body(NLp: int, Kb: int, first: bool = False, Ks=None,
                   lg_cap=None, budget_cap=None, forced_split=None):

@@ -332,6 +332,21 @@ def _to_fixed(v: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     return torch.round(v * _pow2_f32(62 - e)[None, :]).to(torch.int64)
 
 
+def wave_slot_counts(slot: torch.Tensor, count: torch.Tensor,
+                     exps: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """The count channel of the wave kernels' outputs alone: int64 [NL]
+    sums of the count column `count` [n] per slot, on the fixed-point
+    grid exponent `exps` (0-d int32), or of `count > 0` with `exps` None
+    (K2's quantized count).  A feature-parallel rank whose column block
+    is empty has no histogram to build but needs its leaves' counts."""
+    q = ((count > 0).to(torch.int64) if exps is None
+         else _to_fixed(count[:, None], exps.reshape(1))[:, 0])
+    s = slot.to(torch.int64)
+    ids = torch.where((s >= 0) & (s < num_slots), s, num_slots)
+    out = torch.zeros(num_slots + 1, dtype=torch.int64, device=count.device)
+    return out.index_add_(0, ids, q)[:num_slots]
+
+
 def from_fixed(acc: torch.Tensor, unit: torch.Tensor) -> torch.Tensor:
     """int64 sums -> float32 via float64 (the kernels' finish pass); the
     last axis of `acc` is the channel axis of `unit` (`fixed_unit`)."""

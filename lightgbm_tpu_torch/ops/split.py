@@ -328,7 +328,8 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
                     constraint_max_left: torch.Tensor = None,
                     constraint_min_right: torch.Tensor = None,
                     constraint_max_right: torch.Tensor = None,
-                    cegb_lazy_cost: torch.Tensor = None) -> SplitResult:
+                    cegb_lazy_cost: torch.Tensor = None,
+                    return_feature_gains: bool = False) -> SplitResult:
     """Scan all (feature, threshold, direction) candidates of every leaf;
     return each leaf's best.
 
@@ -353,6 +354,11 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
         split at each threshold (advanced monotone mode), or None.
       cegb_lazy_cost: [L, F] lazy penalties summed over each leaf's rows
         not yet fetched (has_cegb_lazy), or None.
+      return_feature_gains: return the [L, F] per-feature shifted best
+        gains instead (after the column mask, the CEGB shift and the
+        monotone penalty, before the argmax): the voting learner's local
+        vote ranks features by them, and a feature-parallel rank's
+        gains over its column block are these gains' columns.
     """
     L, F, B, _ = hist.shape
     dev = hist.device
@@ -539,6 +545,11 @@ def find_best_split(hist: torch.Tensor, num_bin: torch.Tensor,
     cm = col_mask if col_mask.dim() == 2 else col_mask[None, :]
     shifted = torch.where(cm & (best_gain_f > K_MIN_SCORE),
                           shifted, torch.full_like(shifted, K_MIN_SCORE))
+    if return_feature_gains:
+        # per-feature shifted best gains (ref: voting_parallel_tree_
+        # learner.cpp:151 GlobalVoting ranks features by their local best
+        # split gains)
+        return shifted
     best_f = torch.argmax(shifted, dim=-1).to(i32)                  # [L]
 
     g_ = _take(shifted, best_f)

@@ -33,6 +33,15 @@ through an explicit host copy.
 `Network` is one rank's handle on the group: the reductions the engines
 call, each under the `Network::allreduce` timer scope, counting calls,
 bytes and seconds.
+
+The learner table `DATA_LEARNERS` (ref: tree_learner.cpp:15
+CreateTreeLearner) names the axis each parallel learner shards: `data`
+and `voting` shard the rows (`RowShard`; voting reduces only the
+histograms of the features its ranks elect, parallel/voting.py),
+`feature` shards the device columns (`ColumnBlock`): every rank keeps
+every row, histograms and scans its block of columns, and the ranks
+all-gather each scan's per-leaf best split (ref:
+feature_parallel_tree_learner.cpp:30-70).
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ from ..utils import log
 from ..utils.timer import global_timer
 from .elastic import rows_of
 
-DATA_LEARNERS = ("data",)
+# tree_learner -> the axis its ranks shard inside a process group
+DATA_LEARNERS = {"data": "rows", "voting": "rows", "feature": "columns"}
 
 
 def backend_for(device_type: str, local_ranks: int) -> str:
@@ -131,6 +141,11 @@ class Network:
     def all_reduce_min_(self, t: torch.Tensor) -> torch.Tensor:
         """In-place minimum over the ranks (exact)."""
         return self._all_reduce(t, self._dist.ReduceOp.MIN)
+
+    def barrier(self) -> None:
+        """Wait for every rank (not counted among the collectives)."""
+        if self.world > 1:
+            self._dist.barrier(group=self.group)
 
     def all_gather_rows(self, t: torch.Tensor,
                         sizes: Sequence[int]) -> torch.Tensor:
@@ -268,3 +283,163 @@ def exact_sum(values: torch.Tensor, segments: torch.Tensor = None,
     for k in range(1, _LIMBS):
         out = out + acc[k].to(torch.float64) * grids[k]
     return out
+
+
+# ------------------------------------------------------- feature-parallel
+# SplitResult fields in the packed record a feature-parallel rank
+# all-gathers (the cat bitset words follow them)
+_RECORD = ("gain", "feature", "threshold", "default_left",
+           "left_sum_gradient", "left_sum_hessian", "left_count",
+           "left_output", "right_sum_gradient", "right_sum_hessian",
+           "right_count", "right_output", "is_cat")
+# find_best_split keyword arguments with a feature axis: last, or the
+# one before the last
+_F_LAST = ("rand_bin", "is_cat_feature", "monotone", "cegb_coupled",
+           "cegb_used", "cegb_lazy_cost")
+_F_SECOND = ("rand_cat_u", "constraint_min_left", "constraint_max_left",
+             "constraint_min_right", "constraint_max_right")
+
+
+class ColumnBlock:
+    """The device columns one feature-parallel rank histograms and scans
+    (ref: feature_parallel_tree_learner.cpp:30 BeforeTrain, which
+    balances feature subsets over the machines): columns [start, stop)
+    of the `rows_of` split of the F' device columns (bundle columns
+    under EFB), and `features`, the features whose column lies in the
+    block.  Blocks may be unequal, and a rank holds none when the world
+    outnumbers the columns.
+
+    `best_split` runs the split scan over the block's features and
+    merges every rank's per-leaf best with one all-gather: the largest
+    gain, and on a tie the lowest feature index, which is the serial
+    scan's first maximum (`torch.argmax`).  A feature's gains do not
+    depend on the other features of the scan, so the merged split is
+    the serial run's bit for bit."""
+
+    def __init__(self, net: Network, meta, num_columns: int):
+        self.net = net
+        self.start, self.stop = rows_of(num_columns, net.world, net.rank)
+        F = int(meta.num_bin.shape[0])
+        self.num_features = F
+        col = (np.arange(F) if meta.group is None
+               else meta.group.cpu().numpy().astype(np.int64))
+        feats = np.nonzero((col >= self.start) & (col < self.stop))[0]
+        self.features = feats
+        dev = meta.num_bin.device
+        self._idx = torch.from_numpy(feats.astype(np.int64)).to(dev)
+        self._local = {int(f): i for i, f in enumerate(feats)}
+        self.meta = meta._replace(**{
+            k: (None if v is None else v.index_select(0, self._idx))
+            for k, v in meta._asdict().items()})
+        if meta.group is not None:
+            self.meta = self.meta._replace(group=self.meta.group - self.start)
+
+    def local_index(self, feature: int) -> Optional[int]:
+        """The block's index of a global feature, None where another
+        rank holds it."""
+        return self._local.get(int(feature))
+
+    def split_params(self, sp):
+        """SplitParams of the block's scan: the categorical features'
+        block indices (none: the categorical branch is skipped, which
+        changes no numerical feature's record)."""
+        if not sp.has_categorical:
+            return sp
+        cats = sp.cat_features or tuple(range(self.num_features))
+        local = tuple(self._local[f] for f in cats if f in self._local)
+        if not local:
+            return sp._replace(has_categorical=False, cat_features=())
+        return sp._replace(cat_features=local)
+
+    def _slice(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        return t.index_select(axis, self._idx)
+
+    def best_split(self, hist, col_mask, sum_gradient, sum_hessian,
+                   num_data, parent_output, params, **kw):
+        """`find_best_split` over the block: `hist` [L, F_blk, B, 2] holds
+        the block's per-feature histograms, every other argument is the
+        serial scan's (over all F features) and is sliced here.
+        Returns the merged SplitResult [L], global feature indices."""
+        from ..ops.split import cat_bitset_words, find_best_split
+        if not len(self.features):
+            return self.merge(self.sentinel(
+                sum_gradient.shape[0], cat_bitset_words(hist.shape[-2]),
+                sum_gradient.device))
+        for k in _F_LAST:
+            if kw.get(k) is not None:
+                kw[k] = self._slice(kw[k], kw[k].dim() - 1)
+        for k in _F_SECOND:
+            if kw.get(k) is not None:
+                kw[k] = self._slice(kw[k], kw[k].dim() - 2)
+        m = self.meta
+        res = find_best_split(
+            hist, m.num_bin, m.missing_type, m.default_bin, m.penalty,
+            self._slice(col_mask, col_mask.dim() - 1), sum_gradient,
+            sum_hessian, num_data, parent_output, self.split_params(params),
+            **kw)
+        res = res._replace(feature=self._idx[res.feature.to(
+            torch.int64)].to(torch.int32))
+        return self.merge(res)
+
+    def sentinel(self, L: int, W: int, device):
+        """The record of a rank with no candidate: gain K_MIN_SCORE and
+        a feature index above every real one, so it never wins."""
+        from ..ops.split import K_MIN_SCORE, SplitResult
+        f32, i32 = torch.float32, torch.int32
+        z = {k: torch.zeros(L, dtype=f32, device=device) for k in _RECORD}
+        z["gain"] = torch.full((L,), K_MIN_SCORE, device=device)
+        for k in ("feature", "threshold", "left_count", "right_count"):
+            z[k] = torch.zeros(L, dtype=i32, device=device)
+        z["feature"].fill_(self.num_features)
+        for k in ("default_left", "is_cat"):
+            z[k] = torch.zeros(L, dtype=torch.bool, device=device)
+        return SplitResult(cat_bitset=torch.zeros((L, W), dtype=i32,
+                                                  device=device), **z)
+
+    def merge(self, res):
+        """Every rank's per-leaf best -> the global best, the same on
+        every rank: one all-gather of the packed records."""
+        from ..ops.split import SplitResult
+        if self.net.world == 1:
+            return res
+        i32 = torch.int32
+        L, W = res.cat_bitset.shape
+        cols = []
+        for k in _RECORD:
+            v = getattr(res, k)
+            cols.append(v.contiguous().view(i32) if v.dtype == torch.float32
+                        else v.to(i32))
+        rec = torch.cat([torch.stack(cols, 1), res.cat_bitset.to(i32)], 1)
+        R = rec.shape[1]
+        flat = rec.reshape(-1)
+        every = self.net.all_gather_rows(
+            flat, [flat.numel()] * self.net.world).view(self.net.world, L, R)
+        gain = every[:, :, 0].view(torch.float32)
+        feat = every[:, :, 1]
+        top = gain.max(0).values
+        cand = torch.where(gain == top[None, :], feat,
+                           torch.full_like(feat, 2 ** 31 - 1))
+        won = cand.argmin(0)
+        pick = every[won, torch.arange(L, device=won.device)]      # [L, R]
+        out = {}
+        for i, k in enumerate(_RECORD):
+            ref = getattr(res, k)
+            v = pick[:, i].contiguous()
+            out[k] = (v.view(torch.float32) if ref.dtype == torch.float32
+                      else v.to(ref.dtype))
+        return SplitResult(cat_bitset=pick[:, len(_RECORD):].contiguous(),
+                           **out)
+
+    def merge_one(self, res, feature: int, W: int, device):
+        """One forced split's record (0-d fields, [W] bitset) from the rank
+        that holds `feature` (`res` None on the others)."""
+        from ..ops.split import SplitResult
+        if res is None:
+            one = self.sentinel(1, W, device)
+        else:
+            one = SplitResult(**{k: v.reshape((1,) + tuple(v.shape))
+                                 for k, v in res._asdict().items()})
+            one = one._replace(feature=torch.full(
+                (1,), int(feature), dtype=torch.int32, device=device))
+        out = self.merge(one)
+        return SplitResult(**{k: v[0] for k, v in out._asdict().items()})

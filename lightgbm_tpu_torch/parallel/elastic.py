@@ -4,10 +4,10 @@
 `rows_of` is also the data-parallel row split: rank r of a world of k
 owns rows `rows_of(num_rows, k, r)` of the training set
 (parallel/data_parallel.py).  When the distributed supervisor shrinks a
-cluster around a permanently lost rank (the JAX package's elastic
-recovery; the port's shrink waits for ROADMAP Queue 1 item 15), every
-surviving rank must agree — without any communication — on how the training rows map
-onto the new, smaller mesh.  The reference engine cannot do this at all:
+cluster around a permanently lost rank (`distributed.train_distributed`
+with `reliability/elastic.py`'s policy), every surviving rank must agree
+— without any communication — on how the training rows map onto the
+new, smaller world.  The reference engine cannot do this at all:
 its `Network::Init` ring is sized once and a lost machine ends the run.
 
 `reshard_plan` is that agreement: a pure function of

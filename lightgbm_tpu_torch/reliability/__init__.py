@@ -17,8 +17,9 @@
   `distributed.train_distributed` spawns: the first failed rank, a
   stale heartbeat or the deadline kills the cluster.
 
-The elastic policy (shrink and relaunch from checkpoints) waits for
-ROADMAP Queue 1 item 15.
+* elastic recovery — `elastic.py`'s `ElasticPolicy` turns a rank lost
+  for good into a smaller world for the next attempt, which resumes from
+  the group's checkpoints (`train_distributed`'s relaunch loop).
 """
 
 from __future__ import annotations
@@ -34,10 +35,14 @@ class NonFiniteError(LightGBMError):
 
 from . import faults  # noqa: E402
 from .checkpoint import Checkpoint, CheckpointManager  # noqa: E402
+from .elastic import (GIVE_UP, RETRY, SHRINK, ElasticDecision,  # noqa: E402
+                      ElasticPolicy, plan_for_shrink)
 from .faults import WORKER_LOST_EXIT_CODE  # noqa: E402
 from .guard import (DEGRADE_LADDER, STALL_EXIT_CODE,  # noqa: E402
                     RunGuard, classify_returncode)
 
 __all__ = ["Checkpoint", "CheckpointManager", "NonFiniteError", "faults",
            "RunGuard", "STALL_EXIT_CODE", "DEGRADE_LADDER",
-           "classify_returncode", "WORKER_LOST_EXIT_CODE"]
+           "classify_returncode", "WORKER_LOST_EXIT_CODE",
+           "ElasticPolicy", "ElasticDecision", "RETRY", "SHRINK", "GIVE_UP",
+           "plan_for_shrink"]

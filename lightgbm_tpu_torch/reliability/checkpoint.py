@@ -272,6 +272,40 @@ class CheckpointManager:
             on_done(True, None, ck)
         return ck
 
+    def save_in_group(self, booster, iteration: int, net,
+                      on_done=None) -> Optional[Checkpoint]:
+        """A process group's checkpoint: every rank captures the trainer
+        state (a rank of a row-sharded learner gathers the serial run's
+        scores and bag mask, a collective), rank 0 writes it
+        synchronously in a serial checkpoint's layout, and every rank
+        then waits at a barrier, so that no rank runs ahead of a
+        checkpoint that is not yet on disk.  Returns rank 0's
+        Checkpoint (None on the others); failures go through `on_done`
+        as in `save`."""
+        from ..utils.timer import global_timer
+        it = int(iteration)
+        with global_timer.scope("Checkpoint::save"):
+            gbdt = booster._gbdt
+            state = gbdt.capture_train_state(async_copy=False)
+            ck = None
+            if net.rank == 0:
+                num_rows = int(getattr(gbdt, "num_data", 0)) or None
+                ck = Checkpoint(it, self._name(it, "txt"),
+                                self._name(it, "npz"), self.params_hash,
+                                num_rows=num_rows)
+                err = None
+                try:
+                    self._write(it, booster.model_to_string(
+                        num_iteration=-1), state, num_rows)
+                except OSError as e:
+                    err = e
+                if on_done is not None:
+                    on_done(err is None, err, ck)
+                elif err is not None:
+                    raise err
+            net.barrier()
+        return ck
+
     def save_now(self, booster, iteration: int,
                  grace_s: Optional[float] = None) -> Optional[Checkpoint]:
         """Out-of-band SYNCHRONOUS checkpoint for the preemption

@@ -35,8 +35,9 @@ two rungs change nothing (the port donates no buffers and keeps no
 compile cache; its kernels build once into `build/kernels`), so a
 hang's first two relaunches retry unchanged in effect.  The heartbeat
 file and the exit code feed the distributed supervisor
-(`supervisor.py`); its relaunch with the ladder waits for ROADMAP Queue
-1 item 15.
+(`supervisor.py`); `distributed.train_distributed` walks the ladder
+when an attempt hangs (the parent owns it there: its workers run with
+auto_degrade off).
 """
 
 from __future__ import annotations

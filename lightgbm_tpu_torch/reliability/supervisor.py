@@ -22,7 +22,7 @@ complementary detectors close that hole:
 * a worker whose own watchdog fired exits with `STALL_EXIT_CODE`, which
   `classify_returncode` maps to "hang" rather than "crash", so the retry
   layer can choose the degradation ladder instead of a plain relaunch
-  (the port's retries wait for ROADMAP Queue 1 item 15).
+  (`distributed.train_distributed`'s retries).
 """
 
 from __future__ import annotations

@@ -212,16 +212,21 @@ def test_python_dash_m_with_jax_blocked(files, tmp_path):
 
 
 # num_machines > 1 is ported since (test_torch_distributed.py trains over
-# a machine list): args2 keeps its name and holds a tree learner that the
-# port still refuses
-@pytest.mark.parametrize("args,item", [
-    pytest.param(["tree_learner=voting"], "item 15", id="args2-item 15")])
-def test_unported_refuse(files, args, item):
+# a machine list), and so are the feature and voting learners: args2
+# keeps its name and holds that tree_learner=voting with no machine list
+# trains on one device, the serial run's model
+@pytest.mark.parametrize("args", [
+    pytest.param(["tree_learner=voting"], id="args2-item 15")])
+def test_unported_refuse(files, args):
     d = files
-    with pytest.raises(NotImplementedError, match=item):
-        main([a.replace("{d}", str(d)) for a in args]
-             + [f"data={d}/train.tsv", "num_iterations=1", *COMMON,
-                f"output_model={d}/refused.txt", *CPU])
+    models = []
+    for extra in (args, ["tree_learner=serial"]):
+        out = d / f"{extra[0].replace('=', '_')}.txt"
+        main([a.replace("{d}", str(d)) for a in extra]
+             + [f"data={d}/train.tsv", "num_iterations=2", *COMMON,
+                f"output_model={out}", *CPU])
+        models.append(out.read_text().split("\nparameters:")[0])
+    assert models[0] == models[1]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -1,11 +1,10 @@
 """PyTorch port: data-parallel training (tree_learner=data) over
 torch.distributed, on the CPU.
 
-Worlds of 2 and 3 gloo ranks are spawned once for the module (one child
-process per rank, joined over a FileStore in a temporary directory); the
-children run every scenario in turn and write each rank's model text and
-training metrics.  Every child is killed in a `finally`, and the
-children have a deadline, so a hung rank cannot hold the test worker.
+Worlds of 2 and 3 gloo ranks are spawned once for the module by
+tests/torch_cluster.py `run_cluster` (one child process per rank, joined
+over a FileStore in a temporary directory); the children run every
+scenario in turn and write each rank's model text and training metrics.
 
 * Port against itself: each scenario's model text on every rank equals,
   byte for byte, the text of the port's serial run with the same params
@@ -32,19 +31,16 @@ children have a deadline, so a hung rank cannot hold the test worker.
 import json
 import os
 import re
-import subprocess
-import sys
-import time
 
 import numpy as np
 import pytest
 import torch
 
 import lightgbm_tpu_torch as tlgb
+from torch_cluster import run_cluster
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, F = 4096, 6
 DEADLINE_S = 150
 BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 5,
@@ -170,9 +166,9 @@ def _write_forced(path):
 
 
 def run_world(world, tmp, names=None):
-    """Spawn `world` ranks that run the scenarios `names` (default: all);
-    returns [per rank {scenario: {model, evals, rows}}].  Every child is
-    killed in a finally, and the cluster has DEADLINE_S."""
+    """Spawn `world` ranks of CHILD (tests/torch_cluster.py `run_cluster`)
+    that run the scenarios `names` (default: all); returns [per rank
+    {scenario: {model, evals, rows}}]."""
     names = list(SCENARIOS) if names is None else names
     os.makedirs(tmp, exist_ok=True)
     forced = os.path.join(tmp, "forced.json")
@@ -184,50 +180,8 @@ def run_world(world, tmp, names=None):
         arrays = {"X": X, "y": y} if w is None else {"X": X, "y": y, "w": w}
         np.savez(path, **arrays)
         data[kind] = path
-    spec = {"world": world, "store": os.path.join(tmp, "store"),
-            "timeout": DEADLINE_S, "data": data,
-            "out": os.path.join(tmp, "out_%d.json"),
-            "scenarios": {n: _params(n, forced) for n in names}}
-    spec_path = os.path.join(tmp, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump(spec, f)
-    script = os.path.join(tmp, "child.py")
-    with open(script, "w") as f:
-        f.write(CHILD)
-    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
-            for r in range(world)]
-    procs = []
-    try:
-        for r in range(world):
-            procs.append(subprocess.Popen(
-                [sys.executable, script, ROOT, spec_path, str(r)],
-                stdout=logs[r], stderr=subprocess.STDOUT))
-        deadline = time.monotonic() + DEADLINE_S
-        while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs):
-                break       # one rank failed: the others wait in vain
-            if time.monotonic() > deadline:
-                break
-            time.sleep(0.1)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        for lf in logs:
-            lf.close()
-    rcs = [p.returncode for p in procs]
-    if rcs != [0] * world:
-        tails = []
-        for r in range(world):
-            with open(os.path.join(tmp, f"rank{r}.log")) as f:
-                tails.append(f"rank {r} (rc {rcs[r]}):\n{f.read()[-3000:]}")
-        raise AssertionError("\n".join(tails))
-    out = []
-    for r in range(world):
-        with open(spec["out"] % r) as f:
-            out.append(json.load(f))
-    return out
+    return run_cluster(world, tmp, {n: _params(n, forced) for n in names},
+                       data, DEADLINE_S, child=CHILD)
 
 
 @pytest.fixture(scope="module", params=[2, 3], ids=["world2", "world3"])

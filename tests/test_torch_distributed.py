@@ -6,9 +6,11 @@ the CPU.
   that exits non-zero (the port's `reliability/faults.py` worker_crash)
   makes it raise within its deadline, with no child left.
 * `join_cluster` over a FileStore, in this process at world 1: the
-  refusals that remain under tree_learner=data name ROADMAP Queue 1
-  item 15 (ranking, percentile renewal, linear trees, checkpoints), as
-  do `train_distributed`'s retries and the feature and voting learners.
+  refusals that remain under the row-sharding learners name ROADMAP
+  Queue 1 item 15 (ranking, percentile renewal, linear trees; voting's
+  too), while the feature learner, which shards no rows, trains a
+  ranking objective; a group's checkpoints resume to the serial model,
+  and so do `train_distributed`'s retries.
 * The command line with num_machines=2 and a machines list: two CLI
   processes (their rank from LIGHTGBM_TPU_MACHINE_RANK, the group's
   TCPStore at the first entry's free port), both models equal to the
@@ -73,10 +75,13 @@ def test_train_distributed_equals_serial():
 
 
 def _workers_left():
-    """The pids of live train_distributed workers (their script lies in
-    a `lgbtorch_dist*` work directory), or None without pgrep."""
+    """The pids of this process's live train_distributed workers (their
+    script lies in a `lgbtorch_dist*` work directory; other test
+    processes run clusters of their own at the same time), or None
+    without pgrep."""
     try:
-        out = subprocess.run(["pgrep", "-f", "lgbtorch_dist.*worker.py"],
+        out = subprocess.run(["pgrep", "-P", str(os.getpid()), "-f",
+                              "lgbtorch_dist.*worker.py"],
                              capture_output=True, text=True, timeout=10)
     except (OSError, subprocess.SubprocessError):
         return None
@@ -107,12 +112,22 @@ def test_failed_rank_ends_the_cluster():
         capture_output=True, text=True).stdout
 
 
-def test_train_distributed_refuses_retries():
+def test_train_distributed_refuses_retries(tmp_path):
+    """The relaunch options once refused run now: rank 1 crashes at
+    iteration 2 of the first attempt, the cluster is relaunched from the
+    checkpoint in `checkpoint_dir` (every second iteration) and ends
+    with the serial model."""
     X, y = _data(1024)
-    for kw in ({"max_retries": 1}, {"checkpoint_dir": "ck"},
-               {"checkpoint_freq": 2}, {"retry_backoff": 2.0}):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            tdist.train_distributed(PARAMS, X, y, num_machines=2, **kw)
+    ck = tmp_path / "ck"
+    b = tdist.train_distributed(
+        PARAMS, X, y, num_boost_round=4, num_machines=2, force_cpu=True,
+        timeout=DEADLINE_S, max_retries=1, checkpoint_dir=str(ck),
+        checkpoint_freq=2, retry_backoff=0.01,
+        worker_env={"LGBM_TPU_FAULT": "worker_crash@2",
+                    "LGBM_TPU_FAULT_RANK": "1"})
+    assert b.model_to_string() == _serial_text(PARAMS, X, y, 4)
+    assert b.attempts == 2 and b.elastic_shrinks == 0
+    assert (ck / "manifest.json").is_file()
 
 
 @pytest.fixture
@@ -154,19 +169,38 @@ def test_sharded_refusals_name_item_15(world_one, extra, what):
 
 
 def test_sharded_checkpoints_refuse(world_one, tmp_path):
+    """Checkpoints inside a group (refused once): two iterations with a
+    checkpoint each, then a resume to four, give the serial model."""
     X, y = _data(1024)
-    with pytest.raises(NotImplementedError, match="checkpoints.*item 15"):
-        tlgb.train(PARAMS, tlgb.Dataset(X, label=y), 2,
-                   checkpoint_dir=str(tmp_path / "ck"))
+    ck = str(tmp_path / "ck")
+    tlgb.train(PARAMS, tlgb.Dataset(X, label=y), 2, checkpoint_dir=ck,
+               checkpoint_freq=1)
+    b = tlgb.train(PARAMS, tlgb.Dataset(X, label=y), 4, checkpoint_dir=ck,
+                   checkpoint_freq=1)
+    assert b._gbdt.shard is not None
+    tdist.leave_cluster()
+    assert b.model_to_string() == _serial_text(PARAMS, X, y, 4)
 
 
 @pytest.mark.parametrize("learner", ["feature", "voting"])
-def test_feature_and_voting_refuse(learner):
+def test_feature_and_voting_refuse(world_one, learner):
+    """In a group: the voting learner shards the rows and keeps the
+    ranking refusal; the feature learner keeps every row, so a ranking
+    objective trains, the serial model."""
     X, y = _data(1024)
-    with pytest.raises(NotImplementedError,
-                       match=f"tree_learner='{learner}'.*item 15"):
-        tlgb.train({**PARAMS, "tree_learner": learner},
-                   tlgb.Dataset(X, label=y), 1)
+    y = np.floor(y * 2 + X[:, 0] * 2)
+    params = {**PARAMS, "objective": "lambdarank", "tree_learner": learner}
+    ds = tlgb.Dataset(X, label=y, group=[256] * 4)
+    if learner == "voting":
+        with pytest.raises(NotImplementedError,
+                           match="ranking objective.*voting.*item 15"):
+            tlgb.train(params, ds, 1)
+        return
+    b = tlgb.train(params, ds, 2)
+    assert b._gbdt.block is not None and b._gbdt.shard is None
+    tdist.leave_cluster()
+    want = tlgb.train(params, tlgb.Dataset(X, label=y, group=[256] * 4), 2)
+    assert b.model_to_string() == want.model_to_string()
 
 
 def test_data_without_a_group_trains_on_one_device():

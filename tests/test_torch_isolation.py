@@ -93,6 +93,59 @@ def test_cli_linear_refit_and_contrib_run_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_parallel_learners_and_elastic_run_with_jax_blocked():
+    """The feature- and voting-parallel learners (their block scan, the
+    vote) and the elastic policy stand apart too: a world-1 vote and a
+    ColumnBlock merge run with JAX blocked."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'lightgbm_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "import lightgbm_tpu_torch as L\n"
+        "from lightgbm_tpu_torch.parallel import VotingSpec, "
+        "voting_hist_elect\n"
+        "from lightgbm_tpu_torch.learner import FeatureMeta\n"
+        "from lightgbm_tpu_torch.ops.split import SplitParams\n"
+        "from lightgbm_tpu_torch.reliability import ElasticPolicy, SHRINK\n"
+        "from lightgbm_tpu_torch.reliability.supervisor import "
+        "SuperviseResult, WorkerFailure\n"
+        "class One:\n"
+        "    world = 1\n"
+        "    def all_reduce_sum_(self, t): return t\n"
+        "    def all_reduce_max_(self, t): return t\n"
+        "rng = np.random.RandomState(0)\n"
+        "rows = torch.from_numpy(rng.randint(0, 8, (1024, 3))"
+        ".astype(np.uint8))\n"
+        "gh = torch.from_numpy(rng.randn(1024, 2).astype(np.float32))\n"
+        "gh[:, 1] = 1.0\n"
+        "meta = FeatureMeta(num_bin=torch.full((3,), 8, dtype=torch.int32),"
+        " missing_type=torch.zeros(3, dtype=torch.int32),"
+        " default_bin=torch.zeros(3, dtype=torch.int32),"
+        " penalty=torch.ones(3))\n"
+        "h, e = voting_hist_elect(rows, gh, torch.ones(1024),"
+        " torch.ones(3, dtype=torch.bool), torch.tensor(0.0), meta,"
+        " VotingSpec(One(), 2, 1), SplitParams(min_data_in_leaf=5), 8,"
+        " torch.tensor([10, 10], dtype=torch.int32))\n"
+        "assert int(e.sum()) == 2 and h.shape == (3, 8, 2)\n"
+        "p = ElasticPolicy(3, rank_grace_s=0)\n"
+        "d = p.observe(SuperviseResult(ok=False, timed_out=False,"
+        " failures=[WorkerFailure(1, 77, '', kind='lost')]))\n"
+        "assert d.action == SHRINK and d.num_machines == 2\n"
+        "X = rng.rand(1024, 4)\n"
+        "y = (X[:, 0] > 0.5).astype(float)\n"
+        "for tl in ('feature', 'voting'):\n"
+        "    b = L.train({'objective': 'binary', 'num_leaves': 7,"
+        " 'verbosity': -1, 'device_type': 'cpu', 'tree_learner': tl},"
+        " L.Dataset(X, label=y), 2)\n"
+        "    assert b.num_trees() == 2\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_import_needs_no_sklearn_pandas_or_matplotlib():
     """Importing the package pulls in none of them; the estimators and
     plotting helpers import what they use when they are used, and the

@@ -138,6 +138,14 @@ def test_stats_and_prometheus_names_equal_jax(served):
     try:
         jd.registry.register("m", model_str=jb.model_to_string(),
                              block=True)
+        # both packages' process counters start from nothing here: a
+        # fleet or online test run earlier in this process by one package
+        # alone (its router's `serve_publish`) would name a family the
+        # other lacks
+        from lightgbm_tpu.observability import global_registry as jreg
+        from lightgbm_tpu_torch.observability import global_registry as treg
+        jreg.reset()
+        treg.reset()
         for _ in range(3):
             jd.predict("m", X[:4])
             d.predict("m", X[:4])

@@ -113,45 +113,42 @@ def test_port_model_text_loads_in_jax(boosters):
 
 
 # the ids keep the positions of the cases they replaced, and the names of
-# extra0, extra7 and extra8 (linear trees, ported since): they hold other
-# refusals that still stand.  More than 256 bins and the intermediate,
-# advanced and lazy CEGB options are ported since too: extra0, extra1,
-# extra3, extra5 and extra9 now pair each with a tree learner the port
-# still refuses, which must refuse whatever options come with it.
-# tree_learner=data is ported since too (test_torch_data_parallel.py):
-# extra0, extra5 and extra7 now name the feature and voting learners
-@pytest.mark.parametrize("extra,item", [
+# extra0, extra7 and extra8 (linear trees, ported since).  More than 256
+# bins, the intermediate, advanced and lazy CEGB options, linear trees
+# and the tree learners are ported since too: each case pairs an option
+# with the feature or voting learner, which without a process group
+# trains on one device, and the case holds that it grows the serial
+# run's trees (the options themselves are held against the JAX package
+# elsewhere)
+@pytest.mark.parametrize("extra", [
     pytest.param({"max_bin": 511, "tree_learner": "feature"},
-                 "tree_learner='feature'.*item 15", id="extra0-item 14"),
-    # the pointwise, multiclass, cross-entropy and ranking objectives, RF
-    # and DART, linear trees,
-    # row and column sampling, categorical features, monotone
-    # constraints, path_smooth, CEGB's penalties, forced
-    # splits and interaction constraints are ported: these cases hold
-    # options that stay refused
+                 id="extra0-item 14"),
     pytest.param({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
                   "monotone_constraints_method": "intermediate",
-                  "tree_learner": "voting"},
-                 "tree_learner='voting'.*item 15", id="extra1-item 13"),
+                  "tree_learner": "voting"}, id="extra1-item 13"),
     pytest.param({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
                   "monotone_constraints_method": "advanced",
-                  "tree_learner": "feature"},
-                 "tree_learner='feature'.*item 15", id="extra3-item 13"),
+                  "tree_learner": "feature"}, id="extra3-item 13"),
     pytest.param({"cegb_penalty_feature_lazy": [1.0] * 8,
-                  "tree_learner": "voting"},
-                 "tree_learner='voting'.*item 15", id="extra5-item 13"),
-    pytest.param({"tree_learner": "voting"}, "item 15", id="extra6-item 15"),
-    pytest.param({"tree_learner": "feature"}, "item 15", id="extra7-item 14"),
+                  "tree_learner": "voting"}, id="extra5-item 13"),
+    pytest.param({"tree_learner": "voting"}, id="extra6-item 15"),
+    pytest.param({"tree_learner": "feature"}, id="extra7-item 14"),
     pytest.param({"linear_tree": True, "tree_learner": "feature"},
-                 "tree_learner='feature'.*item 15", id="extra8-item 14"),
+                 id="extra8-item 14"),
     pytest.param({"max_bin": 300, "tree_learner": "voting"},
-                 "tree_learner='voting'.*item 15", id="extra9-item 2")])
-def test_unported_options_refuse(extra, item):
+                 id="extra9-item 2")])
+def test_unported_options_refuse(extra):
     X, y = _data()
-    ds = tlgb.Dataset(X[:1024], label=y[:1024])
-    with pytest.raises(NotImplementedError, match=item):
-        tlgb.train({**PARAMS, "device_type": "cpu", **extra}, ds,
-                   num_boost_round=1)
+    params = {**PARAMS, "device_type": "cpu", **extra}
+    kw = {"params": {"linear_tree": True}} if extra.get("linear_tree") else {}
+    got = tlgb.train(params, tlgb.Dataset(X[:1024], label=y[:1024], **kw),
+                     num_boost_round=2)
+    assert got._gbdt.block is None and got._gbdt.voting is None
+    want = tlgb.train({**params, "tree_learner": "serial"},
+                      tlgb.Dataset(X[:1024], label=y[:1024], **kw),
+                      num_boost_round=2)
+    assert (got.model_to_string().split("\nparameters:")[0]
+            == want.model_to_string().split("\nparameters:")[0])
 
 
 def test_gradients_fed_in_grow_the_same_tree():

@@ -417,27 +417,37 @@ def test_booster_eval_train_and_feval(runs):
     assert res[0][3] is True and res[1][3] is False
 
 
-@pytest.mark.parametrize("kw,item", [
+@pytest.mark.parametrize("kw", [
     # continued training, DART, custom and ranking objectives, linear
     # trees and the host planes (checkpoints, metrics_dir, profile_dir,
-    # metrics_port and their callbacks) are ported: these cases hold
-    # options that stay refused (kw0
-    # and kw2 keep the names of the linear-tree cases they replaced; more
-    # than 256 bins and the advanced monotone mode are ported since, so
-    # they pair them with a tree learner the port still refuses;
-    # tree_learner=data is ported since too, so kw0 names feature)
+    # metrics_port and their callbacks) are ported, and so are more than
+    # 256 bins, the advanced monotone mode and the feature and voting
+    # learners: the cases keep their ids (kw0 and kw2 the names of the
+    # linear-tree cases they replaced) and hold that each option with a
+    # learner that has no process group trains the serial run's trees
+    # beside a validation set, with the same evaluations
     pytest.param({"params": {"max_bin": 511, "tree_learner": "feature"}},
-                 "tree_learner='feature'.*item 15", id="kw0-item 14"),
-    ({"params": {"tree_learner": "voting"}}, "item 15"),
+                 id="kw0-item 14"),
+    pytest.param({"params": {"tree_learner": "voting"}}, id="kw1-item 15"),
     pytest.param({"params": {"linear_tree": True,
                              "monotone_constraints_method": "advanced",
                              "tree_learner": "feature"}},
-                 "tree_learner='feature'.*item 15", id="kw2-item 14")])
-def test_unported_train_options_refuse(kw, item):
+                 id="kw2-item 14")])
+def test_unported_train_options_refuse(kw):
     X, y = _data(1024)
     params = {**PARAMS, "device_type": "cpu", **kw.pop("params", {})}
-    with pytest.raises(NotImplementedError, match=item):
-        tlgb.train(params, tlgb.Dataset(X, label=y), 2, **kw)
+    dkw = {"params": {"linear_tree": True}} if params.get("linear_tree") \
+        else {}
+    runs = []
+    for learner in (params["tree_learner"], "serial"):
+        hist = {}
+        ds = tlgb.Dataset(X, label=y, **dkw)
+        vs = tlgb.Dataset(X[:256], label=y[:256], reference=ds)
+        b = tlgb.train({**params, "tree_learner": learner}, ds, 2,
+                       valid_sets=[vs],
+                       callbacks=[tlgb.record_evaluation(hist)])
+        runs.append((b.model_to_string().split("\nparameters:")[0], hist))
+    assert runs[0] == runs[1]
 
 
 @pytest.mark.parametrize("missing", ["nan", "zero"])
