@@ -28,7 +28,9 @@ the CPU (device_predict=true) and counts its CPU dispatches as the
 card's.  The ranking phase trains lambdarank and rank_xendcg on
 RANK_ROWS / 8 rows (whole queries) with RANK_VALID_ROWS / 8 held-out
 rows, then runs the three ranking card-vs-CPU cases (both sides on the
-CPU); the file phase runs at its full FILE_ROWS of the 1/8 data.  The
+CPU) and its sharded step (train_distributed's ranks on the CPU, gloo;
+their launch counts read 0 there); the file phase runs at its full
+FILE_ROWS of the 1/8 data.  The
 linear phase trains the main path's workload with linear_tree=true and
 holds its fits of LINEAR_FIT_TREES to the plain version (its line gives
 the AUC that LINEAR_AUC_MIN is taken from and each fit's largest error
@@ -57,8 +59,8 @@ too.  data_parallel trains its ranks (train_distributed's workers and the
 one-machine cluster, gloo: no NCCL on the CPU) and its serial references
 on the CPU; the ranks' launch counts read 0 there.  parallel_learners
 runs data_parallel first (its serial references and bins file), then
-its cluster, its "card" and CPU runs and the elastic drill all on the
-CPU (the drill's relaunch on gloo).
+its cluster, its "card" and CPU runs (the L1 and linear runs too) and
+the elastic drill all on the CPU (the drill's relaunch on gloo).
 """
 
 import json
@@ -163,6 +165,8 @@ def main(argv) -> int:
                 cs.phase_file(Rehearsal(), H, "cpu rehearsal", rank[0])
                 lines = {}
             else:
+                # the sharded step's ranks on the CPU too
+                cs.RANK_DP_DEVICE = "cpu"
                 cs.phase_ranking(Rehearsal(), H, global_timer,
                                  "cpu rehearsal", rank)
                 for name, extra in (
@@ -257,8 +261,11 @@ def main(argv) -> int:
                                                            seed)
             lines = {}
         elif phase in ("data_parallel", "parallel_learners"):
-            # the ranks and the one-machine cluster on the CPU (gloo)
+            # the ranks and the one-machine cluster on the CPU (gloo),
+            # whose plain kernels need far longer than the card's
+            # deadlines
             cs.DP_DEVICE = cs.PL_DEVICE = "cpu"
+            cs.DP_TIMEOUT_S = cs.PL_TIMEOUT_S = 3600
             _, refs = cs.phase_data_parallel(Rehearsal(), H,
                                              "cpu rehearsal", bench)
             if phase == "parallel_learners":

@@ -21,7 +21,10 @@ Phases, each printing one JSON line:
      held-out AUC within 1e-6; rows/s of the card end to end, by device
      time (kernels and copies), of the native OpenMP predictor and of
      the Python loop (50,000 rows); the pack's depth, the bucket and
-     the peak device memory;
+     the peak device memory; a DevicePredictor with
+     `devices=["cuda:0", "cuda:0"]` (its rows split over the listed
+     devices) gives the one-device raw scores and leaf ids of the 1M
+     rows byte for byte;
   3a. surface: on the main path's booster right after `predict` (1.1M
      rows, every predict on the card advancing the DevicePredictor's
      card dispatches): a pickle round trip (the card and device_predict
@@ -145,7 +148,10 @@ Phases, each printing one JSON line:
      card, gloo) trains the wave engine 5 iterations,
      quantized 3 and leaf-wise DP_LEAFWISE_ITERATIONS (1; 3 until the
      parallel_learners phase took their time, which reuses its
-     reference).  Gates: each model text equal byte for
+     reference); beside them the serial references of the
+     parallel_learners phase's L1 and linear runs (2 iterations each;
+     the linear one on its own Dataset of the bench rows, which keeps
+     the raw values).  Gates: each model text equal byte for
      byte to the serial card run's with the same params (no process
      group: one device); each rank's launch counts hold its path's
      kernels and no other; the backends nccl (a) and gloo (b).  One
@@ -173,6 +179,14 @@ Phases, each printing one JSON line:
      resumed from the checkpoint (2 iterations in its event log), with
      the wave reference's trees and elastic_shrinks 1 (children, logs,
      checkpoints and events in build/chip_smoke_parallel_learners/).
+     The cluster then trains tree_learner=data with
+     objective=regression_l1 (the wave engine, PL_NEW_ITERATIONS (2), on
+     the bins file: leaf renewal over the gathered leaf ids and scores)
+     and with linear_tree=true (wave, 2, each rank on its own Dataset of
+     the bench rows with their raw values: the fit over the gathered
+     rows), each equal to its serial reference's trees, K1 and K3 on
+     each rank; their lines add the renewal's or the fit's ms and
+     collective bytes per tree.
      `reliability.supervisor.supervise` reaps the cluster.  One
      `parallel_learners` line per run: each rank's s/iter, collective
      ms, bytes and calls per iteration, backend, launches and block or
@@ -390,7 +404,18 @@ Phases, each printing one JSON line:
      `Tree::split_find` / `Tree::histogram` / `Tree::partition` device
      and `GBDT::eval` ms/iter (three instrumented iterations after the
      13), peak device GiB of the 13 and of the gradients step alone,
-     launches, valid NDCG@10 at iterations 1 and 13;
+     launches, valid NDCG@10 at iterations 1 and 13.  Then the sharded
+     step: the phase's Dataset saved with `save_binary` and
+     `train_distributed(num_machines=RANK_DP_RANKS)` (2 ranks sharing
+     the card, gloo, tree_learner=data) trains each objective
+     RANK_DP_ITERATIONS (2) iterations with metric ndcg.  Gates: the
+     model text from `Tree=0` on equal to the serial run's first 2
+     trees; the train NDCG@{1,3,5,10} equal on every rank and within
+     RANK_DP_RTOL (1e-5) of the host NDCGMetric on the serial run's
+     training scores after 2 trees; each rank's launches K1 and K3 and
+     no other.  One `sharded_ranking` line per run: each rank's s/iter,
+     collective ms, bytes and calls per iteration (the score gathers
+     included) and launches;
   5h. file: the ranking rows' first whole queries in FILE_ROWS (32,768)
      rows (1/16
      grid values, so the text holds them exactly) written as a TSV file
@@ -1614,6 +1639,20 @@ def phase_predict(booster, data):
         raise AssertionError(f"predict: DevicePredictor dispatches "
                              f"{dispatches}, expected 5 on the card")
     dp = g._device_pred[1]
+    # the row split over listed devices (the JAX predictor's mesh): the
+    # one-device bytes
+    split = DevicePredictor(
+        g.models_[:T], convert=g.objective.convert_output,
+        min_bucket=g.config.device_predict_min_bucket,
+        devices=["cuda:0", "cuda:0"])
+    t0 = time.perf_counter()
+    split_raw, split_leaf = split.predict_raw(X), split.predict_leaf(X)
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    if (split_raw.tobytes() != dp.predict_raw(X).tobytes()
+            or split_leaf.tobytes() != dp.predict_leaf(X).tobytes()):
+        raise AssertionError("predict: DevicePredictor(devices=[cuda:0, "
+                             "cuda:0]) differs from the one-device bytes")
     packed = g._packed_for(0, T, 1)
     worst = {}
     for name, Xs, r, lf in (("train", X, raw, leaf),
@@ -1654,6 +1693,10 @@ def phase_predict(booster, data):
           "bucket": dp.bucket_rows(n),
           "bucket_heldout": dp.bucket_rows(Xte.shape[0]),
           "dispatches": dispatches, "leaf_ids_equal_native": True,
+          "split_devices": [str(d) for d in split.devices],
+          "split_bucket": split.bucket_rows(n),
+          "split_equals_one_device": True,
+          "split_raw_and_leaf_s": split_s,
           "score_error": worst, "heldout_auc_card": auc_card,
           "heldout_auc_host": auc_host,
           "peak_mem_gib": peak / 2**30,
@@ -2845,6 +2888,14 @@ RANK_NDCG_MIN = {"lambdarank": 0.596, "rank_xendcg": 0.596}
 # linear in the rows)
 CARD_RANK_ROWS = 16_384
 FILE_ROWS = 32_768
+# the ranking phase's sharded step: train_distributed's ranks sharing the
+# card, each objective's iterations, the train NDCG's bound against the
+# host class, where the ranks' children write
+RANK_DP_RANKS = 2
+RANK_DP_ITERATIONS = 2
+RANK_DP_RTOL = 1e-5
+RANK_DP_DEVICE = "cuda"
+RANK_DP_DIR = os.path.join("build", "chip_smoke_ranking")
 
 
 def make_mslr_like(n_rows, seed=0):
@@ -2911,6 +2962,9 @@ def phase_ranking(lgb, H, global_timer, card, data):
     torch.cuda.synchronize()
     construct_s = time.perf_counter() - t0
     out = {}
+    # each run's model text and its training scores after the sharded
+    # step's iterations: the sharded step's references
+    serial = {}
     for name in ("lambdarank", "rank_xendcg"):
         params = {**RANK_PARAMS, "objective": name, "metric": "ndcg",
                   "eval_at": list(RANK_EVAL_AT)}
@@ -2927,6 +2981,11 @@ def phase_ranking(lgb, H, global_timer, card, data):
                                      "early")
             torch.cuda.synchronize()
             iters.append(time.perf_counter() - t0)
+            if len(iters) == RANK_DP_ITERATIONS:
+                g = booster._gbdt
+                serial[name] = {"scores": g.scores[0, :g.num_data].cpu()
+                                .numpy().copy(),
+                                "metadata": g.train_data.metadata}
             t0 = time.perf_counter()
             res = {m: v for _, m, v, _ in booster.eval_valid()}
             evals.append(time.perf_counter() - t0)
@@ -2995,7 +3054,75 @@ def phase_ranking(lgb, H, global_timer, card, data):
                                  f"{ndcg[-1]['ndcg@10']} < "
                                  f"{RANK_NDCG_MIN[name]}")
         out[f"ranking_{name}"] = launches
+        serial[name]["text"] = booster.model_to_string()
         del booster, g
+    out.update(sharded_ranking(lgb, card, ds, serial))
+    return out
+
+
+def sharded_ranking(lgb, card, ds, serial):
+    """The ranking phase's sharded step (gates in the module docstring):
+    `train_distributed` over the phase's Dataset saved as a bins file,
+    each objective RANK_DP_ITERATIONS iterations on RANK_DP_RANKS ranks
+    sharing the card, against `serial` {objective: the serial run's model
+    text, training scores after RANK_DP_ITERATIONS trees and metadata}.
+    Returns {run: rank 0's launches}."""
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.distributed import train_distributed
+    from lightgbm_tpu_torch.metric import NDCGMetric
+    t_step = time.perf_counter()
+    os.makedirs(RANK_DP_DIR, exist_ok=True)
+    path = os.path.join(RANK_DP_DIR, "mslr.bin")
+    t0 = time.perf_counter()
+    ds.save_binary(path)
+    save_s = time.perf_counter() - t0
+    n = ds.num_data()
+    out = {}
+    for name, ref in serial.items():
+        params = {**RANK_PARAMS, "objective": name, "metric": "ndcg",
+                  "eval_at": list(RANK_EVAL_AT), "tree_learner": "data",
+                  "device_type": RANK_DP_DEVICE}
+        check_dataset_params(f"sharded_ranking {name}", params, ds)
+        t0 = time.perf_counter()
+        b = train_distributed(params, path,
+                              num_boost_round=RANK_DP_ITERATIONS,
+                              num_machines=RANK_DP_RANKS,
+                              timeout=DP_TIMEOUT_S)
+        cluster_s = time.perf_counter() - t0
+        if trees_of(b.model_to_string()) != trees_of(ref["text"],
+                                                     RANK_DP_ITERATIONS):
+            raise AssertionError(f"sharded_ranking {name}: the trees "
+                                 "differ from the serial run's first "
+                                 f"{RANK_DP_ITERATIONS}")
+        stats = sorted(b.worker_stats, key=lambda st: st["rank"])
+        evals = [st["train_metrics"] for st in stats]
+        if any(e != evals[0] for e in evals[1:]):
+            raise AssertionError(f"sharded_ranking {name}: the ranks read "
+                                 f"other train metrics: {evals}")
+        m = NDCGMetric(Config(params))
+        m.init(ref["metadata"], n)
+        host = dict(m.eval(ref["scores"].astype(np.float64)))
+        err = {k: abs(evals[0][k] - v) / abs(v) for k, v in host.items()}
+        if set(evals[0]) != set(host) or max(err.values()) > RANK_DP_RTOL:
+            raise AssertionError(f"sharded_ranking {name}: train NDCG "
+                                 f"{evals[0]} against the host's {host}")
+        ranks = [dp_rank_line(st) for st in stats]
+        for r in ranks:
+            check_kernels(f"sharded_ranking {name} rank {r['rank']}",
+                          r["launches"], ("K1", "K3"))
+            if (r["backend"] != "gloo" or r["world"] != RANK_DP_RANKS
+                    or r["iterations"] != RANK_DP_ITERATIONS):
+                raise AssertionError(f"sharded_ranking {name}: rank {r}")
+        out[f"sharded_ranking_{name}"] = ranks[0]["launches"]
+        emit({"phase": "sharded_ranking", "run": name,
+              "world": RANK_DP_RANKS, "rows": n,
+              "iterations": RANK_DP_ITERATIONS,
+              "trees_equal_serial": True, "train_ndcg": evals[0],
+              "train_ndcg_host": host, "train_ndcg_rel_err": err,
+              "cluster_s": cluster_s, "bins_file_save_s": save_s,
+              "ranks": ranks, "card": card})
+    emit({"phase": "sharded_ranking_total",
+          "seconds": time.perf_counter() - t_step, "card": card})
     return out
 
 
@@ -5123,18 +5250,27 @@ def phase_data_parallel(lgb, H, card, bench):
     # instead of binning the rows again
     data_path = os.path.join(DP_DIR, "bench.bin")
     ds.save_binary(data_path)
-    for name, extra, iters, _ in want_runs:
+    # and the serial references of parallel_learners' L1 and linear runs
+    # (the linear one on its own Dataset of the bench rows, with their raw
+    # values)
+    refs = want_runs + [(name, extra, iters, None)
+                        for name, extra, iters, _, _ in PL_NEW_RUNS]
+    for name, extra, iters, _ in refs:
         params = {**BENCH_PARAMS, **extra, "tree_learner": "data",
                   "device_type": DP_DEVICE}
-        check_dataset_params(f"data_parallel {name}", params, ds)
         t0 = time.perf_counter()
-        b = lgb.train(params, ds, iters)
+        if params.get("linear_tree"):
+            train_set = lgb.Dataset(X, label=bench[0][1], params=params)
+        else:
+            check_dataset_params(f"data_parallel {name}", params, ds)
+            train_set = ds
+        b = lgb.train(params, train_set, iters)
         torch.cuda.synchronize()
         serial[name] = (b.model_to_string(), time.perf_counter() - t0)
         if b._gbdt.net is not None:
             raise AssertionError("data_parallel: the serial reference "
                                  "trained in a process group")
-        del b
+        del b, train_set
     out = {}
     # (a) world size 1 on NCCL, then (b) DP_RANKS ranks sharing the card
     for name, extra, iters, kernels in want_runs:
@@ -5171,7 +5307,8 @@ def phase_data_parallel(lgb, H, card, bench):
     emit({"phase": "data_parallel_total",
           "seconds": time.perf_counter() - t_phase, "card": card})
     return out, {"data_path": data_path,
-                 "serial": {k: v[0] for k, v in serial.items()}}
+                 "serial": {k: v[0] for k, v in serial.items()},
+                 "serial_s": {k: v[1] for k, v in serial.items()}}
 
 
 PL_DIR = os.path.join("build", "chip_smoke_parallel_learners")
@@ -5198,6 +5335,17 @@ PL_RUNS = (
     ("voting_top4", {"tree_learner": "voting", "top_k": PL_TOP_K,
                      "tpu_growth_strategy": "leafwise"},
      PL_VOTE_ITERATIONS, None, ("K4",)))
+# tree_learner=data with leaf renewal by percentile and with linear
+# trees: (name, params over BENCH_PARAMS, iterations, the kernels that
+# carry it, whether each rank bins the bench rows itself: linear trees
+# need the raw values, which a bins file does not hold); data_parallel
+# trains their serial references under the same names
+PL_NEW_ITERATIONS = 2
+PL_NEW_RUNS = (
+    ("data_l1", {"tree_learner": "data", "objective": "regression_l1"},
+     PL_NEW_ITERATIONS, ("K1", "K3"), False),
+    ("data_linear", {"tree_learner": "data", "linear_tree": True},
+     PL_NEW_ITERATIONS, ("K1", "K3"), True))
 PL_DRILL_ITERATIONS = 5     # the elastic drill (data_parallel's wave ref)
 PL_DRILL_FAULT = "worker_lost@3"
 # one rank of the learners' cluster: joins the group over a FileStore,
@@ -5209,6 +5357,7 @@ import json, os, sys, time
 spec = json.load(open(sys.argv[1]))
 rank = int(sys.argv[2])
 sys.path.insert(0, spec["repo"])
+import numpy as np
 import torch
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.distributed import join_cluster, leave_cluster
@@ -5223,18 +5372,46 @@ kernels = (H.build_histogram_wave, H.build_histogram_wave_hl,
            H.build_histogram_wave_int, H.build_histogram_rows_pallas)
 bench = lgb.Dataset(spec["data"], params={**BENCH_PARAMS,
                                           "device_type": spec["device"]})
+# the ms and collective bytes of leaf renewal and of the linear fit
+from lightgbm_tpu_torch.boosting.gbdt import GBDT
+timed = {}
+for method in ("_renew_by_objective", "_calculate_linear"):
+    def wrap(orig, method=method):
+        def run(self, *a, **kw):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            b0, c0, t0 = net.bytes, net.calls, time.perf_counter()
+            out = orig(self, *a, **kw)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            acc = timed.setdefault(method, [0, 0.0, 0, 0])
+            acc[0] += 1
+            acc[1] += time.perf_counter() - t0
+            acc[2] += net.bytes - b0
+            acc[3] += net.calls - c0
+            return out
+        return run
+    setattr(GBDT, method, wrap(getattr(GBDT, method)))
 for run in spec["runs"]:
     params = run["params"]
     if params["device_type"] == "cpu":
         # CPU ranks share the host's cores (train_distributed's rule)
         torch.set_num_threads(spec["cpu_threads"])
-    if run["rows"]:
+    if run.get("raw"):
+        ds = lgb.Dataset(np.load(spec["raw"] + ".X.npy"),
+                         label=np.load(spec["raw"] + ".y.npy"),
+                         params=params)
+    elif run["rows"]:
         X, y = make_higgs_like(run["rows"], 28, seed=3)
         ds = lgb.Dataset(X, label=y, params=params)
     else:
         ds = bench
     for k in kernels:
         k.launches = 0
+    timed.clear()
+    t_set = time.perf_counter()
+    ds.construct()
+    construct_s = time.perf_counter() - t_set
     before = dict(net.stats())
     t0 = time.perf_counter()
     b = lgb.train(params, ds, run["iterations"])
@@ -5254,7 +5431,9 @@ for run in spec["runs"]:
         "block": None if g.block is None else [g.block.start, g.block.stop],
         "rows": None if g.shard is None else g.shard.count,
         "voting": g.voting is not None,
-        "strategy": g.growth_strategy}), flush=True)
+        "strategy": g.growth_strategy, "construct_s": construct_s,
+        "timed": {k: dict(zip(("calls", "seconds", "bytes", "collectives"),
+                              v)) for k, v in timed.items()}}), flush=True)
     if rank == 0:
         with open(os.path.join(spec["out"], run["name"] + ".txt"), "w") as f:
             f.write(b.model_to_string())
@@ -5287,7 +5466,8 @@ def pl_start(runs, data_path):
     spec = {"world": PL_RANKS, "repo": REPO_ROOT, "store": store,
             "timeout": PL_TIMEOUT_S, "device": PL_DEVICE,
             "cpu_threads": max(1, (os.cpu_count() or 1) // PL_RANKS),
-            "data": data_path, "out": PL_DIR, "runs": runs}
+            "data": data_path, "out": PL_DIR, "runs": runs,
+            "raw": os.path.join(PL_DIR, "bench")}
     spec_path = os.path.join(PL_DIR, "spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
@@ -5386,6 +5566,12 @@ def phase_parallel_learners(lgb, H, card, bench, dp):
     runs += [{"name": name, "iterations": iters, "rows": 0,
               "params": {**BENCH_PARAMS, **extra, "device_type": PL_DEVICE}}
              for name, extra, iters, _, _ in PL_RUNS]
+    runs += [{"name": name, "iterations": iters, "rows": 0, "raw": raw,
+              "params": {**BENCH_PARAMS, **extra, "device_type": PL_DEVICE}}
+             for name, extra, iters, _, raw in PL_NEW_RUNS]
+    # the bench rows for the runs that bin them with their raw values
+    np.save(os.path.join(PL_DIR, "bench.X.npy"), X)
+    np.save(os.path.join(PL_DIR, "bench.y.npy"), bench[0][1])
     procs, logs = pl_start(runs, dp["data_path"])
     t0 = time.perf_counter()
     try:
@@ -5461,6 +5647,40 @@ def phase_parallel_learners(lgb, H, card, bench, dp):
                             for side in ("card", "cpu")])
         out[f"parallel_learners_{name}"] = lines[0]["launches"]
         emit(line)
+    # (6) tree_learner=data with leaf renewal by percentile and with
+    # linear trees, against data_parallel's serial references
+    for name, extra, iters, kernels, raw in PL_NEW_RUNS:
+        ranks = sorted(stats[name], key=lambda st: st["rank"])
+        if trees_of(model(name)) != trees_of(dp["serial"][name], iters):
+            raise AssertionError(f"parallel_learners {name}: the trees "
+                                 "differ from the serial run's")
+        method = ("_calculate_linear" if extra.get("linear_tree")
+                  else "_renew_by_objective")
+        lines = []
+        for st in ranks:
+            ln = {**dp_rank_line(st), "rows": st["rows"],
+                  "construct_s": st["construct_s"]}
+            check_kernels(f"parallel_learners {name} rank {st['rank']}",
+                          ln["launches"], kernels)
+            t = st["timed"].get(method)
+            if (st["backend"] != "gloo" or st["world"] != PL_RANKS
+                    or st["iterations"] != iters or st["rows"] is None
+                    or st["voting"] or not t or t["calls"] != iters):
+                raise AssertionError(f"parallel_learners {name}: {st}")
+            ln.update({f"{method.strip('_')}_ms_per_tree":
+                       1000.0 * t["seconds"] / t["calls"],
+                       f"{method.strip('_')}_bytes_per_tree":
+                       t["bytes"] / t["calls"],
+                       f"{method.strip('_')}_collectives_per_tree":
+                       t["collectives"] / t["calls"]})
+            lines.append(ln)
+        out[f"parallel_learners_{name}"] = lines[0]["launches"]
+        emit({"phase": "parallel_learners", "run": name, "world": PL_RANKS,
+              "rows": int(X.shape[0]), "iterations": iters,
+              "trees_equal_serial": True, "ranks_bin_raw_rows": raw,
+              "run_s": max(st["seconds"] for st in ranks),
+              "serial_s": dp["serial_s"][name], "ranks": lines,
+              "card": card})
     # (5) the elastic drill
     if trees_of(b.model_to_string()) != trees_of(dp["serial"]["wave"]):
         raise AssertionError("parallel_learners elastic: the trees differ "

@@ -85,8 +85,14 @@ all-reduce their int64 histograms and counts on the serial run's
 fixed-point grid, the root and leaf sums are limb sums (`exact_sum`),
 maxima are all-reduced, and every stream (the NumPy bagging mask, the
 threefry uniforms of GOSS and stochastic rounding) is drawn over the
-serial run's shape and sliced.  A sharded run grows the serial run's
-trees bit for bit.  The feature-parallel learner (`tree_learner=feature`)
+serial run's shape and sliced.  What reads more than sums of rows
+gathers them: the ranking objectives all-gather every row's scores and
+compute the queries that meet the rank's rows (ranking.py), the NDCG and
+MAP train metrics evaluate the queries whose first row the rank holds
+(ops/metrics.py ShardedEval), leaf renewal by percentile gathers the
+leaf ids and scores, and the linear fit all-reduces its exact per-leaf
+sums (learner/linear.py).  A sharded run grows the serial run's trees bit
+for bit.  The feature-parallel learner (`tree_learner=feature`)
 keeps every row on every rank and cuts the device columns into blocks
 (`ColumnBlock`): each rank histograms and scans its block, and the
 engines merge the ranks' best splits, so it too grows the serial trees
@@ -159,25 +165,6 @@ def check_slice(config: Config) -> None:
                          "or leafwise")
     if c.tree_learner not in ("serial",) + tuple(DATA_LEARNERS):
         log.fatal(f"Unknown tree_learner {c.tree_learner!r}")
-
-
-def check_sharded(config: Config, objective) -> None:
-    """Refuse, under a learner that shards the rows (data, voting), every
-    option whose work reads rows beyond sums and maxima and which the
-    port does not shard yet (ROADMAP Queue 1 item 15)."""
-    def refuse(what: str) -> None:
-        raise NotImplementedError(
-            f"{what} under tree_learner={config.tree_learner} is not "
-            "ported yet (ROADMAP Queue 1 item 15); the sharded port trains "
-            "the pointwise, multiclass and cross-entropy objectives")
-
-    name = getattr(objective, "name", None)
-    if name in ("lambdarank", "rank_xendcg"):
-        refuse(f"the ranking objective {name!r}")
-    if objective is not None and objective.need_renew_tree_output:
-        refuse(f"leaf renewal by percentile ({name})")
-    if config.linear_tree:
-        refuse("linear_tree")
 
 
 def discretize_gradients(grad: torch.Tensor, hess: torch.Tensor,
@@ -785,7 +772,12 @@ class GBDT:
                 log.fatal("linear_tree needs the training rows' raw values: "
                           "construct the Dataset with linear_tree=true (a "
                           "binary or two-round Dataset holds none)")
-            self.raw_dev = raw_to_device(train_data.raw_data, dev)
+            # a row-sharded rank holds its own rows (the dtype is the
+            # one every row allows, so every rank takes the serial one)
+            self.raw_dev = raw_to_device(
+                train_data.raw_data, dev,
+                None if self.shard is None else (self.shard.start,
+                                                 self.shard.stop))
             log.info(f"Linear trees: raw matrix of {self.raw_dev.nbytes} "
                      f"bytes ({self.raw_dev.dtype}) on {dev}")
 
@@ -852,7 +844,6 @@ class GBDT:
         if DATA_LEARNERS[tl] == "columns":
             self._feature_net = net
             return
-        check_sharded(config, objective)
         self.net = net
         self.shard = RowShard(net, n, _PAD)
         self._vote = tl == "voting" and net.world > 1
@@ -1219,8 +1210,11 @@ class GBDT:
         if self.num_tree_per_iteration > 1:
             return obj.get_gradients(self.scores, self.label_dev,
                                      self.weight_dev)
+        # the ranking objectives read whole queries across the ranks
+        kw = ({"shard": self.shard} if self.shard is not None
+              and getattr(obj, "takes_shard", False) else {})
         g, h = obj.get_gradients(self.scores[0], self.label_dev,
-                                 self.weight_dev)
+                                 self.weight_dev, **kw)
         return g[None, :], h[None, :]
 
     def pre_gradient_hook(self) -> None:
@@ -1558,13 +1552,26 @@ class GBDT:
         """The objective's leaf renewal (L1, quantile, MAPE) over the
         in-bag rows (the bagging mask; every row under GOSS, as in the
         JAX package, gbdt.py:1527-1536): float64 [num_leaves] on the
-        device, from `score` [num_data] of before this tree's update."""
-        n = self.num_data
+        device, from `score` [n_pad] of before this tree's update.  A
+        row-sharded rank all-gathers its rows' leaf ids (-1 out of the
+        bag) and scores in rank order, which is the serial row order
+        (`rows_of` is contiguous), 8 B a row a tree on float32 scores,
+        and renews over
+        every row as the serial run does (the objective holds every
+        row's labels and weights on the host)."""
+        sh = self.shard
+        n = self.num_data if sh is None else sh.count
         with global_timer.scope("GBDT::renew"):
             ids = torch.where(self.bag_mask[:n] > 0,
                               leaf_id[:n].to(torch.int64),
                               torch.full((n,), -1, dtype=torch.int64,
                                          device=leaf_id.device))
+            score = score[:n]
+            if sh is not None:
+                # leaf ids ride in the scores' dtype (exact below 2^24)
+                every = self.net.all_gather_rows(
+                    torch.stack([ids.to(score.dtype), score]), sh.sizes)
+                ids, score = every[0].to(torch.int64), every[1]
             out = self.objective.renew_tree_output(ids, score, num_leaves)
             return global_timer.block(out)
 
@@ -1577,14 +1584,15 @@ class GBDT:
                           grad: torch.Tensor, hess: torch.Tensor):
         """Fit the tree's linear leaf models on the device (learner/
         linear.py; the JAX booster's `_calculate_linear`, gbdt.py:2119):
-        `leaf_id`, `grad`, `hess` [num_data], the gradients multiplied by
-        the bag mask."""
+        `leaf_id`, `grad`, `hess` [rows] (this rank's under a row shard,
+        whose sums the fit reduces over the ranks), the gradients
+        multiplied by the bag mask."""
         ds = self.train_data
         stats = fit_linear(
             tree, self.raw_dev, leaf_id, grad, hess,
             self.config.linear_lambda,
             lambda f: ds.bin_mappers[f].bin_type == BIN_NUMERICAL,
-            ds.inner_feature_index)
+            ds.inner_feature_index, shard=self.shard)
         self.linear_fit_stats.append(stats)
         return stats
 
@@ -1598,7 +1606,7 @@ class GBDT:
         tree = self._pull_tree(arrays)
         if tree is None:
             return None
-        n = self.num_data
+        n = self.num_data if self.shard is None else self.shard.count
         ids = leaf_id[:n]
         bag = self.bag_mask[:n]
         with global_timer.scope("GBDT::linear_fit"):
@@ -1625,7 +1633,7 @@ class GBDT:
             # values replace the grown ones before the shrinkage and the
             # score updates (gbdt.py:1524-1543 of the JAX package)
             renewed = self._renew_by_objective(
-                leaf_id, self.scores[class_id, :self.num_data], lv.shape[0])
+                leaf_id, self.scores[class_id], lv.shape[0])
             delta = (renewed * self.shrinkage_rate).to(torch.float32)
         else:
             delta = lv * self.shrinkage_rate

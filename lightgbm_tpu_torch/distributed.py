@@ -281,6 +281,8 @@ stats = {"rank": rank, "attempt": spec.get("attempt", 0),
          "allreduce_bytes": after["bytes"] - before["bytes"],
          "allreduce_seconds": after["seconds"] - before["seconds"],
          "launches": {k.__name__: k.launches for k in kernels}}
+# the train metrics every rank reads at the end (one collective tick)
+stats["train_metrics"] = {m: v for _, m, v, _ in booster.eval_train()}
 print("worker_stats " + json.dumps(stats), flush=True)
 if rank == 0:
     booster.save_model(spec["model_out"])
@@ -350,10 +352,10 @@ def train_distributed(params: Dict[str, Any], data, label=None, *,
     raises with the last failed rank's log tail.
 
     The returned Booster's `worker_stats` holds each rank's seconds,
-    iterations, backend, collective calls/bytes/seconds and kernel launch
-    counts in the attempt that finished; `elastic_shrinks`,
-    `degraded_knobs`, `final_num_machines` and `attempts` describe the
-    relaunches."""
+    iterations, backend, collective calls/bytes/seconds, kernel launch
+    counts and final train metrics in the attempt that finished;
+    `elastic_shrinks`, `degraded_knobs`, `final_num_machines` and
+    `attempts` describe the relaunches."""
     import shutil
 
     if num_machines < 1:

@@ -12,6 +12,13 @@ shapes a serving loop sends to a few sizes, so the caching allocator
 reuses the same blocks from call to call.  Only the request's rows
 cross to the device; the padding rows are zeroed there.
 
+With `devices=[...]` (the counterpart of the JAX package's `mesh`) the
+pack is put on each listed device, a bucket's rows are split into equal
+contiguous parts, one a device in order, and the outputs are
+concatenated: every row's traversal and sums are its own, so the split
+gives the one-device bytes.  The ladder's smallest bucket is rounded up
+to a multiple of the device count, so every bucket tiles the split.
+
 `DevicePredictor.dispatches` counts dispatches by device type
 ("cuda", "cpu"), so a caller can show that a predict ran on the card;
 the serving dispatcher thread and callers' threads advance it under a
@@ -78,6 +85,14 @@ def build_program(depth: int, num_class: int, average: bool, convert,
     return run
 
 
+def _as_device(d) -> torch.device:
+    """A torch device, a `device_type` string ("cuda", "cpu") or a
+    device string with an index ("cuda:1") -> torch device."""
+    if isinstance(d, torch.device):
+        return d
+    return torch.device(d) if ":" in str(d) else resolve_device(d)
+
+
 class DevicePredictor:
     """Ensemble predictor for one model slice on one torch device.
 
@@ -92,6 +107,9 @@ class DevicePredictor:
     device : the torch device (or `device_type` string) that holds the
         pack and runs the traversal; the card unless the caller asks for
         the CPU
+    devices : optional list of torch devices (or strings such as
+        "cuda:0") to split each batch's rows over, the pack replicated on
+        each; `device` is then the first
     """
 
     dispatches: Counter = Counter()
@@ -99,17 +117,20 @@ class DevicePredictor:
 
     def __init__(self, trees: List, num_class: int = 1,
                  average: bool = False, convert=None,
-                 min_bucket: int = 4096, device="cuda"):
+                 min_bucket: int = 4096, device="cuda", devices=None):
         self.pack: Optional[PackedEnsemble] = pack_ensemble(trees)
         self.ok = self.pack is not None and self.pack.num_trees > 0
         self.num_class = max(int(num_class), 1)
         self.average = bool(average)
-        self.device = (device if isinstance(device, torch.device)
-                       else resolve_device(device))
+        self.devices = [_as_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         self._convert = convert
         self._min_bucket = max(int(min_bucket), 8)
+        D = len(self.devices)
+        # buckets must tile the split; doubling keeps the divisibility
+        self._min_bucket = -(-self._min_bucket // D) * D
         self._has_cat = bool(self.ok and self.pack.is_cat.any())
-        self._dev = None      # device copies of the pack arrays
+        self._dev = None      # per device, the copies of the pack arrays
         # (mode, bucket, F) programs dispatched so far: the port's
         # counterpart of the JAX package's traced bucket entries
         self._programs = set()
@@ -122,19 +143,21 @@ class DevicePredictor:
                             if self.pack is not None else 0)
 
     # ------------------------------------------------------------- device
-    def _device_arrays(self):
-        """Put the pack on the device once: 11 small transfers at first
-        use, none after.  Gather indices and bitset words go as int64."""
+    def _device_arrays(self, i: int = 0):
+        """Put the pack on each device once: 11 small transfers a device
+        at first use, none after.  Gather indices and bitset words go as
+        int64.  Returns device i's copies."""
         if self._dev is None:
             p = self.pack
             i64 = np.int64
-            arrs = (p.split_feature.astype(i64), p.threshold,
-                    p.missing_type, p.default_left, p.is_cat, p.left,
-                    p.right, p.leaf_value, p.cat_start.astype(i64),
-                    p.cat_nwords, p.cat_words.astype(i64))
-            self._dev = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                              .to(self.device) for a in arrs)
-        return self._dev
+            arrs = [np.ascontiguousarray(a) for a in (
+                p.split_feature.astype(i64), p.threshold, p.missing_type,
+                p.default_left, p.is_cat, p.left, p.right, p.leaf_value,
+                p.cat_start.astype(i64), p.cat_nwords,
+                p.cat_words.astype(i64))]
+            self._dev = [tuple(torch.from_numpy(a).to(d) for a in arrs)
+                         for d in self.devices]
+        return self._dev[i]
 
     def bucket_rows(self, n: int) -> int:
         """Smallest ladder size >= n."""
@@ -205,14 +228,22 @@ class DevicePredictor:
         t0 = (time.perf_counter()
               if account and global_cost_model.enabled else None)
         with global_timer.scope("DevicePredictor::dispatch"):
-            xd = torch.empty((bucket, F), dtype=torch.float32,
-                             device=self.device)
-            xd[:n].copy_(torch.from_numpy(X))
-            xd[n:] = 0.0
-            out = fn(xd, *extra, *self._device_arrays())
-            with DevicePredictor._dispatches_lock:
-                DevicePredictor.dispatches[self.device.type] += 1
-            host = global_timer.block(out)[:n].cpu().numpy()
+            # one contiguous part of the bucket a device, in order
+            per = bucket // len(self.devices)
+            outs = []
+            for i, dev in enumerate(self.devices):
+                lo = min(i * per, n)
+                hi = min(lo + per, n)
+                xd = torch.empty((per, F), dtype=torch.float32, device=dev)
+                xd[:hi - lo].copy_(torch.from_numpy(X[lo:hi]))
+                xd[hi - lo:] = 0.0
+                outs.append(fn(xd, *extra,
+                               *self._device_arrays(i))[:hi - lo])
+                with DevicePredictor._dispatches_lock:
+                    DevicePredictor.dispatches[dev.type] += 1
+            parts = [o.cpu() for o in global_timer.block(outs)]
+            host = (parts[0] if len(parts) == 1
+                    else torch.cat(parts)).numpy()
         if t0 is not None:
             # the copy to the host settled the device, so the wall time
             # covers pad + H2D + traversal + D2H of exactly this dispatch

@@ -13,13 +13,17 @@ on the k feature diagonals only).  A leaf with fewer than k + 1 such
 rows keeps its constant-leaf value and no features.  A singular system
 takes the pseudo-inverse.
 
-`fit_linear` runs the fit on the raw matrix's device: the usable rows
-are stable-sorted by leaf, their features gathered into one float64
-matrix (each leaf's table padded to the widest with a zero column), one
-product per leaf gives [X'HX | X'g], and one batched solve covers every
-leaf, the padded rows and columns holding the identity.  Every sum is a
-matrix product (no float atomics), so the same inputs give the same
-bits.  `calculate_linear_plain` is the JAX package's NumPy loop, the
+`fit_linear` runs the fit on the raw matrix's device: the usable rows'
+features are gathered into one float64 matrix (each leaf's table padded
+to the widest with a zero column), each row's products give its terms
+of [X'HX | X'g], and one batched solve covers every leaf, the padded
+rows and columns holding the identity.  The per-leaf sums of the terms
+are exact on each entry's own fixed-point grid (`exact_sum_of`, three
+31-bit limbs below the entry's largest |term|), so their bits depend on
+neither the order of the rows, nor the device or its threads, nor a
+split of the rows over ranks: under a learner that shards the rows,
+each rank sums its own rows and the limbs, counts and min/max are
+all-reduced, and the fit is the serial one bit for bit.  `calculate_linear_plain` is the JAX package's NumPy loop, the
 plain version the tests and chip_smoke.py hold the device fit to.
 `linear_outputs` evaluates the fitted leaves on the device, as
 `Tree.predict` does on the host (a row with NaN in a feature of its
@@ -34,6 +38,8 @@ import numpy as np
 import torch
 
 ZERO_THRESHOLD = 1e-35     # kZeroThreshold: smaller coefficients are dropped
+# row products of the fit summed in one piece (float64 elements, 64 MiB)
+PRODUCT_CHUNK = 1 << 23
 
 
 class LinearFitStats(NamedTuple):
@@ -132,13 +138,16 @@ def calculate_linear_plain(tree, raw: np.ndarray, leaf_id: np.ndarray,
 def fit_linear(tree, raw_dev: torch.Tensor, leaf_id: torch.Tensor,
                grad: torch.Tensor, hess: torch.Tensor, linear_lambda: float,
                is_numerical: Callable[[int], bool],
-               inner_index: Callable[[int], int]) -> LinearFitStats:
+               inner_index: Callable[[int], int],
+               shard=None) -> LinearFitStats:
     """The device fit.  `raw_dev` [n, F_total + 1] on the device, its last
     column zero (the padding of the feature tables); `leaf_id`, `grad`,
     `hess` [n] on the same device (the gradients already multiplied by
     the bag mask).  Fills the tree's linear fields on the host, from one
     transfer of every leaf's coefficients (a second one only when a leaf
-    needs the pseudo-inverse)."""
+    needs the pseudo-inverse).  With a RowShard `shard` the arguments
+    hold the rank's rows, and the sums, counts and extremes are reduced
+    over its ranks."""
     tree.is_linear = True
     dev = raw_dev.device
     f64 = torch.float64
@@ -152,42 +161,38 @@ def fit_linear(tree, raw_dev: torch.Tensor, leaf_id: torch.Tensor,
         table[leaf, :len(feats)] = feats
     table = torch.from_numpy(table[:, :kmax]).to(dev)
 
+    net = None if shard is None else shard.net
     lid = leaf_id.to(torch.int64)
-    usable = hess > 0
     rows = torch.arange(lid.shape[0], device=dev)
     X = raw_dev[rows[:, None], table[lid]]                  # [n, kmax]
+    usable = hess > 0
     if kmax:
         usable &= ~torch.isnan(X).any(1)
     idx = torch.nonzero(usable).squeeze(1)
-    # rows grouped by leaf, in row order within a leaf
-    idx = idx[torch.sort(lid[idx], stable=True).indices]
-    lid_s = lid[idx]
-    counts = torch.bincount(lid_s, minlength=L)
-    Xs = X[idx]
+    lid_u = lid[idx]
+    Xu = X[idx].to(f64)
+    counts = torch.bincount(lid_u, minlength=L)
     # a branch feature constant over a leaf's usable rows makes the leaf's
-    # system singular in exact arithmetic (min and max are exact in any
-    # order, so the test gives the same answer on every device)
-    flat = torch.zeros(L, dtype=torch.bool, device=dev)
+    # system singular in exact arithmetic (max and -min are exact in any
+    # order, so the test gives the same answer on every device and rank)
+    ext = torch.full((2, L, kmax), -torch.inf, dtype=f64, device=dev)
     if kmax:
-        real = torch.from_numpy(np.arange(kmax)[None, :]
-                                < ks[:, None]).to(dev)
-        same = (torch.segment_reduce(Xs, "max", lengths=counts, axis=0)
-                == torch.segment_reduce(Xs, "min", lengths=counts, axis=0))
-        flat = (same & real).any(1)
+        seg = lid_u[:, None].expand(-1, kmax)
+        ext[0].scatter_reduce_(0, seg, Xu, "amax")
+        ext[1].scatter_reduce_(0, seg, -Xu, "amax")
+    if net is not None:
+        net.all_reduce_sum_(counts)
+        net.all_reduce_max_(ext)
+    real = torch.from_numpy(np.arange(kmax)[None, :] < ks[:, None]).to(dev)
+    flat = ((ext[0] == -ext[1]) & real).any(1)
     head = torch.stack([counts, flat.to(torch.int64)]).cpu().numpy()
     counts, flat = head[0], head[1] > 0
-    Xd = torch.cat([Xs.to(f64),
-                    torch.ones((idx.shape[0], 1), dtype=f64, device=dev)], 1)
+    Xd = torch.cat([Xu, torch.ones((idx.shape[0], 1), dtype=f64,
+                                   device=dev)], 1)
     W = torch.cat([Xd * hess[idx].to(f64)[:, None],
                    grad[idx].to(f64)[:, None]], 1)
     fit = counts >= ks + 1
-    M = torch.zeros((L, kmax + 1, kmax + 2), dtype=f64, device=dev)
-    off = 0
-    for leaf in range(L):
-        c = int(counts[leaf])
-        if fit[leaf]:
-            torch.matmul(Xd[off:off + c].T, W[off:off + c], out=M[leaf])
-        off += c
+    M = _leaf_sums(Xd, W, lid_u, L, net)
     # lambda on each leaf's k feature diagonals, the identity on the
     # padded ones and on a degenerate leaf's whole system
     diag = np.zeros((L, kmax + 1))
@@ -228,6 +233,26 @@ def fit_linear(tree, raw_dev: torch.Tensor, leaf_id: torch.Tensor,
                           float(ks[fit].mean()) if fit.any() else 0.0)
 
 
+def _leaf_sums(Xd, W, lid, L, net=None):
+    """Per leaf the sums over its rows of Xd' W, [L, K1, K2] float64,
+    from `Xd` [rows, K1], `W` [rows, K2] and the rows' leaves: each
+    row's products rounded once, summed exactly on each entry's own grid
+    (`exact_sum_of`, rows in chunks of about PRODUCT_CHUNK terms),
+    all-reduced over `net`."""
+    from ..parallel.data_parallel import exact_sum_of
+    K1, K2 = Xd.shape[1], W.shape[1]
+    cells = torch.arange(K1 * K2, device=Xd.device)
+    step = max(1, PRODUCT_CHUNK // (K1 * K2))
+
+    def pieces():
+        for a in range(0, max(Xd.shape[0], 1), step):
+            terms = Xd[a:a + step, :, None] * W[a:a + step, None, :]
+            yield (terms.reshape(-1),
+                   (lid[a:a + step, None] * (K1 * K2) + cells).reshape(-1))
+    return exact_sum_of(pieces, L * K1 * K2, net,
+                        per_segment=True).reshape(L, K1, K2)
+
+
 def linear_tables(tree, zero_col: int):
     """The fitted tree's leaf models as dense tables: features [L, k]
     (padded with `zero_col`), coefficients [L, k] float64, constants
@@ -264,15 +289,19 @@ def linear_outputs(tree, raw_dev: torch.Tensor,
     return torch.where(nan, value[lid], out)
 
 
-def raw_to_device(raw: np.ndarray, device: torch.device) -> torch.Tensor:
-    """The raw matrix [n, F] on the device with a zero column appended:
-    float32 when every value is a float32 (a float32 input upcasts to
+def raw_to_device(raw: np.ndarray, device: torch.device,
+                  rows=None) -> torch.Tensor:
+    """The raw matrix [n, F] (its rows [start, stop) when `rows` is
+    given) on the device with a zero column appended: float32 when every
+    value of the whole matrix is a float32 (a float32 input upcasts to
     float64 exactly), else float64."""
     raw = np.asarray(raw)
     r32 = raw.astype(np.float32)
     exact = bool(np.all((r32 == raw) | np.isnan(raw)))
     src = r32 if exact else np.asarray(raw, np.float64)
-    out = torch.zeros((raw.shape[0], raw.shape[1] + 1), dtype=(
+    if rows is not None:
+        src = src[rows[0]:rows[1]]
+    out = torch.zeros((src.shape[0], raw.shape[1] + 1), dtype=(
         torch.float32 if exact else torch.float64), device=device)
     out[:, :raw.shape[1]] = torch.from_numpy(np.ascontiguousarray(src)).to(
         device)

@@ -13,9 +13,11 @@ objectives' device programs (`ranking.py`).  `device_binned_auc`,
 `device_binned_average_precision` and `device_auc_mu` are the binned
 forms of the sharded train eval under data-parallel training
 (ops/metrics.py ShardedEval): every term is a sum over rows, reduced
-exactly over the ranks.  The NDCG and MAP device plans wait with ranking
-under data-parallel training for ROADMAP Queue 1 item 15: ranking
-metrics are evaluated by the host classes.
+exactly over the ranks.  `ndcg_device_plan` and `map_device_plan` are
+its per-query forms of NDCG@k and MAP@k: each rank evaluates the
+queries it owns over every row's scores, and the per-query values are
+summed exactly over the ranks (a serial booster evaluates ranking
+metrics by the host classes, as the JAX package does).
 """
 
 from __future__ import annotations
@@ -412,6 +414,147 @@ def bucket_queries(query_boundaries, n_pad: int):
             val[r, :b - a] = True
         out.append({"qs": qs, "m": m, "idx": idx, "val": val})
     return out
+
+
+def _plan_buckets(query_boundaries, n_pad: int, queries, device):
+    """`bucket_queries` limited to the query ids `queries` (every query
+    when None), with idx and val on `device`: [(bucket, its query ids)]
+    of the non-empty buckets."""
+    import torch
+    out = []
+    for b in bucket_queries(query_boundaries, n_pad):
+        qs = np.asarray(b["qs"], np.int64)
+        keep = (np.ones(len(qs), bool) if queries is None
+                else np.isin(qs, queries))
+        if not keep.any():
+            continue
+        out.append(({"m": b["m"],
+                     "idx": torch.from_numpy(
+                         b["idx"][keep].astype(np.int64)).to(device),
+                     "val": torch.from_numpy(b["val"][keep]).to(device)},
+                    qs[keep]))
+    return out
+
+
+def ndcg_device_plan(metric: "NDCGMetric", n_pad: int, device="cpu",
+                     queries=None):
+    """Device plan of NDCG@k over per-query tensor programs (the torch
+    form of the JAX package's `ndcg_device_plan`, metric.py:747; ref:
+    rank_metric.hpp:20): per bucket of pow2-padded queries a stable
+    sort of the scores, the DCG of the sorted gains at each k and the
+    ideal DCG precomputed on the host (labels are static), all float64.
+    `queries`: the query ids to evaluate (every query when None).
+    Returns (number of planned queries, eval_fn): eval_fn(score
+    [n_pad]) -> [planned queries, len(eval_at)] float64, each query's
+    NDCG@k (1 where its ideal DCG is 0); the JAX plan's value is their
+    mean over every query."""
+    import torch
+    gains = np.asarray(metric.label_gain, np.float64)
+    lab_all = metric.label.astype(np.int64)
+    qb = metric.query_boundaries
+    ks = list(metric.eval_at)
+    plan = []
+    nq = 0
+    for b, qs in _plan_buckets(qb, n_pad, queries, device):
+        m = b["m"]
+        g = np.zeros((len(qs), m))
+        idcg = np.zeros((len(qs), len(ks)))
+        disc = 1.0 / np.log2(np.arange(m) + 2.0)
+        for r, q in enumerate(qs):
+            a, e = int(qb[q]), int(qb[q + 1])
+            gq = gains[lab_all[a:e]]
+            ideal = np.sort(gq)[::-1]
+            g[r, :e - a] = gq
+            for ki, k in enumerate(ks):
+                kk = min(k, e - a)
+                idcg[r, ki] = (ideal[:kk] * disc[:kk]).sum()
+        plan.append({**b, "g": torch.from_numpy(g).to(device),
+                     "idcg": torch.from_numpy(idcg).to(device),
+                     "disc": torch.from_numpy(disc).to(device)})
+        nq += len(qs)
+
+    def eval_fn(score):
+        outs = []
+        for bk in plan:
+            m = bk["m"]
+            scb = score.to(torch.float64)[bk["idx"]]
+            key = torch.where(bk["val"], scb, -torch.inf)
+            order = torch.argsort(-key, dim=1, stable=True)
+            g_sorted = torch.gather(bk["g"], 1, order)
+            cols = []
+            for ki, k in enumerate(ks):
+                kk = min(k, m)
+                dcg = (g_sorted[:, :kk] * bk["disc"][None, :kk]).sum(1)
+                idcg = bk["idcg"][:, ki]
+                cols.append(torch.where(
+                    idcg > 0, dcg / torch.clamp(idcg, min=1e-30), 1.0))
+            outs.append(torch.stack(cols, 1))
+        if not outs:
+            return torch.zeros((0, len(ks)), dtype=torch.float64,
+                               device=score.device)
+        return torch.cat(outs, 0)
+
+    return nq, eval_fn
+
+
+def map_device_plan(metric: "MapMetric", n_pad: int, device="cpu",
+                    queries=None):
+    """Device plan of MAP@k (the torch form of the JAX package's
+    `map_device_plan`, metric.py:668; ref: map_metric.hpp:17): per
+    bucket a stable sort of the scores, the precision at each relevant
+    position from a cumulative sum of the sorted relevance, and the
+    per-query denominators min(positives, k) precomputed on the host.
+    Returns (number of planned queries, eval_fn) as `ndcg_device_plan`
+    does: eval_fn(score) -> [planned queries, len(eval_at)] float64
+    (1 where a query's denominator is 0)."""
+    import torch
+    lab_all = metric.label
+    qb = metric.query_boundaries
+    ks = list(metric.eval_at)
+    plan = []
+    nq = 0
+    for b, qs in _plan_buckets(qb, n_pad, queries, device):
+        m = b["m"]
+        rel = np.zeros((len(qs), m))
+        denom = np.zeros((len(qs), len(ks)))
+        for r, q in enumerate(qs):
+            a, e = int(qb[q]), int(qb[q + 1])
+            rq = lab_all[a:e] > 0
+            rel[r, :e - a] = rq
+            npos = int(rq.sum())
+            for ki, k in enumerate(ks):
+                denom[r, ki] = min(npos, min(k, e - a))
+        plan.append({**b, "rel": torch.from_numpy(rel).to(device),
+                     "denom": torch.from_numpy(denom).to(device)})
+        nq += len(qs)
+
+    def eval_fn(score):
+        outs = []
+        for bk in plan:
+            m = bk["m"]
+            scb = score.to(torch.float64)[bk["idx"]]
+            key = torch.where(bk["val"], scb, -torch.inf)
+            order = torch.argsort(-key, dim=1, stable=True)
+            rel_sorted = torch.gather(bk["rel"], 1, order)
+            cum = torch.cumsum(rel_sorted, 1)
+            pos = torch.arange(1, m + 1, dtype=torch.float64,
+                               device=score.device)
+            prec_at_hit = torch.where(rel_sorted > 0, cum / pos[None, :],
+                                      0.0)
+            cols = []
+            for ki, k in enumerate(ks):
+                kk = min(k, m)
+                s = prec_at_hit[:, :kk].sum(1)
+                d = bk["denom"][:, ki]
+                cols.append(torch.where(d > 0, s / torch.clamp(d, min=1.0),
+                                        1.0))
+            outs.append(torch.stack(cols, 1))
+        if not outs:
+            return torch.zeros((0, len(ks)), dtype=torch.float64,
+                               device=score.device)
+        return torch.cat(outs, 0)
+
+    return nq, eval_fn
 
 
 def default_label_gain() -> List[float]:

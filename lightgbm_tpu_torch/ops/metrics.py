@@ -131,6 +131,7 @@ _KIND_AVG = "avg"          # weighted avg (pointwise / sum_weights)
 _KIND_MEAN = "mean"        # plain mean over rows (cross_entropy_lambda)
 _KIND_AUC = "auc"
 _KIND_AP = "average_precision"
+_KIND_RANK = ("ndcg", "map")   # per-query plans (sharded eval only)
 
 
 def build_plans(metrics, config, objective, num_class: int):
@@ -312,6 +313,9 @@ class ShardedEval:
             if name in (_KIND_AUC, _KIND_AP):
                 plans.append((name, name, None))
                 continue
+            if name in _KIND_RANK:
+                plans.append((name, name, self._rank_plan(m, gbdt)))
+                continue
             fn = device_pointwise_loss(name, cfg)
             if fn is None:
                 log.warning(f"train metric {name} has no sharded device "
@@ -327,6 +331,19 @@ class ShardedEval:
         self._weight = (None if md.weight is None else torch.from_numpy(
             gbdt._local_rows(np.asarray(md.weight, np.float32))).to(dev))
         self._top_k = int(cfg.multi_error_top_k)
+
+    @staticmethod
+    def _rank_plan(metric, gbdt):
+        """(eval_fn, eval_at, query count) of NDCG or MAP over the
+        queries whose first row this rank holds."""
+        from ..metric import map_device_plan, ndcg_device_plan
+        sh = gbdt.shard
+        qb = np.asarray(metric.query_boundaries, np.int64)
+        starts = qb[:-1]
+        own = np.nonzero((starts >= sh.start) & (starts < sh.stop))[0]
+        build = ndcg_device_plan if metric.name == "ndcg" else map_device_plan
+        _, fn = build(metric, sh.grid_rows, gbdt.device, queries=own)
+        return fn, list(metric.eval_at), len(qb) - 1
 
     def run(self, scores, grad_ok) -> Tuple[List[Tuple[str, float]],
                                             bool, bool]:
@@ -365,8 +382,22 @@ class ShardedEval:
         else:
             sc = scores[0]
             conv = obj.convert_output(sc) if obj is not None else sc
+            every = None
             for _name, kind, fn in self._plans:
-                if kind == _KIND_AUC:
+                if kind in _KIND_RANK:
+                    # rank metrics read the raw scores of whole queries
+                    if every is None:
+                        sh = g.shard
+                        every = sc.new_zeros(sh.grid_rows)
+                        every[:sh.num_rows] = net.all_gather_rows(
+                            sc[:sh.count], sh.sizes)
+                    eval_fn, ks, nq = fn
+                    per_q = eval_fn(every)
+                    seg = torch.arange(len(ks), device=sc.device).repeat(
+                        per_q.shape[0])
+                    vals.extend(exact_sum(per_q.reshape(-1), seg, len(ks),
+                                          net) / nq)
+                elif kind == _KIND_AUC:
                     vals.append(device_binned_auc(conv, lab, w, net=net))
                 elif kind == _KIND_AP:
                     vals.append(device_binned_average_precision(
@@ -383,6 +414,9 @@ class ShardedEval:
                                            device=scores.device)
                            for v in vals] + list(flags)).cpu().numpy()
         self.fetches += 1
-        out = [(name, float(v))
-               for (name, _kind, _fn), v in zip(self._plans, vec)]
+        names = []
+        for name, kind, fn in self._plans:
+            names.extend([f"{name}@{k}" for k in fn[1]]
+                         if kind in _KIND_RANK else [name])
+        out = [(name, float(v)) for name, v in zip(names, vec)]
         return out, bool(vec[-2] > 0), bool(vec[-1] > 0)

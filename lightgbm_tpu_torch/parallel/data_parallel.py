@@ -248,40 +248,65 @@ _LIMBS = 3
 def exact_sum(values: torch.Tensor, segments: torch.Tensor = None,
               num_segments: int = 1,
               net: Optional[Network] = None) -> torch.Tensor:
-    """Sum of float32 `values` (per segment id in `segments`, else of
-    all), float64 [num_segments], the same bits whatever the order of
-    the rows and however they are split over ranks.  Each value is cut
-    into three 31-bit integer limbs below 2^E, where 2^E bounds every
-    rank's max |value| (an exact all-reduced maximum): the limbs'
-    int64 sums are exact, all-reduced when `net` is given, and
-    recombined once.  Parts of a value below 2^(E-93) are dropped (the
-    same on every rank).  At most 2^32 rows."""
-    v = values.to(torch.float64)
-    dev = v.device
-    amax = (v.abs().max() if v.numel() else v.new_zeros(())).reshape(1)
+    """Sum of float32 or float64 `values` (per segment id in
+    `segments`, else of all), float64 [num_segments], the same bits
+    whatever the order of the rows and however they are split over
+    ranks.  Each value is cut into three 31-bit integer limbs below
+    2^E, where 2^E bounds every rank's max |value| (an exact
+    all-reduced maximum): the limbs' int64 sums are exact, all-reduced
+    when `net` is given, and recombined once.  Parts of a value below
+    2^(E-93) are dropped (the same on every rank).  At most 2^32
+    rows."""
+    return exact_sum_of(lambda: ((values, segments),), num_segments, net)
+
+
+def exact_sum_of(pieces, num_segments: int = 1,
+                 net: Optional[Network] = None,
+                 per_segment: bool = False) -> torch.Tensor:
+    """`exact_sum` of values that come in pieces: `pieces()` yields one
+    or more (values, segment ids or None) and is called twice (the
+    grid's maxima, then the limbs), so a caller can compute a large
+    input a chunk at a time; the bits do not depend on the pieces.
+    With `per_segment` each segment takes its own grid, below its own
+    all-reduced max |value| (segment ids required)."""
+    amax = None
+    for v, ids in pieces():
+        v = v.to(torch.float64)
+        if per_segment:
+            if amax is None:
+                amax = torch.zeros(num_segments, dtype=torch.float64,
+                                   device=v.device)
+            amax.scatter_reduce_(0, ids.to(torch.int64), v.abs(), "amax")
+        else:
+            m = (v.abs().max() if v.numel() else v.new_zeros(())).reshape(1)
+            amax = m if amax is None else torch.maximum(amax, m)
+    dev = amax.device
     if net is not None:
         net.all_reduce_max_(amax)
     _, e = torch.frexp(amax)
     e = e.to(torch.int64)
-    ids = None if segments is None else segments.to(torch.int64)
     acc = torch.zeros((_LIMBS, num_segments), dtype=torch.int64, device=dev)
-    rest = v
-    grids = []
-    for k in range(1, _LIMBS + 1):
-        g = torch.ldexp(torch.ones(1, dtype=torch.float64, device=dev),
-                        e - _LIMB_BITS * k)
-        q = torch.trunc(rest / g)
-        rest = rest - q * g
-        if ids is None:
-            acc[k - 1] = q.to(torch.int64).sum()
-        else:
-            acc[k - 1].index_add_(0, ids, q.to(torch.int64))
-        grids.append(g)
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    for v, ids in pieces():
+        rest = v.to(torch.float64)
+        ids = None if ids is None else ids.to(torch.int64)
+        base, ev = ((torch.ones_like(rest), e[ids]) if per_segment
+                    else (one, e))
+        for k in range(1, _LIMBS + 1):
+            g = torch.ldexp(base, ev - _LIMB_BITS * k)
+            q = torch.trunc(rest / g)
+            rest = rest - q * g
+            if ids is None:
+                acc[k - 1] += q.to(torch.int64).sum()
+            else:
+                acc[k - 1].index_add_(0, ids, q.to(torch.int64))
     if net is not None:
         net.all_reduce_sum_(acc)
-    out = acc[0].to(torch.float64) * grids[0]
-    for k in range(1, _LIMBS):
-        out = out + acc[k].to(torch.float64) * grids[k]
+    out = None
+    for k in range(_LIMBS):
+        part = acc[k].to(torch.float64) * torch.ldexp(
+            torch.ones_like(amax), e - _LIMB_BITS * (k + 1))
+        out = part if out is None else out + part
     return out
 
 

@@ -26,6 +26,17 @@ hessians.  Its per-position sums are read from cumulative sums of the
 rows sorted by position once, at fixed segment bounds, in 64-bit fixed
 point (no float atomics), so the same inputs give the same bias bits.
 
+Under a learner that shards the rows (`tree_learner=data`, `voting`), a
+rank owns rows [start, stop) of the serial order and queries straddle
+those bounds.  `get_gradients(..., shard=)` all-gathers the float32
+scores (4 B a row an iteration), keeps the serial program's chunks that
+hold a query meeting the rank's rows (the same [Qc, m] blocks as the
+serial run, so the same bits whatever a device's reductions do with
+the block's shape) and keeps its own rows' values.  Position bias adds
+only the rank's own rows into the int64 segment sums and all-reduces
+them; the grid's exponent comes from an exact sum of |v| (`exact_sum`),
+the same bits serially and however the rows are split.
+
 XENDCG draws its per-query uniforms as the JAX package's device program
 does: `uniform(fold_in(fold_in(PRNGKey(objective_seed), it), q), (m,))`
 (`utils/random.py`), where `it` counts this objective's gradient calls
@@ -45,6 +56,7 @@ import torch
 from .config import Config
 from .metric import bucket_queries, default_label_gain
 from .objective import ObjectiveFunction
+from .parallel.data_parallel import exact_sum
 from .utils import log
 from .utils import random as jrandom
 
@@ -64,8 +76,11 @@ class RankingObjective(ObjectiveFunction):
     """Common per-query driver (ref: rank_objective.hpp:28)."""
 
     # training metrics take the host classes, as in the JAX package
-    # (ops/metrics.py DeviceEval): NDCG and MAP have no device form here
+    # (ops/metrics.py DeviceEval); a row-sharded run evaluates NDCG and
+    # MAP by their device plans (ShardedEval)
     run_on_host = True
+    # the booster passes its RowShard: the gradients read whole queries
+    takes_shard = True
 
     def __init__(self, config: Config):
         super().__init__(config)
@@ -131,12 +146,26 @@ class RankingObjective(ObjectiveFunction):
         raise NotImplementedError
 
     # ------------------------------------------------------ device program
-    def _build(self, n_pad: int, dev: torch.device) -> dict:
+    def _query_range(self, shard) -> tuple:
+        """The queries [q_lo, q_hi) that meet a shard's rows (every query
+        without one)."""
+        if shard is None:
+            return 0, self.num_queries
+        if shard.count == 0:
+            return 0, 0
+        qb = self.query_boundaries
+        return (int(np.searchsorted(qb, shard.start, side="right")) - 1,
+                int(np.searchsorted(qb, shard.stop, side="left")))
+
+    def _build(self, n_pad: int, dev: torch.device, shard=None) -> dict:
         """Device tensors of the buckets, each split into chunks of whole
         queries: per chunk the [Qc, m] row indices, labels and valid
-        mask, the flat valid positions of the block and their rows."""
+        mask, the flat valid positions of the block and their rows.
+        With a `shard`, only the serial chunks that hold a query meeting
+        its rows, and the position-bias segments over its own rows."""
         qb = self.query_boundaries
         lab_all = self.label.astype(np.int64)
+        q_lo, q_hi = self._query_range(shard)
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -152,6 +181,9 @@ class RankingObjective(ObjectiveFunction):
             qs = np.asarray(b["qs"], np.int64)
             for lo in range(0, len(qs), qc):
                 sl = slice(lo, lo + qc)
+                # a bucket lists its queries in ascending order
+                if qs[sl][-1] < q_lo or qs[sl][0] >= q_hi:
+                    continue
                 idx, val = b["idx"][sl].astype(np.int64), b["val"][sl]
                 flat = np.flatnonzero(val.reshape(-1))
                 chunks.append(dict(
@@ -159,18 +191,23 @@ class RankingObjective(ObjectiveFunction):
                     lab=put(lab[sl]), val=put(val), flat=put(flat),
                     rows=put(idx.reshape(-1)[flat]),
                     **self._chunk_extra(qs[sl], put)))
-        prog = dict(n_pad=n_pad, dev=dev, chunks=chunks)
+        rows = None if shard is None else (shard.start, shard.stop)
+        prog = dict(n_pad=n_pad, dev=dev, chunks=chunks, rows=rows)
         if self.positions is not None:
             P = self.num_position_ids
-            order = np.argsort(self.positions, kind="stable")
+            # the segments sum the rows this rank owns (all, serially)
+            own = (self.positions if shard is None
+                   else self.positions[shard.start:shard.stop])
+            order = np.argsort(own, kind="stable")
+            cnt_own = np.bincount(own, minlength=P)
+            ends = np.cumsum(cnt_own)
             cnt = np.bincount(self.positions, minlength=P)
-            ends = np.cumsum(cnt)
             pos = np.zeros(n_pad, np.int64)
             pos[:self.num_data] = self.positions
             prog.update(
                 pos=torch.from_numpy(pos).to(dev),
                 pos_order=torch.from_numpy(order).to(dev),
-                pos_start=torch.from_numpy(ends - cnt).to(dev),
+                pos_start=torch.from_numpy(ends - cnt_own).to(dev),
                 pos_end=torch.from_numpy(ends).to(dev),
                 pos_cnt=torch.from_numpy(cnt.astype(np.float64)).to(dev))
             self._biases_dev = torch.from_numpy(
@@ -183,38 +220,67 @@ class RankingObjective(ObjectiveFunction):
     def _chunk_extra(self, qs, put) -> dict:
         return {}
 
-    def _program(self, score: torch.Tensor) -> dict:
+    def _program(self, score: torch.Tensor, shard=None) -> dict:
+        """The program over `score` [n_pad] of every row (of a shard's
+        queries), built once."""
         prog = self._prog
+        rows = None if shard is None else (shard.start, shard.stop)
         if (prog is None or prog["n_pad"] != score.shape[0]
-                or prog["dev"] != score.device):
+                or prog["dev"] != score.device or prog["rows"] != rows):
             if self.positions is not None and self._biases_dev is not None:
                 self._biases_host = self.pos_biases
-            self._prog = prog = self._build(score.shape[0], score.device)
+            self._prog = prog = self._build(score.shape[0], score.device,
+                                            shard)
         return prog
 
     @staticmethod
-    def _segment_sums(v: torch.Tensor, prog: dict) -> torch.Tensor:
-        """Per-position sums of the rows' float64 values `v` [n_pad]: the
-        rows sorted by position once, each value rounded to the grid
-        2^-s with 2^s = 2^61 / 2^ceil(log2 Σ|v|) (no partial sum
-        overflows int64), one int64 cumulative sum, and each segment's
-        integer difference at its fixed bounds: exact sums of the grid
-        values, whatever order the scan adds in."""
-        vs = v[prog["pos_order"]]
-        total = vs.abs().sum().clamp(min=2.0 ** -900)
+    def _segment_sums(v: torch.Tensor, prog: dict, net=None) -> torch.Tensor:
+        """Per-position sums of the rows' float64 values `v` [..., rows]
+        (the weighted lambdas and hessians of the rows the program's
+        segments cover), each leading index alone: the rows sorted by
+        position once, each value
+        rounded to the grid 2^-s with 2^s = 2^61 / 2^ceil(log2 Σ|v|)
+        (no partial sum overflows int64; Σ|v| an exact limb sum over
+        every row, `exact_sum`, so its bits do not depend on the order
+        of the rows or their split over the ranks of `net`), one int64
+        cumulative sum, and each segment's integer difference at its
+        fixed bounds, all-reduced over `net`: exact sums of the grid
+        values, whatever order the scan adds in.  Returns [..., P]."""
+        lead = v.shape[:-1]
+        vs = v.reshape(-1, v.shape[-1])[:, prog["pos_order"]]
+        R = vs.shape[0]
+        seg = torch.arange(R, device=vs.device).repeat_interleave(
+            vs.shape[1])
+        total = exact_sum(vs.abs().reshape(-1), seg, R, net).clamp(
+            min=2.0 ** -900)
         scale = torch.pow(torch.full_like(total, 2.0),
-                          61.0 - torch.ceil(torch.log2(total)))
-        cs = torch.cumsum(torch.round(vs * scale).to(torch.int64), 0)
-        cs = torch.cat([cs.new_zeros(1), cs])
-        return (cs[prog["pos_end"]] - cs[prog["pos_start"]]).to(_F64) / scale
+                          61.0 - torch.ceil(torch.log2(total)))[:, None]
+        cs = torch.cumsum(torch.round(vs * scale).to(torch.int64), 1)
+        cs = torch.cat([cs.new_zeros(R, 1), cs], 1)
+        sums = cs[:, prog["pos_end"]] - cs[:, prog["pos_start"]]
+        if net is not None:
+            net.all_reduce_sum_(sums)
+        return (sums.to(_F64) / scale).reshape(lead + sums.shape[1:])
 
     def get_gradients(self, score: torch.Tensor, label=None,
-                      weight: Optional[torch.Tensor] = None):
+                      weight: Optional[torch.Tensor] = None, shard=None):
         """score [n_pad] (float32, the booster's device) -> (grad, hess)
         float32 [n_pad], zero on the padding rows.  The labels are the
-        objective's own (put on the device with the buckets)."""
-        prog = self._program(score)
-        sc = score.to(_F64)
+        objective's own (put on the device with the buckets).  With a
+        RowShard `shard`, `score` and `weight` hold the rank's rows and
+        so do the results: the scores of every row are all-gathered
+        and the serial program's chunks that meet the rank's queries
+        run on them."""
+        net = None
+        if shard is None:
+            full = score
+        else:
+            net = shard.net
+            full = score.new_zeros(shard.grid_rows)
+            full[:shard.num_rows] = net.all_gather_rows(
+                score[:shard.count], shard.sizes)
+        prog = self._program(full, shard)
+        sc = full.to(_F64)
         if self.positions is not None:
             sc = sc + self._biases_dev[prog["pos"]]      # hpp:68
         g = torch.zeros_like(sc)
@@ -224,6 +290,13 @@ class RankingObjective(ObjectiveFunction):
             lam, hes = self._block(sc[ch["idx"]], ch, prog, u_rows)
             g[ch["rows"]] = lam.reshape(-1)[ch["flat"]]
             h[ch["rows"]] = hes.reshape(-1)[ch["flat"]]
+        if shard is not None:
+            # the rank's rows, padded as its scores are
+            gl = torch.zeros_like(score, dtype=_F64)
+            hl = torch.zeros_like(gl)
+            gl[:shard.count] = g[shard.start:shard.stop]
+            hl[:shard.count] = h[shard.start:shard.stop]
+            g, h = gl, hl
         if weight is not None:
             w = weight.to(_F64)
             g = g * w
@@ -234,8 +307,9 @@ class RankingObjective(ObjectiveFunction):
             # UpdatePositionBiasFactors)
             cnt = prog["pos_cnt"]
             reg = self.position_bias_regularization
-            fd = -self._segment_sums(g, prog) - self._biases_dev * reg * cnt
-            sd = -self._segment_sums(h, prog) - reg * cnt
+            sums = self._segment_sums(torch.stack([g, h]), prog, net)
+            fd = -sums[0] - self._biases_dev * reg * cnt
+            sd = -sums[1] - reg * cnt
             self._biases_dev = self._biases_dev + (
                 self.learning_rate * fd / (torch.abs(sd) + 0.001))
         return g.to(torch.float32), h.to(torch.float32)
@@ -289,8 +363,8 @@ class LambdarankNDCG(RankingObjective):
     def _chunk_extra(self, qs, put) -> dict:
         return {"imd": put(self.inverse_max_dcgs[qs])}
 
-    def _build(self, n_pad, dev):
-        prog = super()._build(n_pad, dev)
+    def _build(self, n_pad, dev, shard=None):
+        prog = super()._build(n_pad, dev, shard)
         # gains and discounts from NumPy, the plain version's values
         prog["gain"] = torch.from_numpy(
             self.label_gain.astype(np.float64)).to(dev)
@@ -417,8 +491,8 @@ class RankXENDCG(RankingObjective):
         # stream's `it`)
         self._xe_iter = 0
 
-    def _build(self, n_pad, dev):
-        prog = super()._build(n_pad, dev)
+    def _build(self, n_pad, dev, shard=None):
+        prog = super()._build(n_pad, dev, shard)
         prog["key"] = jrandom.PRNGKey(self.seed, device=dev)
         self._xe_iter = 0
         return prog
@@ -466,8 +540,8 @@ class RankXENDCG(RankingObjective):
         return (torch.where(keep, lambdas, 0.0),
                 torch.where(keep, rho * (1.0 - rho), 0.0))
 
-    def get_gradients(self, score, label=None, weight=None):
-        out = super().get_gradients(score, label, weight)
+    def get_gradients(self, score, label=None, weight=None, shard=None):
+        out = super().get_gradients(score, label, weight, shard)
         if self.positions is None:
             self._xe_iter += 1
         return out

@@ -14,8 +14,12 @@ scenario in turn and write each rank's model text and training metrics.
   CEGB, extra-trees with bynode sampling, weights, DART, RF, EFB
   bundles, the skewed-max grid
   case (one shard's labels 1000x the other's: the fixed-point grid must
-  be the serial run's, not a rank's), and shards of uneven rows (4,096
-  rows over 3 ranks, and 4,001 rows, where the serial run pads too).
+  be the serial run's, not a rank's), shards of uneven rows (4,096
+  rows over 3 ranks, and 4,001 rows, where the serial run pads too),
+  lambdarank and rank_xendcg with and without position bias (queries of
+  4-40 rows and one longer than a world-3 shard), leaf renewal by
+  percentile (L1 with bagging, weighted quantile, MAPE) and linear
+  trees on both engines.
 * Port against JAX: the sharded trees have the structure of the JAX
   package's `tree_learner=data` trees on its 8-device mesh
   (`tpu_growth_strategy` pinned in both): the structure fields equal by
@@ -25,7 +29,8 @@ scenario in turn and write each rank's model text and training metrics.
 * The sharded train eval: every rank reads the same metrics, equal (rtol
   1e-5) to the JAX package's sharded device forms (`device_binned_auc`,
   `device_binned_average_precision`, `device_pointwise_loss`,
-  `device_auc_mu`) on the same scores.
+  `device_auc_mu`, `ndcg_device_plan`, `map_device_plan`) on the same
+  scores.
 """
 
 import json
@@ -37,7 +42,7 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as tlgb
-from torch_cluster import run_cluster
+from torch_cluster import query_sizes, run_cluster
 
 torch.set_num_threads(1)
 
@@ -48,6 +53,8 @@ BASE = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 5,
         "tree_learner": "data", "device_type": "cpu"}
 BIN_METRICS = ["auc", "average_precision", "binary_logloss", "binary_error"]
 MC_METRICS = ["multi_logloss", "multi_error", "auc_mu"]
+RANK = {"metric": ["ndcg", "map"], "eval_at": [1, 3, 5]}
+LONG_QUERY = 1500         # rows of one query: more than a world-3 shard
 
 # name -> (params over BASE, rounds, data)
 SCENARIOS = {
@@ -83,6 +90,22 @@ SCENARIOS = {
     "rf": ({"boosting": "rf", "bagging_fraction": 0.6, "bagging_freq": 1,
             "tpu_growth_strategy": "leafwise"}, 4, "binary"),
     "efb_onehot": ({}, 4, "onehot"),
+    "lambdarank": ({"objective": "lambdarank", **RANK}, 3, "rank"),
+    "lambdarank_position": ({"objective": "lambdarank", **RANK}, 3,
+                            "rank_position"),
+    "xendcg": ({"objective": "rank_xendcg", **RANK}, 3, "rank"),
+    "xendcg_position": ({"objective": "rank_xendcg", **RANK}, 3,
+                        "rank_position"),
+    "l1_bagging": ({"objective": "regression_l1", "bagging_fraction": 0.7,
+                    "bagging_freq": 1, "metric": ["l1"]}, 3, "regression"),
+    "quantile_weighted": ({"objective": "quantile", "alpha": 0.7,
+                           "metric": ["quantile"]}, 3, "weighted"),
+    "mape": ({"objective": "mape", "metric": ["mape"]}, 3, "regression"),
+    "linear_wave": ({"objective": "regression", "linear_tree": True,
+                     "tpu_growth_strategy": "wave"}, 3, "regression"),
+    "linear_leafwise": ({"objective": "regression", "linear_tree": True,
+                         "tpu_growth_strategy": "leafwise"}, 3,
+                        "regression"),
     # against the JAX package's mesh run (test_sharded_trees_match_jax_mesh)
     "jax_leafwise": ({"objective": "regression",
                       "tpu_growth_strategy": "leafwise"}, 4, "binary"),
@@ -107,8 +130,8 @@ out = {}
 for name, (params, rounds, data) in spec["scenarios"].items():
     d = np.load(spec["data"][data])
     hist = {}
-    ds = tlgb.Dataset(d["X"], label=d["y"],
-                      weight=d["w"] if "w" in d.files else None)
+    opt = {k: d[k] for k in ("weight", "group", "position") if k in d.files}
+    ds = tlgb.Dataset(d["X"], label=d["y"], **opt)
     b = tlgb.train(params, ds, rounds, valid_sets=[ds],
                    valid_names=["training"],
                    callbacks=[tlgb.record_evaluation(hist)])
@@ -122,15 +145,35 @@ with open(spec["out"] % rank, "w") as f:
 """
 
 
+def rank_groups(n, seed=5):
+    """Query sizes of `n` rows: random sizes of 4-40 around one query of
+    LONG_QUERY rows (longer than a shard at world 3)."""
+    first = (n - LONG_QUERY) // 2
+    return np.array(query_sizes(first, seed) + [LONG_QUERY]
+                    + query_sizes(n - first - LONG_QUERY, seed + 1),
+                    np.int64)
+
+
 def make_data(kind):
-    """(X, y, weight or None) of a scenario's data kind."""
+    """(X, y, weight or None) of a scenario's data kind; the ranking
+    kinds' (X, y, {"group": sizes[, "position": ...]})."""
     rng = np.random.RandomState(3)
     n = 4001 if kind == "uneven" else N
     X = rng.rand(n, F)
     logit = 4 * (X[:, 0] - 0.5) + 2 * X[:, 1] * X[:, 2] - X[:, 3]
     y = (rng.rand(n) < 1 / (1 + np.exp(-3 * logit))).astype(np.float64)
     w = None
-    if kind == "multiclass":
+    if kind.startswith("rank"):
+        sizes = rank_groups(n)
+        y = np.clip(np.floor(logit + 0.5 * rng.randn(n)), 0, 4)
+        extra = {"group": sizes}
+        if kind == "rank_position":
+            starts = np.repeat(np.cumsum(sizes) - sizes, sizes)
+            extra["position"] = (np.arange(n) - starts) % 12
+        return X, y, extra
+    if kind == "regression":
+        y = logit + 0.1 * rng.randn(n)
+    elif kind == "multiclass":
         y = np.clip(np.floor(X[:, 0] * 3 + 0.3 * rng.randn(n)), 0, 2)
     elif kind == "weighted":
         y = logit + 0.1 * rng.randn(n)
@@ -165,6 +208,13 @@ def _write_forced(path):
                    "left": {"feature": 3, "threshold": 0.4}}, f)
 
 
+def _dataset_kw(extra):
+    """make_data's third item as Dataset keywords."""
+    if extra is None:
+        return {}
+    return dict(extra) if isinstance(extra, dict) else {"weight": extra}
+
+
 def run_world(world, tmp, names=None):
     """Spawn `world` ranks of CHILD (tests/torch_cluster.py `run_cluster`)
     that run the scenarios `names` (default: all); returns [per rank
@@ -177,8 +227,7 @@ def run_world(world, tmp, names=None):
     for kind in {SCENARIOS[n][2] for n in names}:
         X, y, w = make_data(kind)
         path = os.path.join(tmp, f"{kind}.npz")
-        arrays = {"X": X, "y": y} if w is None else {"X": X, "y": y, "w": w}
-        np.savez(path, **arrays)
+        np.savez(path, X=X, y=y, **_dataset_kw(w))
         data[kind] = path
     return run_cluster(world, tmp, {n: _params(n, forced) for n in names},
                        data, DEADLINE_S, child=CHILD)
@@ -200,7 +249,7 @@ def serial_booster(name, tmp):
         _write_forced(forced)
         params, rounds, data = _params(name, forced)
         X, y, w = make_data(data)
-        ds = tlgb.Dataset(X, label=y, weight=w)
+        ds = tlgb.Dataset(X, label=y, **_dataset_kw(w))
         b = tlgb.train(params, ds, rounds)
         _SERIAL[name] = (b, params)
     return _SERIAL[name]
@@ -256,7 +305,9 @@ def test_skewed_max_grid_is_the_serial_one(world, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["wave", "leafwise", "multiclass",
-                                  "weighted_regression", "skewed_max"])
+                                  "weighted_regression", "skewed_max",
+                                  "lambdarank", "xendcg_position",
+                                  "l1_bagging"])
 def test_sharded_eval_same_on_every_rank(world, name):
     _, ranks = world
     evals = [out[name]["evals"] for out in ranks]
@@ -275,6 +326,8 @@ def _jax_sharded_eval(name, booster):
     n = g.num_data
     sc = g.scores[:, :n].numpy().astype(np.float32)
     md = g.train_data.metadata
+    if g.config.objective in ("lambdarank", "rank_xendcg"):
+        return _jax_rank_plans(g, sc[0], md)
     label = jnp.asarray(np.asarray(md.label, np.float32))
     w = jnp.asarray(np.ones(n, np.float32) if md.weight is None
                     else np.asarray(md.weight, np.float32))
@@ -308,8 +361,32 @@ def _jax_sharded_eval(name, booster):
     return out
 
 
+def _jax_rank_plans(g, sc, md):
+    """The JAX package's `ndcg_device_plan` and `map_device_plan` (run on
+    the CPU) on the serial run's final scores."""
+    import jax.numpy as jnp
+    from lightgbm_tpu.config import Config as JConfig
+    from lightgbm_tpu.metric import (MapMetric, NDCGMetric, map_device_plan,
+                                     ndcg_device_plan)
+    cfg = JConfig({"objective": g.config.objective,
+                   "eval_at": list(g.config.eval_at)})
+    n_pad = len(sc) + 1
+    scp = jnp.asarray(np.append(sc, np.float32(0)))
+    out = {}
+    for cls, plan, name in ((NDCGMetric, ndcg_device_plan, "ndcg"),
+                            (MapMetric, map_device_plan, "map")):
+        m = cls(cfg)
+        m.init(md, len(sc))
+        bks, fn = plan(m, n_pad)
+        vals = np.asarray(fn(scp, bks))
+        out.update({f"{name}@{k}": float(v)
+                    for k, v in zip(cfg.eval_at, vals)})
+    return out
+
+
 @pytest.mark.parametrize("name", ["wave", "multiclass",
-                                  "weighted_regression"])
+                                  "weighted_regression", "lambdarank",
+                                  "xendcg_position"])
 def test_sharded_eval_equals_jax_device_forms(world, name, tmp_path):
     _, ranks = world
     serial, _ = serial_booster(name, str(tmp_path))

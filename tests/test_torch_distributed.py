@@ -161,11 +161,21 @@ def test_join_cluster_world_one_trains_the_serial_model(world_one):
     ({"linear_tree": True}, "linear_tree"),
 ])
 def test_sharded_refusals_name_item_15(world_one, extra, what):
+    """The options once refused under a row-sharding learner train
+    inside the group: `what` gives the serial model text."""
     X, y = _data(1024)
-    ds = tlgb.Dataset(X, label=y, group=[256] * 4, params={
-        "linear_tree": bool(extra.get("linear_tree"))})
-    with pytest.raises(NotImplementedError, match=f"{what}.*item 15"):
-        tlgb.train({**PARAMS, **extra}, ds, 1)
+    if what == "ranking objective":
+        y = np.floor(y * 2 + X[:, 0] * 2)
+
+    def dataset():
+        return tlgb.Dataset(X, label=y, group=[256] * 4, params={
+            "linear_tree": bool(extra.get("linear_tree"))})
+    b = tlgb.train({**PARAMS, **extra}, dataset(), 2)
+    assert b._gbdt.shard is not None
+    tdist.leave_cluster()
+    want = tlgb.train({**PARAMS, **extra}, dataset(), 2)
+    assert b._gbdt.shard is not None and want._gbdt.shard is None
+    assert b.model_to_string() == want.model_to_string()
 
 
 def test_sharded_checkpoints_refuse(world_one, tmp_path):
@@ -184,20 +194,19 @@ def test_sharded_checkpoints_refuse(world_one, tmp_path):
 
 @pytest.mark.parametrize("learner", ["feature", "voting"])
 def test_feature_and_voting_refuse(world_one, learner):
-    """In a group: the voting learner shards the rows and keeps the
-    ranking refusal; the feature learner keeps every row, so a ranking
-    objective trains, the serial model."""
+    """In a group a ranking objective trains the serial model: the
+    voting learner shards the rows (the vote stays off at world 1), the
+    feature learner keeps every row and cuts the columns."""
     X, y = _data(1024)
     y = np.floor(y * 2 + X[:, 0] * 2)
     params = {**PARAMS, "objective": "lambdarank", "tree_learner": learner}
     ds = tlgb.Dataset(X, label=y, group=[256] * 4)
-    if learner == "voting":
-        with pytest.raises(NotImplementedError,
-                           match="ranking objective.*voting.*item 15"):
-            tlgb.train(params, ds, 1)
-        return
     b = tlgb.train(params, ds, 2)
-    assert b._gbdt.block is not None and b._gbdt.shard is None
+    g = b._gbdt
+    if learner == "voting":
+        assert g.shard is not None and g.block is None
+    else:
+        assert g.block is not None and g.shard is None
     tdist.leave_cluster()
     want = tlgb.train(params, tlgb.Dataset(X, label=y, group=[256] * 4), 2)
     assert b.model_to_string() == want.model_to_string()

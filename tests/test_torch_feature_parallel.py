@@ -11,8 +11,10 @@ Worlds of 2 and 3 gloo ranks are spawned once for the module
   forced splits with monotone constraints, the advanced monotone mode,
   interaction constraints with CEGB's split and coupled penalties, lazy
   CEGB, extra-trees with bynode sampling, multiclass, EFB bundles from a
-  CSR matrix, 7 columns over 3 ranks (unequal blocks), and a world that
-  outnumbers the columns (a rank with no block; quantized too).
+  CSR matrix, 7 columns over 3 ranks (unequal blocks), a world that
+  outnumbers the columns (a rank with no block; quantized too), leaf
+  renewal by percentile (L1, quantile, MAPE), linear trees on both
+  engines, lambdarank and rank_xendcg.
 * The blocks: contiguous, `rows_of`-balanced over the device columns,
   covering every column once; every row stays on every rank; a scan
   moves kilobytes (the per-leaf best records), not histograms.
@@ -35,7 +37,7 @@ import scipy.sparse as sps
 import torch
 
 import lightgbm_tpu_torch as tlgb
-from torch_cluster import run_cluster, save_data
+from torch_cluster import query_sizes, run_cluster, save_data
 
 torch.set_num_threads(1)
 
@@ -71,14 +73,28 @@ SCENARIOS = {
     "more_ranks_than_columns": ({}, 3, "two"),
     "more_ranks_than_columns_quantized": ({"use_quantized_grad": True}, 3,
                                           "two"),
+    "l1": ({"objective": "regression_l1"}, 3, "regression"),
+    "quantile": ({"objective": "quantile", "alpha": 0.7}, 3, "regression"),
+    "mape": ({"objective": "mape"}, 3, "regression"),
+    "linear_wave": ({"objective": "regression", "linear_tree": True,
+                     "tpu_growth_strategy": "wave"}, 3, "regression"),
+    "linear_leafwise": ({"objective": "regression", "linear_tree": True,
+                         "tpu_growth_strategy": "leafwise"}, 3,
+                        "regression"),
+    "lambdarank": ({"objective": "lambdarank"}, 3, "rank"),
+    "rank_xendcg": ({"objective": "rank_xendcg"}, 3, "rank"),
     # against the JAX package's mesh run (test_trees_match_jax_mesh)
     "jax": ({"objective": "regression", "tpu_growth_strategy": "leafwise",
              "max_bin": 255}, 4, "jax"),
 }
 
 
+# the query sizes of a data kind
+GROUP = {"rank": query_sizes(N)}
+
+
 def make_data(kind):
-    """(X, y) of a scenario's data kind."""
+    """(X, y) of a scenario's data kind (the query sizes in GROUP)."""
     rng = np.random.RandomState(3)
     n = 2048 if kind == "jax" else N
     X = rng.rand(n, F)
@@ -101,6 +117,10 @@ def make_data(kind):
         X = sps.csr_matrix(np.column_stack([X[:, :4], np.eye(12)[level]]))
         y = (rng.rand(n) < 1 / (1 + np.exp(-3 * logit
                                            + 0.2 * level))).astype(float)
+    elif kind == "regression":
+        y = logit + 0.1 * rng.randn(n)
+    elif kind == "rank":
+        y = np.clip(np.floor(logit + 0.5 * rng.randn(n)), 0, 4)
     elif kind == "seven":
         X = np.column_stack([X, rng.rand(n)])
     elif kind == "two":
@@ -132,7 +152,7 @@ def _run(world, tmp):
     data = {}
     for kind in {SCENARIOS[n][2] for n in SCENARIOS}:
         X, y = make_data(kind)
-        data[kind] = save_data(tmp, kind, X, y)
+        data[kind] = save_data(tmp, kind, X, y, group=GROUP.get(kind))
     return run_cluster(world, tmp, {n: _params(n, forced)
                                     for n in SCENARIOS}, data)
 
@@ -153,8 +173,8 @@ def serial_booster(name, tmp):
         _write_forced(forced)
         params, rounds, data = _params(name, forced)
         X, y = make_data(data)
-        b = tlgb.train(params, tlgb.Dataset(X, label=y, params=params),
-                       rounds)
+        b = tlgb.train(params, tlgb.Dataset(X, label=y, group=GROUP.get(data),
+                                            params=params), rounds)
         _SERIAL[name] = b
     return _SERIAL[name]
 

@@ -9,6 +9,10 @@ Worlds of 2 and 3 gloo ranks are spawned once for the module
   (the JAX package's `test_voting_parallel_full_topk_matches_serial`),
   here byte for byte: the elected histograms are the ranks' int64 sums on
   the serial grid.
+* At top_k >= F the ranking objectives (lambdarank, rank_xendcg, with
+  and without position bias), leaf renewal by percentile (L1, quantile,
+  MAPE) and linear trees equal the serial leaf-wise run byte for byte
+  too.
 * At top_k=2 the predictions correlate with the serial run's above 0.95
   (tests/test_parallel.py's bound), and the run moves a fraction of the
   bytes the data-parallel learner moves on the same problem.
@@ -36,7 +40,7 @@ import scipy.sparse as sps
 import torch
 
 import lightgbm_tpu_torch as tlgb
-from torch_cluster import run_cluster, save_data
+from torch_cluster import positions_of, query_sizes, run_cluster, save_data
 
 torch.set_num_threads(1)
 
@@ -59,6 +63,25 @@ SCENARIOS = {
                     "min_data_in_leaf": 40}, 2, "binary"),
     "sparse_fallback": ({"objective": "binary"}, 2, "onehot_csr"),
 }
+# at top_k >= F: the objectives that read more than sums of rows, and
+# linear trees (test_full_topk_objectives_equal_serial)
+OBJECTIVES = {
+    "lambdarank": ({"objective": "lambdarank"}, "rank"),
+    "lambdarank_position": ({"objective": "lambdarank"}, "rank_position"),
+    "rank_xendcg": ({"objective": "rank_xendcg"}, "rank"),
+    "rank_xendcg_position": ({"objective": "rank_xendcg"}, "rank_position"),
+    "l1": ({"objective": "regression_l1"}, "regression"),
+    "quantile": ({"objective": "quantile", "alpha": 0.7}, "regression"),
+    "mape": ({"objective": "mape"}, "regression"),
+    "linear": ({"objective": "regression", "linear_tree": True},
+               "regression"),
+}
+SCENARIOS.update({name: ({**p, "min_data_in_leaf": 40}, 2, data)
+                  for name, (p, data) in OBJECTIVES.items()})
+# the query fields of a data kind
+FIELDS = {"rank": {"group": query_sizes(N)},
+          "rank_position": {"group": query_sizes(N),
+                            "position": positions_of(query_sizes(N))}}
 
 
 def make_data(kind):
@@ -68,7 +91,11 @@ def make_data(kind):
     X = rng.rand(N, F)
     logit = 4 * (X[:, 0] - 0.5) + 2 * X[:, 1] * X[:, 2] - X[:, 3]
     y = (rng.rand(N) < 1 / (1 + np.exp(-3 * logit))).astype(np.float32)
-    if kind == "onehot_csr":
+    if kind == "regression":
+        y = (logit + 0.1 * rng.randn(N)).astype(np.float32)
+    elif kind.startswith("rank"):
+        y = np.clip(np.floor(logit + 0.5 * rng.randn(N)), 0, 4)
+    elif kind == "onehot_csr":
         level = np.minimum((X[:, 4] * 12).astype(int), 11)
         X = sps.csr_matrix(np.column_stack([X[:, :4], np.eye(12)[level]]))
     return X, y
@@ -78,7 +105,7 @@ def make_data(kind):
 def world(request, tmp_path_factory):
     w = request.param
     tmp = str(tmp_path_factory.mktemp(f"vworld{w}"))
-    data = {k: save_data(tmp, k, *make_data(k))
+    data = {k: save_data(tmp, k, *make_data(k), **FIELDS.get(k, {}))
             for k in {s[2] for s in SCENARIOS.values()}}
     scen = {n: ({**BASE, **p}, r, d) for n, (p, r, d) in SCENARIOS.items()}
     return w, run_cluster(w, tmp, scen, data)
@@ -88,7 +115,8 @@ def _serial(name, **over):
     p, rounds, data = SCENARIOS[name]
     X, y = make_data(data)
     params = {**BASE, **p, "tree_learner": "serial", **over}
-    return tlgb.train(params, tlgb.Dataset(X, label=y), rounds)
+    return tlgb.train(params, tlgb.Dataset(X, label=y, params=params,
+                                           **FIELDS.get(data, {})), rounds)
 
 
 def _trees_text(text):
@@ -103,6 +131,18 @@ def test_full_topk_equals_serial(world):
         assert rep["voting"] and rep["strategy"] == "leafwise"
         assert _trees_text(rep["model"]) == want
     assert sum(out["full_topk"]["rows"] for out in ranks) == N
+
+
+@pytest.mark.parametrize("name", list(OBJECTIVES))
+def test_full_topk_objectives_equal_serial(world, name):
+    """Gradients of whole queries, leaf renewal by percentile and the
+    linear fit under the vote: the serial leaf-wise trees, byte for
+    byte."""
+    _, ranks = world
+    want = _trees_text(_serial(name).model_to_string())
+    for out in ranks:
+        assert out[name]["voting"]
+        assert _trees_text(out[name]["model"]) == want
 
 
 def test_small_top_k_stays_close_and_moves_fewer_bytes(world):

@@ -42,8 +42,11 @@ for name, (params, rounds, data) in spec["scenarios"].items():
     else:
         d = np.load(path)
         X, y = d["X"], d["y"]
+    fields = {k: np.load(f"{path}.{k}.npy") for k in ("group", "position")
+              if os.path.exists(f"{path}.{k}.npy")}
     b0, c0 = net.bytes, net.calls
-    b = tlgb.train(params, tlgb.Dataset(X, label=y, params=params), rounds)
+    b = tlgb.train(params, tlgb.Dataset(X, label=y, params=params,
+                                        **fields), rounds)
     g = b._gbdt
     out[name] = {"model": b.model_to_string(),
                  "bytes": net.bytes - b0, "calls": net.calls - c0,
@@ -60,17 +63,39 @@ with open(spec["out"] % rank, "w") as f:
 """
 
 
-def save_data(tmp, kind, X, y):
+def query_sizes(n, seed=5, lo=4, hi=40):
+    """Query sizes of `n` rows, each drawn from [lo, hi] (the last one
+    takes the rest)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    while n - sum(out) > hi:
+        out.append(int(rng.randint(lo, hi + 1)))
+    out.append(n - sum(out))
+    return out
+
+
+def positions_of(sizes, cycle=12):
+    """Each row's position in its query, modulo `cycle`."""
+    sizes = np.asarray(sizes, np.int64)
+    starts = np.repeat(np.cumsum(sizes) - sizes, sizes)
+    return (np.arange(sizes.sum()) - starts) % cycle
+
+
+def save_data(tmp, kind, X, y, **fields):
     """Write one data kind for the children: an npz, or a CSR matrix
-    (scipy-sparse X) beside its labels."""
+    (scipy-sparse X) beside its labels, and beside either the Dataset
+    `fields` given (group: the query sizes, position)."""
     if hasattr(X, "tocsr"):
         import scipy.sparse as sps
         path = os.path.join(tmp, f"{kind}.sparse.npz")
         sps.save_npz(path, X.tocsr())
         np.save(path.replace(".sparse.npz", ".y.npy"), y)
-        return path
-    path = os.path.join(tmp, f"{kind}.npz")
-    np.savez(path, X=X, y=y)
+    else:
+        path = os.path.join(tmp, f"{kind}.npz")
+        np.savez(path, X=X, y=y)
+    for k, v in fields.items():
+        if v is not None:
+            np.save(f"{path}.{k}.npy", np.asarray(v, np.int64))
     return path
 
 
